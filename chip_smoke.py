@@ -9,20 +9,29 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 1. device, ``nvidia-smi`` name and power limit; build the CUDA kernels
    from ``trt_asr_tpu_torch/csrc`` (one nvcc per source, in parallel).
 2. each kernel against its plain PyTorch version on the card at the
-   full-size main-path shapes (f32 and int8 weights for the attention
-   block and the joint step, f32 for the log-mel), with each one's median
-   time, the plain version's time and the bound (bytes or operations).
-   The int8 tolerance is shown to fail a kernel without the bf16 rounding
-   points (the plain version on the dequantized weights).
+   full-size main-path shapes (a steady chunk: 8 rows, 6 valid; f32 and
+   int8 weights for the attention block, the joint step, the FFN and the
+   conv module, int8 for the fused conv + FFN2 + out-LN tail, f32 for the
+   log-mel), with each one's median time, the plain version's time and
+   the bound (bytes or operations). Each int8 tolerance is shown to fail a
+   kernel without the bf16 rounding points (the plain version on the
+   dequantized weights).
 3. full-width session (``ModelConfig()``, seeded random weights from the
    port's ``init_params``): a seeded synthetic utterance of 12 words
    (~6 s) pushed in 0.5 s pieces, with a blank bias set so the plain f32
-   path emits about one token a word. Arm (a): f32 with the three kernels
-   on, token-exact against the same session with the kernels off. Arm (b),
-   the fast arm: int8 ``quant="all"`` with the kernels on. Launch counts
-   are reset just before each kernel arm and read just after.
+   path emits about one token a word. Arms: f32 with the attention,
+   joint and log-mel kernels on (``f32_on``) and with the FFN and conv
+   kernels on too (``f32_all``), each token-exact against the same session
+   with the kernels off; int8 ``quant="all"`` with the first three kernels
+   (``int8_on``), with every kernel (``int8_all``: FFN1 through the FFN
+   kernel, the conv module, FFN2 and the out-LN through the fused tail),
+   and with the conv kernel and no FFN kernel (``int8_conv``: the conv
+   module alone).
+   Launch counts are reset just before each kernel arm and read just after.
 4. the trained ``artifacts/models/gate_r3`` on the card with the kernels
-   on, f32 and int8, each token-exact against the port's CPU plain path.
+   on, each token-exact against the port's CPU plain path: attention,
+   joint and log-mel kernels in f32 and int8; every kernel in f32 and in
+   int8 (the fused tail); int8 with the conv kernel and no FFN kernel.
 5. neither ``jax`` nor ``trt_asr_tpu`` was imported.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
@@ -47,6 +56,26 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"f32": 67e12,          # f32 outside the tensor cores
             "bf16": 989e12}        # dense bf16 tensor-core rate
+# short name -> (launch counter, source, the TPU kernel it replaces, and
+# per weight type the full-width arm whose session reads its launches)
+KERNEL_SRCS = {
+    "att": ("att_block", "trt_asr_tpu_torch/csrc/att_block.cu",
+            "trt_asr_tpu/ops/pallas/att_block_kernel.py:170",
+            {"f32": "f32_on", "int8": "int8_on"}),
+    "joint": ("joint_step", "trt_asr_tpu_torch/csrc/joint_step.cu",
+              "trt_asr_tpu/ops/pallas/joint_step_kernel.py:124",
+              {"f32": "f32_on", "int8": "int8_on"}),
+    "mel": ("logmel", "trt_asr_tpu_torch/csrc/mel.cu",
+            "trt_asr_tpu/ops/pallas/mel_kernel.py:65", {"f32": "f32_on"}),
+    "ffn": ("ffn", "trt_asr_tpu_torch/csrc/ffn.cu",
+            "trt_asr_tpu/ops/pallas/ffn_kernel.py:115",
+            {"f32": "f32_all", "int8": "int8_all"}),
+    "conv": ("conv_block", "trt_asr_tpu_torch/csrc/conv_block.cu",
+             "trt_asr_tpu/ops/pallas/conv_block_kernel.py:99",
+             {"f32": "f32_all", "int8": "int8_conv"}),
+    "tail": ("conv_ffn_ln", "trt_asr_tpu_torch/csrc/conv_block.cu",
+             "trt_asr_tpu/ops/pallas/conv_block_kernel.py:184", {"int8": "int8_all"}),
+}
 
 
 def log(msg: str) -> None:
@@ -154,6 +183,9 @@ def check_rounding_points(name, tol, got, unrounded) -> None:
 
 def check_kernels(torch, dev, timer, cfg):
     from trt_asr_tpu_torch.ops.kernels.att_block import att_block, att_block_plain
+    from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block, conv_block_plain,
+                                                          conv_ffn_ln, conv_ffn_ln_plain)
+    from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn, fused_ffn_plain, layer_norm_plain
     from trt_asr_tpu_torch.ops.kernels.joint_step import joint_step, joint_step_plain
     from trt_asr_tpu_torch.ops.kernels.mel import logmel, logmel_plain
     from trt_asr_tpu_torch.ops.quant import QuantTensor, dequantize, quantize_tensor
@@ -249,6 +281,62 @@ def check_kernels(torch, dev, timer, cfg):
     ops = 2 * 50 * 400 * nb * 2 + 2 * 50 * nb * nm + 3 * 50 * nb
     records["f32_mel"] = measure("logmel[f32]", timer, err, lambda: logmel(*margs),
                                  lambda: logmel_plain(*margs), nbytes, ops, "f32")
+
+    # FFN, conv module and the fused tail on the steady chunk's 8 rows
+    # (6 valid: the conv masks the 2 padded rows)
+    e, kk = d * cfg.ff_expansion_factor, cfg.conv_kernel_size
+    half = (kk - 1) // 2
+    norm = lambda: (1.0 + t(d, sc=0.1), t(d, sc=0.1))  # noqa: E731
+    fln, cln, oln = norm(), norm(), norm()
+    w1, w2 = t(d, e, sc=1 / math.sqrt(d)), t(e, d, sc=1 / math.sqrt(e))
+    pw1, pw2 = t(d, 2 * d, sc=1 / math.sqrt(d)), t(d, d, sc=1 / math.sqrt(d))
+    dw = t(kk, d, sc=1 / math.sqrt(kk))
+    bn = (1.0 + t(d, sc=0.1), t(d, sc=0.1), t(d, sc=0.1), 1.0 + t(d, sc=0.1).abs())
+    tc = t(half, d)
+    mask = (torch.arange(tq, device=dev) < valid_tq).float()[:, None]
+    qw1, qw2, qpw1, qpw2 = (quantize_tensor(w) for w in (w1, w2, pw1, pw2))
+    # bytes besides the weights: x read, outputs written (y; y and c), norms,
+    # and for the conv dw, BN, time cache and mask
+    ffn_bytes = (2 * tq * d + 2 * d) * 4
+    conv_bytes = (3 * tq * d + (2 + kk + 4 + half) * d + tq) * 4
+    ffn_ops = 4 * tq * d * e
+    conv_ops = 2 * tq * d * 3 * d + 2 * tq * kk * d
+    conv_args = lambda a, b: (x, *cln, a, dw, *bn, b, tc, mask)  # noqa: E731
+    cases = [  # short name, arm, tolerance, arguments, weights, other bytes, ops
+        ("ffn", "f32", 2e-4, (x, *fln, w1, w2), (w1, w2), ffn_bytes, ffn_ops),
+        ("ffn", "int8", 1e-4, (x, *fln, qw1, qw2), (qw1, qw2), ffn_bytes, ffn_ops),
+        ("conv", "f32", 2e-4, conv_args(pw1, pw2), (pw1, pw2), conv_bytes, conv_ops),
+        ("conv", "int8", 1e-4, conv_args(qpw1, qpw2), (qpw1, qpw2), conv_bytes, conv_ops),
+        ("tail", "int8", 1e-4, (*conv_args(qpw1, qpw2), *fln, qw1, qw2, *oln),
+         (qpw1, qpw2, qw1, qw2), conv_bytes + 4 * d * 4, conv_ops + ffn_ops),
+    ]
+
+    def tail_composed(*a):
+        """conv_ffn_ln_plain's function composed of its parts, which also
+        take float weights (conv_ffn_ln_plain itself is int8-only)."""
+        x1, c = conv_block_plain(*a[:12])
+        return layer_norm_plain(fused_ffn_plain(x1, *a[12:16]), *a[16:]), c
+
+    kernels = {"ffn": (fused_ffn, fused_ffn_plain, fused_ffn_plain),
+               "conv": (conv_block, conv_block_plain, conv_block_plain),
+               "tail": (conv_ffn_ln, conv_ffn_ln_plain, tail_composed)}
+    tup = lambda r: r if isinstance(r, tuple) else (r,)  # noqa: E731
+    for short, arm, tol, args, ws, other_bytes, ops in cases:
+        name = KERNEL_SRCS[short][0]
+        kernel, plain, any_weights = kernels[short]
+        got, want = tup(kernel(*args)), tup(plain(*args))
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        log(f"{name}[{arm}]: max |kernel - plain| over the outputs = {err:.3g} "
+            f"(tolerance {tol:g})")
+        assert err <= tol, f"{name}[{arm}] disagrees with its plain version"
+        if arm == "int8":
+            deq = [dequantize(a) if isinstance(a, QuantTensor) else a for a in args]
+            check_rounding_points(name, tol, got, tup(any_weights(*deq)))
+        nbytes = other_bytes + sum(wbytes(w) for w in ws)
+        records[f"{arm}_{short}"] = measure(
+            f"{name}[{arm}]", timer, err, lambda: kernel(*args), lambda: plain(*args),
+            nbytes, ops, "f32" if arm == "f32" else "bf16")
     return records
 
 
@@ -263,22 +351,41 @@ def synth_module():
     return mod
 
 
-def reset_counts():
+def wrappers():
+    """Launch counter name -> kernel wrapper."""
     from trt_asr_tpu_torch.ops.kernels.att_block import att_block
+    from trt_asr_tpu_torch.ops.kernels.conv_block import conv_block, conv_ffn_ln
+    from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn
     from trt_asr_tpu_torch.ops.kernels.joint_step import joint_step
     from trt_asr_tpu_torch.ops.kernels.mel import logmel
 
-    for fn in (att_block, joint_step, logmel):
+    return {"att_block": att_block, "joint_step": joint_step, "logmel": logmel,
+            "ffn": fused_ffn, "conv_block": conv_block, "conv_ffn_ln": conv_ffn_ln}
+
+
+def reset_counts():
+    for fn in wrappers().values():
         fn.launches = 0
 
 
 def read_counts():
-    from trt_asr_tpu_torch.ops.kernels.att_block import att_block
-    from trt_asr_tpu_torch.ops.kernels.joint_step import joint_step
-    from trt_asr_tpu_torch.ops.kernels.mel import logmel
+    return {name: fn.launches for name, fn in wrappers().items()}
 
-    return {"att_block": att_block.launches, "joint_step": joint_step.launches,
-            "logmel": logmel.launches}
+
+def expected_kernels(rt) -> set:
+    """The kernels a session with these runtime flags launches (the log-mel
+    kernel is on in every kernel arm)."""
+    tail = rt.use_pallas_conv and rt.use_pallas_ffn and rt.quant in ("encoder", "all")
+    names = {"att_block", "joint_step", "logmel"}
+    names |= {"ffn"} if rt.use_pallas_ffn else set()
+    names |= {"conv_ffn_ln" if tail else "conv_block"} if rt.use_pallas_conv else set()
+    return names
+
+
+def check_launches(label, rt, counts) -> None:
+    want = expected_kernels(rt)
+    got = {k for k, v in counts.items() if v > 0}
+    assert got == want, f"{label}: launched {sorted(got)}, expected {sorted(want)} ({counts})"
 
 
 def run_session(torch, model, rt, audio, piece: int):
@@ -301,7 +408,7 @@ def make_model(torch, cfg, params, tok, rt, dev, mel_kernel: bool):
     return ParakeetTDT(cfg, params, tok, frontend=fe, runtime=rt, device=dev)
 
 
-def profile_session(torch, model, rt, audio, piece: int) -> None:
+def profile_session(torch, label, model, rt, audio, piece: int) -> None:
     """Device busy share and kernel time by name over one session
     (torch.profiler): where a steady chunk's time goes."""
     from torch.profiler import ProfilerActivity, profile
@@ -317,9 +424,11 @@ def profile_session(torch, model, rt, audio, piece: int) -> None:
                    and ev.self_device_time_total > 0), reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     n = len(sess.chunk_latencies_ms)
-    log(f"profile[{rt.quant}, kernels {rt.use_pallas_att}]: {n} chunks, wall {wall_ms:.1f} ms, "
+    copy_ms = sum(r[0] for r in rows if "copy" in r[1].lower()) / 1e3
+    log(f"profile[{label}]: {n} chunks, wall {wall_ms:.1f} ms, "
         f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% busy, "
-        f"{100 - 100 * busy_ms / wall_ms:.1f}% idle)")
+        f"{100 - 100 * busy_ms / wall_ms:.1f}% idle), {busy_ms / n:.3f} ms a chunk; "
+        f"copy kernels {copy_ms:.3f} ms")
     for dev_us, key, count in rows[:12]:
         log(f"  {dev_us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
     for dev_us, key, count in rows:
@@ -398,10 +507,15 @@ def full_width_session(torch, dev, n_words: int, seed: int):
     audio = synth.synth_utterance(list(rng.integers(0, 1120, size=n_words)), rng)
     warm = audio[:16000]
     piece = 8000
+    on = dict(use_pallas_att=True, use_pallas_joint=True)
+    every = dict(on, use_pallas_ffn=True, use_pallas_conv=True)
     arms = {
         "f32_off": (RuntimeConfig(), False),
-        "f32_on": (RuntimeConfig(use_pallas_att=True, use_pallas_joint=True), True),
-        "int8_on": (RuntimeConfig(use_pallas_att=True, use_pallas_joint=True, quant="all"), True),
+        "f32_on": (RuntimeConfig(**on), True),
+        "int8_on": (RuntimeConfig(**on, quant="all"), True),
+        "f32_all": (RuntimeConfig(**every), True),
+        "int8_all": (RuntimeConfig(**every, quant="all"), True),
+        "int8_conv": (RuntimeConfig(**on, use_pallas_conv=True, quant="all"), True),
     }
     results = {}
     model_f32 = None
@@ -422,33 +536,39 @@ def full_width_session(torch, dev, n_words: int, seed: int):
                              median_ms=float(np.median(steady)),
                              p90_ms=float(np.percentile(steady, 90)))
         iters, syncs = decode_and_sync_counts(torch, model, rt, audio, piece)
-        profile_session(torch, model, rt, audio[: len(audio) // 3], piece)
+        profile_session(torch, name, model, rt, audio[: len(audio) // 3], piece)
         log(f"session[{name}]: {len(audio) / 16000:.2f} s audio, {n_chunks} chunks, "
             f"{len(sess.tokens)} tokens ({len(sess.tokens) / n_chunks:.2f}/chunk), steady "
             f"chunk median {results[name]['median_ms']:.3f} ms p90 {results[name]['p90_ms']:.3f} ms, "
             f"launches {counts} ({ {k: round(v / n_chunks, 2) for k, v in counts.items()} }/chunk), "
             f"decode iterations {iters:.2f}/chunk, host syncs {syncs:.2f}/chunk")
         del model, sess
-    a_on, a_off, b = results["f32_on"], results["f32_off"], results["int8_on"]
-    assert a_off["counts"] == {"att_block": 0, "joint_step": 0, "logmel": 0}
+    a_off = results["f32_off"]
+    assert not any(a_off["counts"].values()), f"f32_off launched {a_off['counts']}"
     assert len(a_off["tokens"]) >= n_words, "f32 session emitted too few tokens to compare"
-    assert a_on["tokens"] == a_off["tokens"], (
-        "f32 session with kernels on is not token-exact with kernels off")
-    for name in ("f32_on", "int8_on"):
-        assert all(v > 0 for v in results[name]["counts"].values()), (
-            f"session[{name}] did not launch every kernel: {results[name]['counts']}")
-    assert len(b["tokens"]) > 0 or len(a_on["tokens"]) == 0
-    same = sum(x == y for x, y in zip(a_on["tokens"], b["tokens"]))
-    log(f"f32 kernels on == kernels off: token-exact ({len(a_on['tokens'])} tokens); "
-        f"fast arm agreement with f32: {same}/{max(len(a_on['tokens']), len(b['tokens']))} "
-        f"positions, exact={a_on['tokens'] == b['tokens']}")
+    for name in ("f32_on", "int8_on", "f32_all", "int8_all", "int8_conv"):
+        check_launches(f"session[{name}]", arms[name][0], results[name]["counts"])
+    for name in ("f32_on", "f32_all"):
+        assert results[name]["tokens"] == a_off["tokens"], (
+            f"session[{name}] is not token-exact with the kernels off")
+    for name in ("int8_on", "int8_all", "int8_conv"):
+        b = results[name]["tokens"]
+        assert len(b) > 0
+        same = sum(x == y for x, y in zip(a_off["tokens"], b))
+        log(f"session[{name}] agreement with f32: {same}/{max(len(a_off['tokens']), len(b))} "
+            f"positions, exact={a_off['tokens'] == b}")
+    log(f"f32 kernels on and all kernels == kernels off: token-exact "
+        f"({len(a_off['tokens'])} tokens)")
     return results
 
 
 def gate_r3_session(torch, dev):
-    """gate_r3 on the card with the kernels on, in f32 and int8 (``quant="all"``),
-    each token-exact against the port's CPU plain path with the same runtime
-    flags (on CPU tensors every kernel wrapper runs its plain version)."""
+    """gate_r3 on the card with the kernels on, each token-exact against the
+    port's CPU plain path with the same runtime flags (on CPU tensors every
+    kernel wrapper runs its plain version): the attention, joint and
+    log-mel kernels in f32 and int8 (``quant="all"``); every kernel in f32
+    and in int8 (conv + FFN2 + out-LN fused); int8 with the conv kernel and
+    no FFN kernel (the conv module alone)."""
     from trt_asr_tpu_torch.config import RuntimeConfig
     from trt_asr_tpu_torch.contract import FrontendSpec
     from trt_asr_tpu_torch.frontend.logmel import LogMelFrontend
@@ -459,8 +579,13 @@ def gate_r3_session(torch, dev):
     synth = synth_module()
     words = list(rng.integers(0, 1120, size=8))
     audio = synth.synth_utterance(words, rng)
-    for quant in ("none", "all"):
-        rt = RuntimeConfig(use_pallas_att=True, use_pallas_joint=True, quant=quant)
+    on = dict(use_pallas_att=True, use_pallas_joint=True)
+    configs = {"f32": dict(on), "int8": dict(on, quant="all"),
+               "f32_all": dict(on, use_pallas_ffn=True, use_pallas_conv=True),
+               "int8_all": dict(on, use_pallas_ffn=True, use_pallas_conv=True, quant="all"),
+               "int8_conv": dict(on, use_pallas_conv=True, quant="all")}
+    for label, flags in configs.items():
+        rt = RuntimeConfig(**flags)
         out = {}
         for d in (dev, "cpu"):
             model = ParakeetTDT.from_model_dir(md, runtime=rt, device=d)
@@ -469,14 +594,14 @@ def gate_r3_session(torch, dev):
             reset_counts()
             out[str(d)] = (run_session(torch, model, rt, audio, 8000), read_counts())
         (s_gpu, counts), (s_cpu, cpu_counts) = out[str(dev)], out["cpu"]
-        log(f"gate_r3[{quant}] on the card (kernels on, launches {counts}): {s_gpu.text!r}")
-        log(f"gate_r3[{quant}] on the CPU (plain path):               {s_cpu.text!r}")
-        assert all(v > 0 for v in counts.values()), f"gate_r3[{quant}] missed a kernel: {counts}"
-        assert not any(cpu_counts.values()), f"gate_r3[{quant}] CPU run launched {cpu_counts}"
+        log(f"gate_r3[{label}] on the card (kernels on, launches {counts}): {s_gpu.text!r}")
+        log(f"gate_r3[{label}] on the CPU (plain path):               {s_cpu.text!r}")
+        check_launches(f"gate_r3[{label}]", rt, counts)
+        assert not any(cpu_counts.values()), f"gate_r3[{label}] CPU run launched {cpu_counts}"
         assert s_gpu.tokens == s_cpu.tokens, (
-            f"gate_r3[{quant}] card tokens differ from the CPU plain path")
+            f"gate_r3[{label}] card tokens differ from the CPU plain path")
         assert len(s_gpu.tokens) == len(words), (
-            f"gate_r3[{quant}] emitted {len(s_gpu.tokens)} tokens for {len(words)} words")
+            f"gate_r3[{label}] emitted {len(s_gpu.tokens)} tokens for {len(words)} words")
 
 
 def main() -> int:
@@ -519,19 +644,13 @@ def main() -> int:
     bad = [m for m in ("jax", "trt_asr_tpu") if m in sys.modules]
     assert not bad, f"imported {bad}"
 
-    srcs = {"att": ("att_block", "trt_asr_tpu_torch/csrc/att_block.cu",
-                    "trt_asr_tpu/ops/pallas/att_block_kernel.py:170"),
-            "joint": ("joint_step", "trt_asr_tpu_torch/csrc/joint_step.cu",
-                      "trt_asr_tpu/ops/pallas/joint_step_kernel.py:124"),
-            "mel": ("logmel", "trt_asr_tpu_torch/csrc/mel.cu",
-                    "trt_asr_tpu/ops/pallas/mel_kernel.py:65")}
     kernels = []
     for key, r in rec.items():
         arm, short = key.split("_")
-        name, src, rep = srcs[short]
+        name, src, rep, arm_of = KERNEL_SRCS[short]
         kernels.append({"name": f"{name}[{arm}]", "route": "cuda", "source": src,
                         "replaces": rep,
-                        "launches": sess[f"{arm}_on"]["counts"][name],
+                        "launches": sess[arm_of[arm]]["counts"][name],
                         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": None})

@@ -1,18 +1,23 @@
 """Streaming encoder of the PyTorch port against the JAX package: ``encode``
 closed-loop over the chunk schedule (more than 20 chunks, the ring cache
 saturating on the way), with the fused attention block off and on (the CPU
-tensors take its plain version); the ring writes, the per-row reset and the
-contract-layout state conversion.
+tensors take its plain version); closed-loop over a short utterance's whole
+schedule with the fused FFN and conv kernels on both sides (JAX's in
+interpret mode), in f32 and with int8 encoder weights (the fused conv +
+FFN2 + out-LN tail, and the conv module alone); the ring writes, the
+per-row reset and the contract-layout state conversion.
 
 Tolerance: 1e-4 absolute and relative on encoder outputs and caches
-(float32, summation order compounding over the closed loop)."""
+(float32, summation order compounding over the closed loop). With the
+kernels on, int8 too is held to 1e-4: both sides round the same operands to
+bf16 (observed gap 4.8e-7, f32 2.0e-6)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import np_tree, t
+from torch_port_helpers import np_tree, spy_calls, t
 
 from trt_asr_tpu.config import ModelConfig as JConfig
 from trt_asr_tpu.models.parakeet import encoder as jenc
@@ -86,6 +91,68 @@ def test_closed_loop_encode_matches_jax(models, fused_att):
         saturated |= int(st_p.cache_len[0]) == cfg.att_cache_size
     assert saturated
     assert fused_chunks >= 18 if fused_att else fused_chunks == 0
+
+
+KERNELS = dict(use_pallas_att=True, use_pallas_ffn=True, use_pallas_conv=True)
+
+
+@pytest.mark.parametrize("quant,flags", [
+    ("none", KERNELS),                              # FFN kernel, conv_block[f32]
+    ("encoder", KERNELS),                           # FFN1 kernel, fused conv+FFN2+LN tail
+    ("encoder", dict(use_pallas_conv=True)),        # conv_block[int8]
+])
+def test_closed_loop_encode_with_ffn_conv_kernels_matches_jax(models, quant, flags,
+                                                            monkeypatch):
+    """Chunk 0, steady chunks (with the attention kernel: padded to 8 steps)
+    and the flush chunk, every one through the FFN/conv kernels on both
+    sides."""
+    calls = spy_calls(monkeypatch, penc, ("fused_ffn", "conv_block", "conv_ffn_ln"))
+    cfg_j, params_j, cfg, _ = models
+    if quant != "none":
+        params_j = j_quantize(params_j, quant)
+    params = params_from_numpy(np_tree(params_j))
+    total = 160
+    feats = (0.5 * np.random.default_rng(2).standard_normal((total, cfg.feat_in))
+             ).astype(np.float32)
+    st_j, st_p = jenc.init_encoder_state(cfg_j, 1), penc.init_encoder_state(cfg, 1)
+    tq_steady = steady_tq(cfg)
+    sched = build_schedule(total, cfg)
+    assert sched[-1].is_last and len({s.frames for s in sched}) > 1
+    for spec in sched:
+        x = extract_chunk(feats, spec)
+        valid = max(min(spec.slice_end, total) - max(spec.slice_start, 0), 0)
+        tq = penc.subsampled_length(spec.frames, cfg.stride_stages) - spec.drop_extra
+        att = flags.get("use_pallas_att", False) and tq == tq_steady
+        kw = dict(drop_extra=spec.drop_extra, cache_drop=0 if spec.is_last else cfg.cache_drop_size,
+                  valid_cap=None if spec.is_last else cfg.valid_out_len,
+                  use_pallas_ffn=flags.get("use_pallas_ffn", False),
+                  use_pallas_conv=flags["use_pallas_conv"], use_pallas_att=att,
+                  pad_steps=(-tq) % 8 if att else 0)
+        enc_j, len_j, st_j = jenc.encode(params_j, cfg_j, x[None], np.array([valid], np.int32),
+                                         st_j, **kw)
+        enc_p, len_p, st_p = penc.encode(params, cfg, t(x[None]), torch.tensor([valid]), st_p,
+                                         **kw)
+        n = int(np.asarray(len_j)[0])
+        assert int(len_p[0]) == n, f"chunk {spec.idx}"
+        np.testing.assert_allclose(enc_p[0, :n].numpy(), np.asarray(enc_j)[0, :n],
+                                   atol=ATOL, rtol=RTOL, err_msg=f"chunk {spec.idx}")
+        for name in ("att_cache", "time_cache", "kv_cache"):
+            np.testing.assert_allclose(getattr(st_p, name).numpy(),
+                                       np.asarray(getattr(st_j, name)), atol=ATOL, rtol=RTOL,
+                                       err_msg=f"chunk {spec.idx} {name}")
+    per_chunk = len(sched) * cfg.num_layers
+    tail = quant != "none" and "use_pallas_ffn" in flags
+    assert calls == {"fused_ffn": (1 if tail else 2) * per_chunk if "use_pallas_ffn" in flags else 0,
+                     "conv_block": 0 if tail else per_chunk,
+                     "conv_ffn_ln": per_chunk if tail else 0}
+
+
+def test_conv_kernel_needs_batch_one(models):
+    _, _, cfg, params = models
+    st = penc.init_encoder_state(cfg, 2)
+    feats = torch.zeros((2, 57, cfg.feat_in))
+    with pytest.raises(ValueError, match="B=1"):
+        penc.encode(params, cfg, feats, torch.tensor([57, 57]), st, use_pallas_conv=True)
 
 
 def test_int8_encode_matches_jax(models):

@@ -1,7 +1,9 @@
 """The PyTorch port's hand-written CUDA kernels against their plain PyTorch
-versions on a CUDA device: the fused attention block, the fused joint step
-and the fused log-mel, with f32, bf16 and int8 weights where the kernel
-takes them, and the gate_r3 streaming session with every kernel on against
+versions on a CUDA device: the fused attention block, the fused joint step,
+the fused log-mel, the fused FFN, the fused conv module and the fused conv
++ FFN2 + out-LN tail, with f32, bf16 and int8 weights where the kernel
+takes them; the wrappers raise, and do not fall back, on inputs the kernels
+do not take; and the gate_r3 streaming session with the kernels on against
 the same session on the CPU.
 
 Every test here needs the card and skips without one. This file imports
@@ -9,8 +11,9 @@ nothing of JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: attention block 1e-4 (f32) and 2e-3 (bf16 operands: an f32
-value that differs in its last bit can round to a neighbouring bf16 value);
+Tolerances: attention block, FFN and conv module 1e-4 (f32) and 2e-3 (bf16
+operands: an f32 value that differs in its last bit can round to a
+neighbouring bf16 value);
 joint logits 1e-4 with tokens and durations exact; log-mel 1e-3 absolute
 (log of sums that reach ~1e4, summed in another order); session tokens
 exact."""
@@ -28,6 +31,9 @@ from trt_asr_tpu_torch.contract import FrontendSpec
 from trt_asr_tpu_torch.frontend.logmel import LogMelFrontend
 from trt_asr_tpu_torch.models.parakeet.model import ParakeetTDT
 from trt_asr_tpu_torch.ops.kernels.att_block import att_block, att_block_plain
+from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block, conv_block_plain,
+                                                      conv_ffn_ln, conv_ffn_ln_plain)
+from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn, fused_ffn_plain
 from trt_asr_tpu_torch.ops.kernels.joint_step import joint_step, joint_step_plain
 from trt_asr_tpu_torch.ops.kernels.mel import logmel, logmel_plain
 from trt_asr_tpu_torch.ops.quant import quantize_tensor
@@ -136,5 +142,124 @@ def test_gate_r3_session_with_kernels_matches_cpu():
         sessions.append(sess)
     after = (att_block.launches, joint_step.launches, logmel.launches)
     assert all(a > b for a, b in zip(after, counts))
+    assert sessions[0].tokens == sessions[1].tokens
+    assert len(sessions[0].tokens) > 0
+
+
+def randn(dev, seed):
+    rng = np.random.default_rng(seed)
+    return lambda *s, sc=0.3: torch.as_tensor(  # noqa: E731
+        (rng.standard_normal(s) * sc).astype(np.float32), device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", WEIGHTS)
+def test_ffn_kernel_matches_plain(kind):
+    dev = require_cuda()
+    for shape, d, e in [((8,), 64, 128), ((1, 6), 64, 128), ((13,), 96, 200)]:
+        r = randn(dev, d + len(shape))
+        x, g, b = r(*shape, d, sc=1.0), 1.0 + r(d, sc=0.2), r(d, sc=0.1)
+        w1, w2 = as_weight(r(d, e, sc=d ** -0.5), kind), as_weight(r(e, d, sc=e ** -0.5), kind)
+        before = fused_ffn.launches
+        got = fused_ffn(x, g, b, w1, w2, 0.5)
+        assert fused_ffn.launches == before + 1
+        want = fused_ffn_plain(x, g, b, w1, w2, 0.5)
+        torch.cuda.synchronize()
+        atol = 1e-4 if kind == "f32" else 2e-3
+        torch.testing.assert_close(got, want, atol=atol, rtol=1e-4)
+
+
+def conv_inputs(dev, seed, tq, valid, d, kind):
+    r = randn(dev, seed)
+    kk = 9
+    return (r(tq, d, sc=1.0), 1.0 + r(d, sc=0.2), r(d, sc=0.1),
+            as_weight(r(d, 2 * d, sc=d ** -0.5), kind), r(kk, d),
+            1.0 + r(d, sc=0.1), r(d, sc=0.1), r(d, sc=0.1), r(d).abs() * 0.5 + 0.8,
+            as_weight(r(d, d, sc=d ** -0.5), kind), r((kk - 1) // 2, d, sc=1.0),
+            (torch.arange(tq, device=dev) < valid).float()[:, None])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", WEIGHTS)
+def test_conv_block_kernel_matches_plain(kind):
+    dev = require_cuda()
+    for tq, valid, d in [(8, 6, 64), (6, 6, 64), (3, 1, 64), (8, 6, 96)]:
+        args = conv_inputs(dev, tq + d, tq, valid, d, kind)
+        before = conv_block.launches
+        got = conv_block(*args)
+        assert conv_block.launches == before + 1
+        want = conv_block_plain(*args)
+        torch.cuda.synchronize()
+        atol = 1e-4 if kind == "f32" else 2e-3
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=atol, rtol=1e-4)
+        assert float(got[1][valid:].abs().sum()) == 0.0
+
+
+@pytest.mark.cuda
+def test_conv_ffn_ln_kernel_matches_plain():
+    dev = require_cuda()
+    for tq, valid, d, e in [(8, 6, 64, 128), (5, 5, 96, 200)]:
+        r = randn(dev, 7 * tq)
+        conv = conv_inputs(dev, tq, tq, valid, d, "int8")
+        tail = (1.0 + r(d, sc=0.2), r(d, sc=0.1), quantize_tensor(r(d, e, sc=d ** -0.5)),
+                quantize_tensor(r(e, d, sc=e ** -0.5)), 1.0 + r(d, sc=0.2), r(d, sc=0.1))
+        before = conv_ffn_ln.launches
+        got = conv_ffn_ln(*conv, *tail)
+        assert conv_ffn_ln.launches == before + 1
+        want = conv_ffn_ln_plain(*conv, *tail)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=2e-3, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_instead_of_falling_back():
+    """A CUDA input the kernels do not take raises: no wrapper retries on
+    its plain version."""
+    dev = require_cuda()
+    r = randn(dev, 3)
+    x = r(64, 8, sc=1.0).t()                      # [8, 64], not contiguous
+    g, b = 1.0 + r(64, sc=0.2), r(64, sc=0.1)
+    before = fused_ffn.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_ffn(x, g, b, r(64, 128), r(128, 64))
+    assert fused_ffn.launches == before
+    conv = list(conv_inputs(dev, 4, 8, 6, 64, "f32"))
+    conv[10] = r(64, 4).t()                       # time cache, not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_block(*conv)
+    conv = conv_inputs(dev, 5, 8, 6, 64, "f32")
+    tail = (g, b, r(64, 128), r(128, 64), g, b)
+    with pytest.raises(TypeError, match="int8"):
+        conv_ffn_ln(*conv, *tail)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [
+    dict(quant="none", use_pallas_ffn=True, use_pallas_conv=True),
+    dict(quant="all", use_pallas_ffn=True, use_pallas_conv=True),   # fused conv+FFN2+LN
+    dict(quant="all", use_pallas_conv=True),                        # conv_block[int8]
+])
+def test_gate_r3_session_with_every_kernel_matches_cpu(flags):
+    dev = require_cuda()
+    rt = RuntimeConfig(use_pallas_att=True, use_pallas_joint=True, **flags)
+    gpu = ParakeetTDT.from_model_dir(GATE_R3, runtime=rt, device=dev)
+    cpu = ParakeetTDT.from_model_dir(GATE_R3, runtime=rt, device="cpu")
+    audio = synth_audio(seed=22, words=6)
+    kernels = [fused_ffn, conv_block, conv_ffn_ln]
+    sessions, counts = [], []
+    for model in (gpu, cpu):
+        before = [k.launches for k in kernels]
+        sess = StreamingSession(model, rt)
+        for i in range(0, len(audio), 8000):
+            sess.push_audio(audio[i:i + 8000])
+        sess.finalize()
+        sessions.append(sess)
+        counts.append([k.launches - n for k, n in zip(kernels, before)])
+    tail = flags["quant"] == "all" and flags.get("use_pallas_ffn", False)
+    assert (counts[0][0] > 0) == flags.get("use_pallas_ffn", False)
+    assert (counts[0][1] > 0) == (not tail) and (counts[0][2] > 0) == tail
+    assert counts[1] == [0, 0, 0]
     assert sessions[0].tokens == sessions[1].tokens
     assert len(sessions[0].tokens) > 0

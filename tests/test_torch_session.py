@@ -2,7 +2,9 @@
 trained ``gate_r3`` model: synthesized utterances pushed at 0.3/0.5/1.0 s
 give the same transcript, tokens and token/word stamps as the JAX
 ``StreamingSession``, with the fused attention block and joint step off and
-on (their plain versions on CPU tensors); the event protocol, reset/reuse,
+on (their plain versions on CPU tensors), and with every kernel flag on
+(FFN and conv module too) in f32 and int8; the env names of the flags; the
+event protocol, reset/reuse,
 push-after-finalize and snapshot/restore; the package imports nothing of
 JAX; without a CUDA device the entry points raise unless asked for the CPU.
 
@@ -17,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import GATE_R3, synth_audio
+from torch_port_helpers import GATE_R3, spy_calls, synth_audio
 
 from trt_asr_tpu.config import RuntimeConfig as JRuntime
 from trt_asr_tpu.models.parakeet.model import ParakeetTDT as JModel
@@ -67,6 +69,42 @@ def test_session_matches_jax_on_gate_r3(jax_model, port_model, seconds, fused):
     np.testing.assert_allclose(lp_g, lp_r, atol=1e-4)
     assert [{k: v for k, v in w.items() if k != "logp"} for w in words_g] == \
         [{k: v for k, v in w.items() if k != "logp"} for w in words_r]
+
+
+@pytest.mark.parametrize("quant", ["none", "all"])
+def test_session_with_every_kernel_matches_jax(quant, monkeypatch):
+    """Every kernel flag on (attention block, joint step, FFN, conv module;
+    with int8 weights the fused conv + FFN2 + out-LN tail) on both sides,
+    f32 and int8 (quant="all"); JAX's kernels in interpret mode. The FFN and
+    conv kernels run on every chunk, the first and the flush chunk too."""
+    from trt_asr_tpu_torch.models.parakeet import encoder as penc
+
+    calls = spy_calls(monkeypatch, penc, ("fused_ffn", "conv_block", "conv_ffn_ln"))
+    kw = dict(use_pallas_att=True, use_pallas_joint=True, use_pallas_ffn=True,
+              use_pallas_conv=True, quant=quant)
+    audio = synth_audio(seed=31, words=6)
+    ref = run(JSession(JModel.from_model_dir(GATE_R3, runtime=JRuntime(**kw)), JRuntime(**kw)),
+              audio, 8000)
+    model = ParakeetTDT.from_model_dir(GATE_R3, runtime=RuntimeConfig(**kw), device="cpu")
+    got = run(StreamingSession(model, RuntimeConfig(**kw)), audio, 8000)
+    assert len(ref._tokens) > 0
+    assert got.tokens == ref._tokens
+    assert got.text == ref.text
+    (tok_g, lp_g, words_g), (tok_r, lp_r, _) = stamps(got), stamps(ref)
+    assert tok_g == tok_r
+    np.testing.assert_allclose(lp_g, lp_r, atol=1e-4)
+    layer_chunks = len(got.chunk_latencies_ms) * model.cfg.num_layers
+    conv = "conv_ffn_ln" if quant == "all" else "conv_block"
+    assert calls[conv] == layer_chunks
+    assert calls["fused_ffn"] == layer_chunks * (1 if quant == "all" else 2)
+
+
+def test_runtime_flags_read_from_env(monkeypatch):
+    monkeypatch.setenv("TRT_ASR_PALLAS_CONV", "1")
+    monkeypatch.setenv("TRT_ASR_PALLAS_FFN", "1")
+    rt, ref = RuntimeConfig.from_env(), JRuntime.from_env()
+    assert rt.use_pallas_conv and rt.use_pallas_ffn
+    assert (rt.use_pallas_conv, rt.use_pallas_ffn) == (ref.use_pallas_conv, ref.use_pallas_ffn)
 
 
 def events_of(sess):

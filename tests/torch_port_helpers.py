@@ -16,6 +16,20 @@ def require_cuda() -> torch.device:
     return torch.device("cuda")
 
 
+def spy_calls(monkeypatch, module, names):
+    """Count the calls ``module`` makes to the functions it holds under
+    ``names`` (the kernel wrappers it looks up at call time): on CPU tensors
+    a wrapper runs its plain version, which agrees with the path without it,
+    so only a count shows that a flag took the kernel branch."""
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        def spy(*args, _name=name, _fn=getattr(module, name), **kwargs):
+            calls[_name] += 1
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(module, name, spy)
+    return calls
+
+
 def np_tree(tree):
     """JAX tree (incl. QuantTensor leaves) -> the same tree of numpy arrays."""
     import jax

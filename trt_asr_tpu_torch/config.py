@@ -136,14 +136,18 @@ def _env_str(name: str, alias, default: str) -> str:
 class RuntimeConfig:
     """Runtime toggles read by the streaming greedy path (env-overridable).
 
-    ``use_pallas_att`` / ``use_pallas_joint`` keep the JAX package's names;
-    in this package they select the hand-written CUDA kernels of
-    ``ops/kernels/`` (fused attention block, fused joint step)."""
+    The ``use_pallas_*`` flags keep the JAX package's names; in this package
+    they select the hand-written CUDA kernels of ``ops/kernels/``: the fused
+    joint step, the fused attention block, the fused conv module (with
+    int8 encoder weights and ``use_pallas_ffn`` also on: conv + FFN2 +
+    output LayerNorm in one kernel) and the fused FFN."""
 
     # numerics / kernels
     use_pallas_joint: bool = False           # fused joint-step kernel
     use_pallas_att: bool = False             # fused attention-block kernel
                                              # (B=1 steady streaming chunks)
+    use_pallas_conv: bool = False            # fused conv-module kernel (B=1)
+    use_pallas_ffn: bool = False             # fused FFN kernel
     quant: str = "none"                      # int8 weight-only quantization
                                              # scope: none|joint|encoder|all
     batched_decode: bool = True              # blank-run batched decode
@@ -167,6 +171,8 @@ class RuntimeConfig:
         return cls(
             use_pallas_joint=_env_bool("TRT_ASR_PALLAS_JOINT", None, d.use_pallas_joint),
             use_pallas_att=_env_bool("TRT_ASR_PALLAS_ATT", None, d.use_pallas_att),
+            use_pallas_conv=_env_bool("TRT_ASR_PALLAS_CONV", None, d.use_pallas_conv),
+            use_pallas_ffn=_env_bool("TRT_ASR_PALLAS_FFN", None, d.use_pallas_ffn),
             quant=_env_str("TRT_ASR_QUANT", None, d.quant),
             batched_decode=_env_bool("TRT_ASR_BATCHED_DECODE", None, d.batched_decode),
             blank_penalty=_env_float("TRT_ASR_BLANK_PENALTY", "PARAKEET_BLANK_PENALTY", d.blank_penalty),

@@ -30,30 +30,8 @@
 
 namespace port {
 
-constexpr int LN_THREADS = 256;
 constexpr int ATT_THREADS = 1024;
 constexpr int ATT_TPS = 4;          // lanes per kv slot in the scores
-
-__global__ void __launch_bounds__(LN_THREADS)
-layernorm_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                 const float* __restrict__ b, int D, float* __restrict__ u) {
-  __shared__ float red[32];
-  const float* xr = x + (size_t)blockIdx.x * D;
-  float s = 0.f;
-  for (int i = threadIdx.x; i < D; i += blockDim.x) s += xr[i];
-  const float mu = block_sum(s, red) / (float)D;
-  float v = 0.f;
-  for (int i = threadIdx.x; i < D; i += blockDim.x) {
-    const float d = xr[i] - mu;
-    v = fmaf(d, d, v);
-  }
-  const float var = block_sum(v, red) / (float)D;
-  const float inv = 1.0f / sqrtf(var + 1e-5f);
-  for (int i = threadIdx.x; i < D; i += blockDim.x) {
-    const float y = __fmul_rn(__fmul_rn(xr[i] - mu, inv), g[i]);
-    u[(size_t)blockIdx.x * D + i] = __fadd_rn(y, b[i]);
-  }
-}
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc, int bf) {
   acc = fmaf(a.x, round_op(b.x, bf), acc);
@@ -205,13 +183,12 @@ extern "C" int att_block_launch(
   const int bf = wtype != W_F32;
   ArgmaxParts none = {};
 
-  layernorm_kernel<<<tq, LN_THREADS, 0, stream>>>(x, ln_g, ln_b, D, u);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_layernorm(x, tq, D, ln_g, ln_b, u, stream);
   if (err != cudaSuccess) return (int)err;
 
   const GemmBatch qkv = {3, {wq, wk, wv}, {sq, sk, sv}, {q, k_new, v_new}};
-  err = launch_small_m_gemm<false>(wtype, u, tq, D, qkv, D, ksplit, nullptr, nullptr, 0, bf,
-                                   0, part, none, stream);
+  err = launch_small_m_gemm<false>(wtype, u, tq, D, qkv, D, ksplit, nullptr, 1.f, nullptr,
+                                   ACT_NONE, bf, 0, part, none, stream);
   if (err != cudaSuccess) return (int)err;
 
   const size_t smem = sizeof(float) * ((size_t)2 * dh + ((C + tq + 3) & ~3) + 4 * ATT_THREADS);
@@ -223,6 +200,6 @@ extern "C" int att_block_launch(
 
   // y = x + (ctx @ Wo) * so
   const GemmBatch out = {1, {wo}, {so}, {y}};
-  return (int)launch_small_m_gemm<false>(wtype, ctx, tq, D, out, D, ksplit, x, nullptr, 0, bf,
-                                         0, part, none, stream);
+  return (int)launch_small_m_gemm<false>(wtype, ctx, tq, D, out, D, ksplit, x, 1.f, nullptr,
+                                         ACT_NONE, bf, 0, part, none, stream);
 }

@@ -28,6 +28,9 @@ __device__ __forceinline__ float round_op(float v, int bf) {
   return bf ? round_bf16(v) : v;
 }
 
+__device__ __forceinline__ float sigmoid_f(float v) { return 1.f / (1.f + expf(-v)); }
+__device__ __forceinline__ float silu_f(float v) { return __fmul_rn(v, sigmoid_f(v)); }
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -84,6 +87,38 @@ __device__ __forceinline__ void warp_argmax(float& v, int& i) {
   }
 }
 
+// LayerNorm over rows of D (eps 1e-5), one block a row: a whole row is
+// needed for the statistics, so the products that follow read its output
+// instead of recomputing it in every block.
+constexpr int LN_THREADS = 256;
+
+__global__ void __launch_bounds__(LN_THREADS)
+layernorm_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                 const float* __restrict__ b, int D, float* __restrict__ u) {
+  __shared__ float red[32];
+  const float* xr = x + (size_t)blockIdx.x * D;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < D; i += blockDim.x) s += xr[i];
+  const float mu = block_sum(s, red) / (float)D;
+  float v = 0.f;
+  for (int i = threadIdx.x; i < D; i += blockDim.x) {
+    const float d = xr[i] - mu;
+    v = fmaf(d, d, v);
+  }
+  const float var = block_sum(v, red) / (float)D;
+  const float inv = 1.0f / sqrtf(var + 1e-5f);
+  for (int i = threadIdx.x; i < D; i += blockDim.x) {
+    const float y = __fmul_rn(__fmul_rn(xr[i] - mu, inv), g[i]);
+    u[(size_t)blockIdx.x * D + i] = __fadd_rn(y, b[i]);
+  }
+}
+
+inline cudaError_t launch_layernorm(const float* x, int M, int D, const float* g,
+                                    const float* b, float* u, cudaStream_t stream) {
+  layernorm_kernel<<<M, LN_THREADS, 0, stream>>>(x, g, b, D, u);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // Small-M matrix product: out[m, n] = epilogue(sum_k A[m, k] * W[k, n]).
 //
@@ -101,8 +136,8 @@ __device__ __forceinline__ void warp_argmax(float& v, int& i) {
 // Pass 1 writes the block's partial sums to part[ksplit][M][N]; pass 2, one
 // warp per (row, 32-column tile), adds the ksplit partials in a fixed order
 // (deterministic) and applies the epilogue, in this order:
-//   v = acc * scale[n]; v = addend[m, n] + v; v = v + bias[n];
-//   v = relu(v); v = round_bf16(v)
+//   v = acc * scale[n]; v = addend[m, n] + alpha * v; v = v + bias[n];
+//   v = act(v) (ReLU or SiLU); v = round_bf16(v)
 // each step only where its pointer / flag is given. A is staged in shared
 // memory, rounded to the operand type on load when round_a is set; every
 // weight element is read once for all M rows.
@@ -122,6 +157,8 @@ constexpr int GEMM_THREADS = 32 * GEMM_KS;
 constexpr int EPI_THREADS = 128;
 constexpr int EPI_TILE = 32;                  // columns per epilogue warp
 constexpr int GEMM_BATCH = 3;
+
+enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_SILU = 2 };
 
 // four (two) consecutive weights as one load
 template <typename WT> struct Vec4;
@@ -244,8 +281,8 @@ small_m_gemm_partial(const float* __restrict__ A, int M, int K, GemmBatch batch,
 template <bool ARGMAX>
 __global__ void __launch_bounds__(EPI_THREADS)
 small_m_gemm_epilogue(const float* __restrict__ part, int ksplit, int M, int N,
-                      GemmBatch batch, const float* __restrict__ addend,
-                      const float* __restrict__ bias, int relu, int round_out,
+                      GemmBatch batch, const float* __restrict__ addend, float alpha,
+                      const float* __restrict__ bias, int act, int round_out,
                       ArgmaxParts am) {
   const float* scale = batch.scale[blockIdx.z];
   float* out = batch.out[blockIdx.z];
@@ -261,9 +298,10 @@ small_m_gemm_epilogue(const float* __restrict__ part, int ksplit, int M, int N,
 #pragma unroll 8
     for (int kb = 0; kb < ksplit; ++kb) s += part[((size_t)kb * M + m) * N + n];
     v = __fmul_rn(s, scale ? scale[n] : 1.f);
-    if (addend) v = __fadd_rn(addend[(size_t)m * N + n], v);
+    if (addend) v = __fadd_rn(addend[(size_t)m * N + n], __fmul_rn(alpha, v));
     if (bias) v = __fadd_rn(v, bias[n]);
-    if (relu) v = fmaxf(v, 0.f);
+    if (act == ACT_RELU) v = fmaxf(v, 0.f);
+    else if (act == ACT_SILU) v = silu_f(v);
     if (round_out) v = round_bf16(v);
     out[(size_t)m * N + n] = v;
   }
@@ -292,16 +330,14 @@ small_m_gemm_epilogue(const float* __restrict__ part, int ksplit, int M, int N,
 
 // The caller sizes `part` as batch.count * ksplit * M * N floats with
 // ksplit = ceil(K / GEMM_KSLICE) (ops/kernels/build.py:gemm_splits).
-template <bool ARGMAX>
-inline cudaError_t launch_small_m_gemm(int wtype, const float* A, int M, int K,
-                                       GemmBatch batch, int N, int ksplit,
-                                       const float* addend, const float* bias, int relu,
-                                       int round_a, int round_out, float* part,
-                                       ArgmaxParts am, cudaStream_t stream) {
+// Pass 1 alone: the split-K partial sums, for a caller whose own kernel
+// reduces them (the conv module's GLU needs columns n and n + N/2 together).
+inline cudaError_t launch_gemm_partial(int wtype, const float* A, int M, int K,
+                                       GemmBatch batch, int N, int ksplit, int round_a,
+                                       float* part, cudaStream_t stream) {
   if (ksplit != (K + GEMM_KSLICE - 1) / GEMM_KSLICE || batch.count < 1 ||
-      batch.count > GEMM_BATCH)
+      batch.count > GEMM_BATCH || M < 1)
     return cudaErrorInvalidValue;
-  if (ARGMAX && batch.count != 1) return cudaErrorInvalidValue;
   const dim3 grid((N + GEMM_TN - 1) / GEMM_TN, ksplit, batch.count);
   switch (wtype) {
     case W_F32:
@@ -319,13 +355,48 @@ inline cudaError_t launch_small_m_gemm(int wtype, const float* A, int M, int K,
     default:
       return cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+// Both passes: out = epilogue(A @ W) for each weight of the batch.
+template <bool ARGMAX>
+inline cudaError_t launch_small_m_gemm(int wtype, const float* A, int M, int K,
+                                       GemmBatch batch, int N, int ksplit,
+                                       const float* addend, float alpha, const float* bias,
+                                       int act, int round_a, int round_out, float* part,
+                                       ArgmaxParts am, cudaStream_t stream) {
+  if (ARGMAX && batch.count != 1) return cudaErrorInvalidValue;
+  cudaError_t err = launch_gemm_partial(wtype, A, M, K, batch, N, ksplit, round_a, part, stream);
   if (err != cudaSuccess) return err;
   const int tiles = (N + EPI_TILE - 1) / EPI_TILE;
   const dim3 blocks((tiles + EPI_THREADS / 32 - 1) / (EPI_THREADS / 32), M, batch.count);
   small_m_gemm_epilogue<ARGMAX><<<blocks, EPI_THREADS, 0, stream>>>(
-      part, ksplit, M, N, batch, addend, bias, relu, round_out, am);
+      part, ksplit, M, N, batch, addend, alpha, bias, act, round_out, am);
   return cudaGetLastError();
+}
+
+// Conformer FFN with a scaled residual, y = x + alpha * silu(LN(x) @ W1) @ W2,
+// for M rows of width D and expansion E: LayerNorm, then two split-K
+// products. With bf16 or int8 weights (bf != 0) the LN output u and
+// silu(h) are rounded to bf16, the TPU kernel's operand type; x and y are
+// not. u [M, D] and h [M, E] are scratch; part holds
+// max(ks1 * E, ks2 * D) * M floats.
+inline cudaError_t launch_ffn(const float* x, int M, int D, int E, const float* ln_g,
+                              const float* ln_b, const void* w1, const float* s1,
+                              const void* w2, const float* s2, int wtype, float alpha,
+                              int ks1, int ks2, float* y, float* u, float* h, float* part,
+                              cudaStream_t stream) {
+  const int bf = wtype != W_F32;
+  ArgmaxParts none = {};
+  cudaError_t err = launch_layernorm(x, M, D, ln_g, ln_b, u, stream);
+  if (err != cudaSuccess) return err;
+  const GemmBatch up = {1, {w1}, {s1}, {h}};
+  err = launch_small_m_gemm<false>(wtype, u, M, D, up, E, ks1, nullptr, 1.f, nullptr, ACT_SILU,
+                                   bf, bf, part, none, stream);
+  if (err != cudaSuccess) return err;
+  const GemmBatch down = {1, {w2}, {s2}, {y}};
+  return launch_small_m_gemm<false>(wtype, h, M, E, down, D, ks2, x, alpha, nullptr, ACT_NONE,
+                                    0, 0, part, none, stream);
 }
 
 }  // namespace port

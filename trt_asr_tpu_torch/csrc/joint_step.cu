@@ -81,15 +81,15 @@ extern "C" int joint_step_launch(
   if (rows < 1 || ths + ndur > V) return (int)cudaErrorInvalidValue;
   ArgmaxParts none = {};
   const GemmBatch pred = {1, {wp}, {sp}, {h}};
-  cudaError_t err = launch_small_m_gemm<false>(wtype, g, rows, P, pred, J, ks_pred, e, bp, 1,
-                                               bf, bf, part, none, stream);
+  cudaError_t err = launch_small_m_gemm<false>(wtype, g, rows, P, pred, J, ks_pred, e, 1.f, bp,
+                                               ACT_RELU, bf, bf, part, none, stream);
   if (err != cudaSuccess) return (int)err;
 
   const int ntiles = (V + EPI_TILE - 1) / EPI_TILE;
   ArgmaxParts am = {ths, ndur, blank_id, penalty, ntiles, tok_val, tok_idx, dur_val, dur_idx};
   const GemmBatch out = {1, {wo}, {so}, {logits}};
-  err = launch_small_m_gemm<true>(wtype, h, rows, J, out, V, ks_out, nullptr, bo, 0, 0, 0,
-                                  part, am, stream);
+  err = launch_small_m_gemm<true>(wtype, h, rows, J, out, V, ks_out, nullptr, 1.f, bo,
+                                  ACT_NONE, 0, 0, part, am, stream);
   if (err != cudaSuccess) return (int)err;
 
   argmax_reduce_kernel<<<rows, RED_THREADS, 0, stream>>>(tok_val, tok_idx, dur_val, dur_idx,

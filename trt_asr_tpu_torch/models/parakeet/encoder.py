@@ -27,6 +27,8 @@ from trt_asr_tpu_torch.ops.common import (batch_norm_inference, glu, layer_norm,
 from trt_asr_tpu_torch.ops.conv import (depthwise_conv1d, dw_striding_subsample,
                                         subsampled_length)
 from trt_asr_tpu_torch.ops.kernels.att_block import att_block
+from trt_asr_tpu_torch.ops.kernels.conv_block import conv_block, conv_ffn_ln
+from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn
 from trt_asr_tpu_torch.ops.quant import QuantTensor, dequantize
 
 
@@ -108,15 +110,21 @@ def layer_params(params: Dict[str, Any], num_layers: int) -> List[Dict[str, Any]
 
 def _conformer_layer(lp, x, att_cache, time_cache, kv_cache, pos_proj, kv_mask,
                      rel_idx, time_mask, cursor, n_heads: int, cache_keep: int,
-                     appended, att_meta: Optional[torch.Tensor] = None):
+                     appended, att_meta: Optional[torch.Tensor] = None,
+                     use_pallas_ffn: bool = False, use_pallas_conv: bool = False):
     """One conformer layer over a streaming chunk; updates the layer's cache
     views in place. ``att_meta`` (int32 [3] = cursor, cache_len, valid_tq)
-    selects the fused attention-block kernel (B=1)."""
+    selects the fused attention-block kernel (B=1); ``use_pallas_ffn`` the
+    fused FFN kernel for both FFNs; ``use_pallas_conv`` the fused conv
+    module (B=1), which with int8 ``conv_pw1`` and ``ff2_w1`` and
+    ``use_pallas_ffn`` also runs FFN2 and the output LayerNorm."""
     b, tq, d = x.shape
     k = time_cache.shape[1]
     dh = d // n_heads
 
     def ffn(xx, ln_g, ln_b, w1, w2):
+        if use_pallas_ffn:
+            return fused_ffn(xx, ln_g, ln_b, w1, w2, scale=0.5)
         hh = layer_norm(xx, ln_g, ln_b)
         return xx + 0.5 * matmul(silu(matmul(hh, w1)), w2)
 
@@ -146,15 +154,32 @@ def _conformer_layer(lp, x, att_cache, time_cache, kv_cache, pos_proj, kv_mask,
     _ring_write(att_cache, u[:, :cache_keep], cursor, appended)
     _ring_write(kv_cache, torch.cat([k_new, v_new], dim=-1)[:, :cache_keep], cursor, appended)
 
-    # convolution module
-    c = layer_norm(x, lp["conv_ln_g"], lp["conv_ln_b"])
-    c = glu(matmul(c, lp["conv_pw1"]), dim=-1)
-    c = torch.where(time_mask[:, :, None], c, torch.zeros((), dtype=c.dtype, device=c.device))
-    c_ext = torch.cat([time_cache.to(c.dtype), c, c.new_zeros((b, k, d))], dim=1)
-    cv = depthwise_conv1d(c_ext, lp["conv_dw"])
-    cv = batch_norm_inference(cv, lp["conv_bn_g"], lp["conv_bn_b"],
-                              lp["conv_bn_m"], lp["conv_bn_v"])
-    x = x + matmul(silu(cv), lp["conv_pw2"])
+    # convolution module; with int8 weights and both flags, conv + FFN2 +
+    # out-LN in one kernel
+    fused_tail = (use_pallas_conv and use_pallas_ffn
+                  and isinstance(lp["conv_pw1"], QuantTensor)
+                  and isinstance(lp["ff2_w1"], QuantTensor))
+    if use_pallas_conv:
+        conv = (x[0], lp["conv_ln_g"], lp["conv_ln_b"], lp["conv_pw1"], lp["conv_dw"],
+                lp["conv_bn_g"], lp["conv_bn_b"], lp["conv_bn_m"], lp["conv_bn_v"],
+                lp["conv_pw2"], time_cache[0], time_mask[0][:, None].float())
+        if fused_tail:
+            y2, c1 = conv_ffn_ln(*conv, lp["ff2_ln_g"], lp["ff2_ln_b"], lp["ff2_w1"],
+                                 lp["ff2_w2"], lp["out_ln_g"], lp["out_ln_b"])
+            time_cache.copy_(_append_cache(time_cache, c1[None, :cache_keep], appended))
+            return y2[None]
+        y2, c1 = conv_block(*conv)
+        c, x = c1[None], y2[None]
+    else:
+        c = layer_norm(x, lp["conv_ln_g"], lp["conv_ln_b"])
+        c = glu(matmul(c, lp["conv_pw1"]), dim=-1)
+        c = torch.where(time_mask[:, :, None], c,
+                        torch.zeros((), dtype=c.dtype, device=c.device))
+        c_ext = torch.cat([time_cache.to(c.dtype), c, c.new_zeros((b, k, d))], dim=1)
+        cv = depthwise_conv1d(c_ext, lp["conv_dw"])
+        cv = batch_norm_inference(cv, lp["conv_bn_g"], lp["conv_bn_b"],
+                                  lp["conv_bn_m"], lp["conv_bn_v"])
+        x = x + matmul(silu(cv), lp["conv_pw2"])
     time_cache.copy_(_append_cache(time_cache, c[:, :cache_keep], appended))
 
     x = ffn(x, lp["ff2_ln_g"], lp["ff2_ln_b"], lp["ff2_w1"], lp["ff2_w2"])
@@ -173,6 +198,8 @@ def encode(
     valid_cap: Optional[int] = None,  # emission cap; None = Tq - cache_drop
     pad_steps: int = 0,             # zero rows appended after drop_extra (masked)
     use_pallas_att: bool = False,   # fused attention-block kernel (B=1)
+    use_pallas_ffn: bool = False,   # fused FFN kernel
+    use_pallas_conv: bool = False,  # fused conv-module kernel (B=1)
     pos_proj: Optional[torch.Tensor] = None,  # [L, R, D] for this chunk's Tq
     layers: Optional[List[Dict[str, Any]]] = None,  # layer_params(params, L)
 ) -> Tuple[torch.Tensor, torch.Tensor, EncoderState]:
@@ -183,6 +210,8 @@ def encode(
         raise NotImplementedError("offline encode is not ported yet; pass a state")
     enc_p = params["encoder"]
     b = feats.shape[0]
+    if use_pallas_conv and b != 1:
+        raise ValueError(f"use_pallas_conv requires B=1, got B={b}")
     dev = feats.device
     lengths = torch.as_tensor(lengths, device=dev).reshape(b).to(torch.int32)
     x = dw_striding_subsample(enc_p["pre_encode"], feats.float())
@@ -225,7 +254,8 @@ def encode(
         x = _conformer_layer(lp, x, state.att_cache[li], state.time_cache[li],
                              state.kv_cache[li], pos_proj[li], kv_mask, rel_idx,
                              time_mask, cursor, cfg.n_heads, cache_keep, appended,
-                             att_meta=att_meta)
+                             att_meta=att_meta, use_pallas_ffn=use_pallas_ffn,
+                             use_pallas_conv=use_pallas_conv)
 
     cap = valid_cap if valid_cap is not None else cache_keep
     out_len = torch.clamp_max(torch.clamp_max(sub_len, tq), cap)

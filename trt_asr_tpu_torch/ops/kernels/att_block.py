@@ -20,6 +20,7 @@ from typing import Tuple
 import torch
 
 from trt_asr_tpu_torch.ops.kernels import build as kb
+from trt_asr_tpu_torch.ops.kernels.ffn import layer_norm_plain
 from trt_asr_tpu_torch.ops.quant import is_low_precision, round_bf16, scaled_matmul
 
 
@@ -49,9 +50,7 @@ def att_block_plain(x, ln_g, ln_b, wq, wk, wv, wo, bias_u, bias_v, pos_proj,
     dh = d // h
     c = kv_cache.shape[0]
     rnd = round_bf16 if is_low_precision(wq) else (lambda t: t)
-    mu = x.mean(dim=-1, keepdim=True)
-    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
-    u = (x - mu) * (1.0 / torch.sqrt(var + 1e-5)) * ln_g + ln_b
+    u = layer_norm_plain(x, ln_g, ln_b)
     uc = rnd(u)
     q, k_new, v_new = (scaled_matmul(uc, w) for w in (wq, wk, wv))
 

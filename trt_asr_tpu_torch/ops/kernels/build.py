@@ -27,21 +27,30 @@ from trt_asr_tpu_torch.ops.quant import QuantTensor
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("att_block", "joint_step", "mel")
+SOURCES = ("att_block", "joint_step", "mel", "ffn", "conv_block")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_CONV = [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P]
+# library -> {launch function: argtypes}
 _SIGNATURES = {
-    "att_block": ("att_block_launch",
+    "att_block": {"att_block_launch":
                   [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                   _P, _P, _P, _P, _I, _P, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P]),
-    "joint_step": ("joint_step_launch",
+                   _P, _P, _P, _P, _I, _P, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P]},
+    "joint_step": {"joint_step_launch":
                    [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
-                    _I, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
-    "mel": ("logmel_launch", [_P, _I, _I, _P, _P, _I, _P, _I, _F, _P, _P]),
+                    _I, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]},
+    "mel": {"logmel_launch": [_P, _I, _I, _P, _P, _I, _P, _I, _F, _P, _P]},
+    "ffn": {"ffn_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F, _I, _I,
+                           _P, _P, _P, _P, _P]},
+    "conv_block": {
+        "conv_block_launch": _CONV + [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+        "conv_ffn_ln_launch": _CONV + [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
+                                       _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    },
 }
 
 
@@ -118,10 +127,10 @@ def load(name: str) -> ctypes.CDLL:
         if not path.exists():
             build([name])
         lib = ctypes.CDLL(str(path))
-        fn_name, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         lib.port_error_string.argtypes = [ctypes.c_int]
         lib.port_error_string.restype = ctypes.c_char_p
         _libs[name] = lib

@@ -10,6 +10,9 @@ decode), and events. Encoder caches are updated in place on the device;
 With ``RuntimeConfig.use_pallas_att`` the steady chunks (the fixed 57-frame
 shape) run the fused attention-block CUDA kernel, with the step axis padded
 to 8; the first and the last chunk of an utterance take the plain path.
+``use_pallas_ffn`` and ``use_pallas_conv`` run the fused FFN and conv-module
+kernels (with int8 encoder weights and both on, the fused conv + FFN2 +
+output-LayerNorm kernel) on every chunk, whatever its step count.
 ``use_pallas_joint`` routes the decode's joint through the fused joint-step
 kernel.
 """
@@ -293,7 +296,8 @@ class StreamingSession:
             emitted_so_far=len(self._tokens),
             punct_mask=self._punct_mask,
             pos_proj=pos_proj, pad_steps=self._pad_steps if kernel_att else 0,
-            use_pallas_att=kernel_att, use_pallas_joint=rt.use_pallas_joint)
+            use_pallas_att=kernel_att, use_pallas_joint=rt.use_pallas_joint,
+            use_pallas_ffn=rt.use_pallas_ffn, use_pallas_conv=rt.use_pallas_conv)
         n = int(n)
         self._token_frames.extend(self._frames_base + int(f) for f in stamps[0][:n])
         self._token_durs.extend(int(d) for d in stamps[1][:n])
@@ -323,7 +327,8 @@ def _session_step(model: ParakeetTDT, feats: torch.Tensor, valid: int,
                   drop_extra: int, cache_drop: int, valid_cap: Optional[int],
                   blank_penalty: float, emitted_so_far: int, punct_mask,
                   pos_proj=None, pad_steps: int = 0, use_pallas_att: bool = False,
-                  use_pallas_joint: bool = False):
+                  use_pallas_joint: bool = False, use_pallas_ffn: bool = False,
+                  use_pallas_conv: bool = False):
     """One chunk: streaming encoder step + blank-run batched TDT greedy
     decode. Returns (tokens, n, enc_state, dec_state, (frames, durs, logps),
     t_out) with tokens/stamps as host tensors and t_out the chunk's valid
@@ -333,7 +338,8 @@ def _session_step(model: ParakeetTDT, feats: torch.Tensor, valid: int,
     enc, out_len, enc_state = encode(
         model.params, cfg, feats, lengths, enc_state, drop_extra=drop_extra,
         cache_drop=cache_drop, valid_cap=valid_cap, pad_steps=pad_steps,
-        use_pallas_att=use_pallas_att, pos_proj=pos_proj, layers=model.layers)
+        use_pallas_att=use_pallas_att, use_pallas_ffn=use_pallas_ffn,
+        use_pallas_conv=use_pallas_conv, pos_proj=pos_proj, layers=model.layers)
     tq = enc.shape[1]
     toks, n, dec_state, stamps = tdt_greedy_decode_batch(
         model.params, cfg, enc, out_len, dec_state,
