@@ -13,9 +13,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    int8 weights for the attention block, the joint step, the FFN and the
    conv module, int8 for the fused conv + FFN2 + out-LN tail, f32 for the
    log-mel), with each one's median time, the plain version's time and
-   the bound (bytes or operations). Each int8 tolerance is shown to fail a
-   kernel without the bf16 rounding points (the plain version on the
-   dequantized weights).
+   the bound (bytes or operations). Each int8 tolerance, and bf16 flash
+   attention's, is shown to fail a kernel without the bf16 rounding points
+   (the plain version on the dequantized weights, or on the bf16 operands
+   widened to f32, where p is not rounded).
 3. full-width session (``ModelConfig()``, seeded random weights from the
    port's ``init_params``): a seeded synthetic utterance of 12 words
    (~6 s) pushed in 0.5 s pieces, with a blank bias set so the plain f32
@@ -28,11 +29,33 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    and with the conv kernel and no FFN kernel (``int8_conv``: the conv
    module alone).
    Launch counts are reset just before each kernel arm and read just after.
+   Phase 2 also holds the offline kernels, rel shift (f32, bf16) and
+   flash attention (f32, bf16), at the offline batch's shapes (B 8, T 368,
+   H 8, dh 128; a short row and a zero-length row in the mask), with the
+   time of ``scaled_dot_product_attention`` on the same inputs beside flash.
 4. the trained ``artifacts/models/gate_r3`` on the card with the kernels
    on, each token-exact against the port's CPU plain path: attention,
    joint and log-mel kernels in f32 and int8; every kernel in f32 and in
    int8 (the fused tail); int8 with the conv kernel and no FFN kernel.
-5. neither ``jax`` nor ``trt_asr_tpu`` was imported.
+   Offline: ``transcribe_batch`` on 24- and 28-word utterances (T >= 128),
+   and ``offline_encode`` + ``tdt_greedy_decode_batch`` in f32 with flash,
+   token-exact with the CPU path; in bf16 with the shift and flash kernels,
+   whose encoder output must lie within twice the distance the CPU's own
+   bf16 run moves when its features move by 1e-6 (bf16 tokens are not held
+   exact: that move alone changes some).
+5. full-width offline batch (``ModelConfig()``, the phase-3 weights): 8
+   synthetic utterances of mixed length up to 30 s (one under 10 s),
+   batched and padded as ``transcribe_batch`` does, through
+   ``offline_encode`` and ``tdt_greedy_decode_batch(use_pallas_joint=True)``
+   with a blank bias searched on the plain f32 arm. Arms ``off_f32``
+   (plain), ``off_f32_flash`` (token-exact with ``off_f32``),
+   ``off_bf16_plain`` (the two offline wrappers swapped for their plain
+   versions) and ``off_bf16`` (shift and flash kernels: its encoder output
+   lies within twice bf16's own distance from f32 of ``off_bf16_plain``'s);
+   encoder and end-to-end ms, launches, a profile of
+   one forward. ``transcribe_batch`` on the card equals per-utterance
+   ``transcribe_offline`` on the card.
+6. neither ``jax`` nor ``trt_asr_tpu`` was imported.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit; before that one JSON line lists the
@@ -42,6 +65,7 @@ kernels with their launches, errors and times.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import math
@@ -75,7 +99,16 @@ KERNEL_SRCS = {
              {"f32": "f32_all", "int8": "int8_conv"}),
     "tail": ("conv_ffn_ln", "trt_asr_tpu_torch/csrc/conv_block.cu",
              "trt_asr_tpu/ops/pallas/conv_block_kernel.py:184", {"int8": "int8_all"}),
+    # offline kernels: the offline arm reads their launches (rel shift runs
+    # in bf16 only: its auto gate, as the TPU's)
+    "shift": ("rel_shift", "trt_asr_tpu_torch/csrc/rel_shift.cu",
+              "trt_asr_tpu/ops/pallas/rel_shift_kernel.py:102", {"bf16": "off_bf16"}),
+    "flash": ("flash_att", "trt_asr_tpu_torch/csrc/flash_att.cu",
+              "trt_asr_tpu/ops/pallas/flash_att_kernel.py:116",
+              {"f32": "off_f32_flash", "bf16": "off_bf16"}),
 }
+OFFLINE_WORDS = (64, 56, 48, 40, 32, 24, 16, 12)   # ~28 s down to ~6 s
+OFFLINE_MAX_S = 30.0
 
 
 def log(msg: str) -> None:
@@ -158,27 +191,32 @@ def max_err(got, want) -> float:
     return max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
 
 
-def measure(name, timer, err, kernel_fn, plain_fn, nbytes, ops, op_type):
-    """Time a kernel and its plain version (device ms) beside their bound."""
+def measure(name, timer, err, kernel_fn, plain_fn, nbytes, ops, op_type, library_fn=None):
+    """Time a kernel and its plain version (device ms) beside their bound,
+    and the one PyTorch call that computes the same function, if any."""
     b_ms, b_by = bound(nbytes, ops, op_type)
     ms = timer(kernel_fn)
     host_us = timer.host_us
     plain_ms = timer(plain_fn)
+    library_ms = timer(library_fn) if library_fn is not None else None
+    lib_txt = f", library {library_ms:.4f} ms" if library_ms is not None else ""
     log(f"  {name} kernel {ms:.4f} ms (host enqueue {host_us:.1f} us/call), plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        f"{plain_ms:.4f} ms{lib_txt}, bound {b_ms:.4f} ms ({b_by})")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms)
 
 
 # --- phase 2: kernels against their plain versions ---------------------------
 
 
-def check_rounding_points(name, tol, got, unrounded) -> None:
-    """The int8 tolerance must tell the kernel from one that skips the bf16
-    rounding points: the plain version on the dequantized f32 weights has
-    none, and the kernel must sit farther than the tolerance from it."""
+def check_rounding_points(label, tol, got, unrounded) -> None:
+    """The tolerance must tell the kernel from one that skips the bf16
+    rounding points: the plain version without them (on dequantized f32
+    weights, or on bf16 operands widened to f32) must lie farther than the
+    tolerance from the kernel."""
     gap = max_err(got, unrounded)
-    log(f"  {name}[int8]: max |kernel - plain without bf16 rounding points| = {gap:.3g}")
-    assert gap > tol, f"{name}[int8] tolerance {tol:g} cannot see the rounding points"
+    log(f"  {label}: max |kernel - plain without bf16 rounding points| = {gap:.3g}")
+    assert gap > tol, f"{label} tolerance {tol:g} cannot see the rounding points"
 
 
 def check_kernels(torch, dev, timer, cfg):
@@ -218,7 +256,7 @@ def check_kernels(torch, dev, timer, cfg):
             f"(tolerance {tol:g})")
         assert err <= tol, f"att_block[{arm}] disagrees with its plain version"
         if arm == "int8":
-            check_rounding_points("att_block", tol, got, att_block_plain(
+            check_rounding_points("att_block[int8]", tol, got, att_block_plain(
                 x, ln_g, ln_b, *[dequantize(w) for w in wts], bu, bv, pos, kv, meta,
                 n_heads=h))
         s_valid = c + valid_tq
@@ -247,7 +285,7 @@ def check_kernels(torch, dev, timer, cfg):
         log(f"joint_step[{arm}]: max |logits kernel - plain| = {err:.3g} (tolerance {tol:g})")
         assert err <= tol, f"joint_step[{arm}] logits disagree"
         if isinstance(woo, QuantTensor):
-            check_rounding_points("joint_step", tol, (logits,), joint_step_plain(
+            check_rounding_points("joint_step[int8]", tol, (logits,), joint_step_plain(
                 e, g, dequantize(wpp), bp, dequantize(woo), bo, **kw)[2:])
         # argmaxes must agree wherever the plain top-2 margin exceeds the tolerance
         tl = logits_p[:, :kw["ths"]].clone()
@@ -332,11 +370,97 @@ def check_kernels(torch, dev, timer, cfg):
         assert err <= tol, f"{name}[{arm}] disagrees with its plain version"
         if arm == "int8":
             deq = [dequantize(a) if isinstance(a, QuantTensor) else a for a in args]
-            check_rounding_points(name, tol, got, tup(any_weights(*deq)))
+            check_rounding_points(f"{name}[int8]", tol, got, tup(any_weights(*deq)))
         nbytes = other_bytes + sum(wbytes(w) for w in ws)
         records[f"{arm}_{short}"] = measure(
             f"{name}[{arm}]", timer, err, lambda: kernel(*args), lambda: plain(*args),
             nbytes, ops, "f32" if arm == "f32" else "bf16")
+    return records
+
+
+def check_offline_kernels(torch, dev, timer, cfg, t_steps: int, lengths):
+    """Rel shift and flash attention against their plain versions at the
+    offline batch's shapes: q/k/v [B, T, H, dh], the rel-pos table [2T-1,
+    H, dh], kv lengths ``lengths`` [B]. Rel shift in f32 (logged; the path
+    runs it in bf16 only) and bf16; flash in both, with the time of
+    ``scaled_dot_product_attention`` on the same inputs (its mask the
+    masked bias over sqrt(dh)) as the library call."""
+    from trt_asr_tpu_torch.ops.kernels.flash_att import (MASKED_BIAS, flash_bias_attention,
+                                                         flash_bias_attention_plain)
+    from trt_asr_tpu_torch.ops.kernels.rel_shift import (rel_pos_bias_shifted,
+                                                         rel_pos_bias_shifted_plain)
+
+    rng = np.random.default_rng(4321)
+    b, t_len, h, dh = len(lengths), t_steps, cfg.n_heads, cfg.head_dim
+    t = lambda *s, sc=1.0: torch.as_tensor(  # noqa: E731
+        (rng.standard_normal(s) * sc).astype(np.float32), device=dev)
+    q, k, v, qv = (t(b, t_len, h, dh) for _ in range(4))
+    pos = t(2 * t_len - 1, h, dh)
+    mask = torch.arange(t_len, device=dev)[None, :] < torch.as_tensor(lengths, device=dev)[:, None]
+    log(f"offline kernels at B={b} T={t_len} H={h} dh={dh}, kv lengths {list(lengths)}")
+    records = {}
+    for arm, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        es = 4 if arm == "f32" else 2
+        op_type = "f32" if arm == "f32" else "bf16"
+        qv_d, pos_d = qv.to(dtype), pos.to(dtype)
+        got = rel_pos_bias_shifted(qv_d, pos_d, tkv=t_len)
+        want = rel_pos_bias_shifted_plain(qv_d, pos_d, tkv=t_len)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if arm == "f32":
+            rel = err / float(want.abs().max())
+            tol_txt, ok = f"{rel:.3g} of the largest |value|, tolerance 1e-5", rel <= 1e-5
+        else:
+            w = want.float()
+            ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+            n_bad = int(((got.float() - w).abs() > ulp).sum())
+            tol_txt, ok = f"{n_bad} values beyond one bf16 ulp, tolerance one ulp", n_bad == 0
+        log(f"rel_shift[{arm}]: max |kernel - plain| = {err:.3g} ({tol_txt})")
+        assert ok, f"rel_shift[{arm}] disagrees with its plain version"
+        nbytes = (qv.numel() + pos.numel() + b * h * t_len * t_len) * es
+        rec = measure(f"rel_shift[{arm}]", timer, err,
+                      lambda: rel_pos_bias_shifted(qv_d, pos_d, tkv=t_len),
+                      lambda: rel_pos_bias_shifted_plain(qv_d, pos_d, tkv=t_len),
+                      nbytes, 2 * b * h * t_len * t_len * dh, op_type)
+        if arm == "bf16":
+            records["bf16_shift"] = rec
+
+        qd, kd, vd, bd = q.to(dtype), k.to(dtype), v.to(dtype), want
+        got = flash_bias_attention(qd, kd, vd, bd, mask)
+        want_f = flash_bias_attention_plain(qd, kd, vd, bd, mask)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all()), f"flash[{arm}] is not finite"
+        err = float((got - want_f).abs().max())
+        # bf16: kernel and plain version round p at the same keys; 1e-4 is
+        # ~35x the reading on the H100 and below the p-rounding gap
+        atol, rtol = (2e-5, 1e-4) if arm == "f32" else (1e-4, 0.0)
+        excess = float(((got - want_f).abs() - rtol * want_f.abs()).max())
+        log(f"flash_att[{arm}]: max |kernel - plain| = {err:.3g} (tolerance atol {atol:g} + "
+            f"rtol {rtol:g}: worst |diff| - rtol |plain| = {excess:.3g})")
+        assert excess <= atol, f"flash_att[{arm}] disagrees with its plain version"
+        has_key = mask.any(dim=1)
+        if arm == "bf16":
+            # the same values in f32: p is not rounded (a fully masked row
+            # differs by its -1e9 alone, so only rows with a valid key count)
+            unrounded = flash_bias_attention_plain(qd.float(), kd.float(), vd.float(),
+                                                   bd.float(), mask)
+            check_rounding_points("flash_att[bf16]", atol, (got[has_key],),
+                                  (unrounded[has_key],))
+        scale = 1.0 / math.sqrt(dh)
+        neg = torch.full((), MASKED_BIAS, dtype=dtype, device=dev)
+        sdpa_mask = (torch.where(mask[:, None, None, :], bd, neg).float() * scale).to(dtype)
+        qh, kh, vh = (x.transpose(1, 2) for x in (qd, kd, vd))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_out = sdpa(qh, kh, vh, attn_mask=sdpa_mask).transpose(1, 2).reshape(b, t_len, h * dh)
+        log(f"  scaled_dot_product_attention[{arm}]: max |sdpa - plain| = "
+            f"{float((lib_out.float() - want_f)[has_key].abs().max()):.3g} over rows with a "
+            f"valid key (a fully masked row rounds the masked scores otherwise)")
+        nbytes = (3 * q.numel() + bd.numel()) * es + mask.numel() + got.numel() * 4
+        records[f"{arm}_flash"] = measure(
+            f"flash_att[{arm}]", timer, err, lambda: flash_bias_attention(qd, kd, vd, bd, mask),
+            lambda: flash_bias_attention_plain(qd, kd, vd, bd, mask),
+            nbytes, 4 * b * h * t_len * t_len * dh, op_type,
+            library_fn=lambda: sdpa(qh, kh, vh, attn_mask=sdpa_mask))
     return records
 
 
@@ -356,11 +480,14 @@ def wrappers():
     from trt_asr_tpu_torch.ops.kernels.att_block import att_block
     from trt_asr_tpu_torch.ops.kernels.conv_block import conv_block, conv_ffn_ln
     from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn
+    from trt_asr_tpu_torch.ops.kernels.flash_att import flash_bias_attention
     from trt_asr_tpu_torch.ops.kernels.joint_step import joint_step
     from trt_asr_tpu_torch.ops.kernels.mel import logmel
+    from trt_asr_tpu_torch.ops.kernels.rel_shift import rel_pos_bias_shifted
 
     return {"att_block": att_block, "joint_step": joint_step, "logmel": logmel,
-            "ffn": fused_ffn, "conv_block": conv_block, "conv_ffn_ln": conv_ffn_ln}
+            "ffn": fused_ffn, "conv_block": conv_block, "conv_ffn_ln": conv_ffn_ln,
+            "rel_shift": rel_pos_bias_shifted, "flash_att": flash_bias_attention}
 
 
 def reset_counts():
@@ -411,11 +538,19 @@ def make_model(torch, cfg, params, tok, rt, dev, mel_kernel: bool):
 def profile_session(torch, label, model, rt, audio, piece: int) -> None:
     """Device busy share and kernel time by name over one session
     (torch.profiler): where a steady chunk's time goes."""
+    profile_run(torch, label, "chunk",
+                lambda: len(run_session(torch, model, rt, audio, piece).chunk_latencies_ms))
+
+
+def profile_run(torch, label, unit: str, fn) -> None:
+    """Device busy share and kernel time by name over ``fn()``, which
+    returns how many units of work it did, with torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sess = run_session(torch, model, rt, audio, piece)
+        n = fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies): the CPU ops that launched
     # them carry the same device time again
@@ -423,11 +558,10 @@ def profile_session(torch, label, model, rt, audio, piece: int) -> None:
                    if ev.device_type == torch.autograd.DeviceType.CUDA
                    and ev.self_device_time_total > 0), reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    n = len(sess.chunk_latencies_ms)
     copy_ms = sum(r[0] for r in rows if "copy" in r[1].lower()) / 1e3
-    log(f"profile[{label}]: {n} chunks, wall {wall_ms:.1f} ms, "
+    log(f"profile[{label}]: {n} {unit}s, wall {wall_ms:.1f} ms, "
         f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% busy, "
-        f"{100 - 100 * busy_ms / wall_ms:.1f}% idle), {busy_ms / n:.3f} ms a chunk; "
+        f"{100 - 100 * busy_ms / wall_ms:.1f}% idle), {busy_ms / n:.3f} ms a {unit}; "
         f"copy kernels {copy_ms:.3f} ms")
     for dev_us, key, count in rows[:12]:
         log(f"  {dev_us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
@@ -443,7 +577,7 @@ def decode_and_sync_counts(torch, model, rt, audio, piece: int):
     reports (copies to the host, blocking copies to the card)."""
     import warnings
 
-    from trt_asr_tpu_torch.decode.batched import tdt_greedy_decode_batch as dec
+    from trt_asr_tpu_torch.decode.greedy_loop import greedy_decode_loop as dec
     from trt_asr_tpu_torch.streaming.session import StreamingSession
 
     it0 = dec.iterations
@@ -462,10 +596,11 @@ def decode_and_sync_counts(torch, model, rt, audio, piece: int):
     return (dec.iterations - it0) / n, syncs / n
 
 
-def calibrate_blank_bias(torch, model, rt, audio, piece: int, n_words: int) -> float:
-    """Bisect a bias on the joint's blank logit (plain f32 model) toward one
-    token per spoken word of the utterance, the rate a trained model emits
-    on these utterances (gate_r3, phase 4: one token a word). Random weights
+def calibrate_blank_bias(model, n_words: int, count_tokens, what: str) -> float:
+    """Bisect a bias on the joint's blank logit (plain f32 model; the
+    tokens ``count_tokens()`` decodes) toward one token per spoken word of
+    ``what``, the rate a trained model emits on these utterances (gate_r3,
+    phase 4: one token a word). Random weights
     otherwise emit on almost every step, and their token count jumps with
     the bias, so the search keeps the bias whose count is closest to the
     target from above (at least one token a word: the f32 exactness check
@@ -480,14 +615,14 @@ def calibrate_blank_bias(torch, model, rt, audio, piece: int, n_words: int) -> f
     for _ in range(10):
         mid = 0.5 * (lo + hi)
         b[blank] = base + mid
-        tried[mid] = n_tok = len(run_session(torch, model, rt, audio, piece).tokens)
+        tried[mid] = n_tok = count_tokens()
         if n_words <= n_tok <= 2 * n_words:
             break
         lo, hi = (mid, hi) if n_tok > n_words else (lo, mid)
     bias = min(tried, key=lambda m: (tried[m] < n_words, abs(tried[m] - n_words)))
     b[blank] = base + bias
     log(f"emission profile: blank bias {bias:.5f} -> {tried[bias]} tokens (target {n_words}, "
-        f"one a word of the utterance, on the plain f32 path); tried "
+        f"one a word of {what}, on the plain f32 path); tried "
         f"{ {round(m, 5): n for m, n in tried.items()} } in {time.perf_counter() - t0:.1f} s")
     return bias
 
@@ -524,7 +659,9 @@ def full_width_session(torch, dev, n_words: int, seed: int):
                            tok, rt, dev, mel_k)
         if model_f32 is None:
             model_f32 = model
-            calibrate_blank_bias(torch, model, rt, audio, piece, n_words)
+            bias = calibrate_blank_bias(
+                model, n_words, lambda: len(run_session(torch, model, rt, audio, piece).tokens),
+                "the utterance")
         run_session(torch, model, rt, warm, piece)            # warm-up utterance
         reset_counts()
         sess = run_session(torch, model, rt, audio, piece)
@@ -559,7 +696,7 @@ def full_width_session(torch, dev, n_words: int, seed: int):
             f"positions, exact={a_off['tokens'] == b}")
     log(f"f32 kernels on and all kernels == kernels off: token-exact "
         f"({len(a_off['tokens'])} tokens)")
-    return results
+    return results, model_f32.params, tok, bias
 
 
 def gate_r3_session(torch, dev):
@@ -604,6 +741,232 @@ def gate_r3_session(torch, dev):
             f"gate_r3[{label}] emitted {len(s_gpu.tokens)} tokens for {len(words)} words")
 
 
+# --- phases 4 (offline part) and 5: offline batches ---------------------------
+
+
+def offline_audios(seed: int):
+    """The full-width offline batch: synthetic utterances of OFFLINE_WORDS
+    words, cut at OFFLINE_MAX_S seconds."""
+    rng = np.random.default_rng(seed)
+    synth = synth_module()
+    return [synth.synth_utterance(list(rng.integers(0, 1120, size=w)), rng)
+            [:int(OFFLINE_MAX_S * 16000)] for w in OFFLINE_WORDS]
+
+
+def offline_shape(audios, pad_multiple: int = 128):
+    """(encoder steps T, valid steps per row) of ``transcribe_batch``'s
+    padded batch of these utterances."""
+    from trt_asr_tpu_torch.contract import FrontendSpec
+    from trt_asr_tpu_torch.ops.conv import subsampled_length
+
+    fs = FrontendSpec()
+    frames = [max((len(a) - fs.win_length) // fs.hop_length + 1, 0) for a in audios]
+    t_pad = -(-max(frames) // pad_multiple) * pad_multiple
+    return subsampled_length(t_pad, 3), [subsampled_length(f, 3) for f in frames]
+
+
+def offline_run(torch, model, x, lens, dtype, flash: bool):
+    """offline_encode + tdt_greedy_decode_batch(use_pallas_joint=True) over a
+    padded batch, as the offline bench path runs them (mask_pad_subsample,
+    the encoder output decoded in f32). Host-clock encoder and end-to-end
+    ms, each span ending in a sync."""
+    from trt_asr_tpu_torch.decode.batched import tdt_greedy_decode_batch
+    from trt_asr_tpu_torch.decode.tdt_greedy import init_decode_state, prime_decode_state
+    from trt_asr_tpu_torch.models.parakeet.encoder import offline_encode
+
+    cfg, dev = model.cfg, model.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    dec = prime_decode_state(model.params, cfg, init_decode_state(cfg, len(lens), device=dev),
+                             model.prompt_ids)
+    valid = torch.as_tensor(lens, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    enc, enc_len = offline_encode(model.params, cfg, x, valid, compute_dtype=dtype,
+                                  use_flash_att=flash, mask_pad_subsample=True,
+                                  layers=model.layers)
+    sync()
+    t1 = time.perf_counter()
+    toks, n, _ = tdt_greedy_decode_batch(
+        model.params, cfg, enc.float(), enc_len, dec,
+        max_tokens=cfg.max_symbols_per_timestep * enc.shape[1], use_pallas_joint=True)
+    t2 = time.perf_counter()
+    return dict(tokens=[toks[i, :int(n[i])].tolist() for i in range(len(lens))],
+                enc=enc.float(), enc_len=enc_len.cpu(), enc_ms=(t1 - t0) * 1e3,
+                e2e_ms=(t2 - t0) * 1e3)
+
+
+@contextlib.contextmanager
+def plain_offline_wrappers(swap: bool):
+    """With ``swap``, the offline attention calls the rel-shift and flash
+    wrappers' plain versions (the bf16 arm without its kernels)."""
+    from trt_asr_tpu_torch.ops import attention
+    from trt_asr_tpu_torch.ops.kernels.flash_att import flash_bias_attention_plain
+    from trt_asr_tpu_torch.ops.kernels.rel_shift import rel_pos_bias_shifted_plain
+
+    saved = attention.rel_pos_bias_shifted, attention.flash_bias_attention
+    if swap:
+        attention.rel_pos_bias_shifted = rel_pos_bias_shifted_plain
+        attention.flash_bias_attention = flash_bias_attention_plain
+    try:
+        yield
+    finally:
+        attention.rel_pos_bias_shifted, attention.flash_bias_attention = saved
+
+
+def launched(counts) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def token_agreement(ta, tb):
+    """(positions where two token lists per row agree, positions in all)."""
+    same = sum(sum(p == q for p, q in zip(x, y)) for x, y in zip(ta, tb))
+    return same, sum(max(len(x), len(y)) for x, y in zip(ta, tb))
+
+
+def enc_diff(torch, ra, rb) -> float:
+    """Max |encoder output difference| of two offline runs over valid steps."""
+    ea, eb = ra["enc"].cpu(), rb["enc"].cpu()
+    valid = torch.arange(ea.shape[1])[None, :] < ra["enc_len"][:, None]
+    return float(((ea - eb).abs() * valid[..., None]).max())
+
+
+def gate_r3_offline(torch, dev):
+    """gate_r3 offline on 24- and 28-word utterances (T >= 128, so the
+    shift kernel's auto gate opens on the card): ``transcribe_batch`` on the
+    card equals the CPU path; offline_encode + decode in f32 with flash
+    equals the CPU path token for token. In bf16 (shift and flash kernels
+    on the card, their plain versions on the CPU) the encoder output must
+    lie within twice the CPU's own bf16 noise floor of the CPU path's: the
+    same CPU run on features moved by 1e-6 (the size of the frontend's
+    card/CPU gap). Both distances are single draws of one chaotic spread,
+    so either may land above the other; a wrong result lies at the scale of
+    the output itself."""
+    from trt_asr_tpu_torch.config import RuntimeConfig
+    from trt_asr_tpu_torch.models.parakeet.model import ParakeetTDT
+    from trt_asr_tpu_torch.ops.conv import subsampled_length
+
+    md = os.path.join(ROOT, "artifacts", "models", "gate_r3")
+    rng = np.random.default_rng(9)
+    synth = synth_module()
+    audios = [synth.synth_utterance(list(rng.integers(0, 1120, size=w)), rng) for w in (24, 28)]
+    gpu, cpu = (ParakeetTDT.from_model_dir(md, runtime=RuntimeConfig(), device=d)
+                for d in (dev, "cpu"))
+    got, want = gpu.transcribe_batch(audios), cpu.transcribe_batch(audios)
+    log(f"gate_r3 offline transcribe_batch on the card: {[text for text, _ in got]}")
+    assert got == want, "gate_r3 transcribe_batch on the card differs from the CPU path"
+    n_layers = gpu.cfg.num_layers
+    for label, dtype, expect in (("f32_flash", torch.float32, {"flash_att": n_layers}),
+                                 ("bf16", torch.bfloat16,
+                                  {"rel_shift": n_layers, "flash_att": n_layers})):
+        out = []
+        for model in (gpu, cpu):
+            x, lens = model.batch_features(audios)
+            assert subsampled_length(int(lens.min()), 3) >= 128, "utterances too short"
+            reset_counts()
+            out.append((offline_run(torch, model, x, lens, dtype, True), read_counts()))
+        (rg, cg), (rc, cc) = out
+        same, total = token_agreement(rg["tokens"], rc["tokens"])
+        card_diff = enc_diff(torch, rg, rc)
+        log(f"gate_r3 offline[{label}] on the card, launches {launched(cg)}: "
+            f"{[len(r) for r in rg['tokens']]} tokens; against the CPU path: tokens agree at "
+            f"{same}/{total} positions, exact={rg['tokens'] == rc['tokens']}, encoder max "
+            f"|diff| {card_diff:.4g}")
+        assert launched(cg) == expect, f"gate_r3 offline[{label}] launched {cg}"
+        assert not launched(cc), f"gate_r3 offline[{label}] CPU run launched {cc}"
+        if dtype == torch.float32:
+            assert rg["tokens"] == rc["tokens"], (
+                f"gate_r3 offline[{label}] card tokens differ from the CPU path")
+    x, lens = cpu.batch_features(audios)
+    valid = torch.arange(x.shape[1])[None, :, None] < torch.as_tensor(lens)[:, None, None]
+    nudge = torch.as_tensor(np.random.default_rng(1).standard_normal(x.shape), dtype=x.dtype)
+    moved = offline_run(torch, cpu, x + 1e-6 * nudge * valid, lens, torch.bfloat16, True)
+    flips = float((x.to(torch.bfloat16) != (x + 1e-6 * nudge * valid).to(torch.bfloat16))
+                  .float().mean())
+    same, total = token_agreement(moved["tokens"], rc["tokens"])
+    floor = enc_diff(torch, moved, rc)
+    log(f"gate_r3 offline[bf16] CPU noise floor: features moved by 1e-6 ({100 * flips:.3f}% of "
+        f"their bf16 values change): tokens agree at {same}/{total} positions, "
+        f"exact={moved['tokens'] == rc['tokens']}, encoder max |diff| {floor:.4g} (largest "
+        f"|output| {float(rc['enc'].abs().max()):.4g})")
+    assert card_diff <= 2 * floor, (
+        f"gate_r3 offline[bf16] card encoder lies {card_diff:.4g} from the CPU path, beyond "
+        f"twice the CPU's own bf16 noise floor {floor:.4g}")
+
+
+def full_width_offline(torch, dev, cfg, params, tok, audios):
+    """Phase 5: the full-width offline batch through its four arms; returns
+    each arm's launch counts."""
+    from trt_asr_tpu_torch.config import RuntimeConfig
+    from trt_asr_tpu_torch.models.parakeet.encoder import offline_encode
+
+    model = make_model(torch, cfg, params, tok, RuntimeConfig(), dev, mel_kernel=False)
+    x, lens = model.batch_features(audios)
+    n_words = sum(OFFLINE_WORDS)
+    log(f"offline batch: {len(audios)} utterances of "
+        f"{[round(len(a) / 16000, 2) for a in audios]} s, {n_words} words, features "
+        f"{list(x.shape)} (lengths {lens.tolist()})")
+    calibrate_blank_bias(
+        model, n_words,
+        lambda: sum(map(len, offline_run(torch, model, x, lens, torch.float32, False)["tokens"])),
+        "the batch's utterances")
+    n_layers = cfg.num_layers
+    arms = {  # dtype, flash, plain wrappers, expected launches
+        "off_f32": (torch.float32, False, False, {}),
+        "off_f32_flash": (torch.float32, True, False, {"flash_att": n_layers}),
+        "off_bf16_plain": (torch.bfloat16, True, True, {}),
+        "off_bf16": (torch.bfloat16, True, False, {"rel_shift": n_layers, "flash_att": n_layers}),
+    }
+    results = {}
+    for name, (dtype, flash, plain, expect) in arms.items():
+        with plain_offline_wrappers(plain):
+            offline_run(torch, model, x, lens, dtype, flash)            # warm-up
+            reset_counts()
+            r = offline_run(torch, model, x, lens, dtype, flash)
+            r["counts"] = read_counts()
+
+            def forward():
+                offline_encode(model.params, cfg, x, torch.as_tensor(lens, device=dev),
+                               compute_dtype=dtype, use_flash_att=flash,
+                               mask_pad_subsample=True, layers=model.layers)
+                return 1
+            profile_run(torch, f"offline[{name}] one forward", "forward", forward)
+        results[name] = r
+        log(f"offline[{name}]: encoder {r['enc_ms']:.1f} ms, end to end {r['e2e_ms']:.1f} ms "
+            f"(host clock), {sum(map(len, r['tokens']))} tokens, launches {launched(r['counts'])}")
+        assert launched(r["counts"]) == expect, f"offline[{name}] launched {r['counts']}"
+
+    def compare(a, b):
+        """(token-exact, encoder max |diff| over valid steps) of two arms."""
+        ra, rb = results[a], results[b]
+        same, total = token_agreement(ra["tokens"], rb["tokens"])
+        diff = enc_diff(torch, ra, rb)
+        log(f"offline[{a}] vs offline[{b}]: encoder max |diff| {diff:.4g} over valid steps, "
+            f"tokens agree at {same}/{total} positions, exact={ra['tokens'] == rb['tokens']}")
+        return ra["tokens"] == rb["tokens"], diff
+
+    assert sum(map(len, results["off_f32"]["tokens"])) >= n_words, "too few f32 tokens"
+    assert compare("off_f32_flash", "off_f32")[0], "off_f32_flash is not token-exact with off_f32"
+    kernels_move = compare("off_bf16", "off_bf16_plain")[1]
+    bf16_moves = compare("off_bf16_plain", "off_f32")[1]
+    compare("off_bf16", "off_f32")
+    # the kernels may move the bf16 encoder by about as much as bf16 itself
+    # moves it from f32 (two chaotic bf16 runs), not by a wrong result's size
+    assert kernels_move <= 2 * bf16_moves, (
+        f"off_bf16 lies {kernels_move:.4g} from off_bf16_plain, beyond twice bf16's own "
+        f"distance from f32 ({bf16_moves:.4g})")
+
+    t0 = time.perf_counter()
+    batch = model.transcribe_batch(audios)
+    t1 = time.perf_counter()
+    per_utt = [model.transcribe_offline(a) for a in audios]
+    t2 = time.perf_counter()
+    log(f"transcribe_batch (f32): {sum(len(ids) for _, ids in batch)} tokens in "
+        f"{t1 - t0:.2f} s; per-utterance transcribe_offline {t2 - t1:.2f} s; equal: "
+        f"{batch == per_utt}")
+    assert batch == per_utt, "transcribe_batch differs from per-utterance transcribe_offline"
+    return results
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--words", type=int, default=12,
@@ -638,8 +1001,14 @@ def main() -> int:
     timer = Timer(torch, dev)
     cfg = ModelConfig()
     rec = check_kernels(torch, dev, timer, cfg)
-    sess = full_width_session(torch, dev, args.words, args.seed)
+    audios = offline_audios(args.seed + 1)
+    t_steps, sub_lens = offline_shape(audios)
+    rec.update(check_offline_kernels(torch, dev, timer, cfg, t_steps, sub_lens[:-1] + [0]))
+    sess, params, tok, bias = full_width_session(torch, dev, args.words, args.seed)
     gate_r3_session(torch, dev)
+    gate_r3_offline(torch, dev)
+    params["joint"]["out"]["b"][cfg.blank_id] -= bias        # phase 5 searches its own
+    sess.update(full_width_offline(torch, dev, cfg, params, tok, audios))
 
     bad = [m for m in ("jax", "trt_asr_tpu") if m in sys.modules]
     assert not bad, f"imported {bad}"
@@ -653,7 +1022,7 @@ def main() -> int:
                         "launches": sess[arm_of[arm]]["counts"][name],
                         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": None})
+                        "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

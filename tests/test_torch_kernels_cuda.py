@@ -2,9 +2,10 @@
 versions on a CUDA device: the fused attention block, the fused joint step,
 the fused log-mel, the fused FFN, the fused conv module and the fused conv
 + FFN2 + out-LN tail, with f32, bf16 and int8 weights where the kernel
-takes them; the wrappers raise, and do not fall back, on inputs the kernels
-do not take; and the gate_r3 streaming session with the kernels on against
-the same session on the CPU.
+takes them; the offline rel-shift and flash-attention kernels in f32 and
+bf16; the wrappers raise, and do not fall back, on inputs the kernels do
+not take; the gate_r3 streaming session and offline transcription with the
+kernels on against the same runs on the CPU.
 
 Every test here needs the card and skips without one. This file imports
 nothing of JAX, so it also runs where JAX is not installed:
@@ -15,8 +16,12 @@ Tolerances: attention block, FFN and conv module 1e-4 (f32) and 2e-3 (bf16
 operands: an f32 value that differs in its last bit can round to a
 neighbouring bf16 value);
 joint logits 1e-4 with tokens and durations exact; log-mel 1e-3 absolute
-(log of sums that reach ~1e4, summed in another order); session tokens
-exact."""
+(log of sums that reach ~1e4, summed in another order); rel shift 1e-5 (f32)
+and one bf16 ulp (bf16: one f32 sum in another order, rounded once); flash
+attention atol 2e-5 / rtol 1e-4 (f32) and 1e-4 (bf16: kernel and plain
+version round p at the same keys; ~35x the reading on the H100, and the
+plain version with p unrounded lies farther); session and transcript
+tokens exact."""
 
 import math
 
@@ -24,18 +29,25 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import GATE_R3, require_cuda, synth_audio
+from torch_port_helpers import GATE_R3, assert_within_bf16_ulp, require_cuda, synth_audio
 
 from trt_asr_tpu_torch.config import RuntimeConfig
 from trt_asr_tpu_torch.contract import FrontendSpec
+from trt_asr_tpu_torch.decode.batched import tdt_greedy_decode_batch
+from trt_asr_tpu_torch.decode.tdt_greedy import init_decode_state, prime_decode_state
 from trt_asr_tpu_torch.frontend.logmel import LogMelFrontend
+from trt_asr_tpu_torch.models.parakeet.encoder import offline_encode
 from trt_asr_tpu_torch.models.parakeet.model import ParakeetTDT
 from trt_asr_tpu_torch.ops.kernels.att_block import att_block, att_block_plain
 from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block, conv_block_plain,
                                                       conv_ffn_ln, conv_ffn_ln_plain)
 from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn, fused_ffn_plain
+from trt_asr_tpu_torch.ops.kernels.flash_att import (flash_bias_attention,
+                                                     flash_bias_attention_plain)
 from trt_asr_tpu_torch.ops.kernels.joint_step import joint_step, joint_step_plain
 from trt_asr_tpu_torch.ops.kernels.mel import logmel, logmel_plain
+from trt_asr_tpu_torch.ops.kernels.rel_shift import (rel_pos_bias_shifted,
+                                                     rel_pos_bias_shifted_plain)
 from trt_asr_tpu_torch.ops.quant import quantize_tensor
 from trt_asr_tpu_torch.streaming.session import StreamingSession
 
@@ -236,6 +248,78 @@ def test_wrappers_raise_instead_of_falling_back():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rel_shift_kernel_matches_plain(dtype):
+    dev = require_cuda()
+    for b, tq, tkv, h, dh in [(1, 57, 57, 2, 32), (2, 130, 130, 2, 64), (1, 40, 70, 3, 16),
+                              (2, 384, 384, 8, 128)]:
+        r = randn(dev, tq + dh)
+        q_v = r(b, tq, h, dh, sc=1.0).to(dtype)
+        pos = r(tq + tkv + 2, h, dh, sc=1.0)       # longer than needed; cast inside
+        before = rel_pos_bias_shifted.launches
+        got = rel_pos_bias_shifted(q_v, pos, tkv=tkv)
+        assert rel_pos_bias_shifted.launches == before + 1
+        want = rel_pos_bias_shifted_plain(q_v, pos, tkv=tkv)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (b, h, tq, tkv)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        else:
+            assert_within_bf16_ulp(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_att_kernel_matches_plain(dtype):
+    """Mixed lengths with a zero-length row; bd both as the plain shift's
+    strided view and contiguous."""
+    dev = require_cuda()
+    for b, t, h, dh, lens in [(3, 37, 2, 64, [37, 29, 0]), (2, 130, 4, 16, [130, 101]),
+                              (2, 384, 8, 128, [384, 0])]:
+        r = randn(dev, t + dh)
+        q, k, v = (r(b, t, h, dh, sc=1.0).to(dtype) for _ in range(3))
+        bd = rel_pos_bias_shifted_plain(r(b, t, h, dh, sc=0.3).to(dtype),
+                                        r(2 * t - 1, h, dh, sc=1.0), tkv=t)
+        mask = torch.arange(t, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+        for bias in (bd, bd.contiguous()):
+            before = flash_bias_attention.launches
+            got = flash_bias_attention(q, k, v, bias, mask)
+            assert flash_bias_attention.launches == before + 1
+            want = flash_bias_attention_plain(q, k, v, bias, mask)
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(got).all())
+            atol, rtol = (2e-5, 1e-4) if dtype == torch.float32 else (1e-4, 0.0)
+            torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+            if dtype == torch.bfloat16:
+                # p left unrounded (the operands widened to f32) lies past
+                # the tolerance on every shape's rows with a valid key
+                unrounded = flash_bias_attention_plain(q.float(), k.float(), v.float(),
+                                                       bias.float(), mask)
+                has_key = mask.any(dim=1)
+                assert float((got - unrounded)[has_key].abs().max()) > atol
+
+
+@pytest.mark.cuda
+def test_offline_wrappers_raise_instead_of_falling_back():
+    dev = require_cuda()
+    r = randn(dev, 9)
+    q = r(2, 20, 2, 16)
+    mask = torch.ones((2, 20), dtype=torch.bool, device=dev)
+    bd = r(2, 2, 20, 20)
+    with pytest.raises(ValueError, match="strided"):
+        flash_bias_attention(q, q, q, bd.transpose(2, 3), mask)
+    with pytest.raises(TypeError, match="bool"):
+        flash_bias_attention(q, q, q, bd, mask.float())
+    shifted = r(q.numel() + 1)[1:].view(q.shape)       # contiguous, 4 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        flash_bias_attention(shifted, q, q, bd, mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        rel_pos_bias_shifted(r(2, 2, 20, 16).transpose(1, 2), r(39, 2, 16), tkv=20)
+    with pytest.raises(ValueError, match="does not fit"):
+        rel_pos_bias_shifted(q, r(30, 2, 16), tkv=20)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("flags", [
     dict(quant="none", use_pallas_ffn=True, use_pallas_conv=True),
     dict(quant="all", use_pallas_ffn=True, use_pallas_conv=True),   # fused conv+FFN2+LN
@@ -263,3 +347,41 @@ def test_gate_r3_session_with_every_kernel_matches_cpu(flags):
     assert counts[1] == [0, 0, 0]
     assert sessions[0].tokens == sessions[1].tokens
     assert len(sessions[0].tokens) > 0
+
+
+def offline_tokens(model, audios, dtype):
+    """offline_encode (flash on, padded tails masked) + batched greedy decode
+    with the joint kernel flag, as the offline bench path runs them."""
+    x, lens = model.batch_features(audios)
+    enc, enc_len = offline_encode(model.params, model.cfg, x,
+                                  torch.as_tensor(lens, device=model.device),
+                                  compute_dtype=dtype, use_flash_att=True, mask_pad_subsample=True)
+    dec = prime_decode_state(model.params, model.cfg,
+                             init_decode_state(model.cfg, len(audios), device=model.device),
+                             model.prompt_ids)
+    toks, n, _ = tdt_greedy_decode_batch(
+        model.params, model.cfg, enc.float(), enc_len, dec,
+        max_tokens=model.cfg.max_symbols_per_timestep * enc.shape[1], use_pallas_joint=True)
+    return [toks[i, :int(n[i])].tolist() for i in range(len(audios))]
+
+
+@pytest.mark.cuda
+def test_gate_r3_offline_with_kernels_matches_cpu():
+    """24-word utterances (T >= 128): transcribe_batch and f32 with the flash
+    kernel are token-exact with the CPU path; bf16 launches the shift and
+    flash kernels once a layer (bf16 tokens are compared with the CPU beside
+    the bf16 noise floor in chip_smoke.py: they are not exact)."""
+    dev = require_cuda()
+    gpu = ParakeetTDT.from_model_dir(GATE_R3, runtime=RuntimeConfig(), device=dev)
+    cpu = ParakeetTDT.from_model_dir(GATE_R3, runtime=RuntimeConfig(), device="cpu")
+    audios = [synth_audio(seed=s, words=24) for s in (31, 32)]
+    assert gpu.transcribe_batch(audios) == cpu.transcribe_batch(audios)
+    n_layers = gpu.cfg.num_layers
+    for dtype, shifts in ((torch.float32, 0), (torch.bfloat16, n_layers)):
+        before = (rel_pos_bias_shifted.launches, flash_bias_attention.launches)
+        got = offline_tokens(gpu, audios, dtype)
+        assert (rel_pos_bias_shifted.launches - before[0],
+                flash_bias_attention.launches - before[1]) == (shifts, n_layers)
+        assert all(got)
+        if dtype == torch.float32:
+            assert got == offline_tokens(cpu, audios, dtype)

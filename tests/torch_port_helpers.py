@@ -61,6 +61,15 @@ def t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, order="C"))
 
 
+def assert_within_bf16_ulp(got, want) -> None:
+    """|got - want| <= one bf16 ulp of want (bf16 keeps 8 significant bits):
+    the same f32 sum, taken in another order, rounded once."""
+    g, w = torch.as_tensor(got).float(), torch.as_tensor(want).float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    bad = (g - w).abs() > ulp
+    assert not bool(bad.any()), f"{int(bad.sum())} of {bad.numel()} values beyond one bf16 ulp"
+
+
 def synth_audio(seed: int, words: int = 6) -> np.ndarray:
     """A spoken-words utterance in the synthetic task gate_r3 was trained on."""
     import importlib.util

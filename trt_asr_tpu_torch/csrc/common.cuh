@@ -28,6 +28,30 @@ __device__ __forceinline__ float round_op(float v, int bf) {
   return bf ? round_bf16(v) : v;
 }
 
+// Four consecutive values widened to f32, from a 16-byte (f32) or 8-byte
+// (bf16) aligned address.
+__device__ __forceinline__ float4 load4_f(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4_f(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+  return make_float4(__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi));
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// Row pitch of a staged [rows, dh] f32 tile, in float4 units: odd, so that
+// 8 lanes reading 8 consecutive rows at one column hit 8 distinct 16-byte
+// bank groups.
+__host__ __device__ __forceinline__ int pitch4(int dh) { return (dh / 4) | 1; }
+
 __device__ __forceinline__ float sigmoid_f(float v) { return 1.f / (1.f + expf(-v)); }
 __device__ __forceinline__ float silu_f(float v) { return __fmul_rn(v, sigmoid_f(v)); }
 

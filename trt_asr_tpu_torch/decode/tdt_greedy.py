@@ -1,12 +1,14 @@
-"""TDT greedy decode state and prompt priming."""
+"""TDT greedy decode: state, prompt priming, and the single-stream chunk
+decode ``tdt_greedy_decode_chunk``."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
 from trt_asr_tpu_torch.config import ModelConfig
+from trt_asr_tpu_torch.decode.greedy_loop import greedy_decode_loop
 from trt_asr_tpu_torch.models.parakeet.predictor import predictor_step
 
 
@@ -46,3 +48,40 @@ def prime_decode_state(params: Dict[str, Any], cfg: ModelConfig, state: DecodeSt
     if not prompt_ids:
         g, h, c = predictor_step(params["predictor"], y, h, c)
     return DecodeState(g=g, h=h, c=c, y_id=y, time_carry=state.time_carry)
+
+
+def tdt_greedy_decode_chunk(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    enc: torch.Tensor,              # [T, D] encoder output (single stream)
+    t_enc,                          # valid steps (int or 0-d tensor)
+    state: DecodeState,             # batch 1
+    *,
+    max_tokens: int,
+    max_symbols: Optional[int] = None,
+    blank_penalty: float = 0.0,
+    emitted_so_far=0,               # tokens emitted before this chunk
+    punct_mask=None,                # [ths] bool: suppressed as the first token
+    use_punct_mask: bool = False,
+    use_pallas_joint: bool = False,
+    with_timestamps: bool = False,
+):
+    """Decode one chunk of one stream, as the JAX package's
+    ``decode/tdt_greedy.py`` ``tdt_greedy_decode_chunk``: blank-run batching
+    over every step of the chunk (the argmaxes of all steps under the
+    current predictor output, recomputed after each emission), with the
+    fused joint-step kernel for those recomputes when ``use_pallas_joint``,
+    at any chunk length. Returns (tokens [max_tokens] (-1 padded), n (0-d),
+    new_state) and, with ``with_timestamps``, ``(frames, durs, logps)``
+    [max_tokens]; tokens, counts and stamps are host tensors. The per-step
+    trace buffer of the JAX version is not ported."""
+    out = greedy_decode_loop(
+        params, cfg, enc[None], torch.as_tensor(t_enc).reshape(1), state,
+        max_tokens=max_tokens, max_symbols=max_symbols, blank_penalty=blank_penalty,
+        emitted_so_far=[int(emitted_so_far)], punct_mask=punct_mask,
+        use_punct_mask=use_punct_mask, with_timestamps=with_timestamps,
+        blank_run=True, use_kernel=use_pallas_joint)
+    tokens, n, new_state = out[0][0], out[1][0], out[2]
+    if with_timestamps:
+        return tokens, n, new_state, tuple(x[0] for x in out[3])
+    return tokens, n, new_state

@@ -1,10 +1,12 @@
-"""Fast Conformer encoder, cache-aware streaming.
+"""Fast Conformer encoder, offline and cache-aware streaming.
 
-Same semantics as the JAX package's ``models/parakeet/encoder.py``
-(streaming branch): dw_striding 8x subsampling, then N conformer layers
-(0.5*FF -> rel-pos MHA over a ring kv cache -> conv module over a time
-cache -> 0.5*FF -> LayerNorm). A Python loop over layers takes the place of
-``lax.scan``.
+Same semantics as the JAX package's ``models/parakeet/encoder.py``:
+dw_striding 8x subsampling, then N conformer layers (0.5*FF -> rel-pos MHA
+-> conv module -> 0.5*FF -> LayerNorm). Streaming (``encode`` with a state)
+attends over a ring kv cache and convolves over a time cache; offline
+(``state=None``, :func:`offline_encode`) attends over the utterance's own
+steps, with the static relative shift, zero conv context and no caches. A
+Python loop over layers takes the place of ``lax.scan``.
 
 State: ring-buffered caches ``[L, B, C, D]`` (``att_cache``: raw attention
 inputs, ``kv_cache``: projected k ++ v), ``time_cache [L, B, K, D]``,
@@ -111,16 +113,21 @@ def layer_params(params: Dict[str, Any], num_layers: int) -> List[Dict[str, Any]
 def _conformer_layer(lp, x, att_cache, time_cache, kv_cache, pos_proj, kv_mask,
                      rel_idx, time_mask, cursor, n_heads: int, cache_keep: int,
                      appended, att_meta: Optional[torch.Tensor] = None,
-                     use_pallas_ffn: bool = False, use_pallas_conv: bool = False):
+                     use_pallas_ffn: bool = False, use_pallas_conv: bool = False,
+                     use_flash_att: bool = False):
     """One conformer layer over a streaming chunk; updates the layer's cache
     views in place. ``att_meta`` (int32 [3] = cursor, cache_len, valid_tq)
     selects the fused attention-block kernel (B=1); ``use_pallas_ffn`` the
     fused FFN kernel for both FFNs; ``use_pallas_conv`` the fused conv
     module (B=1), which with int8 ``conv_pw1`` and ``ff2_w1`` and
-    ``use_pallas_ffn`` also runs FFN2 and the output LayerNorm."""
+    ``use_pallas_ffn`` also runs FFN2 and the output LayerNorm. Offline,
+    ``att_cache`` and ``kv_cache`` are None: nothing is cached, the layer
+    attends over its own steps (``use_flash_att``: the flash kernel) and
+    ``time_cache`` is the zero conv context, left as it is."""
     b, tq, d = x.shape
     k = time_cache.shape[1]
     dh = d // n_heads
+    streaming = att_cache is not None
 
     def ffn(xx, ln_g, ln_b, w1, w2):
         if use_pallas_ffn:
@@ -141,18 +148,22 @@ def _conformer_layer(lp, x, att_cache, time_cache, kv_cache, pos_proj, kv_mask,
         q = matmul(u, lp["att_wq"]).reshape(b, tq, n_heads, dh)
         k_new = matmul(u, lp["att_wk"])
         v_new = matmul(u, lp["att_wv"])
-        c_size = kv_cache.shape[1]
-        k_full = torch.cat([kv_cache[..., :d].to(u.dtype), k_new], dim=1)
-        v_full = torch.cat([kv_cache[..., d:].to(u.dtype), v_new], dim=1)
+        if streaming:
+            k_full = torch.cat([kv_cache[..., :d].to(u.dtype), k_new], dim=1)
+            v_full = torch.cat([kv_cache[..., d:].to(u.dtype), v_new], dim=1)
+        else:
+            k_full, v_full = k_new, v_new
+        tkv = k_full.shape[1]
         y = rel_pos_attention_kv(
-            q, k_full.reshape(b, c_size + tq, n_heads, dh),
-            v_full.reshape(b, c_size + tq, n_heads, dh),
+            q, k_full.reshape(b, tkv, n_heads, dh), v_full.reshape(b, tkv, n_heads, dh),
             pos_proj.reshape(-1, n_heads, dh),
             lp["att_bias_u"], lp["att_bias_v"], lp["att_wo"],
-            kv_mask=kv_mask, rel_idx=rel_idx)
+            kv_mask=kv_mask, rel_idx=rel_idx, use_flash=use_flash_att)
         x = x + y
-    _ring_write(att_cache, u[:, :cache_keep], cursor, appended)
-    _ring_write(kv_cache, torch.cat([k_new, v_new], dim=-1)[:, :cache_keep], cursor, appended)
+    if streaming:
+        _ring_write(att_cache, u[:, :cache_keep], cursor, appended)
+        _ring_write(kv_cache, torch.cat([k_new, v_new], dim=-1)[:, :cache_keep], cursor,
+                    appended)
 
     # convolution module; with int8 weights and both flags, conv + FFN2 +
     # out-LN in one kernel
@@ -166,7 +177,8 @@ def _conformer_layer(lp, x, att_cache, time_cache, kv_cache, pos_proj, kv_mask,
         if fused_tail:
             y2, c1 = conv_ffn_ln(*conv, lp["ff2_ln_g"], lp["ff2_ln_b"], lp["ff2_w1"],
                                  lp["ff2_w2"], lp["out_ln_g"], lp["out_ln_b"])
-            time_cache.copy_(_append_cache(time_cache, c1[None, :cache_keep], appended))
+            if streaming:
+                time_cache.copy_(_append_cache(time_cache, c1[None, :cache_keep], appended))
             return y2[None]
         y2, c1 = conv_block(*conv)
         c, x = c1[None], y2[None]
@@ -180,7 +192,8 @@ def _conformer_layer(lp, x, att_cache, time_cache, kv_cache, pos_proj, kv_mask,
         cv = batch_norm_inference(cv, lp["conv_bn_g"], lp["conv_bn_b"],
                                   lp["conv_bn_m"], lp["conv_bn_v"])
         x = x + matmul(silu(cv), lp["conv_pw2"])
-    time_cache.copy_(_append_cache(time_cache, c[:, :cache_keep], appended))
+    if streaming:
+        time_cache.copy_(_append_cache(time_cache, c[:, :cache_keep], appended))
 
     x = ffn(x, lp["ff2_ln_g"], lp["ff2_ln_b"], lp["ff2_w1"], lp["ff2_w2"])
     return layer_norm(x, lp["out_ln_g"], lp["out_ln_b"])
@@ -191,30 +204,39 @@ def encode(
     cfg: ModelConfig,
     feats: torch.Tensor,            # [B, T, feat_in]
     lengths: torch.Tensor,          # [B] int (valid feature frames)
-    state: EncoderState,
+    state: Optional[EncoderState] = None,
     *,
     drop_extra: int = 0,            # pre-encoded steps to drop
     cache_drop: int = 0,            # trailing lookahead steps kept out of caches
     valid_cap: Optional[int] = None,  # emission cap; None = Tq - cache_drop
     pad_steps: int = 0,             # zero rows appended after drop_extra (masked)
-    use_pallas_att: bool = False,   # fused attention-block kernel (B=1)
+    use_pallas_att: bool = False,   # fused attention-block kernel (B=1 streaming)
     use_pallas_ffn: bool = False,   # fused FFN kernel
     use_pallas_conv: bool = False,  # fused conv-module kernel (B=1)
+    compute_dtype: torch.dtype = torch.float32,
+    use_flash_att: bool = False,    # offline: flash attention kernel
+    mask_pad_subsample: bool = False,  # zero padded tails between subsampler
+                                    # stages (a padded batch row then equals
+                                    # its exact-length run)
     pos_proj: Optional[torch.Tensor] = None,  # [L, R, D] for this chunk's Tq
     layers: Optional[List[Dict[str, Any]]] = None,  # layer_params(params, L)
-) -> Tuple[torch.Tensor, torch.Tensor, EncoderState]:
-    """One streaming chunk. Returns (enc_out [B, Tq, D], out_lengths [B],
-    new_state); enc_out has the full Tq step axis, out_lengths the valid
-    count. The caches of ``state`` are updated in place."""
-    if state is None:
-        raise NotImplementedError("offline encode is not ported yet; pass a state")
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[EncoderState]]:
+    """One streaming chunk, or with ``state=None`` a whole utterance
+    offline. Returns (enc_out [B, Tq, D] in ``compute_dtype``, out_lengths
+    [B], new_state); enc_out has the full Tq step axis, out_lengths the
+    valid count. The caches of ``state`` are updated in place; offline the
+    new state is None."""
     enc_p = params["encoder"]
     b = feats.shape[0]
     if use_pallas_conv and b != 1:
         raise ValueError(f"use_pallas_conv requires B=1, got B={b}")
+    streaming = state is not None
+    if use_pallas_att and not (streaming and b == 1):
+        raise ValueError("use_pallas_att requires B=1 streaming")
     dev = feats.device
     lengths = torch.as_tensor(lengths, device=dev).reshape(b).to(torch.int32)
-    x = dw_striding_subsample(enc_p["pre_encode"], feats.float())
+    x = dw_striding_subsample(enc_p["pre_encode"], feats.to(compute_dtype),
+                              lengths=lengths if mask_pad_subsample else None)
     sub_len = subsampled_length(lengths, cfg.stride_stages)
     if drop_extra:
         x = x[:, drop_extra:]
@@ -223,18 +245,22 @@ def encode(
         x = F.pad(x, (0, 0, 0, pad_steps))
     tq = x.shape[1]
     tq_real = tq - pad_steps
-    c_size = state.att_cache.shape[2]
-    cache_len, cursor = state.cache_len, state.cursor
+    c_size = state.att_cache.shape[2] if streaming else 0
     cache_keep = max(tq_real - cache_drop, 0)
     appended = torch.clamp_max(sub_len, cache_keep).to(torch.int32)
     if pos_proj is None:
-        pos_proj = precompute_pos_proj(params, cfg, tq, c_size)
+        pos_proj = precompute_pos_proj(params, cfg, tq, c_size, compute_dtype)
 
     ar_t = torch.arange(tq, device=dev)
     time_mask = ar_t[None, :] < sub_len[:, None]                       # [B, Tq]
     att_meta = kv_mask = rel_idx = None
-    if use_pallas_att:
-        assert b == 1, "use_pallas_att requires B=1 streaming"
+    cache_len, cursor = (state.cache_len, state.cursor) if streaming else (None, None)
+    if not streaming:
+        # static relative indices (rel_idx None): the attention's shift
+        kv_mask = time_mask
+        zero_context = torch.zeros((b, cfg.conv_context_size, cfg.d_model),
+                                   dtype=compute_dtype, device=dev)
+    elif use_pallas_att:
         att_meta = torch.stack([cursor[0], cache_len[0],
                                 torch.clamp_max(sub_len[0], tq)]).to(torch.int32)
     else:
@@ -251,27 +277,49 @@ def encode(
     if layers is None:
         layers = layer_params(params, cfg.num_layers)
     for li, lp in enumerate(layers):
-        x = _conformer_layer(lp, x, state.att_cache[li], state.time_cache[li],
-                             state.kv_cache[li], pos_proj[li], kv_mask, rel_idx,
+        caches = ((state.att_cache[li], state.time_cache[li], state.kv_cache[li])
+                  if streaming else (None, zero_context, None))
+        x = _conformer_layer(lp, x, *caches, pos_proj[li], kv_mask, rel_idx,
                              time_mask, cursor, cfg.n_heads, cache_keep, appended,
                              att_meta=att_meta, use_pallas_ffn=use_pallas_ffn,
-                             use_pallas_conv=use_pallas_conv)
+                             use_pallas_conv=use_pallas_conv, use_flash_att=use_flash_att)
 
+    out_len = torch.clamp_max(sub_len, tq)
+    if not streaming:
+        return x, out_len, None
     cap = valid_cap if valid_cap is not None else cache_keep
-    out_len = torch.clamp_max(torch.clamp_max(sub_len, tq), cap)
     new_state = EncoderState(
         state.att_cache, state.time_cache, state.kv_cache,
         torch.clamp_max(cache_len + appended, c_size).to(torch.int32),
         ((cursor + appended) % max(c_size, 1)).to(torch.int32))
-    return x, out_len, new_state
+    return x, torch.clamp_max(out_len, cap), new_state
 
 
-def precompute_pos_proj(params, cfg: ModelConfig, tq: int, c_size: int) -> torch.Tensor:
+def precompute_pos_proj(params, cfg: ModelConfig, tq: int, c_size: int,
+                        compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Per-layer positional projections for a fixed chunk shape,
-    [L, Tq + C + Tq - 1, D] (input-independent: compute once per session)."""
+    [L, Tq + C + Tq - 1, D] in ``compute_dtype`` (input-independent: compute
+    once per session). In bf16 the table and W_pos are rounded to bf16 and
+    multiplied with f32 sums, as the JAX package's einsum does."""
     wpos = params["encoder"]["layers"]["att_wpos"]
-    table = sinusoidal_pos_table(tq, c_size + tq, cfg.d_model, device=wpos.device)
-    return torch.matmul(table[None], wpos.float())
+    table = sinusoidal_pos_table(tq, c_size + tq, cfg.d_model, dtype=compute_dtype,
+                                 device=wpos.device)
+    out = torch.matmul(table.float()[None], wpos.to(compute_dtype).float())
+    return out.to(compute_dtype)
+
+
+def offline_encode(params, cfg: ModelConfig, feats: torch.Tensor, lengths,
+                   compute_dtype: torch.dtype = torch.float32, use_flash_att: bool = False,
+                   mask_pad_subsample: bool = False,
+                   layers: Optional[List[Dict[str, Any]]] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-utterance encoding. Returns (enc_out [B, T, D] in
+    ``compute_dtype``, out_lengths [B]). ``mask_pad_subsample`` makes a
+    padded mixed-length batch equal its per-utterance runs."""
+    enc, out_len, _ = encode(params, cfg, feats, lengths, None, compute_dtype=compute_dtype,
+                             use_flash_att=use_flash_att,
+                             mask_pad_subsample=mask_pad_subsample, layers=layers)
+    return enc, out_len
 
 
 # --- contract-layout state conversion (left-aligned valid prefix) ----------

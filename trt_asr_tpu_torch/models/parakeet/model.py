@@ -1,21 +1,28 @@
 """Model bundle: config + params + frontend + tokenizer, loaded from the
 JAX package's model-dir format (config.json, params.npz, manifest.json,
-vocab.txt)."""
+vocab.txt), and offline transcription: wav -> log-mel -> per-feature norm
+-> offline encoder -> TDT greedy decode -> text, one utterance
+(``transcribe_offline``) or a padded batch (``transcribe_batch``)."""
 
 from __future__ import annotations
 
 import json
 import os
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from trt_asr_tpu_torch.config import ModelConfig, RuntimeConfig
 from trt_asr_tpu_torch.contract import FrontendSpec
+from trt_asr_tpu_torch.decode.batched import tdt_greedy_decode_batch
+from trt_asr_tpu_torch.decode.tdt_greedy import (init_decode_state, prime_decode_state,
+                                                 tdt_greedy_decode_chunk)
 from trt_asr_tpu_torch.device import resolve_device
 from trt_asr_tpu_torch.frontend.logmel import LogMelFrontend
-from trt_asr_tpu_torch.models.parakeet.encoder import layer_params
+from trt_asr_tpu_torch.frontend.normalize import (apply_per_feature_norm,
+                                                  compute_per_feature_stats)
+from trt_asr_tpu_torch.models.parakeet.encoder import layer_params, offline_encode
 from trt_asr_tpu_torch.models.parakeet.params import (
     init_params_numpy,
     load_checkpoint_numpy,
@@ -100,6 +107,95 @@ class ParakeetTDT:
                 m[i] = Tokenizer.is_punct_only(t)
             self._punct_mask = m
         return self._punct_mask
+
+    def _decode_kwargs(self, t_enc_static: int) -> dict:
+        rt = self.runtime
+        return dict(max_tokens=self.cfg.max_symbols_per_timestep * t_enc_static,
+                    blank_penalty=rt.blank_penalty,
+                    punct_mask=self.punct_mask if rt.suppress_leading_punct else None,
+                    use_punct_mask=rt.suppress_leading_punct)
+
+    def features(self, audio: np.ndarray, norm: str = "per_feature") -> torch.Tensor:
+        """Log-mel features [T, feat_in] on the model's device, per-feature
+        normalized over the utterance unless ``norm="none"``."""
+        feats = self.frontend(audio)
+        if norm == "per_feature" and feats.shape[0] > 0:
+            mean, std = compute_per_feature_stats(feats)
+            feats = apply_per_feature_norm(feats, mean, std)
+        return feats
+
+    def batch_features(self, audios: Sequence[np.ndarray], norm: str = "per_feature",
+                       pad_multiple: int = 128) -> Tuple[torch.Tensor, np.ndarray]:
+        """The padded feature batch of :meth:`transcribe_batch`: (x [B, T_pad,
+        feat_in] zero-padded, T_pad the longest length rounded up to
+        ``pad_multiple`` (at least one multiple), lengths [B] int32)."""
+        feats = [self.features(np.asarray(a), norm=norm) for a in audios]
+        lens = np.array([f.shape[0] for f in feats], np.int32)
+        longest = int(lens.max()) if len(lens) else 0
+        t_pad = max((max(longest, 1) + pad_multiple - 1) // pad_multiple * pad_multiple,
+                    pad_multiple)
+        x = torch.zeros((len(feats), t_pad, self.cfg.feat_in), dtype=torch.float32,
+                        device=self.device)
+        for i, f in enumerate(feats):
+            x[i, :f.shape[0]] = f
+        return x, lens
+
+    def transcribe_offline(self, audio: np.ndarray, norm: str = "per_feature",
+                           max_frames: int = 2048) -> Tuple[str, List[int]]:
+        """wav samples -> (text, token_ids). Long audio is encoded in
+        <= max_frames feature windows with the decode state carried across
+        them (chunked decode equals whole-utterance decode)."""
+        feats = self.features(audio, norm=norm)
+        if feats.shape[0] == 0:
+            return "", []
+        dec = prime_decode_state(self.params, self.cfg,
+                                 init_decode_state(self.cfg, 1, device=self.device),
+                                 self.prompt_ids)
+        ids: List[int] = []
+        for start in range(0, feats.shape[0], max_frames):
+            chunk = feats[start:start + max_frames]
+            enc, enc_len = offline_encode(self.params, self.cfg, chunk[None],
+                                          torch.tensor([chunk.shape[0]]), layers=self.layers)
+            toks, n, dec = tdt_greedy_decode_chunk(
+                self.params, self.cfg, enc[0], enc_len[0], dec, emitted_so_far=len(ids),
+                **self._decode_kwargs(enc.shape[1]))
+            ids.extend(toks[:int(n)].tolist())
+        return self.tokenizer.decode(ids), ids
+
+    def transcribe_batch(self, audios: Sequence[np.ndarray], norm: str = "per_feature",
+                         mesh=None, max_frames: int = 2048, pad_multiple: int = 128
+                         ) -> List[Tuple[str, List[int]]]:
+        """Batched offline transcription: one padded [B, T, C] feature batch
+        (T bucketed to ``pad_multiple``), one batched encoder pass per
+        <= max_frames window with the padded tails masked between subsampler
+        stages, and one lockstep batched TDT greedy decode per window with
+        carried per-row decode state. Token-exact with per-utterance
+        :meth:`transcribe_offline`. Returns [(text, token_ids)] in input
+        order. ``mesh`` (data/tensor-parallel batches) is not ported."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "transcribe_batch(mesh=...) is not ported yet (ROADMAP Queue 1 item 12)")
+        if len(audios) == 0:
+            return []
+        x, lens = self.batch_features(audios, norm=norm, pad_multiple=pad_multiple)
+        b, t_pad = x.shape[0], x.shape[1]
+        dec = prime_decode_state(self.params, self.cfg,
+                                 init_decode_state(self.cfg, b, device=self.device),
+                                 self.prompt_ids)
+        ids: List[List[int]] = [[] for _ in range(b)]
+        emitted = np.zeros(b, np.int64)
+        for start in range(0, t_pad, max_frames):
+            w = min(max_frames, t_pad - start)
+            valid = torch.as_tensor(np.clip(lens - start, 0, w), device=self.device)
+            enc, enc_len = offline_encode(self.params, self.cfg, x[:, start:start + w], valid,
+                                          mask_pad_subsample=True, layers=self.layers)
+            toks, n, dec = tdt_greedy_decode_batch(
+                self.params, self.cfg, enc, enc_len, dec, emitted_so_far=emitted,
+                **self._decode_kwargs(enc.shape[1]))
+            emitted = emitted + n.numpy()
+            for i in range(b):
+                ids[i].extend(toks[i, :int(n[i])].tolist())
+        return [(self.tokenizer.decode(r), r) for r in ids]
 
 
 def _is_numpy_tree(tree) -> bool:

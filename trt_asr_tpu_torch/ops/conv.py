@@ -44,13 +44,20 @@ def _explicit_padding(padding: Padding, h_in: int, w_in: int, kh: int, kw: int,
 
 def _conv2d_nchw(x: torch.Tensor, w_hwio: torch.Tensor, bias, stride, padding,
                  groups: int) -> torch.Tensor:
-    """x [B, C, H, W] with an HWIO weight -> [B, Cout, H', W']."""
+    """x [B, C, H, W] with an HWIO weight -> [B, Cout, H', W'].
+
+    Sums run in f32 and round once to x's type, as the JAX package's
+    convolutions: a grouped or full convolution first rounds its weight to
+    x's type; a fully depthwise one (one input channel a group) keeps it f32,
+    as the JAX tap-sum does."""
     kh, kw = w_hwio.shape[:2]
     (ph0, ph1), (pw0, pw1) = _explicit_padding(padding, x.shape[2], x.shape[3],
                                                kh, kw, stride)
-    x = F.pad(x, (pw0, pw1, ph0, ph1))
-    out = F.conv2d(x, w_hwio.permute(3, 2, 0, 1).to(x.dtype), stride=stride,
-                   groups=groups)
+    depthwise = groups > 1 and w_hwio.shape[2] == 1 and w_hwio.shape[3] == groups
+    w = w_hwio.permute(3, 2, 0, 1)
+    w = w.float() if depthwise else w.to(x.dtype).float()
+    out = F.conv2d(F.pad(x, (pw0, pw1, ph0, ph1)).float(), w, stride=stride,
+                   groups=groups).to(x.dtype)
     if bias is not None:
         out = out + bias.to(out.dtype)[None, :, None, None]
     return out

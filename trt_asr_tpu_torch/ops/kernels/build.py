@@ -27,7 +27,7 @@ from trt_asr_tpu_torch.ops.quant import QuantTensor
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("att_block", "joint_step", "mel", "ffn", "conv_block")
+SOURCES = ("att_block", "joint_step", "mel", "ffn", "conv_block", "rel_shift", "flash_att")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,8 +51,14 @@ _SIGNATURES = {
         "conv_ffn_ln_launch": _CONV + [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
                                        _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
+    "rel_shift": {"rel_shift_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]},
+    "flash_att": {"flash_att_launch": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _F,
+                                       _F, _P, _P]},
 }
 
+
+# operand types of the offline kernels, as csrc/common.cuh's WType codes them
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 GEMM_KSLICE = 64      # K rows per block of the split-K product (csrc/common.cuh)
 
@@ -173,3 +179,11 @@ def require_cuda(what: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{what}: tensors must be contiguous")
     if dev.type != "cuda":
         raise ValueError(f"{what}: expected CUDA tensors, got {dev}")
+
+
+def require_aligned(what: str, elems: int, *tensors: torch.Tensor) -> None:
+    """The kernels load ``elems`` consecutive values at once: each tensor's
+    data must start on such a boundary."""
+    for t in tensors:
+        if t.data_ptr() % (elems * t.element_size()):
+            raise ValueError(f"{what}: tensor data must be aligned to {elems} elements")
