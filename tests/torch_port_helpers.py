@@ -82,3 +82,14 @@ def synth_audio(seed: int, words: int = 6) -> np.ndarray:
     spec.loader.exec_module(mod)
     rng = np.random.default_rng(seed)
     return mod.synth_utterance(list(rng.integers(0, 1120, size=words)), rng)
+
+
+def tensor_core_qk(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q . k [B, H, T, T] for bf16 q, k [B, T, H, dh], summed by a bf16
+    tensor-core product with f32 output (cuBLAS ``bmm``): the summation of
+    the flash kernel's ``mma.sync``, whose f32 sums round otherwise than an
+    f32 einsum's."""
+    b, t_len, h, dh = q.shape
+    qh = q.transpose(1, 2).reshape(b * h, t_len, dh)
+    kh = k.permute(0, 2, 3, 1).reshape(b * h, dh, t_len)
+    return torch.bmm(qh, kh, out_dtype=torch.float32).view(b, h, t_len, t_len)

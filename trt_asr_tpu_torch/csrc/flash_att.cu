@@ -16,22 +16,67 @@
 //
 // On the TPU the K/V axis is a sequential grid dimension that carries m, l
 // and the accumulator in VMEM scratch, and the mask is folded into a padded
-// bias tensor because of the (8, 128) block rule. Here one block owns FA_BQ
-// query rows of one (b, h) and walks all key blocks itself, holding m, l and
-// the accumulators in registers; it reads kv_mask directly and takes bd with
-// its plane and row strides, so the caller's shifted view needs no copy.
+// bias tensor because of the (8, 128) block rule. Here one block owns a tile
+// of query rows of one (b, h) and walks all key blocks itself, holding m, l
+// and the accumulators in registers; it reads kv_mask directly and takes bd
+// with its plane and row strides, so the caller's shifted view needs no copy.
 // Keys past T are left out (p = 0), which equals the TPU's -1e9 padding for
-// every row with a valid key. K and V pass through shared memory 32 keys at
-// a time. Warp w owns rows 8w .. 8w+7; for the scores lane l takes keys
-// l + 32i of the key block (16-byte loads along dh, consecutive rows a warp:
-// the row pitch is an odd number of 16-byte units), for p . v lane l takes
-// the four columns 4l .. 4l+3, so every load feeds 8 rows.
+// every row with a valid key.
 //
 // Bound on the H100: bytes at the offline shapes (q, k, v, bd, out: ~47 MB in
-// bf16 at B 8, T 368). This version multiplies on CUDA cores from shared
-// memory and rereads K/V once per query tile (from L2); wgmma/TMA tiles are
-// later work.
+// bf16 at B 8, T 368, H 8, dh 128, 14 us at 3.35 TB/s, against 4.4 GFLOP,
+// 4.5 us at the bf16 tensor-core rate).
+//
+// bf16 (flash_att_bf16_kernel): tensor cores and asynchronous copies. A block
+// owns FB_BQ = 64 query rows; warp w owns rows 16w .. 16w+15, the m16 of
+// mma.sync.m16n8k16 (bf16 operands, f32 sums), so the operand types and
+// rounding points above are the tensor core's own: round(p) is the conversion p
+// needs to become an A operand. Q is copied once with cp.async and stays in
+// shared memory for the whole key walk, read into A fragments (ldmatrix) at
+// each k16 step: held in registers too, its 32 a thread beside S's 64 and O's
+// 64 took the kernel to 255 registers with spills. For each 128-key block, S =
+// Q K^T (K in [key][d] order is the col-major B operand: plain ldmatrix) lands
+// in f32 registers, 16 x 128 a warp (the tensor cores round its f32 sums
+// otherwise than a chain of FMAs or the plain version's f32 einsum, and one
+// ulp of a score can flip p's bf16 rounding at a key); the bias,
+// mask and scale are applied in the accumulator layout (a thread holds rows g
+// and g + 8, columns 2c and 2c + 1 of each n8 tile), the row max and sum are
+// reduced over the quad, and p, rounded to bf16, is packed straight into the A
+// fragments of O += P V (the accumulator layout is the A layout, so p never
+// passes through shared memory); V is read with ldmatrix.trans. One K tile and
+// one V tile live in shared memory, each refilled as soon as the block is done
+// with it: K(j+1) and bd(j+1) are in flight during the softmax and P V of block
+// j, V(j+1) during S and the softmax of block j+1. At ~102 KB of shared memory
+// (dh 128) two blocks share an SM, and each covers the other's waits; a
+// two-stage ring of K, V and the bias needs ~187 KB and leaves one block of four
+// warps an SM, which is slower on the H100, as is this kernel held to one block
+// an SM (flash_variants.py at the repository root times both). Row pitches are dh + 8 (dh
+// rounded up to 16) and 136 elements, an odd number of 16-byte units, so
+// ldmatrix and the bias reads in the accumulator layout hit 32 distinct banks.
+// A head dim that is not a multiple of 16 is zero-filled up to one in shared
+// memory (zero columns add nothing to q . k; V's zero columns are not written).
+// The copy widths are template parameters chosen by the wrapper from the
+// alignment of the rows: 16 or 8 bytes for q, k and v, 16, 8 or 4 bytes for bd
+// with cp.async, and 2 bytes (the plain shift's view, whose row stride 2T - 1
+// is odd) as plain loads and stores.
+// Why mma.sync and cp.async, not wgmma and TMA: the call is bound by bytes,
+// and warp-level products at a fraction of the tensor-core peak keep the
+// math under the bytes; and TMA cannot take bd as the plain shift passes it
+// (global strides must be multiples of 16 bytes; that view's row stride is
+// 2T - 1 elements, odd, at an offset of T). wgmma + TMA is the step after
+// this one, if the kernel comes within 2x of its bytes bound and the math
+// shows in the profile.
+//
+// f32 (flash_att_kernel): CUDA cores, f32 throughout (TF32 would break the
+// port's f32 policy). FA_BQ = 32 query rows a block; K and V pass through
+// shared memory 32 keys at a time. Warp w owns rows 8w .. 8w+7; for the
+// scores lane l takes keys l + 32i of the key block (16-byte loads along dh,
+// consecutive rows a warp: the row pitch is an odd number of 16-byte units),
+// for p . v lane l takes the four columns 4l .. 4l+3, so every load feeds 8
+// rows. It rereads K/V once per query tile (from L2).
 #include "common.cuh"
+
+#include <initializer_list>
 
 namespace port {
 
@@ -53,8 +98,7 @@ __device__ __forceinline__ void axpy4(float a, float4 x, float4& y) {
 
 // rows t0 .. t0 + rows - 1 of src (rows `step` apart, dh values each) into
 // dst as f32 with a row pitch of ld4 float4s; rows past Tn are zero
-template <typename T>
-__device__ __forceinline__ void stage_rows(float4* dst, int ld4, const T* __restrict__ src,
+__device__ __forceinline__ void stage_rows(float4* dst, int ld4, const float* __restrict__ src,
                                            size_t step, int t0, int rows, int Tn, int dh) {
   const int nd4 = dh / 4;
 #pragma unroll 4
@@ -65,12 +109,11 @@ __device__ __forceinline__ void stage_rows(float4* dst, int ld4, const T* __rest
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(FA_WARPS * 32)
-flash_att_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const T* __restrict__ bd, int bd_plane, int bd_ld,
+flash_att_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ bd, int bd_plane, int bd_ld,
                  const uint8_t* __restrict__ mask, int Tn, int H, int dh, float scale,
-                 float neg, int round_p, float* __restrict__ out) {
+                 float neg, float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   const int ld4 = pitch4(dh), nd4 = dh / 4;
   float4* q_s = smem4;                       // [FA_BQ][ld4]
@@ -81,7 +124,7 @@ flash_att_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const size_t step = (size_t)H * dh;                        // between time steps
   const size_t base = (size_t)b * Tn * step + (size_t)h * dh;  // (b, t = 0, h, d = 0)
-  const T* bd_bh = bd + (size_t)(b * H + h) * bd_plane;
+  const float* bd_bh = bd + (size_t)(b * H + h) * bd_plane;
   const uint8_t* mask_b = mask + (size_t)b * Tn;
   const bool owns_cols = 4 * lane < dh;
 
@@ -117,7 +160,7 @@ flash_att_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int rr = 0; rr < FA_RPW; ++rr) {
         const int t = min(q0 + w * FA_RPW + rr, Tn - 1);   // rows past T are not written
-        const float bias = keep ? to_f(bd_bh[(size_t)t * bd_ld + key]) : neg;
+        const float bias = keep ? bd_bh[(size_t)t * bd_ld + key] : neg;
         sc[rr][i] = key < Tn ? __fmul_rn(__fadd_rn(dot[rr], bias), scale) : -INFINITY;
       }
     }
@@ -135,7 +178,7 @@ flash_att_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int i = 0; i < FA_NSUB; ++i) {
         const float p = expf(sc[rr][i] - m_new);        // 0 for keys past T
         psum += p;
-        prow[i * FA_SUB + lane] = round_p ? round_bf16(p) : p;
+        prow[i * FA_SUB + lane] = p;
       }
       l[rr] = __fadd_rn(__fmul_rn(l[rr], alpha), warp_sum(psum));
       m[rr] = m_new;
@@ -183,22 +226,338 @@ flash_att_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <typename T>
-cudaError_t launch_flash(const void* q, const void* k, const void* v, const void* bd,
-                         int bd_plane, int bd_ld, const uint8_t* mask, int B, int Tn, int H,
-                         int dh, float scale, float neg, int round_p, float* out,
-                         cudaStream_t stream) {
+cudaError_t launch_flash_f32(const void* q, const void* k, const void* v, const void* bd,
+                             int bd_plane, int bd_ld, const uint8_t* mask, int B, int Tn, int H,
+                             int dh, float scale, float neg, float* out, cudaStream_t stream) {
   const int ld4 = pitch4(dh);
   const size_t smem = ((size_t)(FA_BQ + FA_SUB) * ld4 + (size_t)FA_SUB * (dh / 4)) *
                           sizeof(float4) + (size_t)FA_BQ * FA_PLD * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_att_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(flash_att_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tn + FA_BQ - 1) / FA_BQ, H, B);
-  flash_att_kernel<T><<<grid, FA_WARPS * 32, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)bd, bd_plane, bd_ld, mask, Tn, H, dh,
-      scale, neg, round_p, out);
+  flash_att_kernel<<<grid, FA_WARPS * 32, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)bd, bd_plane, bd_ld,
+      mask, Tn, H, dh, scale, neg, out);
   return cudaGetLastError();
+}
+
+// --- bf16: mma.sync + cp.async ----------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int FB_WARPS = 4;
+constexpr int FB_THREADS = FB_WARPS * 32;
+constexpr int FB_BQ = 16 * FB_WARPS;        // query rows a block, 16 a warp
+constexpr int FB_KS = FA_DMAX / 16;         // k16 steps of q . k (and d16 pairs of p . v)
+constexpr int FB_NT = FA_BLOCK / 8;         // n8 tiles of S a warp
+constexpr int FB_PAD = 8;                   // row pitch of q, k, v tiles: dh16 + 8 elements
+constexpr int FB_BDP = FA_BLOCK + 8;        // row pitch of the bias tile, elements
+static_assert(FB_THREADS == FA_BLOCK, "one thread per key of a block reads the mask");
+
+__host__ __device__ constexpr size_t flash_bf16_smem(int dh) {
+  return ((size_t)(FB_BQ + 2 * FA_BLOCK) * (((dh + 15) & ~15) + FB_PAD) +
+          (size_t)FB_BQ * FB_BDP) * sizeof(bf16) + FA_BLOCK / 8;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// BYTES from src to dst, of which the first src_bytes are read and the rest
+// zero-filled (src_bytes = 0: zeros, nothing read)
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "r"(src_bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "n"(BYTES), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");
+}
+
+// d += a (16 x 16, row) . b (16 x 8, col), bf16 operands, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (lo, hi) rounded to bf16 and packed, lo in the low half: two A-operand
+// elements of one row, lo at the smaller column
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Rows row0 .. row0 + ROWS - 1 of a row-major [Tn, step] matrix, columns
+// 0 .. dp - 1 of which the first dh are read (dh a multiple of BYTES / 2),
+// into dst with row pitch `pitch`; rows past Tn and columns past dh are zero.
+template <int BYTES, int ROWS>
+__device__ __forceinline__ void load_rows(bf16* dst, int pitch, const bf16* src, size_t step,
+                                          int row0, int Tn, int dh, int dp) {
+  constexpr int E = BYTES / 2;
+  const int cpr = dp / E;
+  for (int i = threadIdx.x; i < ROWS * cpr; i += FB_THREADS) {
+    const int r = i / cpr, col = (i - r * cpr) * E, t = row0 + r;
+    const bool ok = t < Tn && col < dh;
+    cp_async<BYTES>(dst + r * pitch + col, ok ? src + (size_t)t * step + col : src,
+                    ok ? BYTES : 0);
+  }
+}
+
+// The bias tile of query rows q0 .. q0 + FB_BQ - 1 and keys kb .. kb + 127;
+// rows past Tn and keys past Tn are zero. Rows of 2-byte alignment have no
+// cp.async: plain loads and stores.
+template <int BYTES>
+__device__ __forceinline__ void load_bias(bf16* dst, const bf16* bd_bh, int ld, int q0, int kb,
+                                          int Tn) {
+  constexpr int E = BYTES / 2, CPR = FA_BLOCK / E;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < FB_BQ * CPR; i += FB_THREADS) {
+    const int r = i / CPR, col = (i % CPR) * E, t = q0 + r, key = kb + col;
+    const int n = t < Tn ? max(0, min(E, Tn - key)) : 0;
+    const bf16* src = n ? bd_bh + (size_t)t * ld + key : bd_bh;
+    if constexpr (BYTES >= 4)
+      cp_async<BYTES>(dst + r * FB_BDP + col, src, 2 * n);
+    else
+      dst[r * FB_BDP + col] = n ? *src : __float2bfloat16_rn(0.f);
+  }
+}
+
+template <int QB, int BB>
+__global__ void __launch_bounds__(FB_THREADS, 2)
+flash_att_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ bd, int bd_plane,
+                      int bd_ld, const uint8_t* __restrict__ mask, int Tn, int H, int dh,
+                      float scale, float neg, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int dp = (dh + 15) & ~15, pitch = dp + FB_PAD, nks = dp / 16;
+  bf16* q_s = reinterpret_cast<bf16*>(smem);     // [FB_BQ][pitch]
+  bf16* k_s = q_s + FB_BQ * pitch;               // [FA_BLOCK][pitch]
+  bf16* v_s = k_s + FA_BLOCK * pitch;            // [FA_BLOCK][pitch]
+  bf16* bd_s = v_s + FA_BLOCK * pitch;           // [FB_BQ][FB_BDP]
+  uint32_t* keep_s = reinterpret_cast<uint32_t*>(bd_s + FB_BQ * FB_BDP);   // 128 mask bits
+  const int q0 = blockIdx.x * FB_BQ, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5, g = lane >> 2, c = lane & 3;
+  const size_t step = (size_t)H * dh;                          // between time steps
+  const size_t base = (size_t)b * Tn * step + (size_t)h * dh;  // (b, t = 0, h, d = 0)
+  const bf16* bd_bh = bd + (size_t)(b * H + h) * bd_plane;
+  const uint8_t* mask_b = mask + (size_t)b * Tn;
+
+  // copy groups, in order: Q; K(0) + bias(0); V(0). Then each block commits
+  // K(j+1) + bias(j+1) after its S and V(j+1) after its P V (empty groups
+  // past the last block), so waiting until one group is pending always
+  // leaves exactly the copy that was issued last in flight.
+  load_rows<QB, FB_BQ>(q_s, pitch, q + base, step, q0, Tn, dh, dp);
+  cp_async_commit();
+  load_rows<QB, FA_BLOCK>(k_s, pitch, k + base, step, 0, Tn, dh, dp);
+  load_bias<BB>(bd_s, bd_bh, bd_ld, q0, 0, Tn);
+  cp_async_commit();
+  load_rows<QB, FA_BLOCK>(v_s, pitch, v + base, step, 0, Tn, dh, dp);
+  cp_async_commit();
+
+  // ldmatrix row addresses of this lane: A operand (Q) and trans B (V) take
+  // matrices (rows 0-7, cols 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15);
+  // the B operand (K) takes (keys 0-7, d 0-7), (0-7, 8-15), (8-15, 0-7),
+  // (8-15, 8-15), i.e. two n8 tiles of one k16 step
+  const int a_row = (lane & 7) + (lane & 8), a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_col = lane & 8;
+
+  float o[2 * FB_KS][4];
+#pragma unroll
+  for (int dt = 0; dt < 2 * FB_KS; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};    // rows g and g + 8
+
+  for (int kb = 0; kb < Tn; kb += FA_BLOCK) {
+    const bool more = kb + FA_BLOCK < Tn;
+    {
+      const int key = kb + tid;
+      const unsigned keep = __ballot_sync(0xffffffffu, key < Tn && mask_b[key]);
+      if (lane == 0) keep_s[w] = keep;
+    }
+    cp_async_wait<1>();                  // Q, K(j) and bias(j) have landed
+    __syncthreads();
+
+    float s[FB_NT][4];
+#pragma unroll
+    for (int nt = 0; nt < FB_NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < FB_KS; ++ks) {
+      if (ks >= nks) break;
+      uint32_t qf[4];
+      ldmatrix_x4(qf, q_s + (16 * w + a_row) * pitch + 16 * ks + a_col);
+#pragma unroll
+      for (int np = 0; np < FB_NT / 2; ++np) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, k_s + (16 * np + b_row) * pitch + 16 * ks + b_col);
+        mma_bf16(s[2 * np], qf, kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qf, kf[2], kf[3]);
+      }
+    }
+    uint32_t keep[FA_BLOCK / 32];
+#pragma unroll
+    for (int i = 0; i < FA_BLOCK / 32; ++i) keep[i] = keep_s[i];
+#pragma unroll
+    for (int nt = 0; nt < FB_NT; ++nt) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {           // rows g and g + 8
+        const int col = 8 * nt + 2 * c;
+        const __nv_bfloat162 bias2 = *reinterpret_cast<const __nv_bfloat162*>(
+            bd_s + (16 * w + g + 8 * hr) * FB_BDP + col);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kc = col + e;
+          const float bias = (keep[kc >> 5] >> (kc & 31)) & 1u
+                                 ? (e ? __high2float(bias2) : __low2float(bias2)) : neg;
+          float& x = s[nt][2 * hr + e];
+          x = kb + kc < Tn ? __fmul_rn(__fadd_rn(x, bias), scale) : -INFINITY;
+        }
+      }
+    }
+    __syncthreads();                     // every warp is done with K(j), bias(j), the mask
+    if (more) {
+      load_rows<QB, FA_BLOCK>(k_s, pitch, k + base, step, kb + FA_BLOCK, Tn, dh, dp);
+      load_bias<BB>(bd_s, bd_bh, bd_ld, q0, kb + FA_BLOCK, Tn);
+    }
+    cp_async_commit();
+
+    // online softmax over the block, rows g and g + 8
+    float alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < FB_NT; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * hr], s[nt][2 * hr + 1]));
+      const float m_new = fmaxf(m[hr], quad_max(mx));
+      alpha[hr] = expf(m[hr] - m_new);
+      m[hr] = m_new;
+    }
+#pragma unroll
+    for (int nt = 0; nt < FB_NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = expf(s[nt][e] - m[e >> 1]);     // 0 for keys past T
+        psum[e >> 1] += s[nt][e];
+      }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+      l[hr] = __fadd_rn(__fmul_rn(l[hr], alpha[hr]), quad_sum(psum[hr]));
+#pragma unroll
+    for (int dt = 0; dt < 2 * FB_KS; ++dt) {
+      o[dt][0] *= alpha[0];
+      o[dt][1] *= alpha[0];
+      o[dt][2] *= alpha[1];
+      o[dt][3] *= alpha[1];
+    }
+
+    cp_async_wait<1>();                  // V(j) has landed
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < FA_BLOCK / 16; ++kk) {
+      // p of keys 16 kk .. 16 kk + 15 as the A operand: S tiles 2 kk, 2 kk + 1
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dq = 0; dq < FB_KS; ++dq) {
+        if (dq >= nks) break;
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, v_s + (16 * kk + a_row) * pitch + 16 * dq + a_col);
+        mma_bf16(o[2 * dq], pa, vf[0], vf[1]);
+        mma_bf16(o[2 * dq + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();                     // every warp is done with V(j)
+    if (more) load_rows<QB, FA_BLOCK>(v_s, pitch, v + base, step, kb + FA_BLOCK, Tn, dh, dp);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int t = q0 + 16 * w + g + 8 * hr;
+    if (t >= Tn) continue;                       // rows past T are not written
+    const float denom = fmaxf(l[hr], 1e-30f);    // a fully masked row still has l > 0
+    float* orow = out + base + (size_t)t * step;
+#pragma unroll
+    for (int dt = 0; dt < 2 * FB_KS; ++dt) {
+      const int col = 8 * dt + 2 * c;
+      if (col < dh)
+        *reinterpret_cast<float2*>(orow + col) = make_float2(
+            __fdiv_rn(o[dt][2 * hr], denom), __fdiv_rn(o[dt][2 * hr + 1], denom));
+    }
+  }
+}
+
+template <int QB, int BB>
+cudaError_t launch_flash_bf16_as(const void* q, const void* k, const void* v, const void* bd,
+                                 int bd_plane, int bd_ld, const uint8_t* mask, int B, int Tn,
+                                 int H, int dh, float scale, float neg, float* out,
+                                 cudaStream_t stream) {
+  const size_t smem = flash_bf16_smem(dh);
+  cudaError_t err = cudaFuncSetAttribute(flash_att_bf16_kernel<QB, BB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Tn + FB_BQ - 1) / FB_BQ, H, B);
+  flash_att_bf16_kernel<QB, BB><<<grid, FB_THREADS, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)bd, bd_plane, bd_ld, mask,
+      Tn, H, dh, scale, neg, out);
+  return cudaGetLastError();
+}
+
+template <int QB>
+cudaError_t launch_flash_bf16_q(int bd_bytes, const void* q, const void* k, const void* v,
+                                const void* bd, int bd_plane, int bd_ld, const uint8_t* mask,
+                                int B, int Tn, int H, int dh, float scale, float neg, float* out,
+                                cudaStream_t stream) {
+  switch (bd_bytes) {
+    case 16: return launch_flash_bf16_as<QB, 16>(q, k, v, bd, bd_plane, bd_ld, mask, B, Tn, H,
+                                                 dh, scale, neg, out, stream);
+    case 8: return launch_flash_bf16_as<QB, 8>(q, k, v, bd, bd_plane, bd_ld, mask, B, Tn, H,
+                                               dh, scale, neg, out, stream);
+    case 4: return launch_flash_bf16_as<QB, 4>(q, k, v, bd, bd_plane, bd_ld, mask, B, Tn, H,
+                                               dh, scale, neg, out, stream);
+    case 2: return launch_flash_bf16_as<QB, 2>(q, k, v, bd, bd_plane, bd_ld, mask, B, Tn, H,
+                                               dh, scale, neg, out, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Does every copy of `bytes` from these bases, stepping by these strides
+// (bytes), start on a multiple of `bytes`?
+inline bool copies_aligned(int bytes, std::initializer_list<uintptr_t> at) {
+  for (uintptr_t a : at)
+    if (a % bytes) return false;
+  return true;
 }
 
 }  // namespace port
@@ -209,21 +568,43 @@ using namespace port;
 // row stride bd_ld (>= T) and (b, h) plane stride bd_plane (>= T * bd_ld);
 // mask [B, T] bytes (0 = masked); out [B, T, H * dh] f32 (16-byte aligned).
 // dtype 0 = f32, 1 = bf16 (q, k, v and bd); dh a multiple of 4, at most 128;
-// q, k and v aligned to four elements; neg is -1e9 rounded to that type. Returns the CUDA error code.
+// q, k and v aligned to four elements; neg is -1e9 rounded to that type.
+// bf16 only: qkv_bytes (16 or 8) and bd_bytes (16, 8, 4 or 2) are the copy
+// widths of q/k/v and bd rows, each dividing the base addresses and the
+// strides in bytes (ops/kernels/flash_att.py:copy_widths). Returns the CUDA
+// error code.
 extern "C" int flash_att_launch(const void* q, const void* k, const void* v, const void* bd,
                                 int bd_plane, int bd_ld, const void* mask, int B, int T,
-                                int H, int dh, int dtype, float scale, float neg,
-                                float* out, void* stream_ptr) {
+                                int H, int dh, int dtype, int qkv_bytes, int bd_bytes,
+                                float scale, float neg, float* out, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (B < 1 || T < 1 || H < 1 || dh < 4 || dh % 4 != 0 || dh > FA_DMAX || bd_ld < T ||
       (size_t)bd_plane < (size_t)T * bd_ld)
     return (int)cudaErrorInvalidValue;
   const uint8_t* m = (const uint8_t*)mask;
   if (dtype == W_F32)
-    return (int)launch_flash<float>(q, k, v, bd, bd_plane, bd_ld, m, B, T, H, dh, scale, neg, 0,
-                                    out, stream);
-  if (dtype == W_BF16)
-    return (int)launch_flash<__nv_bfloat16>(q, k, v, bd, bd_plane, bd_ld, m, B, T, H, dh, scale,
-                                            neg, 1, out, stream);
-  return (int)cudaErrorInvalidValue;
+    return (int)launch_flash_f32(q, k, v, bd, bd_plane, bd_ld, m, B, T, H, dh, scale, neg, out,
+                                 stream);
+  if (dtype != W_BF16 || (qkv_bytes != 16 && qkv_bytes != 8) ||
+      !copies_aligned(qkv_bytes, {(uintptr_t)q, (uintptr_t)k, (uintptr_t)v, 2u * (uintptr_t)dh}) ||
+      !copies_aligned(bd_bytes, {(uintptr_t)bd, 2u * (uintptr_t)bd_ld,
+                                 B * H > 1 ? 2u * (uintptr_t)bd_plane : 0u}))
+    return (int)cudaErrorInvalidValue;
+  if (qkv_bytes == 16)
+    return (int)launch_flash_bf16_q<16>(bd_bytes, q, k, v, bd, bd_plane, bd_ld, m, B, T, H, dh,
+                                        scale, neg, out, stream);
+  return (int)launch_flash_bf16_q<8>(bd_bytes, q, k, v, bd, bd_plane, bd_ld, m, B, T, H, dh,
+                                     scale, neg, out, stream);
+}
+
+// Dynamic shared memory of the bf16 kernel at head dim dh, and how many of
+// its blocks an SM holds at once; both written to info[0..1].
+extern "C" int flash_att_bf16_occupancy(int dh, int* info) {
+  const size_t smem = flash_bf16_smem(dh);
+  cudaError_t err = cudaFuncSetAttribute(flash_att_bf16_kernel<16, 16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = (int)smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &info[1], flash_att_bf16_kernel<16, 16>, FB_THREADS, smem);
 }

@@ -52,8 +52,9 @@ _SIGNATURES = {
                                        _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "rel_shift": {"rel_shift_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]},
-    "flash_att": {"flash_att_launch": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _F,
-                                       _F, _P, _P]},
+    "flash_att": {"flash_att_launch": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
+                                       _I, _F, _F, _P, _P],
+                  "flash_att_bf16_occupancy": [_I, _P]},
 }
 
 

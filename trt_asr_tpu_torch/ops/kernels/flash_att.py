@@ -25,21 +25,25 @@ from trt_asr_tpu_torch.ops.kernels import build as kb
 MASKED_BIAS = -1e9
 KEY_BLOCK = 128
 MAX_HEAD_DIM = 128       # FA_DMAX of csrc/flash_att.cu
+MAX_COPY_BYTES = 16      # the widest asynchronous copy (cp.async)
 
 
 def flash_bias_attention_plain(q_u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                               bd: torch.Tensor, kv_mask: torch.Tensor) -> torch.Tensor:
+                               bd: torch.Tensor, kv_mask: torch.Tensor,
+                               qk: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch. q_u, k, v [B, T, H, dh] of one
     type, bd [B, H, T, T] (unscaled), kv_mask [B, T] bool (True = attend).
-    Returns [B, T, H * dh] f32."""
+    Returns [B, T, H * dh] f32. q_u . k is an f32 einsum, unless a check
+    passes its own sums as ``qk`` [B, H, T, T] f32."""
     b, t, h, dh = q_u.shape
     if t == 0:
         return torch.zeros((b, 0, h * dh), dtype=torch.float32, device=q_u.device)
     dtype = q_u.dtype
     neg = torch.full((), MASKED_BIAS, dtype=dtype, device=q_u.device)
     bdm = torch.where(kv_mask[:, None, None, :], bd.to(dtype), neg)
-    s = (torch.einsum("bthd,bshd->bhts", q_u.float(), k.float()) + bdm.float()) \
-        * (1.0 / math.sqrt(dh))
+    if qk is None:
+        qk = torch.einsum("bthd,bshd->bhts", q_u.float(), k.float())
+    s = (qk + bdm.float()) * (1.0 / math.sqrt(dh))
     vf = v.float()
     m = torch.full((b, h, t, 1), -1e30, device=q_u.device)
     l = torch.zeros_like(m)
@@ -55,6 +59,31 @@ def flash_bias_attention_plain(q_u: torch.Tensor, k: torch.Tensor, v: torch.Tens
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)
     return out.transpose(1, 2).reshape(b, t, h * dh)
+
+
+def copy_bytes(addr: int, strides_bytes) -> int:
+    """The widest copy, a power of two up to ``MAX_COPY_BYTES``, that divides
+    a view's first address and each of its strides in bytes: every copy of
+    that width taken at those steps starts on a multiple of it."""
+    width = MAX_COPY_BYTES
+    for x in (addr, *strides_bytes):
+        while x % width:
+            width //= 2
+    return width
+
+
+def copy_widths(q_u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                bd: torch.Tensor) -> tuple:
+    """The bf16 kernel's copy widths in bytes (its template parameters):
+    for the rows of q_u, k and v [B, T, H, dh] (contiguous, so a head's row
+    starts every dh elements: 16 or 8) and for bd's rows [B, H, T, T] (its
+    row stride, and its plane stride where there is more than one plane: 16,
+    8, 4 or 2; the plain shift's view, with an odd row stride, takes 2)."""
+    b, _, h, dh = q_u.shape
+    es = q_u.element_size()
+    qkv = min(copy_bytes(x.data_ptr(), (dh * es,)) for x in (q_u, k, v))
+    strides = (bd.stride(2), bd.stride(1 if h > 1 else 0)) if b * h > 1 else (bd.stride(2),)
+    return qkv, copy_bytes(bd.data_ptr(), tuple(s * bd.element_size() for s in strides))
 
 
 def flash_bias_attention(q_u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -90,10 +119,11 @@ def flash_bias_attention(q_u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     neg = float(torch.tensor(MASKED_BIAS, dtype=dtype))
+    qkv_bytes, bd_bytes = copy_widths(q_u, k, v, bd) if dtype == torch.bfloat16 else (0, 0)
     lib = kb.load("flash_att")
     rc = lib.flash_att_launch(q_u.data_ptr(), k.data_ptr(), v.data_ptr(), bd.data_ptr(), plane,
                               ld, kv_mask.data_ptr(), b, t, h, dh, kb.DTYPE_CODES[dtype],
-                              1.0 / math.sqrt(dh), neg, out.data_ptr(),
+                              qkv_bytes, bd_bytes, 1.0 / math.sqrt(dh), neg, out.data_ptr(),
                               kb.stream_ptr(q_u.device))
     kb.check(lib, rc, "flash_bias_attention")
     flash_bias_attention.launches += 1
