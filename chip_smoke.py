@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 1. device, ``nvidia-smi`` name and power limit; build the CUDA kernels
    from ``trt_asr_tpu_torch/csrc`` (one nvcc per source, in parallel);
    each kernel's registers, spills and static shared memory (ptxas), and
-   the bf16 flash kernel's dynamic shared memory and blocks an SM.
+   the flash kernels' dynamic shared memory and blocks an SM (bf16 and
+   f32).
 2. each kernel against its plain PyTorch version on the card at the
    full-size main-path shapes (a steady chunk: 8 rows, 6 valid; f32 and
    int8 weights for the attention block, the joint step, the FFN and the
@@ -41,7 +42,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    below T 128, is checked and timed beside it). bf16 flash is held to its
    plain version (f32-einsum sums of q . k) at 1.5e-3 and to the plain
    version fed the tensor cores' sums at 1e-4, with the p roundings the
-   two sums flip counted and held under a limit.
+   two sums flip counted and held under a limit; f32 flash (register
+   tiles of FFMAs on the CUDA cores) at atol 2e-5 + rtol 1e-4. Then the
+   bf16 x bf16 ``matmul`` route of the bf16 weights configuration (the
+   tensor cores, at the offline FFN's shape), within one bf16 ulp of the
+   f32 product rounded once, timed beside the f32 SIMT product.
 4. the trained ``artifacts/models/gate_r3`` on the card with the kernels
    on, each token-exact against the port's CPU plain path: attention,
    joint and log-mel kernels in f32 and int8; every kernel in f32 and in
@@ -49,9 +54,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    Offline: ``transcribe_batch`` on 24- and 28-word utterances (T >= 128),
    and ``offline_encode`` + ``tdt_greedy_decode_batch`` in f32 with flash,
    token-exact with the CPU path; in bf16 with the shift and flash kernels,
-   whose encoder output must lie within twice the distance the CPU's own
-   bf16 run moves when its features move by 1e-6 (bf16 tokens are not held
-   exact: that move alone changes some).
+   with f32 weights and with the bf16 weights of
+   ``cast_params_for_compute``, whose encoder output must lie within twice
+   the distance the CPU's own bf16 run moves when its features move by
+   1e-6 (bf16 tokens are not held exact: that move alone changes some).
 5. full-width offline batch (``ModelConfig()``, the phase-3 weights): 8
    synthetic utterances of mixed length up to 30 s (one under 10 s),
    batched and padded as ``transcribe_batch`` does, through
@@ -59,10 +65,14 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    with a blank bias searched on the plain f32 arm. Arms ``off_f32``
    (plain), ``off_f32_flash`` (token-exact with ``off_f32``),
    ``off_bf16_plain`` (the two offline wrappers swapped for their plain
-   versions) and ``off_bf16`` (shift and flash kernels: its encoder output
-   lies within twice bf16's own distance from f32 of ``off_bf16_plain``'s);
-   encoder and end-to-end ms, launches, a profile of
-   one forward. ``transcribe_batch`` on the card equals per-utterance
+   versions), ``off_bf16`` (shift and flash kernels: its encoder output
+   lies within twice bf16's own distance from f32 of ``off_bf16_plain``'s)
+   and ``off_bf16w`` (the JAX package's offline bench configuration:
+   ``cast_params_for_compute``'s bf16 weights, bf16 compute, the shift and
+   flash kernels; finite, tokens emitted, its products on the tensor
+   cores: its f32 SIMT GEMM time under half of ``off_bf16``'s); encoder
+   and end-to-end ms, launches, a profile of one forward.
+   ``transcribe_batch`` on the card equals per-utterance
    ``transcribe_offline`` on the card.
 6. neither ``jax`` nor ``trt_asr_tpu`` was imported.
 
@@ -235,8 +245,8 @@ def ptxas_kernels(text: str):
 
 def log_resources(build) -> None:
     """Registers, spills and static shared memory of every kernel (ptxas),
-    and the bf16 flash kernel's dynamic shared memory and the blocks an SM
-    holds at the full-width head dim (the CUDA occupancy API)."""
+    and the flash kernels' dynamic shared memory and the blocks an SM holds
+    (bf16 at the full-width head dim; the CUDA occupancy API)."""
     import ctypes
 
     for src in build.SOURCES:
@@ -249,6 +259,9 @@ def log_resources(build) -> None:
                 "flash_att_bf16_occupancy")
     log(f"  flash_att[bf16] at dh 128: {info[0]} B of dynamic shared memory, {info[1]} "
         f"blocks an SM")
+    build.check(lib, lib.flash_att_f32_occupancy(ctypes.addressof(info)),
+                "flash_att_f32_occupancy")
+    log(f"  flash_att[f32]: {info[0]} B of dynamic shared memory, {info[1]} blocks an SM")
 
 
 # --- phase 2: kernels against their plain versions ---------------------------
@@ -580,6 +593,47 @@ def check_offline_kernels(torch, dev, timer, cfg, t_steps: int, lengths):
     return records
 
 
+def f32_gemm_ms(rows) -> float:
+    """Device ms of cuBLAS's f32 SIMT products (``...f32f32...ffma``,
+    ``sgemm``) among profile rows."""
+    return sum(us for us, key, _ in rows
+               if "gemm" in key.lower() and ("f32f32" in key or "sgemm" in key)) / 1e3
+
+
+def check_bf16_matmul(torch, dev, timer, rows: int, cfg) -> None:
+    """``ops.common.matmul`` of bf16 activations and bf16 weights (the bf16
+    weights configuration) at the offline FFN's shape [rows, d] x [d, 4d]:
+    bf16, within one bf16 ulp of the f32 product rounded once (the ulp
+    floored near zero at twice the f32 product's own distance from the
+    f64 product: there one ulp is below the f32 sums' error), and its time
+    beside the f32 SIMT product of the same operands (TF32 off)."""
+    from trt_asr_tpu_torch.ops.common import matmul
+
+    rng = np.random.default_rng(99)
+    d, e = cfg.d_model, cfg.d_model * cfg.ff_expansion_factor
+    a = torch.as_tensor(rng.standard_normal((rows, d)).astype(np.float32), device=dev)
+    w = torch.as_tensor((rng.standard_normal((d, e)) / math.sqrt(d)).astype(np.float32),
+                        device=dev)
+    a, w = a.to(torch.bfloat16), w.to(torch.bfloat16)
+    got = matmul(a, w)
+    f32 = a.float() @ w.float()
+    floor = 2 * float((f32.double() - a.double() @ w.double()).abs().max())
+    want = f32.to(torch.bfloat16).float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+    diff = (got.float() - want).abs()
+    past = float((diff > ulp).float().mean())
+    worst = float((diff - ulp.clamp_min(floor)).max())
+    af, wf = a.float(), w.float()
+    ms_bf16 = timer(lambda: matmul(a, w))
+    ms_f32 = timer(lambda: af @ wf)
+    log(f"matmul[bf16 x bf16] [{rows}, {d}] x [{d}, {e}]: {got.dtype}, {past:.3g} of the values "
+        f"past one bf16 ulp of the f32 product (limit 1e-4; the near-zero floor {floor:.3g}: "
+        f"worst excess {worst:.3g}); {ms_bf16:.4f} ms on the tensor cores against {ms_f32:.4f} "
+        f"ms for the f32 SIMT product")
+    assert got.dtype == torch.bfloat16, "bf16 x bf16 matmul does not return bf16"
+    assert worst <= 0 and past <= 1e-4, "bf16 x bf16 matmul lies past one bf16 ulp"
+
+
 # --- phases 3 and 4: sessions ----------------------------------------------
 
 
@@ -658,9 +712,10 @@ def profile_session(torch, label, model, rt, audio, piece: int) -> None:
                 lambda: len(run_session(torch, model, rt, audio, piece).chunk_latencies_ms))
 
 
-def profile_run(torch, label, unit: str, fn) -> None:
+def profile_run(torch, label, unit: str, fn):
     """Device busy share and kernel time by name over ``fn()``, which
-    returns how many units of work it did, with torch.profiler."""
+    returns how many units of work it did, with torch.profiler. Returns the
+    (device us, kernel name, launches) rows."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -685,6 +740,7 @@ def profile_run(torch, label, unit: str, fn) -> None:
         if key.startswith(("port::", "void port::")):
             log(f"  kernel {key.split('(')[0][:60]}: {dev_us / count:.2f} us a launch, "
                 f"{count}x")
+    return rows
 
 
 def decode_and_sync_counts(torch, model, rt, audio, piece: int):
@@ -946,17 +1002,29 @@ def enc_diff(torch, ra, rb) -> float:
     return float(((ea - eb).abs() * valid[..., None]).max())
 
 
+def cast_weights(torch, model):
+    """``model`` with the bf16 weights of ``cast_params_for_compute`` (the
+    norm parameters stay f32), its per-layer views made anew."""
+    from trt_asr_tpu_torch.models.parakeet import cast_params_for_compute
+    from trt_asr_tpu_torch.models.parakeet.encoder import layer_params
+
+    model.params = cast_params_for_compute(model.params, torch.bfloat16)
+    model.layers = layer_params(model.params, model.cfg.num_layers)
+    return model
+
+
 def gate_r3_offline(torch, dev):
     """gate_r3 offline on 24- and 28-word utterances (T >= 128, so the
     shift kernel's auto gate opens on the card): ``transcribe_batch`` on the
     card equals the CPU path; offline_encode + decode in f32 with flash
     equals the CPU path token for token. In bf16 (shift and flash kernels
-    on the card, their plain versions on the CPU) the encoder output must
-    lie within twice the CPU's own bf16 noise floor of the CPU path's: the
-    same CPU run on features moved by 1e-6 (the size of the frontend's
-    card/CPU gap). Both distances are single draws of one chaotic spread,
-    so either may land above the other; a wrong result lies at the scale of
-    the output itself."""
+    on the card, their plain versions on the CPU), with f32 weights and
+    with the bf16 weights of ``cast_params_for_compute``, the encoder
+    output must lie within twice the CPU's own bf16 noise floor of the CPU
+    path's: the same CPU run on features moved by 1e-6 (the size of the
+    frontend's card/CPU gap). Both distances are single draws of one
+    chaotic spread, so either may land above the other; a wrong result
+    lies at the scale of the output itself."""
     from trt_asr_tpu_torch.config import RuntimeConfig
     from trt_asr_tpu_torch.models.parakeet.model import ParakeetTDT
     from trt_asr_tpu_torch.ops.conv import subsampled_length
@@ -971,9 +1039,11 @@ def gate_r3_offline(torch, dev):
     log(f"gate_r3 offline transcribe_batch on the card: {[text for text, _ in got]}")
     assert got == want, "gate_r3 transcribe_batch on the card differs from the CPU path"
     n_layers = gpu.cfg.num_layers
+    both = {"rel_shift": n_layers, "flash_att": n_layers}
     for label, dtype, expect in (("f32_flash", torch.float32, {"flash_att": n_layers}),
-                                 ("bf16", torch.bfloat16,
-                                  {"rel_shift": n_layers, "flash_att": n_layers})):
+                                 ("bf16", torch.bfloat16, both), ("bf16w", torch.bfloat16, both)):
+        if label == "bf16w":
+            gpu, cpu = cast_weights(torch, gpu), cast_weights(torch, cpu)
         out = []
         for model in (gpu, cpu):
             x, lens = model.batch_features(audios)
@@ -992,27 +1062,30 @@ def gate_r3_offline(torch, dev):
         if dtype == torch.float32:
             assert rg["tokens"] == rc["tokens"], (
                 f"gate_r3 offline[{label}] card tokens differ from the CPU path")
-    x, lens = cpu.batch_features(audios)
-    valid = torch.arange(x.shape[1])[None, :, None] < torch.as_tensor(lens)[:, None, None]
-    nudge = torch.as_tensor(np.random.default_rng(1).standard_normal(x.shape), dtype=x.dtype)
-    moved = offline_run(torch, cpu, x + 1e-6 * nudge * valid, lens, torch.bfloat16, True)
-    flips = float((x.to(torch.bfloat16) != (x + 1e-6 * nudge * valid).to(torch.bfloat16))
-                  .float().mean())
-    same, total = token_agreement(moved["tokens"], rc["tokens"])
-    floor = enc_diff(torch, moved, rc)
-    log(f"gate_r3 offline[bf16] CPU noise floor: features moved by 1e-6 ({100 * flips:.3f}% of "
-        f"their bf16 values change): tokens agree at {same}/{total} positions, "
-        f"exact={moved['tokens'] == rc['tokens']}, encoder max |diff| {floor:.4g} (largest "
-        f"|output| {float(rc['enc'].abs().max()):.4g})")
-    assert card_diff <= 2 * floor, (
-        f"gate_r3 offline[bf16] card encoder lies {card_diff:.4g} from the CPU path, beyond "
-        f"twice the CPU's own bf16 noise floor {floor:.4g}")
+            continue
+        x, lens = cpu.batch_features(audios)
+        valid = torch.arange(x.shape[1])[None, :, None] < torch.as_tensor(lens)[:, None, None]
+        nudge = torch.as_tensor(np.random.default_rng(1).standard_normal(x.shape),
+                                dtype=x.dtype)
+        moved = offline_run(torch, cpu, x + 1e-6 * nudge * valid, lens, torch.bfloat16, True)
+        flips = float((x.to(torch.bfloat16) != (x + 1e-6 * nudge * valid).to(torch.bfloat16))
+                      .float().mean())
+        same, total = token_agreement(moved["tokens"], rc["tokens"])
+        floor = enc_diff(torch, moved, rc)
+        log(f"gate_r3 offline[{label}] CPU noise floor: features moved by 1e-6 "
+            f"({100 * flips:.3f}% of their bf16 values change): tokens agree at {same}/{total} "
+            f"positions, exact={moved['tokens'] == rc['tokens']}, encoder max |diff| "
+            f"{floor:.4g} (largest |output| {float(rc['enc'].abs().max()):.4g})")
+        assert card_diff <= 2 * floor, (
+            f"gate_r3 offline[{label}] card encoder lies {card_diff:.4g} from the CPU path, "
+            f"beyond twice the CPU's own bf16 noise floor {floor:.4g}")
 
 
 def full_width_offline(torch, dev, cfg, params, tok, audios):
-    """Phase 5: the full-width offline batch through its four arms; returns
+    """Phase 5: the full-width offline batch through its five arms; returns
     each arm's launch counts."""
     from trt_asr_tpu_torch.config import RuntimeConfig
+    from trt_asr_tpu_torch.models.parakeet import cast_params_for_compute
     from trt_asr_tpu_torch.models.parakeet.encoder import offline_encode
 
     model = make_model(torch, cfg, params, tok, RuntimeConfig(), dev, mel_kernel=False)
@@ -1026,14 +1099,20 @@ def full_width_offline(torch, dev, cfg, params, tok, audios):
         lambda: sum(map(len, offline_run(torch, model, x, lens, torch.float32, False)["tokens"])),
         "the batch's utterances")
     n_layers = cfg.num_layers
-    arms = {  # dtype, flash, plain wrappers, expected launches
-        "off_f32": (torch.float32, False, False, {}),
-        "off_f32_flash": (torch.float32, True, False, {"flash_att": n_layers}),
-        "off_bf16_plain": (torch.bfloat16, True, True, {}),
-        "off_bf16": (torch.bfloat16, True, False, {"rel_shift": n_layers, "flash_att": n_layers}),
+    both = {"rel_shift": n_layers, "flash_att": n_layers}
+    # the bf16 weights configuration of the JAX package's offline bench
+    # (cast after the blank bias, as bench.py casts after its own)
+    model_w = make_model(torch, cfg, cast_params_for_compute(model.params, torch.bfloat16), tok,
+                         RuntimeConfig(), dev, mel_kernel=False)
+    arms = {  # model, dtype, flash, plain wrappers, expected launches
+        "off_f32": (model, torch.float32, False, False, {}),
+        "off_f32_flash": (model, torch.float32, True, False, {"flash_att": n_layers}),
+        "off_bf16_plain": (model, torch.bfloat16, True, True, {}),
+        "off_bf16": (model, torch.bfloat16, True, False, both),
+        "off_bf16w": (model_w, torch.bfloat16, True, False, both),
     }
-    results = {}
-    for name, (dtype, flash, plain, expect) in arms.items():
+    results, gemm_ms = {}, {}
+    for name, (model, dtype, flash, plain, expect) in arms.items():
         with plain_offline_wrappers(plain):
             offline_run(torch, model, x, lens, dtype, flash)            # warm-up
             reset_counts()
@@ -1045,7 +1124,8 @@ def full_width_offline(torch, dev, cfg, params, tok, audios):
                                compute_dtype=dtype, use_flash_att=flash,
                                mask_pad_subsample=True, layers=model.layers)
                 return 1
-            profile_run(torch, f"offline[{name}] one forward", "forward", forward)
+            gemm_ms[name] = f32_gemm_ms(
+                profile_run(torch, f"offline[{name}] one forward", "forward", forward))
         results[name] = r
         log(f"offline[{name}]: encoder {r['enc_ms']:.1f} ms, end to end {r['e2e_ms']:.1f} ms "
             f"(host clock), {sum(map(len, r['tokens']))} tokens, launches {launched(r['counts'])}")
@@ -1065,12 +1145,23 @@ def full_width_offline(torch, dev, cfg, params, tok, audios):
     kernels_move = compare("off_bf16", "off_bf16_plain")[1]
     bf16_moves = compare("off_bf16_plain", "off_f32")[1]
     compare("off_bf16", "off_f32")
+    compare("off_bf16w", "off_f32")
+    compare("off_bf16w", "off_bf16")
+    log(f"f32 SIMT products (cuBLAS ...f32f32... / sgemm) in one forward: "
+        f"{ {k: round(v, 3) for k, v in gemm_ms.items()} } ms")
+    assert bool(torch.isfinite(results["off_bf16w"]["enc"]).all()), "off_bf16w is not finite"
+    assert sum(map(len, results["off_bf16w"]["tokens"])) > 0, "off_bf16w emitted no tokens"
+    # bf16 weights take the products to the tensor cores: the f32 SIMT
+    # products left are the positional projection's, off the layer weights
+    assert gemm_ms["off_bf16w"] < 0.5 * gemm_ms["off_bf16"], (
+        "off_bf16w still runs its products as f32 SIMT GEMMs")
     # the kernels may move the bf16 encoder by about as much as bf16 itself
     # moves it from f32 (two chaotic bf16 runs), not by a wrong result's size
     assert kernels_move <= 2 * bf16_moves, (
         f"off_bf16 lies {kernels_move:.4g} from off_bf16_plain, beyond twice bf16's own "
         f"distance from f32 ({bf16_moves:.4g})")
 
+    model = arms["off_f32"][0]
     t0 = time.perf_counter()
     batch = model.transcribe_batch(audios)
     t1 = time.perf_counter()
@@ -1117,6 +1208,7 @@ def main() -> int:
     audios = offline_audios(args.seed + 1)
     t_steps, sub_lens = offline_shape(audios)
     rec.update(check_offline_kernels(torch, dev, timer, cfg, t_steps, sub_lens[:-1] + [0]))
+    check_bf16_matmul(torch, dev, timer, len(audios) * t_steps, cfg)
     sess, params, tok, bias = full_width_session(torch, dev, args.words, args.seed)
     gate_r3_session(torch, dev)
     gate_r3_offline(torch, dev)

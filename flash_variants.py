@@ -1,7 +1,7 @@
-"""Variants of the bf16 flash-attention kernel, timed on the card at the
-offline batch's shapes (B 8, T 368, H 8, dh 128; the kv lengths of
-``chip_smoke.py`` phase 2), to show what its design choices buy and where
-its time goes. Run from the repository root on a machine with the card:
+"""Variants of the bf16 and f32 flash-attention kernels, timed on the card
+at the offline batch's shapes (B 8, T 368, H 8, dh 128; the kv lengths of
+``chip_smoke.py`` phase 2), to show what their design choices buy and where
+their time goes. Run from the repository root on a machine with the card:
 
     python3 flash_variants.py
 
@@ -19,6 +19,17 @@ block an SM. Diagnostic variants (their results are wrong; their error is
 printed): ``no_kv_loads`` and ``no_bias_loads`` copy K/V or the bias of
 the first key block only, ``no_loads`` both, ``no_mma`` replaces both
 products with a register operation, ``fast_exp`` takes ``__expf``.
+
+f32 variants (``f32_*``; held, as the kernel is, to the plain version at
+atol 2e-5 + rtol 1e-4, timed on the plain shift's strided view, the bias
+the f32 path passes, and on contiguous rows, beside SDPA in f32 and a
+cuBLAS f32 GEMM that calibrates the card's FFMA rate): ``f32_kt64``
+stages K and V in 64-key tiles (the kernel: 128), ``f32_q32_kt64`` also
+takes 32 query rows a block, so that two blocks share an SM; the
+diagnostics ``f32_fast_exp`` (``__expf``), ``f32_no_kv_loads`` (K and V
+of the first key block only), ``f32_no_syncs`` (no __syncthreads in the
+key walk), ``f32_no_bias_loads`` (no bias read) and ``f32_no_products``
+(neither q . k nor p . v) give wrong results, and their error is printed.
 """
 
 from __future__ import annotations
@@ -118,6 +129,20 @@ PV_MMA = """        mma_bf16(o[2 * dq], pa, vf[0], vf[1]);
         mma_bf16(o[2 * dq + 1], pa, vf[2], vf[3]);"""
 EXP = "s[nt][e] = expf(s[nt][e] - m[e >> 1]);"
 
+F32_ISSUE = "      issue(n + 1);"
+F32_SYNC = "      __syncthreads();       // tile n has landed; every thread is done with tile n - 1"
+F32_BIAS = "      bias[r][j] = key < Tn ? __ldg(bd_bh + (size_t)t * bd_ld + key) : 0.f;"
+F32_S = """            for (int jj = 0; jj < JT; ++jj)
+              s[r][part * JT + jj] = dot4(qv, kv[jj], s[r][part * JT + jj]);"""
+F32_PV = """              axpy4(p4.x, vv[0][hh], o[r][hh]);
+              axpy4(p4.y, vv[1][hh], o[r][hh]);
+              axpy4(p4.z, vv[2][hh], o[r][hh]);
+              axpy4(p4.w, vv[3][hh], o[r][hh]);"""
+F32_EXP = "            const float p = expf(s[r][j] - m_new);        // 0 for keys past T"
+F32_KT = (("constexpr int F_KT = 128;", "constexpr int F_KT = 64;"),)
+F32_Q32 = (("constexpr int F_BQ = 64;", "constexpr int F_BQ = 32;"),
+           ("constexpr int F_MIN_BLOCKS = 1;", "constexpr int F_MIN_BLOCKS = 2;"))
+
 # name -> (edits: (old, new) pairs or a function of the source, results are right)
 VARIANTS = {
     "kernel": ((), True),
@@ -135,6 +160,15 @@ VARIANTS = {
     "no_mma": (((S_MMA, "        s[2 * np][0] += __uint_as_float(kf[0] ^ qf[0]);"),
                 (PV_MMA, "        o[2 * dq][0] += __uint_as_float(vf[0] ^ pa[0]);")), False),
     "fast_exp": (((EXP, EXP.replace("expf", "__expf")),), False),
+    "f32_kernel": ((), True),
+    "f32_kt64": (F32_KT, True),
+    "f32_q32_kt64": (F32_KT + F32_Q32, True),
+    "f32_fast_exp": (((F32_EXP, F32_EXP.replace("expf", "__expf")),), False),
+    "f32_no_kv_loads": (((F32_ISSUE, "      issue(n + 1 < 2 ? n + 1 : 1 << 30);"),), False),
+    "f32_no_syncs": (((F32_SYNC, ""),), False),
+    "f32_no_bias_loads": (((F32_BIAS, F32_BIAS.replace(
+        "__ldg(bd_bh + (size_t)t * bd_ld + key)", "1.f")),), False),
+    "f32_no_products": (((F32_PV, ""), (F32_S, "")), False),
 }
 
 
@@ -176,20 +210,13 @@ def build_variants(names):
     return libs
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("flash_variants: no CUDA device", file=sys.stderr)
-        return 1
-    print(cs.smi_line())
-    libs = build_variants(VARIANTS)
+def bf16_variants(libs, timer, dev) -> None:
     info = (ctypes.c_int * 2)()
     for name, (lib, log) in libs.items():
         kb.check(lib, lib.flash_att_bf16_occupancy(128, ctypes.addressof(info)), name)
         regs = [r for r in cs.ptxas_kernels(log) if "bf16_kernelILi16ELi16" in r[0]][0]
         print(f"{name}: {regs[1]} registers, spills {regs[2]}/{regs[3]} B, {info[0]} B of "
               f"shared memory, {info[1]} blocks an SM")
-
-    dev = torch.device("cuda")
     rng = np.random.default_rng(4321)
     b, t_len, h, dh = 8, 368, 8, 128
     lens = [355, 314, 268, 232, 188, 138, 95, 0]
@@ -199,7 +226,6 @@ def main() -> int:
     pos = r(2 * t_len - 1, h, dh).to(torch.bfloat16)
     mask = torch.arange(t_len, device=dev)[None, :] < torch.as_tensor(lens, device=dev)[:, None]
     neg = float(torch.tensor(MASKED_BIAS, dtype=torch.bfloat16))
-    timer = cs.Timer(torch, dev)
     out = torch.empty((b, t_len, h * dh), dtype=torch.float32, device=dev)
     for label, bd in (("contiguous", rel_pos_bias_shifted(qv, pos, tkv=t_len)),
                       ("strided", rel_pos_bias_shifted_plain(qv, pos, tkv=t_len))):
@@ -220,6 +246,66 @@ def main() -> int:
                 f"variant {name} disagrees with the plain version"
             print(f"[{label} bias] {name}: {timer(launch):.4f} ms, max |variant - plain| "
                   f"{err:.3g}{'' if right else ' (diagnostic)'}", flush=True)
+
+
+def f32_variants(libs, timer, dev) -> None:
+    """The f32 kernel's variants beside SDPA in f32 (TF32 off), on the bias
+    as the f32 path passes it (the plain shift's strided view) and on
+    contiguous rows."""
+    info = (ctypes.c_int * 2)()
+    for name, (lib, log) in libs.items():
+        kb.check(lib, lib.flash_att_f32_occupancy(ctypes.addressof(info)), name)
+        regs = [r for r in cs.ptxas_kernels(log) if "flash_att_f32_kernel" in r[0]][0]
+        print(f"{name}: {regs[0][-40:]}: {regs[1]} registers, spills {regs[2]}/{regs[3]} B, "
+              f"{info[0]} B of shared memory (the shipped tile), {info[1]} blocks an SM")
+    rng = np.random.default_rng(4321)
+    b, t_len, h, dh = 8, 368, 8, 128
+    lens = [355, 314, 268, 232, 188, 138, 95, 0]
+    r = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(np.float32),  # noqa: E731
+                                   device=dev)
+    q, k, v, qv = (r(b, t_len, h, dh) for _ in range(4))
+    pos = r(2 * t_len - 1, h, dh)
+    mask = torch.arange(t_len, device=dev)[None, :] < torch.as_tensor(lens, device=dev)[:, None]
+    out = torch.empty((b, t_len, h * dh), dtype=torch.float32, device=dev)
+    big = r(4096, 4096)
+    ms = timer(lambda: big @ big)
+    print(f"[f32] calibration: cuBLAS f32 GEMM 4096^3 (TF32 off) {ms:.4f} ms, "
+          f"{2 * 4096 ** 3 / ms / 1e9:.1f} TFLOP/s")
+    strided = rel_pos_bias_shifted_plain(qv, pos, tkv=t_len)
+    for label, bd in (("strided", strided), ("contiguous", strided.contiguous())):
+        want = flash_bias_attention_plain(q, k, v, bd, mask)
+        sdpa_mask = torch.where(mask[:, None, None, :], bd,
+                                torch.full((), MASKED_BIAS, device=dev)) / math.sqrt(dh)
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        print(f"[f32, {label} bias] wrapper "
+              f"{timer(lambda: flash_bias_attention(q, k, v, bd, mask)):.4f} ms, SDPA "
+              f"{timer(lambda: sdpa(qh, kh, vh, attn_mask=sdpa_mask)):.4f} ms")
+        for name, (lib, _) in libs.items():
+            def launch(lib=lib):
+                kb.check(lib, lib.flash_att_launch(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), bd.data_ptr(), bd.stride(1),
+                    bd.stride(2), mask.data_ptr(), b, t_len, h, dh, 0, 0, 0,
+                    1.0 / math.sqrt(dh), MASKED_BIAS, out.data_ptr(), kb.stream_ptr(dev)), name)
+            launch()
+            err = float((out - want).abs().max())
+            excess = float(((out - want).abs() - 1e-4 * want.abs()).max())
+            right = VARIANTS[name][1]
+            assert excess <= 2e-5 or not right, f"variant {name} disagrees with the plain version"
+            print(f"[f32, {label} bias] {name}: {timer(launch):.4f} ms, max |variant - plain| "
+                  f"{err:.3g}{'' if right else ' (diagnostic)'}", flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("flash_variants: no CUDA device", file=sys.stderr)
+        return 1
+    print(cs.smi_line())
+    dev = torch.device("cuda")
+    timer = cs.Timer(torch, dev)
+    libs = build_variants(VARIANTS)
+    bf16_variants({n: lib for n, lib in libs.items() if not n.startswith("f32_")}, timer, dev)
+    f32_variants({n: lib for n, lib in libs.items() if n.startswith("f32_")}, timer, dev)
     return 0
 
 

@@ -3,7 +3,8 @@ versions on a CUDA device: the fused attention block, the fused joint step,
 the fused log-mel, the fused FFN, the fused conv module and the fused conv
 + FFN2 + out-LN tail, with f32, bf16 and int8 weights where the kernel
 takes them; the offline rel-shift and flash-attention kernels in f32 and
-bf16; the wrappers raise, and do not fall back, on inputs the kernels do
+bf16; the bf16 x bf16 route of ``ops.common.matmul``; the wrappers
+raise, and do not fall back, on inputs the kernels do
 not take; the gate_r3 streaming session and offline transcription with the
 kernels on against the same runs on the CPU.
 
@@ -24,7 +25,9 @@ tensor cores', and one f32 ulp of a score can flip p's bf16 rounding at a
 key: 7.8e-4 read on the H100 at the offline shapes, against 2.5e-3 for
 the plain version with p unrounded) and 1e-4 against the plain version fed
 the tensor cores' sums (it rounds p at the same keys; the plain version
-with p unrounded lies farther); session and transcript tokens exact."""
+with p unrounded lies farther); ``ops.common.matmul`` of bf16 by bf16 (the
+tensor cores) one bf16 ulp of the f32 product, the ulp floored near zero at
+twice the f32 product's own error; session and transcript tokens exact."""
 
 import math
 
@@ -276,18 +279,20 @@ def test_rel_shift_kernel_matches_plain(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_att_kernel_matches_plain(dtype):
     """Mixed lengths with a zero-length row; bd both as the plain shift's
-    strided view and contiguous. The bf16 kernel's edges: T across its
-    64-row query tiles and 128-key blocks (1, 63, 64, 65, 129), dh 20 (not a
-    multiple of 16: zero-filled), and every copy width of its rows (q/k/v
-    16 and 8 bytes; bd 16, 8, 4 and 2: contiguous rows of 68, 66 and 65
-    keys are 8-, 4- and 2-byte aligned)."""
+    strided view and contiguous. The kernels' edges: T across their 64-row
+    query tiles, 64-key f32 K/V tiles and 128-key blocks (1, 63, 64, 65,
+    129; 300, not a multiple of 64, over three key blocks), dh 20 (not a
+    multiple of 16: zero-filled in bf16) and 16 to 128, and every copy width
+    of the bf16 kernel's rows (q/k/v 16 and 8 bytes; bd 16, 8, 4 and 2:
+    contiguous rows of 68, 66 and 65 keys are 8-, 4- and 2-byte aligned)."""
     dev = require_cuda()
     widths = set()
     for b, t, h, dh, lens in [(3, 37, 2, 64, [37, 29, 0]), (2, 130, 4, 16, [130, 101]),
                               (2, 384, 8, 128, [384, 0]), (2, 1, 2, 32, [1, 0]),
                               (3, 63, 2, 32, [63, 17, 0]), (2, 64, 2, 128, [64, 0]),
                               (2, 65, 2, 32, [65, 0]), (2, 129, 2, 64, [129, 0]),
-                              (2, 66, 1, 20, [66, 0]), (2, 68, 2, 20, [50, 0])]:
+                              (2, 66, 1, 20, [66, 0]), (2, 68, 2, 20, [50, 0]),
+                              (2, 300, 4, 128, [300, 177])]:
         r = randn(dev, t + dh)
         q, k, v = (r(b, t, h, dh, sc=1.0).to(dtype) for _ in range(3))
         bd = rel_pos_bias_shifted_plain(r(b, t, h, dh, sc=0.3).to(dtype),
@@ -320,6 +325,33 @@ def test_flash_att_kernel_matches_plain(dtype):
                 assert float((got - unrounded)[has_key].abs().max()) > atol
     if dtype == torch.bfloat16:
         assert {w for w, _ in widths} == {16, 8} and {w for _, w in widths} == {16, 8, 4, 2}
+
+
+@pytest.mark.cuda
+def test_bf16_matmul_runs_on_the_tensor_cores_within_one_ulp():
+    """ops.common.matmul of bf16 activations and bf16 weights (the bf16
+    weights configuration) at the offline batch's FFN shape: a bf16 result
+    within one bf16 ulp of the f32 product rounded once to bf16 (the same
+    products, summed in another order). Near zero one bf16 ulp is smaller
+    than the f32 sums' own error, so the ulp there is floored at twice the
+    f32 product's distance from the exact (f64) product; at most 1e-4 of
+    the values may need that floor."""
+    from trt_asr_tpu_torch.ops.common import matmul
+
+    dev = require_cuda()
+    r = randn(dev, 77)
+    a, w = r(8 * 368, 1024, sc=1.0).to(torch.bfloat16), r(1024, 4096, sc=0.03).to(torch.bfloat16)
+    got = matmul(a, w)
+    assert got.dtype == torch.bfloat16 and got.shape == (8 * 368, 4096)
+    f32 = a.float() @ w.float()
+    floor = 2 * float((f32.double() - a.double() @ w.double()).abs().max())
+    want = f32.to(torch.bfloat16).float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+    diff = (got.float() - want).abs()
+    assert bool((diff <= ulp.clamp_min(floor)).all()), (
+        f"max |diff| past max(ulp, {floor:.3g}): {float((diff - ulp.clamp_min(floor)).max()):.3g}")
+    share = float((diff > ulp).float().mean())
+    assert share <= 1e-4, f"{share:.3g} of the values lie past one bf16 ulp"
 
 
 @pytest.mark.cuda

@@ -31,6 +31,7 @@ from trt_asr_tpu.config import ModelConfig as JConfig
 from trt_asr_tpu.decode import tdt_greedy as jtdt
 from trt_asr_tpu.models.parakeet import encoder as jenc
 from trt_asr_tpu.models.parakeet.model import ParakeetTDT as JModel
+from trt_asr_tpu.models.parakeet.params import cast_params_for_compute as j_cast
 from trt_asr_tpu.models.parakeet.params import init_params as j_init
 from trt_asr_tpu_torch import transcribe_batch as cli
 from trt_asr_tpu_torch.config import ModelConfig
@@ -38,6 +39,7 @@ from trt_asr_tpu_torch.decode import tdt_greedy as ptdt
 from trt_asr_tpu_torch.decode.batched import tdt_greedy_decode_batch
 from trt_asr_tpu_torch.io.wav import load_wav, save_wav
 from trt_asr_tpu_torch.models.parakeet import encoder as penc
+from trt_asr_tpu_torch.models.parakeet import cast_params_for_compute
 from trt_asr_tpu_torch.models.parakeet.model import ParakeetTDT
 from trt_asr_tpu_torch.models.parakeet.params import params_from_numpy
 from trt_asr_tpu_torch.ops import attention as patt
@@ -51,6 +53,14 @@ def models():
     cfg_j = JConfig.tiny()
     params_j = j_init(cfg_j, seed=11)
     return cfg_j, params_j, ModelConfig.tiny(), params_from_numpy(np_tree(params_j))
+
+
+@pytest.fixture(scope="module")
+def cast_models(models):
+    """The tiny models with cast_params_for_compute's bf16 weights."""
+    cfg_j, params_j, cfg, params = models
+    return (cfg_j, j_cast(params_j, jnp.bfloat16), cfg,
+            cast_params_for_compute(params, torch.bfloat16))
 
 
 def encoder_inputs(cfg):
@@ -91,11 +101,18 @@ def jax_offline_encode_bf16(params_j, cfg_j, feats, lengths, **kw):
     return compiled(params_j, **args)
 
 
-@pytest.mark.parametrize("flash,shift_kernel", [(False, False), (True, False), (False, True),
-                                                (True, True)])
-def test_offline_encode_bf16_matches_jax(models, flash, shift_kernel, monkeypatch):
+KERNEL_FLAGS = [(False, False), (True, False), (False, True), (True, True)]
+
+
+@pytest.mark.parametrize("weights,flash,shift_kernel", [
+    pytest.param(w, f, s, id=f"{f}-{s}" if w == "f32" else f"bf16w-{f}-{s}")
+    for w in ("f32", "bf16") for f, s in KERNEL_FLAGS])
+def test_offline_encode_bf16_matches_jax(models, cast_models, weights, flash, shift_kernel,
+                                         monkeypatch):
     """bf16 offline_encode (padded tails masked) against the JAX package in
-    bf16: the rounding points of the subsampler, the layers, the positional
+    bf16, with f32 weights and with the weights of cast_params_for_compute
+    (bf16 but the norm parameters: the JAX package's bf16 configuration):
+    the rounding points of the subsampler, the layers, the positional
     projection and the offline attention, with the flash wrapper and, forced,
     the rel-shift wrapper on the path. XLA's CPU backend expands a bf16
     logistic as 1 / (1 + exp(-x)) with each step rounded to bf16, where
@@ -106,7 +123,7 @@ def test_offline_encode_bf16_matches_jax(models, flash, shift_kernel, monkeypatc
     bit for bit). A subsampler that rounds its depthwise weights to bf16
     puts about half of a row's values past it, and so does XLA's own bf16
     sigmoid (the next test)."""
-    cfg_j, params_j, cfg, params = models
+    cfg_j, params_j, cfg, params = models if weights == "f32" else cast_models
     xla_sigmoid = jax.nn.sigmoid
     monkeypatch.setattr(jax.nn, "sigmoid",
                         lambda a: xla_sigmoid(a.astype(jnp.float32)).astype(a.dtype))
@@ -277,6 +294,39 @@ def test_transcribe_matches_jax_gate_r3():
     assert all(ids for _, ids in want)
     assert [pm.transcribe_offline(a) for a in audios] == want
     assert pm.transcribe_batch(audios) == jm.transcribe_batch(audios) == want
+
+
+def test_decode_batch_with_cast_gate_r3_matches_jax():
+    """The offline bench path's decode with cast_params_for_compute's bf16
+    weights (bf16 predictor embedding and LSTM, bf16 joint): gate_r3, the
+    JAX package's bf16 encoder output of two utterances, decoded by both
+    packages token for token."""
+    from trt_asr_tpu.decode import batched as jbat
+
+    jm = JModel.from_model_dir(GATE_R3)
+    pm = ParakeetTDT.from_model_dir(GATE_R3, device="cpu")
+    params_j = j_cast(jm.params, jnp.bfloat16)
+    params = cast_params_for_compute(pm.params, torch.bfloat16)
+    x, lens = pm.batch_features([synth_audio(seed=s, words=w) for s, w in ((43, 7), (44, 4))])
+    enc, t_enc = jax_offline_encode_bf16(params_j, jm.cfg, x.numpy(), lens,
+                                         mask_pad_subsample=True)
+    enc = np.array(enc.astype(jnp.float32))
+    t_enc = np.asarray(t_enc).astype(np.int32)
+    kw = dict(max_tokens=pm.cfg.max_symbols_per_timestep * enc.shape[1], use_pallas_joint=True,
+              with_timestamps=True)
+    sj = jtdt.prime_decode_state(params_j, jm.cfg, jtdt.init_decode_state(jm.cfg, 2),
+                                 jm.prompt_ids)
+    sp = ptdt.prime_decode_state(params, pm.cfg, ptdt.init_decode_state(pm.cfg, 2),
+                                 pm.prompt_ids)
+    tj, nj, sj, stamps_j = jbat.tdt_greedy_decode_batch(
+        params_j, jm.cfg, jnp.asarray(enc), jnp.asarray(t_enc), sj, pallas_interpret=True, **kw)
+    tp, np_, sp, stamps_p = tdt_greedy_decode_batch(params, pm.cfg, t(enc), t(t_enc), sp, **kw)
+    assert int(np.asarray(nj).min()) > 0
+    np.testing.assert_array_equal(np_.numpy(), np.asarray(nj))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(tj))
+    for got, want in zip(stamps_p[:2], stamps_j[:2]):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(sp.y_id.numpy(), np.asarray(sj.y_id))
 
 
 def test_batch_cli(tmp_path, capsys):

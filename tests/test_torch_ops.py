@@ -2,14 +2,16 @@
 quant, conv, lstm and the streaming branch of the rel-pos attention.
 
 Tolerance: 1e-5 absolute for f32 results (the two frameworks sum in
-different orders); integer and quantization results exact."""
+different orders); one bf16 ulp for a bf16 x bf16 product (the same f32
+sums in another order, rounded once); integer and quantization results
+exact."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import t
+from torch_port_helpers import assert_within_bf16_ulp, t
 
 from trt_asr_tpu.ops import attention as j_att
 from trt_asr_tpu.ops import common as j_common
@@ -57,6 +59,23 @@ def test_matmul_and_einsum_f32():
     b = rnd(rng, 4, 9, 32)
     close(p_common.einsum("btd,bsd->bts", t(a), t(b)),
           j_common.einsum("btd,bsd->bts", jnp.asarray(a), jnp.asarray(b)), atol=3e-5)
+
+
+@pytest.mark.parametrize("weight", ["bf16", "f32"])
+def test_matmul_bf16_activations(weight):
+    """bf16 activations times bf16 weights (cast_params_for_compute) and
+    times f32 weights: a bf16 result within one bf16 ulp of JAX's."""
+    rng = np.random.default_rng(3)
+    a = rnd(rng, 3, 11, 96)
+    w = rnd(rng, 96, 40, scale=0.1)
+    ja, jw = jnp.asarray(a, jnp.bfloat16), jnp.asarray(w)
+    pa, pw = t(a).to(torch.bfloat16), t(w)
+    if weight == "bf16":
+        jw, pw = jw.astype(jnp.bfloat16), pw.to(torch.bfloat16)
+    got = p_common.matmul(pa, pw)
+    want = j_common.matmul(ja, jw)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    assert_within_bf16_ulp(got, np.array(want.astype(jnp.float32)))
 
 
 @pytest.mark.parametrize("shape", [(16, 24), (3, 64, 40)])

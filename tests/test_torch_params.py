@@ -1,22 +1,27 @@
 """PyTorch port parameters against the JAX package: seeded init is bit for
 bit the same, gate_r3 loads to the same tensors, the manifest check rejects
-a corrupted tensor, the weight bridge round-trips, and int8 quantization is
-exact for every scope."""
+a corrupted tensor, the weight bridge round-trips, int8 quantization is
+exact for every scope, and ``cast_params_for_compute`` (the bf16-weights
+configuration) casts the same leaves to the same values."""
 
 import json
 import os
 import shutil
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from torch_port_helpers import GATE_R3, assert_tree_equal, np_tree
 
 from trt_asr_tpu.config import ModelConfig as JConfig
+from trt_asr_tpu.models.parakeet.params import cast_params_for_compute as j_cast
 from trt_asr_tpu.models.parakeet.params import init_params as j_init
 from trt_asr_tpu.models.parakeet.params import load_checkpoint as j_load
 from trt_asr_tpu.models.parakeet.quant import quantize_params as j_quantize
 from trt_asr_tpu_torch.config import ModelConfig
+from trt_asr_tpu_torch.models.parakeet import cast_params_for_compute
 from trt_asr_tpu_torch.models.parakeet.params import (
     init_params,
     load_checkpoint,
@@ -89,3 +94,42 @@ def test_from_model_dir_device_and_joint_dur_first():
     assert str(m.params["joint"]["out"]["w"].device) == "cpu"
     assert os.path.exists(os.path.join(GATE_R3, "vocab.txt"))
     assert len(m.tokenizer) == m.cfg.vocab_size
+
+
+@pytest.mark.parametrize("model", ["tiny", "gate_r3"])
+def test_cast_params_for_compute_matches_jax(model):
+    """Leaf for leaf: the same type (bf16 weights, f32 norm parameters) and
+    bit-equal values, after the JAX tree goes through the weight bridge."""
+    if model == "tiny":
+        jp, pp = j_init(JConfig.tiny(), seed=6), init_params(ModelConfig.tiny(), seed=6)
+    else:
+        jp, pp = j_load(GATE_R3), load_checkpoint(GATE_R3)
+    want = params_from_numpy(np_tree(j_cast(jp, jnp.bfloat16)))
+    got = cast_params_for_compute(pp, torch.bfloat16)
+    kept = []
+
+    def compare(g, w, path):
+        if isinstance(g, dict):
+            assert set(g) == set(w), path
+            for k in g:
+                compare(g[k], w[k], f"{path}/{k}")
+        elif isinstance(g, list):
+            assert len(g) == len(w), path
+            for i, (x, y) in enumerate(zip(g, w)):
+                compare(x, y, f"{path}/{i}")
+        else:
+            assert g.dtype == w.dtype and g.shape == w.shape, path
+            assert torch.equal(g, w), path
+            if g.dtype == torch.float32:
+                kept.append(path.rsplit("/", 1)[-1])
+
+    compare(got, want, "")
+    assert kept and all(k.endswith(("ln_g", "ln_b", "bn_g", "bn_b", "bn_m", "bn_v"))
+                        for k in kept)
+    assert got["encoder"]["layers"]["att_wq"].dtype == torch.bfloat16
+
+
+def test_cast_params_for_compute_refuses_a_quantized_tree():
+    with pytest.raises(TypeError, match="before quantizing"):
+        cast_params_for_compute(quantize_params(init_params(ModelConfig.tiny(), seed=1), "all"),
+                                torch.bfloat16)

@@ -67,180 +67,40 @@
 // this one, if the kernel comes within 2x of its bytes bound and the math
 // shows in the profile.
 //
-// f32 (flash_att_kernel): CUDA cores, f32 throughout (TF32 would break the
-// port's f32 policy). FA_BQ = 32 query rows a block; K and V pass through
-// shared memory 32 keys at a time. Warp w owns rows 8w .. 8w+7; for the
-// scores lane l takes keys l + 32i of the key block (16-byte loads along dh,
-// consecutive rows a warp: the row pitch is an odd number of 16-byte units),
-// for p . v lane l takes the four columns 4l .. 4l+3, so every load feeds 8
-// rows. It rereads K/V once per query tile (from L2).
+// f32 (flash_att_f32_kernel): CUDA cores, FFMA only (TF32 or 3xTF32 would
+// break the port's f32 policy, which plays the reference's
+// Precision.HIGHEST). Bound by operations at the offline shapes (4.4 GFLOP,
+// 66 us at 67 TFLOP/s, against ~83 MB, 25 us). Register tiles: a block
+// owns F_BQ = 64 query rows, 8 warps of 8 rows. For S = Q K^T over a whole
+// 128-key block (one 128-row K tile), lane l of a warp owns keys l + 32j
+// (j < 4) of its 8 rows: at each 4-wide step of d, 4 float4s of K (32
+// consecutive rows a warp: the row pitch is an odd number of 16-byte units)
+// and 8 float4s of Q (broadcast) feed 128 FFMA. A row's 128 keys lie in one
+// warp, so its max and sum are warp shuffles and m, l and alpha live in
+// every lane. p goes to shared memory once a block; O += P V gives lane
+// (ct, kh) an 8 x 8 tile (columns 4ct and 64 + 4ct, keys 64kh .. 64kh + 63
+// of the block), 256 FFMA for 8 float4s of p (broadcast) and 8 of V; the
+// two key halves are summed by one shuffle at the end. K and V pass
+// through a two-stage ring of 128-row tiles copied with 16-byte cp.async
+// one tile ahead of the math, one __syncthreads a tile; the bias and mask
+// (4-byte rows at the plain shift's odd stride, 32 lanes on 32 consecutive
+// keys) are read from global memory before the products of the block.
+// ~198 KB of shared memory and ~250 registers leave one block (8 warps) an
+// SM. Sums of q . k run in d order and p . v in key order within each key
+// half, as chains of FMAs; expf, the 128-key blocks and the rounding of
+// bias, scale and the final division are the plain version's. What holds
+// it back (flash_variants.py): the products run near cuBLAS's f32 GEMM
+// rate, but the rest of the key walk (copies, bias loads, the softmax and
+// the __syncthreads, ~45% of the time with no product at all) does not
+// overlap them: every warp of the one block an SM is in the same phase.
 #include "common.cuh"
 
 #include <initializer_list>
 
 namespace port {
 
-constexpr int FA_BQ = 32;                   // query rows a block
 constexpr int FA_BLOCK = 128;               // keys a softmax block (the TPU's)
-constexpr int FA_SUB = 32;                  // keys staged at a time, one a lane
-constexpr int FA_NSUB = FA_BLOCK / FA_SUB;
-constexpr int FA_WARPS = 4;
-constexpr int FA_RPW = FA_BQ / FA_WARPS;    // query rows a warp
 constexpr int FA_DMAX = 128;                // largest head dim taken
-constexpr int FA_PLD = FA_BLOCK + 4;        // p row pitch, floats
-
-__device__ __forceinline__ void axpy4(float a, float4 x, float4& y) {
-  y.x = fmaf(a, x.x, y.x);
-  y.y = fmaf(a, x.y, y.y);
-  y.z = fmaf(a, x.z, y.z);
-  y.w = fmaf(a, x.w, y.w);
-}
-
-// rows t0 .. t0 + rows - 1 of src (rows `step` apart, dh values each) into
-// dst as f32 with a row pitch of ld4 float4s; rows past Tn are zero
-__device__ __forceinline__ void stage_rows(float4* dst, int ld4, const float* __restrict__ src,
-                                           size_t step, int t0, int rows, int Tn, int dh) {
-  const int nd4 = dh / 4;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < rows * nd4; i += blockDim.x) {
-    const int r = i / nd4, c = i - r * nd4, t = t0 + r;
-    dst[r * ld4 + c] =
-        t < Tn ? load4_f(src + t * step + 4 * c) : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-__global__ void __launch_bounds__(FA_WARPS * 32)
-flash_att_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ bd, int bd_plane, int bd_ld,
-                 const uint8_t* __restrict__ mask, int Tn, int H, int dh, float scale,
-                 float neg, float* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  const int ld4 = pitch4(dh), nd4 = dh / 4;
-  float4* q_s = smem4;                       // [FA_BQ][ld4]
-  float4* k_s = q_s + FA_BQ * ld4;           // [FA_SUB][ld4]
-  float4* v_s = k_s + FA_SUB * ld4;          // [FA_SUB][nd4]
-  float* p_s = reinterpret_cast<float*>(v_s + FA_SUB * nd4);   // [FA_BQ][FA_PLD]
-  const int q0 = blockIdx.x * FA_BQ, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const size_t step = (size_t)H * dh;                        // between time steps
-  const size_t base = (size_t)b * Tn * step + (size_t)h * dh;  // (b, t = 0, h, d = 0)
-  const float* bd_bh = bd + (size_t)(b * H + h) * bd_plane;
-  const uint8_t* mask_b = mask + (size_t)b * Tn;
-  const bool owns_cols = 4 * lane < dh;
-
-  stage_rows(q_s, ld4, q + base, step, q0, FA_BQ, Tn, dh);
-  float m[FA_RPW], l[FA_RPW];
-  float4 acc[FA_RPW];
-#pragma unroll
-  for (int rr = 0; rr < FA_RPW; ++rr) {
-    m[rr] = -1e30f;
-    l[rr] = 0.f;
-    acc[rr] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  const float4* qr = q_s + w * FA_RPW * ld4;
-
-  for (int kb = 0; kb < Tn; kb += FA_BLOCK) {
-    // scores of this key block: lane l, sub-tile i -> key kb + 32 i + l
-    float sc[FA_RPW][FA_NSUB];
-#pragma unroll
-    for (int i = 0; i < FA_NSUB; ++i) {
-      __syncthreads();                       // k_s is free (and q_s staged)
-      stage_rows(k_s, ld4, k + base, step, kb + i * FA_SUB, FA_SUB, Tn, dh);
-      __syncthreads();
-      float dot[FA_RPW];
-#pragma unroll
-      for (int rr = 0; rr < FA_RPW; ++rr) dot[rr] = 0.f;
-      for (int d4 = 0; d4 < nd4; ++d4) {
-        const float4 kv = k_s[lane * ld4 + d4];
-#pragma unroll
-        for (int rr = 0; rr < FA_RPW; ++rr) dot[rr] = dot4(qr[rr * ld4 + d4], kv, dot[rr]);
-      }
-      const int key = kb + i * FA_SUB + lane;
-      const bool keep = key < Tn && mask_b[key];
-#pragma unroll
-      for (int rr = 0; rr < FA_RPW; ++rr) {
-        const int t = min(q0 + w * FA_RPW + rr, Tn - 1);   // rows past T are not written
-        const float bias = keep ? bd_bh[(size_t)t * bd_ld + key] : neg;
-        sc[rr][i] = key < Tn ? __fmul_rn(__fadd_rn(dot[rr], bias), scale) : -INFINITY;
-      }
-    }
-    // online softmax over the block, row by row
-#pragma unroll
-    for (int rr = 0; rr < FA_RPW; ++rr) {
-      float mx = sc[rr][0];
-#pragma unroll
-      for (int i = 1; i < FA_NSUB; ++i) mx = fmaxf(mx, sc[rr][i]);
-      const float m_new = fmaxf(m[rr], warp_max(mx));
-      const float alpha = expf(m[rr] - m_new);
-      float psum = 0.f;
-      float* prow = p_s + (w * FA_RPW + rr) * FA_PLD;
-#pragma unroll
-      for (int i = 0; i < FA_NSUB; ++i) {
-        const float p = expf(sc[rr][i] - m_new);        // 0 for keys past T
-        psum += p;
-        prow[i * FA_SUB + lane] = p;
-      }
-      l[rr] = __fadd_rn(__fmul_rn(l[rr], alpha), warp_sum(psum));
-      m[rr] = m_new;
-      acc[rr].x *= alpha;
-      acc[rr].y *= alpha;
-      acc[rr].z *= alpha;
-      acc[rr].w *= alpha;
-    }
-    // p . v, 32 keys at a time
-#pragma unroll
-    for (int i = 0; i < FA_NSUB; ++i) {
-      __syncthreads();                       // v_s is free; p_s rows written
-      stage_rows(v_s, nd4, v + base, step, kb + i * FA_SUB, FA_SUB, Tn, dh);
-      __syncthreads();
-      if (!owns_cols) continue;
-      for (int j = 0; j < FA_SUB; j += 4) {
-        float4 vj[4];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) vj[jj] = v_s[(j + jj) * nd4 + lane];
-#pragma unroll
-        for (int rr = 0; rr < FA_RPW; ++rr) {
-          const float4 p4 = *reinterpret_cast<const float4*>(
-              p_s + (w * FA_RPW + rr) * FA_PLD + i * FA_SUB + j);
-          axpy4(p4.x, vj[0], acc[rr]);
-          axpy4(p4.y, vj[1], acc[rr]);
-          axpy4(p4.z, vj[2], acc[rr]);
-          axpy4(p4.w, vj[3], acc[rr]);
-        }
-      }
-    }
-  }
-
-  if (!owns_cols) return;
-#pragma unroll
-  for (int rr = 0; rr < FA_RPW; ++rr) {
-    const int t = q0 + w * FA_RPW + rr;
-    if (t >= Tn) continue;
-    const float denom = fmaxf(l[rr], 1e-30f);   // a fully masked row still has l > 0
-    float4 o = acc[rr];
-    o.x = __fdiv_rn(o.x, denom);
-    o.y = __fdiv_rn(o.y, denom);
-    o.z = __fdiv_rn(o.z, denom);
-    o.w = __fdiv_rn(o.w, denom);
-    *reinterpret_cast<float4*>(out + base + (size_t)t * step + 4 * lane) = o;
-  }
-}
-
-cudaError_t launch_flash_f32(const void* q, const void* k, const void* v, const void* bd,
-                             int bd_plane, int bd_ld, const uint8_t* mask, int B, int Tn, int H,
-                             int dh, float scale, float neg, float* out, cudaStream_t stream) {
-  const int ld4 = pitch4(dh);
-  const size_t smem = ((size_t)(FA_BQ + FA_SUB) * ld4 + (size_t)FA_SUB * (dh / 4)) *
-                          sizeof(float4) + (size_t)FA_BQ * FA_PLD * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_att_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Tn + FA_BQ - 1) / FA_BQ, H, B);
-  flash_att_kernel<<<grid, FA_WARPS * 32, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)bd, bd_plane, bd_ld,
-      mask, Tn, H, dh, scale, neg, out);
-  return cudaGetLastError();
-}
 
 // --- bf16: mma.sync + cp.async ----------------------------------------------
 
@@ -552,6 +412,246 @@ cudaError_t launch_flash_bf16_q(int bd_bytes, const void* q, const void* k, cons
   }
 }
 
+// --- f32: register tiles on the CUDA cores ----------------------------------
+
+constexpr int F_BQ = 64;                    // query rows a block, 8 a warp
+constexpr int F_THREADS = 4 * F_BQ;
+constexpr int F_MIN_BLOCKS = 1;             // blocks an SM (__launch_bounds__)
+constexpr int F_KT = 128;                   // keys a staged K or V tile
+constexpr int F_NT = FA_BLOCK / F_KT;       // K (and V) tiles a softmax block
+constexpr int F_LD4 = FA_DMAX / 4 + 1;      // row pitch of Q, K, V and p tiles, float4s (odd)
+static_assert(FA_BLOCK == 128 && F_LD4 * 4 >= FA_BLOCK + 4, "p rows fit the tile pitch");
+static_assert(F_KT % 32 == 0 && FA_BLOCK % F_KT == 0, "whole lanes of keys a tile");
+
+// Q tile, a two-stage ring of K/V tiles, p of one softmax block
+__host__ __device__ constexpr size_t flash_f32_smem() {
+  return (size_t)(2 * F_BQ + 2 * F_KT) * F_LD4 * sizeof(float4);
+}
+
+__device__ __forceinline__ void axpy4(float a, float4 x, float4& y) {
+  y.x = fmaf(a, x.x, y.x);
+  y.y = fmaf(a, x.y, y.y);
+  y.z = fmaf(a, x.z, y.z);
+  y.w = fmaf(a, x.w, y.w);
+}
+__device__ __forceinline__ void scale4(float a, float4& y) {
+  y.x *= a;
+  y.y *= a;
+  y.z *= a;
+  y.w *= a;
+}
+
+// Rows row0 .. row0 + ROWS - 1 of a row-major [Tn, step] f32 matrix, their
+// first dh values, into dst (pitch F_LD4 float4s) with 16-byte cp.async, a
+// warp a row at a time (lane c copies float4 c); rows past Tn are zero.
+template <int ROWS>
+__device__ __forceinline__ void stage_f32(float4* dst, const float* src, size_t step, int row0,
+                                          int Tn, int nd4) {
+  const int c = threadIdx.x & 31;
+  if (c >= nd4) return;
+  for (int r = threadIdx.x >> 5; r < ROWS; r += F_THREADS / 32) {
+    const int t = row0 + r;
+    const bool ok = t < Tn;
+    cp_async<16>(dst + r * F_LD4 + c, ok ? src + (size_t)t * step + 4 * c : src, ok ? 16 : 0);
+  }
+}
+
+// The bias and mask of key block kb for rows 8w .. 8w + 7 and keys
+// kb + lane + 32j: every in-range key's bias (no load waits on the mask).
+__device__ __forceinline__ void load_bias_f32(float (&bias)[8][4], bool (&keep)[4],
+                                              const float* bd_bh, int bd_ld,
+                                              const uint8_t* mask_b, int row0, int kb, int Tn) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int key = kb + lane + 32 * j;
+    keep[j] = key < Tn && mask_b[min(key, Tn - 1)];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int t = min(row0 + r, Tn - 1);               // rows past T are not written
+      bias[r][j] = key < Tn ? __ldg(bd_bh + (size_t)t * bd_ld + key) : 0.f;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(F_THREADS, F_MIN_BLOCKS)
+flash_att_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ bd, int bd_plane,
+                     int bd_ld, const uint8_t* __restrict__ mask, int Tn, int H, int dh,
+                     float scale, float neg, float* __restrict__ out) {
+  extern __shared__ __align__(16) float4 fsm[];
+  float4* q_s = fsm;                                         // [F_BQ][F_LD4]
+  float4* ring = q_s + F_BQ * F_LD4;                         // [2][F_KT][F_LD4]
+  float* p_s = reinterpret_cast<float*>(ring + 2 * F_KT * F_LD4);   // [F_BQ][4 F_LD4]
+  constexpr int PLD = 4 * F_LD4;                             // p row pitch, floats
+  const int q0 = blockIdx.x * F_BQ, h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  // warp w owns rows 8w .. 8w + 7. Scores: keys lane + 32j of a block. P V:
+  // half kh of the keys of a V tile, columns 4ct .. 4ct + 3 and 64 + 4ct ..
+  const int ct = lane & 15, kh = lane >> 4;
+  const size_t step = (size_t)H * dh;                          // between time steps
+  const size_t base = (size_t)b * Tn * step + (size_t)h * dh;  // (b, t = 0, h, d = 0)
+  const float* bd_bh = bd + (size_t)(b * H + h) * bd_plane;
+  const uint8_t* mask_b = mask + (size_t)b * Tn;
+  const int nd4 = dh / 4, ntiles = 2 * F_NT * ((Tn + FA_BLOCK - 1) / FA_BLOCK);
+
+  // tile n of key block n / (2 F_NT): its K tiles, then its V tiles
+  auto issue = [&](int n) {
+    if (n < ntiles) {
+      const int part = n % (2 * F_NT);
+      stage_f32<F_KT>(ring + (n & 1) * F_KT * F_LD4, (part < F_NT ? k : v) + base, step,
+                      n / (2 * F_NT) * FA_BLOCK + part % F_NT * F_KT, Tn, nd4);
+    }
+    cp_async_commit();
+  };
+  stage_f32<F_BQ>(q_s, q + base, step, q0, Tn, nd4);
+  issue(0);                                  // Q rides with K of the first block
+
+  float m[8], l[8], alpha[8];
+  float4 o[8][2];                            // [row 8w + r][columns 4ct.., 64 + 4ct..]
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    m[r] = -1e30f;
+    l[r] = alpha[r] = 0.f;
+    o[r][0] = o[r][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const float4* qw = q_s + 8 * w * F_LD4;
+  float* pw = p_s + 8 * w * PLD;
+
+  for (int kb = 0, n = 0; kb < Tn; kb += FA_BLOCK) {
+    float s[8][4], bias[8][4];               // keys lane + 32j of the block
+    bool keep[4];
+#pragma unroll
+    for (int part = 0; part < 2 * F_NT; ++part, ++n) {
+      cp_async_wait<0>();
+      __syncthreads();       // tile n has landed; every thread is done with tile n - 1
+      issue(n + 1);
+      const float4* tile = ring + (n & 1) * F_KT * F_LD4;
+      if (part < F_NT) {
+        // scores of the tile's keys part F_KT + lane + 32jj; the block's
+        // bias and mask are loaded first, so that the products hide their
+        // latency
+        constexpr int JT = F_KT / 32;
+        if (part == 0) load_bias_f32(bias, keep, bd_bh, bd_ld, mask_b, q0 + 8 * w, kb, Tn);
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int jj = 0; jj < JT; ++jj) s[r][part * JT + jj] = 0.f;
+        const float4* kr = tile + lane * F_LD4;
+#pragma unroll 2
+        for (int d4 = 0; d4 < nd4; ++d4) {
+          float4 kv[JT];
+#pragma unroll
+          for (int jj = 0; jj < JT; ++jj) kv[jj] = kr[32 * jj * F_LD4 + d4];
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const float4 qv = qw[r * F_LD4 + d4];
+#pragma unroll
+            for (int jj = 0; jj < JT; ++jj)
+              s[r][part * JT + jj] = dot4(qv, kv[jj], s[r][part * JT + jj]);
+          }
+        }
+        if (part < F_NT - 1) continue;
+        // online softmax over the block: a row's 128 keys lie in one warp
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int key = kb + lane + 32 * j;
+            s[r][j] = key < Tn ? __fmul_rn(__fadd_rn(s[r][j], keep[j] ? bias[r][j] : neg),
+                                           scale)
+                               : -INFINITY;
+            mx = fmaxf(mx, s[r][j]);
+          }
+          const float m_new = fmaxf(m[r], warp_max(mx));
+          alpha[r] = expf(m[r] - m_new);
+          float psum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float p = expf(s[r][j] - m_new);        // 0 for keys past T
+            psum += p;
+            pw[r * PLD + lane + 32 * j] = p;
+          }
+          l[r] = __fadd_rn(__fmul_rn(l[r], alpha[r]), warp_sum(psum));
+          m[r] = m_new;
+        }
+      } else {
+        // O += P V over half kh of this V tile's keys (p was written before
+        // this tile's __syncthreads)
+        const int hv = part - F_NT;
+        if (hv == 0) {
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            scale4(alpha[r], o[r][0]);
+            scale4(alpha[r], o[r][1]);
+          }
+        }
+        const float* pk = pw + hv * F_KT + kh * (F_KT / 2);
+        const float4* vk = tile + kh * (F_KT / 2) * F_LD4 + ct;
+#pragma unroll 2
+        for (int j = 0; j < F_KT / 2; j += 4) {
+          float4 vv[4][2];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            vv[jj][0] = vk[(j + jj) * F_LD4];
+            vv[jj][1] = vk[(j + jj) * F_LD4 + 16];
+          }
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const float4 p4 = *reinterpret_cast<const float4*>(pk + r * PLD + j);
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              axpy4(p4.x, vv[0][hh], o[r][hh]);
+              axpy4(p4.y, vv[1][hh], o[r][hh]);
+              axpy4(p4.z, vv[2][hh], o[r][hh]);
+              axpy4(p4.w, vv[3][hh], o[r][hh]);
+            }
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // sum the two key halves (lanes ct and ct + 16), each lane keeping four
+  // rows, and divide by l
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = r + 4 * kh;
+    const int t = q0 + 8 * w + row;
+    const float denom = fmaxf(kh ? l[r + 4] : l[r], 1e-30f);   // a fully masked row has l > 0
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float4 mine = kh ? o[r + 4][hh] : o[r][hh];
+      const float4 send = kh ? o[r][hh] : o[r + 4][hh];
+      mine.x += __shfl_xor_sync(0xffffffffu, send.x, 16);
+      mine.y += __shfl_xor_sync(0xffffffffu, send.y, 16);
+      mine.z += __shfl_xor_sync(0xffffffffu, send.z, 16);
+      mine.w += __shfl_xor_sync(0xffffffffu, send.w, 16);
+      const int col = 64 * hh + 4 * ct;
+      if (t < Tn && col < dh)                     // rows past T are not written
+        *reinterpret_cast<float4*>(out + base + (size_t)t * step + col) =
+            make_float4(__fdiv_rn(mine.x, denom), __fdiv_rn(mine.y, denom),
+                        __fdiv_rn(mine.z, denom), __fdiv_rn(mine.w, denom));
+    }
+  }
+}
+
+cudaError_t launch_flash_f32(const void* q, const void* k, const void* v, const void* bd,
+                             int bd_plane, int bd_ld, const uint8_t* mask, int B, int Tn, int H,
+                             int dh, float scale, float neg, float* out, cudaStream_t stream) {
+  const size_t smem = flash_f32_smem();
+  cudaError_t err = cudaFuncSetAttribute(flash_att_f32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Tn + F_BQ - 1) / F_BQ, H, B);
+  flash_att_f32_kernel<<<grid, F_THREADS, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)bd, bd_plane, bd_ld,
+      mask, Tn, H, dh, scale, neg, out);
+  return cudaGetLastError();
+}
+
 // Does every copy of `bytes` from these bases, stepping by these strides
 // (bytes), start on a multiple of `bytes`?
 inline bool copies_aligned(int bytes, std::initializer_list<uintptr_t> at) {
@@ -607,4 +707,17 @@ extern "C" int flash_att_bf16_occupancy(int dh, int* info) {
   info[0] = (int)smem;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &info[1], flash_att_bf16_kernel<16, 16>, FB_THREADS, smem);
+}
+
+// Dynamic shared memory of the f32 kernel, and how many of its blocks an SM
+// holds at once; both written to info[0..1] (its tiles are sized for
+// FA_DMAX, whatever the head dim).
+extern "C" int flash_att_f32_occupancy(int* info) {
+  const size_t smem = flash_f32_smem();
+  cudaError_t err = cudaFuncSetAttribute(flash_att_f32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = (int)smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], flash_att_f32_kernel,
+                                                            F_THREADS, smem);
 }

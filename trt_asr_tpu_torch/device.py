@@ -5,7 +5,11 @@ the card runs in full float32. cuBLAS defaults to that already, but cuDNN
 (which serves the subsampler's ``conv2d``) defaults to TF32, which keeps
 about three decimal digits and breaks closed-loop streaming parity. Both
 switches are turned off when the package is imported. This plays the role
-of the JAX package's ``Precision.HIGHEST``.
+of the JAX package's ``Precision.HIGHEST``. A bf16 x bf16 product
+(``ops/common.matmul`` with bf16 weights) runs on the tensor cores; its
+split-K partial sums are kept f32 (cuBLAS may otherwise reduce them in
+bf16), so that it rounds once, as JAX's ``preferred_element_type=f32``
+followed by a cast to bf16 does.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 def set_f32_policy() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:

@@ -123,7 +123,8 @@ def params_from_numpy(tree, device="cpu"):
     package's tree after ``jax.tree.map(np.asarray, params)``) -> the port's
     tree of torch tensors on ``device``. Structure and layouts are kept;
     int8-quantized leaves (any named tuple with ``q`` and ``s``) become
-    :class:`QuantTensor` with int8 ``q`` and f32 ``s``."""
+    :class:`QuantTensor` with int8 ``q`` and f32 ``s``; bf16 arrays (JAX's
+    ``ml_dtypes.bfloat16``) become bf16 tensors, bit for bit."""
     if _is_quant_leaf(tree):
         return QuantTensor(params_from_numpy(tree.q, device), params_from_numpy(tree.s, device))
     if isinstance(tree, dict):
@@ -133,6 +134,8 @@ def params_from_numpy(tree, device="cpu"):
     a = np.asarray(tree)
     if not (a.flags.writeable and a.flags.c_contiguous):
         a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":          # ml_dtypes' bf16, which torch cannot read
+        return torch.as_tensor(a.view(np.int16), device=device).view(torch.bfloat16)
     return torch.as_tensor(a, device=device)
 
 
@@ -157,6 +160,28 @@ def params_to(tree, device):
     if isinstance(tree, (list, tuple)):
         return [params_to(v, device) for v in tree]
     return tree.to(device)
+
+
+# leaves kept f32 by cast_params_for_compute: the norm parameters
+_F32_KEEP = ("ln_g", "ln_b", "bn_g", "bn_b", "bn_m", "bn_v")
+
+
+def cast_params_for_compute(params, dtype: torch.dtype):
+    """Cast every leaf of a float tree to ``dtype`` (bf16: the weights the
+    JAX package's bf16 configuration runs with) but those whose key path
+    names a norm parameter (``_F32_KEEP``), which stay as they are. Cast
+    before quantizing: a :class:`QuantTensor` leaf raises."""
+
+    def cast(node, keep: bool):
+        if isinstance(node, QuantTensor):
+            raise TypeError("cast_params_for_compute: cast the float tree before quantizing")
+        if isinstance(node, dict):
+            return {k: cast(v, keep or any(t in k for t in _F32_KEEP)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [cast(v, keep) for v in node]
+        return node if keep else node.to(dtype)
+
+    return cast(params, False)
 
 
 def load_checkpoint_numpy(path: str, verify: bool = True) -> Dict[str, Any]:

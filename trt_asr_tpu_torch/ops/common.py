@@ -3,7 +3,13 @@
 Float32 products run in full f32 (the precision policy in ``device.py``
 turns TF32 off). bf16 inputs are multiplied with f32 accumulation and the
 result is cast back to bf16, as the JAX package's ``preferred_element_type``
-does. ``matmul`` dispatches on :class:`QuantTensor` weights.
+does: a bf16 activation times an f32 weight is an f32 product (JAX promotes
+the pair to f32); a bf16 activation times a bf16 weight (the weights of
+``cast_params_for_compute``) goes, on the card, to cuBLAS's bf16 tensor-core
+product, whose sums are f32 (split-K reductions too: ``device.py``) and are
+rounded once to bf16. On the CPU that pair takes the f32 product of the
+widened operands, the same products summed in another order.
+``matmul`` dispatches on :class:`QuantTensor` weights.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ def matmul(a: torch.Tensor, b) -> torch.Tensor:
     """a @ b with f32 accumulation; ``b`` may be a QuantTensor."""
     if isinstance(b, QuantTensor):
         return q8_matmul(a, b)
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.matmul(a, b)
     out = torch.matmul(a.float(), b.float())
     return out.to(a.dtype) if a.dtype == torch.bfloat16 else out
 
