@@ -9,8 +9,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 1. device, ``nvidia-smi`` name and power limit; build the CUDA kernels
    from ``trt_asr_tpu_torch/csrc`` (one nvcc per source, in parallel);
    each kernel's registers, spills and static shared memory (ptxas), and
-   the flash kernels' dynamic shared memory and blocks an SM (bf16 and
-   f32).
+   the dynamic shared memory and blocks an SM of the flash kernels (bf16
+   and f32) and of the bf16 rel-shift kernel.
 2. each kernel against its plain PyTorch version on the card at the
    full-size main-path shapes (a steady chunk: 8 rows, 6 valid; f32 and
    int8 weights for the attention block, the joint step, the FFN and the
@@ -34,12 +34,20 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    Launch counts are reset just before each kernel arm and read just after.
    Phase 2 also holds the offline kernels, rel shift (f32, bf16) and
    flash attention (f32, bf16), at the offline batch's shapes (B 8, T 368,
-   H 8, dh 128; a short row and a zero-length row in the mask), with the
-   time of ``scaled_dot_product_attention`` on the same inputs beside flash,
-   flash's share of its bound and its ratio to that time. flash takes bd as
-   the path passes it at T 368: the rel-shift kernel's contiguous output in
-   bf16, the plain shift's strided view in f32 (bf16 on that view, the path
-   below T 128, is checked and timed beside it). bf16 flash is held to its
+   H 8, dh 128; a short row and a zero-length row in the mask). bf16 rel
+   shift (tensor cores) is held to its plain version within one bf16 ulp,
+   floored near zero at twice the f32 sums' distance from the f64 sums,
+   with at most 1e-4 of the values past one ulp, and to the plain version
+   fed tensor-core sums with at most 5e-5 of the values differing (none by
+   more than one ulp or that floor); the time of cuBLAS's bf16 tensor-core
+   ``bmm`` of q_v against the whole table (a superset of bd, unshifted)
+   stands beside it as a yardstick.
+   The time of ``scaled_dot_product_attention`` on the same inputs stands
+   beside flash, with flash's share of its bound and its ratio to that
+   time. flash takes bd as the path passes it at T 368: the rel-shift
+   kernel's contiguous output in bf16, the plain shift's strided view in
+   f32 (bf16 on that view, the path below T 128, is checked and timed
+   beside it). bf16 flash is held to its
    plain version (f32-einsum sums of q . k) at 1.5e-3 and to the plain
    version fed the tensor cores' sums at 1e-4, with the p roundings the
    two sums flip counted and held under a limit; f32 flash (register
@@ -245,8 +253,9 @@ def ptxas_kernels(text: str):
 
 def log_resources(build) -> None:
     """Registers, spills and static shared memory of every kernel (ptxas),
-    and the flash kernels' dynamic shared memory and the blocks an SM holds
-    (bf16 at the full-width head dim; the CUDA occupancy API)."""
+    and the dynamic shared memory and the blocks an SM holds of the flash
+    kernels and the bf16 rel-shift kernel (bf16 at the full-width head dim;
+    the CUDA occupancy API)."""
     import ctypes
 
     for src in build.SOURCES:
@@ -262,6 +271,11 @@ def log_resources(build) -> None:
     build.check(lib, lib.flash_att_f32_occupancy(ctypes.addressof(info)),
                 "flash_att_f32_occupancy")
     log(f"  flash_att[f32]: {info[0]} B of dynamic shared memory, {info[1]} blocks an SM")
+    lib = build.load("rel_shift")
+    build.check(lib, lib.rel_shift_bf16_occupancy(128, ctypes.addressof(info)),
+                "rel_shift_bf16_occupancy")
+    log(f"  rel_shift[bf16] at dh 128: {info[0]} B of dynamic shared memory, {info[1]} "
+        f"blocks an SM")
 
 
 # --- phase 2: kernels against their plain versions ---------------------------
@@ -490,6 +504,79 @@ def check_flash_bf16_sums(torch, qd, kd, vd, bd, mask, got) -> None:
     assert flips <= FLASH_FLIP_SHARE * n, "the tensor cores' sums flip too many p roundings"
 
 
+# bf16 rel shift: the kernel sums q_v . pos on the tensor cores, in another
+# order than the plain version's f32 einsum, and one f32 ulp of a sum can
+# flip its bf16 rounding; near zero the sums' own error exceeds one bf16 ulp.
+# Readings at the offline shapes on the H100 (B 8, T 368): 4.27e-6 of the
+# values past one bf16 ulp of the plain version (all within the near-zero
+# floor), 7.86e-5 differing from it, 2.42e-5 differing from the plain
+# version fed cuBLAS's tensor-core sums (2.0e-5 at B 2).
+SHIFT_PAST_ULP_SHARE = 1e-4    # values past one bf16 ulp of the plain version
+SHIFT_TC_DIFF_SHARE = 5e-5     # values differing from the plain version fed tensor-core sums
+
+
+def bf16_ulp(torch, x):
+    """One bf16 ulp (8 significant bits) of each value of x."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+def tensor_core_pd_operands(q_v, pos):
+    """q_v [B, Tq, H, dh] as [B H, Tq, dh] and pos [R, H, dh] as [B H, dh, R],
+    contiguous: the operands of ``tensor_core_pd``'s ``bmm``."""
+    b, tq, h, dh = q_v.shape
+    r = pos.shape[0]
+    qh = q_v.transpose(1, 2).reshape(b * h, tq, dh)
+    ph = pos.permute(1, 2, 0).expand(b, h, dh, r).reshape(b * h, dh, r)
+    return qh, ph
+
+
+def tensor_core_pd(torch, q_v, pos):
+    """q_v . pos [B, H, Tq, R] for bf16 q_v and pos, summed by a bf16
+    tensor-core product with f32 output (cuBLAS ``bmm``, as
+    ``tensor_core_qk``)."""
+    b, tq, h, _ = q_v.shape
+    qh, ph = tensor_core_pd_operands(q_v, pos)
+    return torch.bmm(qh, ph, out_dtype=torch.float32).view(b, h, tq, pos.shape[0])
+
+
+def check_rel_shift_bf16(torch, q_v, pos, tkv, got, want) -> None:
+    """Hold the bf16 rel-shift kernel to its plain version within one bf16
+    ulp, the ulp floored near zero at twice the f32 sums' distance from the
+    f64 sums (there one ulp is below the f32 sums' own error), with at most
+    SHIFT_PAST_ULP_SHARE of the values past one ulp; and to the plain version
+    fed tensor-core sums, shifted and rounded once, with at most
+    SHIFT_TC_DIFF_SHARE of the values differing (the plain version itself
+    differs at more), none by more than one ulp or the same floor. ``want``
+    is the plain version's output on these inputs."""
+    from trt_asr_tpu_torch.ops.kernels.rel_shift import rel_shift
+
+    want = want.float()
+    f32 = rel_shift(torch.einsum("bthd,rhd->bhtr", q_v.float(), pos.float()), tkv)
+    f64 = rel_shift(torch.einsum("bthd,rhd->bhtr", q_v.double(), pos.double()), tkv)
+    floor = 2 * float((f32.double() - f64).abs().max())
+    g = got.float()
+    diff, ulp = (g - want).abs(), bf16_ulp(torch, want)
+    past = float((diff > ulp).float().mean())
+    worst = float((diff - ulp.clamp_min(floor)).max())
+    differ_plain = float((diff > 0).float().mean())
+    tc = rel_shift(tensor_core_pd(torch, q_v, pos), tkv).to(q_v.dtype).float()
+    dtc = (g - tc).abs()
+    differ_tc = float((dtc > 0).float().mean())
+    ulp_tc = bf16_ulp(torch, torch.maximum(g.abs(), tc.abs()))
+    past_tc = int((dtc > ulp_tc).sum())
+    worst_tc = float((dtc - ulp_tc.clamp_min(floor)).max())
+    log(f"rel_shift[bf16]: max |kernel - plain| = {float(diff.max()):.3g}; {past:.3g} of the "
+        f"values past one bf16 ulp (limit {SHIFT_PAST_ULP_SHARE:g}; near-zero floor "
+        f"{floor:.3g}: worst excess {worst:.3g}); {differ_plain:.3g} of the values differ from "
+        f"the plain version, {differ_tc:.3g} from the plain version fed tensor-core sums (limit "
+        f"{SHIFT_TC_DIFF_SHARE:g}; {past_tc} past one ulp of it; worst excess over one ulp or "
+        f"the floor {worst_tc:.3g})")
+    assert worst <= 0 and past <= SHIFT_PAST_ULP_SHARE, (
+        "rel_shift[bf16] disagrees with its plain version")
+    assert worst_tc <= 0 and differ_tc <= SHIFT_TC_DIFF_SHARE, (
+        "rel_shift[bf16] disagrees with the plain version fed tensor-core sums")
+
+
 def check_offline_kernels(torch, dev, timer, cfg, t_steps: int, lengths):
     """Rel shift and flash attention against their plain versions at the
     offline batch's shapes: q/k/v [B, T, H, dh], the rel-pos table [2T-1,
@@ -521,14 +608,11 @@ def check_offline_kernels(torch, dev, timer, cfg, t_steps: int, lengths):
         err = float((got.float() - want.float()).abs().max())
         if arm == "f32":
             rel = err / float(want.abs().max())
-            tol_txt, ok = f"{rel:.3g} of the largest |value|, tolerance 1e-5", rel <= 1e-5
+            log(f"rel_shift[f32]: max |kernel - plain| = {err:.3g} ({rel:.3g} of the largest "
+                f"|value|, tolerance 1e-5)")
+            assert rel <= 1e-5, "rel_shift[f32] disagrees with its plain version"
         else:
-            w = want.float()
-            ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
-            n_bad = int(((got.float() - w).abs() > ulp).sum())
-            tol_txt, ok = f"{n_bad} values beyond one bf16 ulp, tolerance one ulp", n_bad == 0
-        log(f"rel_shift[{arm}]: max |kernel - plain| = {err:.3g} ({tol_txt})")
-        assert ok, f"rel_shift[{arm}] disagrees with its plain version"
+            check_rel_shift_bf16(torch, qv_d, pos_d, t_len, got, want)
         nbytes = (qv.numel() + pos.numel() + b * h * t_len * t_len) * es
         rec = measure(f"rel_shift[{arm}]", timer, err,
                       lambda: rel_pos_bias_shifted(qv_d, pos_d, tkv=t_len),
@@ -536,6 +620,12 @@ def check_offline_kernels(torch, dev, timer, cfg, t_steps: int, lengths):
                       nbytes, 2 * b * h * t_len * t_len * dh, op_type)
         if arm == "bf16":
             records["bf16_shift"] = rec
+            qh, ph = tensor_core_pd_operands(qv_d, pos_d)
+            bmm_ms = timer(lambda: torch.bmm(qh, ph, out_dtype=torch.float32))
+            log(f"  rel_shift[bf16] yardstick: cuBLAS bf16 tensor-core bmm of q_v against the "
+                f"whole table, {list(qh.shape)} x {list(ph.shape)} -> f32 (twice bd's columns, "
+                f"unshifted): {bmm_ms:.4f} ms; the kernel takes {rec['ms'] / bmm_ms:.2f}x its "
+                f"time, {100 * rec['bound_ms'] / rec['ms']:.1f}% of its own bound")
 
         # bd as the offline path passes it at this T: in bf16 the rel-shift
         # kernel's contiguous output (its gate opens at T >= 128), in f32 the
@@ -619,7 +709,7 @@ def check_bf16_matmul(torch, dev, timer, rows: int, cfg) -> None:
     f32 = a.float() @ w.float()
     floor = 2 * float((f32.double() - a.double() @ w.double()).abs().max())
     want = f32.to(torch.bfloat16).float()
-    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+    ulp = bf16_ulp(torch, want)
     diff = (got.float() - want).abs()
     past = float((diff > ulp).float().mean())
     worst = float((diff - ulp.clamp_min(floor)).max())

@@ -18,7 +18,10 @@ operands: an f32 value that differs in its last bit can round to a
 neighbouring bf16 value);
 joint logits 1e-4 with tokens and durations exact; log-mel 1e-3 absolute
 (log of sums that reach ~1e4, summed in another order); rel shift 1e-5 (f32)
-and one bf16 ulp (bf16: one f32 sum in another order, rounded once); flash
+and, in bf16 (tensor-core sums), one bf16 ulp of the plain version floored
+near zero at twice the f32 sums' own error, at most 1e-4 of the values past
+one ulp, and at most 5e-5 of the values differing from the plain version
+fed tensor-core sums; flash
 attention atol 2e-5 / rtol 1e-4 (f32) and, in bf16, 1.5e-3 against the
 plain version (its f32-einsum sums of q . k round otherwise than the
 tensor cores', and one f32 ulp of a score can flip p's bf16 rounding at a
@@ -35,8 +38,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import (GATE_R3, assert_within_bf16_ulp, require_cuda, synth_audio,
-                                tensor_core_qk)
+from torch_port_helpers import GATE_R3, require_cuda, synth_audio, tensor_core_qk
 
 from trt_asr_tpu_torch.config import RuntimeConfig
 from trt_asr_tpu_torch.contract import FrontendSpec
@@ -54,7 +56,7 @@ from trt_asr_tpu_torch.ops.kernels.flash_att import (copy_widths, flash_bias_att
 from trt_asr_tpu_torch.ops.kernels.joint_step import joint_step, joint_step_plain
 from trt_asr_tpu_torch.ops.kernels.mel import logmel, logmel_plain
 from trt_asr_tpu_torch.ops.kernels.rel_shift import (rel_pos_bias_shifted,
-                                                     rel_pos_bias_shifted_plain)
+                                                     rel_pos_bias_shifted_plain, rel_shift)
 from trt_asr_tpu_torch.ops.quant import quantize_tensor
 from trt_asr_tpu_torch.streaming.session import StreamingSession
 
@@ -254,15 +256,77 @@ def test_wrappers_raise_instead_of_falling_back():
         conv_ffn_ln(*conv, *tail)
 
 
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp (8 significant bits) of each value of x."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+def tensor_core_shifted_bias(q_v: torch.Tensor, pos: torch.Tensor, tkv: int) -> torch.Tensor:
+    """The plain rel-shift fed tensor-core sums: q_v . pos [B, H, Tq, R] for
+    bf16 q_v [B, Tq, H, dh] and pos [R, H, dh] summed by a bf16 tensor-core
+    product with f32 output (cuBLAS ``bmm``), shifted and rounded once."""
+    b, tq, h, dh = q_v.shape
+    r = pos.shape[0]
+    qh = q_v.transpose(1, 2).reshape(b * h, tq, dh)
+    ph = pos.permute(1, 2, 0).expand(b, h, dh, r).reshape(b * h, dh, r)
+    pd = torch.bmm(qh, ph, out_dtype=torch.float32).view(b, h, tq, r)
+    return rel_shift(pd, tkv).to(q_v.dtype)
+
+
+def assert_rel_shift_bf16_close(got, q_v, pos, tkv):
+    """The bf16 kernel sums on the tensor cores, in another order than the
+    plain version's f32 einsum. Against the plain version: one bf16 ulp,
+    floored near zero at twice the f32 sums' distance from the f64 sums
+    (there one ulp is below the f32 sums' own error), with at most 1e-4 of
+    the values past one ulp (4.3e-6 read on the H100 at B 8, T 368).
+    Against the plain version fed tensor-core sums: the same bound, and at
+    most 5e-5 of the values differ at all (2.0e-5 and 2.4e-5 read at B 2
+    and 8, T 368, where 7.9e-5 differ from the plain version). Each count
+    may exceed its share by four, so that a small shape's one or two such
+    values, at those rates, do not fail it."""
+    p = pos.to(q_v.dtype)
+    want = rel_pos_bias_shifted_plain(q_v, p, tkv=tkv).float()
+    f32 = rel_shift(torch.einsum("bthd,rhd->bhtr", q_v.float(), p.float()), tkv)
+    f64 = rel_shift(torch.einsum("bthd,rhd->bhtr", q_v.double(), p.double()), tkv)
+    floor = 2 * float((f32.double() - f64).abs().max())
+    g = got.float()
+    diff, ulp = (g - want).abs(), bf16_ulp(want)
+    assert bool((diff <= ulp.clamp_min(floor)).all()), (
+        f"max |diff| past max(ulp, {floor:.3g}): {float((diff - ulp.clamp_min(floor)).max()):.3g}")
+    past = int((diff > ulp).sum())
+    assert past <= 1e-4 * diff.numel() + 4, f"{past} of {diff.numel()} values past one bf16 ulp"
+    tc = tensor_core_shifted_bias(q_v, p, tkv).float()
+    dtc = (g - tc).abs()
+    assert bool((dtc <= bf16_ulp(torch.maximum(g.abs(), tc.abs())).clamp_min(floor)).all())
+    differ = int((dtc > 0).sum())
+    assert differ <= 5e-5 * dtc.numel() + 4, (
+        f"{differ} of {dtc.numel()} values differ from the tensor-core sums")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rel_shift_kernel_matches_plain(dtype):
+    """Both types on four shapes, among them Tq and tkv a multiple of the
+    64-row tile and of the 64-position chunk (384; bf16 also 128 with R
+    exact). bf16 (tensor cores,
+    64-row tiles walking the band in 64-position chunks) also at its edges:
+    T across the row tile (1, 63, 65, 130, 368), tkv below and above Tq, R
+    exactly Tq + tkv - 1 and longer, dh 16 to 128 (20: not a multiple of 16,
+    8-byte copies), every store width of bd's rows (tkv a multiple of 8, of
+    4, of 2, odd: 16, 8, 4 and 2 bytes) and B H = 64."""
     dev = require_cuda()
-    for b, tq, tkv, h, dh in [(1, 57, 57, 2, 32), (2, 130, 130, 2, 64), (1, 40, 70, 3, 16),
-                              (2, 384, 384, 8, 128)]:
+    cases = [(1, 57, 57, 2, 32, 3), (2, 130, 130, 2, 64, 3), (1, 40, 70, 3, 16, 3),
+             (2, 384, 384, 8, 128, 3)]
+    if dtype == torch.bfloat16:
+        cases += [(1, 1, 1, 2, 32, 0), (3, 63, 63, 2, 32, 2), (2, 65, 65, 2, 64, 0),
+                  (2, 130, 130, 4, 16, 3), (8, 368, 368, 8, 128, 0), (1, 40, 70, 3, 20, 0),
+                  (1, 70, 40, 3, 64, 5), (2, 57, 60, 2, 32, 0), (1, 129, 131, 2, 128, 1),
+                  (2, 67, 68, 2, 20, 0), (1, 66, 36, 2, 16, 0), (1, 128, 128, 2, 64, 0)]
+    widths = set()
+    for b, tq, tkv, h, dh, extra in cases:
         r = randn(dev, tq + dh)
         q_v = r(b, tq, h, dh, sc=1.0).to(dtype)
-        pos = r(tq + tkv + 2, h, dh, sc=1.0)       # longer than needed; cast inside
+        pos = r(tq + tkv - 1 + extra, h, dh, sc=1.0)       # R exact or longer; cast inside
         before = rel_pos_bias_shifted.launches
         got = rel_pos_bias_shifted(q_v, pos, tkv=tkv)
         assert rel_pos_bias_shifted.launches == before + 1
@@ -272,7 +336,10 @@ def test_rel_shift_kernel_matches_plain(dtype):
         if dtype == torch.float32:
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
         else:
-            assert_within_bf16_ulp(got, want)
+            assert_rel_shift_bf16_close(got, q_v, pos, tkv)
+            widths.add(2 * min(8, tkv & -tkv))            # bytes of a row's store
+    if dtype == torch.bfloat16:
+        assert widths == {16, 8, 4, 2}
 
 
 @pytest.mark.cuda

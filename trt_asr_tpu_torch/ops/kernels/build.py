@@ -51,7 +51,8 @@ _SIGNATURES = {
         "conv_ffn_ln_launch": _CONV + [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
                                        _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
-    "rel_shift": {"rel_shift_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]},
+    "rel_shift": {"rel_shift_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+                  "rel_shift_bf16_occupancy": [_I, _P]},
     "flash_att": {"flash_att_launch": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
                                        _I, _F, _F, _P, _P],
                   "flash_att_bf16_occupancy": [_I, _P], "flash_att_f32_occupancy": [_P]},

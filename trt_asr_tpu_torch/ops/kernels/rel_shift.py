@@ -6,7 +6,8 @@ Replaces ``trt_asr_tpu/ops/pallas/rel_shift_kernel.py:rel_pos_bias_shifted``:
 shifted, summed in f32 and rounded once to ``q_v``'s type. The plain version
 is the offline attention's einsum followed by the static shift (pad,
 reshape, slice), as the JAX package's XLA path computes it. The kernel reads
-only the band of positions each tile of rows needs (see the source's note).
+only the band of positions each tile of rows needs (see the source's note);
+in bf16 it sums on the tensor cores, in f32 on the CUDA cores.
 """
 
 from __future__ import annotations
