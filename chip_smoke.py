@@ -10,16 +10,22 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    from ``trt_asr_tpu_torch/csrc`` (one nvcc per source, in parallel);
    each kernel's registers, spills and static shared memory (ptxas), and
    the dynamic shared memory and blocks an SM of the flash kernels (bf16
-   and f32) and of the bf16 rel-shift kernel.
+   and f32), of the bf16 rel-shift kernel and of the fused conv + FFN2 +
+   out-LN tail (one cooperative launch: its grid at full width must be
+   resident at once).
 2. each kernel against its plain PyTorch version on the card at the
    full-size main-path shapes (a steady chunk: 8 rows, 6 valid; f32 and
    int8 weights for the attention block, the joint step, the FFN and the
    conv module, int8 for the fused conv + FFN2 + out-LN tail, f32 for the
    log-mel), with each one's median time, the plain version's time and
-   the bound (bytes or operations). Each int8 tolerance, and bf16 flash
+   the bound (bytes or operations) and the host's enqueue time a call.
+   Each int8 tolerance, and bf16 flash
    attention's, is shown to fail a kernel without the bf16 rounding points
    (the plain version on the dequantized weights, or on the bf16 operands
-   widened to f32, where p is not rounded).
+   widened to f32, where p is not rounded). The tail runs on constants
+   packed once beforehand, as the model packs them; its cooperative launch
+   is captured into a CUDA graph and replayed, and the replay must equal
+   the direct call bit for bit.
 3. full-width session (``ModelConfig()``, seeded random weights from the
    port's ``init_params``): a seeded synthetic utterance of 12 words
    (~6 s) pushed in 0.5 s pieces, with a blank bias set so the plain f32
@@ -30,8 +36,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    (``int8_on``), with every kernel (``int8_all``: FFN1 through the FFN
    kernel, the conv module, FFN2 and the out-LN through the fused tail),
    and with the conv kernel and no FFN kernel (``int8_conv``: the conv
-   module alone).
+   module alone). Each arm logs its first chunk, that of the warm-up
+   utterance and the time to make the model (int8: quantizing and packing
+   the tail's constants).
    Launch counts are reset just before each kernel arm and read just after.
+   In each arm's profile every wrapper call of the fused tail is one kernel
+   (``conv_ffn_ln_kernel``), and no conv module kernel runs beside it.
    Phase 2 also holds the offline kernels, rel shift (f32, bf16) and
    flash attention (f32, bf16), at the offline batch's shapes (B 8, T 368,
    H 8, dh 128; a short row and a zero-length row in the mask). bf16 rel
@@ -124,12 +134,13 @@ KERNEL_SRCS = {
     "conv": ("conv_block", "trt_asr_tpu_torch/csrc/conv_block.cu",
              "trt_asr_tpu/ops/pallas/conv_block_kernel.py:99",
              {"f32": "f32_all", "int8": "int8_conv"}),
-    "tail": ("conv_ffn_ln", "trt_asr_tpu_torch/csrc/conv_block.cu",
+    "tail": ("conv_ffn_ln", "trt_asr_tpu_torch/csrc/conv_ffn_ln.cu",
              "trt_asr_tpu/ops/pallas/conv_block_kernel.py:184", {"int8": "int8_all"}),
     # offline kernels: the offline arm reads their launches (rel shift runs
-    # in bf16 only: its auto gate, as the TPU's)
+    # in bf16 only: its auto gate, as the TPU's; the f32 arm reads 0)
     "shift": ("rel_shift", "trt_asr_tpu_torch/csrc/rel_shift.cu",
-              "trt_asr_tpu/ops/pallas/rel_shift_kernel.py:102", {"bf16": "off_bf16"}),
+              "trt_asr_tpu/ops/pallas/rel_shift_kernel.py:102",
+              {"f32": "off_f32_flash", "bf16": "off_bf16"}),
     "flash": ("flash_att", "trt_asr_tpu_torch/csrc/flash_att.cu",
               "trt_asr_tpu/ops/pallas/flash_att_kernel.py:116",
               {"f32": "off_f32_flash", "bf16": "off_bf16"}),
@@ -251,12 +262,15 @@ def ptxas_kernels(text: str):
     return out
 
 
-def log_resources(build) -> None:
+def log_resources(torch, build, cfg) -> None:
     """Registers, spills and static shared memory of every kernel (ptxas),
     and the dynamic shared memory and the blocks an SM holds of the flash
-    kernels and the bf16 rel-shift kernel (bf16 at the full-width head dim;
-    the CUDA occupancy API)."""
+    kernels, the bf16 rel-shift kernel (bf16 at the full-width head dim) and
+    the fused tail (a steady chunk's 8 rows at full width; the CUDA
+    occupancy API)."""
     import ctypes
+
+    from trt_asr_tpu_torch.ops.kernels.conv_block import conv_ffn_ln_plan
 
     for src in build.SOURCES:
         for name, regs, st, ld, smem in ptxas_kernels(build.build_log(src)):
@@ -276,6 +290,15 @@ def log_resources(build) -> None:
                 "rel_shift_bf16_occupancy")
     log(f"  rel_shift[bf16] at dh 128: {info[0]} B of dynamic shared memory, {info[1]} "
         f"blocks an SM")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = conv_ffn_ln_plan(8, cfg.d_model, cfg.d_model * cfg.ff_expansion_factor,
+                            cfg.conv_kernel_size, sms)
+    lib = build.load("conv_ffn_ln")
+    build.check(lib, lib.conv_ffn_ln_occupancy(plan.smem, ctypes.addressof(info)),
+                "conv_ffn_ln_occupancy")
+    log(f"  conv_ffn_ln[int8] at Tq 8: {plan.blocks} blocks of {plan.cols_d} + {plan.cols_e} "
+        f"columns, {plan.smem} B of dynamic shared memory, {info[0]} blocks an SM, {sms} SMs")
+    assert info[0] >= 1 and plan.blocks <= info[0] * sms, "conv_ffn_ln's grid is not resident"
 
 
 # --- phase 2: kernels against their plain versions ---------------------------
@@ -294,7 +317,8 @@ def check_rounding_points(label, tol, got, unrounded) -> None:
 def check_kernels(torch, dev, timer, cfg):
     from trt_asr_tpu_torch.ops.kernels.att_block import att_block, att_block_plain
     from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block, conv_block_plain,
-                                                          conv_ffn_ln, conv_ffn_ln_plain)
+                                                          conv_ffn_ln, conv_ffn_ln_plain,
+                                                          pack_conv_ffn_ln)
     from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn, fused_ffn_plain, layer_norm_plain
     from trt_asr_tpu_torch.ops.kernels.joint_step import joint_step, joint_step_plain
     from trt_asr_tpu_torch.ops.kernels.mel import logmel, logmel_plain
@@ -427,9 +451,20 @@ def check_kernels(torch, dev, timer, cfg):
         x1, c = conv_block_plain(*a[:12])
         return layer_norm_plain(fused_ffn_plain(x1, *a[12:16]), *a[16:]), c
 
+    # the tail's constants packed once, as the model packs them with its
+    # int8 weights (host clock, the first packing in this process)
+    t0 = time.perf_counter()
+    tail_packed = pack_conv_ffn_ln(qpw1, dw, *bn, qpw2, qw1, qw2)
+    torch.cuda.synchronize()
+    log(f"  conv_ffn_ln[int8]: one layer's constants packed in "
+        f"{1e3 * (time.perf_counter() - t0):.2f} ms ({tail_packed.numel()} B)")
+
+    def tail_kernel(*a):
+        return conv_ffn_ln(*a, packed=tail_packed)
+
     kernels = {"ffn": (fused_ffn, fused_ffn_plain, fused_ffn_plain),
                "conv": (conv_block, conv_block_plain, conv_block_plain),
-               "tail": (conv_ffn_ln, conv_ffn_ln_plain, tail_composed)}
+               "tail": (tail_kernel, conv_ffn_ln_plain, tail_composed)}
     tup = lambda r: r if isinstance(r, tuple) else (r,)  # noqa: E731
     for short, arm, tol, args, ws, other_bytes, ops in cases:
         name = KERNEL_SRCS[short][0]
@@ -447,7 +482,28 @@ def check_kernels(torch, dev, timer, cfg):
         records[f"{arm}_{short}"] = measure(
             f"{name}[{arm}]", timer, err, lambda: kernel(*args), lambda: plain(*args),
             nbytes, ops, "f32" if arm == "f32" else "bf16")
+        if short == "tail":
+            check_graph_capture(torch, f"{name}[{arm}]", kernel, args, got)
     return records
+
+
+def check_graph_capture(torch, label, fn, args, want) -> None:
+    """Capture one call into a CUDA graph and replay it: a graph of the
+    chunk step needs the cooperative launch to be capturable. The kernel is
+    deterministic, so the replay must equal the direct call bit for bit."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    err = max_err(out, want)
+    log(f"  {label}: captured into a CUDA graph and replayed, max |replay - direct| = {err:.3g}")
+    assert err == 0, f"{label}: the graph's replay differs from the direct call"
 
 
 # bf16 flash attention: the kernel sums q . k on the tensor cores, whose f32
@@ -618,8 +674,8 @@ def check_offline_kernels(torch, dev, timer, cfg, t_steps: int, lengths):
                       lambda: rel_pos_bias_shifted(qv_d, pos_d, tkv=t_len),
                       lambda: rel_pos_bias_shifted_plain(qv_d, pos_d, tkv=t_len),
                       nbytes, 2 * b * h * t_len * t_len * dh, op_type)
+        records[f"{arm}_shift"] = rec
         if arm == "bf16":
-            records["bf16_shift"] = rec
             qh, ph = tensor_core_pd_operands(qv_d, pos_d)
             bmm_ms = timer(lambda: torch.bmm(qh, ph, out_dtype=torch.float32))
             log(f"  rel_shift[bf16] yardstick: cuBLAS bf16 tensor-core bmm of q_v against the "
@@ -797,9 +853,19 @@ def make_model(torch, cfg, params, tok, rt, dev, mel_kernel: bool):
 
 def profile_session(torch, label, model, rt, audio, piece: int) -> None:
     """Device busy share and kernel time by name over one session
-    (torch.profiler): where a steady chunk's time goes."""
-    profile_run(torch, label, "chunk",
-                lambda: len(run_session(torch, model, rt, audio, piece).chunk_latencies_ms))
+    (torch.profiler): where a steady chunk's time goes. Each wrapper call of
+    the fused tail must be one kernel, with no conv module kernel beside
+    it."""
+    reset_counts()
+    rows = profile_run(torch, label, "chunk",
+                       lambda: len(run_session(torch, model, rt, audio, piece).chunk_latencies_ms))
+    calls = read_counts()["conv_ffn_ln"]
+    tail = sum(n for _, key, n in rows if "conv_ffn_ln_kernel" in key)
+    conv = sum(n for _, key, n in rows if "conv_module_kernel" in key)
+    log(f"  profile[{label}]: {calls} conv_ffn_ln calls, {tail} conv_ffn_ln_kernel launches, "
+        f"{conv} conv_module_kernel launches")
+    assert tail == calls, f"profile[{label}]: conv_ffn_ln is not one kernel a call"
+    assert not (calls and conv), f"profile[{label}]: the tail launched the conv module kernel"
 
 
 def profile_run(torch, label, unit: str, fn):
@@ -917,14 +983,17 @@ def full_width_session(torch, dev, n_words: int, seed: int):
     results = {}
     model_f32 = None
     for name, (rt, mel_k) in arms.items():
+        t0 = time.perf_counter()
         model = make_model(torch, cfg, params if model_f32 is None else model_f32.params,
                            tok, rt, dev, mel_k)
+        torch.cuda.synchronize()
+        made_ms = (time.perf_counter() - t0) * 1e3      # quantizing and packing included
         if model_f32 is None:
             model_f32 = model
             bias = calibrate_blank_bias(
                 model, n_words, lambda: len(run_session(torch, model, rt, audio, piece).tokens),
                 "the utterance")
-        run_session(torch, model, rt, warm, piece)            # warm-up utterance
+        first_ms = run_session(torch, model, rt, warm, piece).chunk_latencies_ms[0]  # warm-up
         reset_counts()
         sess = run_session(torch, model, rt, audio, piece)
         counts = read_counts()
@@ -939,6 +1008,8 @@ def full_width_session(torch, dev, n_words: int, seed: int):
         log(f"session[{name}]: {len(audio) / 16000:.2f} s audio, {n_chunks} chunks, "
             f"{len(sess.tokens)} tokens ({len(sess.tokens) / n_chunks:.2f}/chunk), steady "
             f"chunk median {results[name]['median_ms']:.3f} ms p90 {results[name]['p90_ms']:.3f} ms, "
+            f"first chunk {lat[0]:.3f} ms (the warm-up utterance's {first_ms:.3f} ms; "
+            f"model made in {made_ms:.1f} ms), "
             f"launches {counts} ({ {k: round(v / n_chunks, 2) for k, v in counts.items()} }/chunk), "
             f"decode iterations {iters:.2f}/chunk, host syncs {syncs:.2f}/chunk")
         del model, sess
@@ -1290,7 +1361,7 @@ def main() -> int:
         f"torch {torch.__version__} cuda {torch.version.cuda}; nvidia-smi: {smi}")
     secs = build.build()
     log(f"kernel build: {secs:.1f} s ({', '.join(build.SOURCES)})")
-    log_resources(build)
+    log_resources(torch, build, ModelConfig())
 
     timer = Timer(torch, dev)
     cfg = ModelConfig()

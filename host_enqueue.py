@@ -1,0 +1,69 @@
+"""Host time of one call of the fused int8 tail's wrapper (``conv_ffn_ln``)
+and, as a control, of the conv module's (``conv_block``), at the main
+path's full-width shapes (a steady chunk: Tq 8 with 6 valid steps, D 1024,
+E 4096, a 9-tap conv, int8 weights), for the port package of the directory
+it is run from. To compare two trees on one card, run it in each in turn:
+
+    cd TREE && python3 PATH/TO/host_enqueue.py
+
+Each wrapper is called 20 times between device syncs, 400 calls after a
+warm-up; the host clock around each call (its Python checks, scratch
+allocations and launches) gives the median and quartiles in us. Where the
+package packs the tail's constants beforehand (``pack_conv_ffn_ln``), they
+are packed once, as the model does, and passed to every call.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+sys.path.insert(0, os.getcwd())      # the package of the tree it is run from
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("host_enqueue: no CUDA device", file=sys.stderr)
+        return 1
+    from trt_asr_tpu_torch.ops.kernels import conv_block as cb
+    from trt_asr_tpu_torch.ops.quant import quantize_tensor
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    t = lambda *s, sc=1.0: torch.as_tensor(  # noqa: E731
+        (rng.standard_normal(s) * sc).astype(np.float32), device=dev)
+    d, e, kk, tq = 1024, 4096, 9, 8
+    conv = (t(tq, d), 1.0 + t(d, sc=0.1), t(d, sc=0.1), quantize_tensor(t(d, 2 * d, sc=d ** -0.5)),
+            t(kk, d, sc=kk ** -0.5), 1.0 + t(d, sc=0.1), t(d, sc=0.1), t(d, sc=0.1),
+            1.0 + t(d, sc=0.1).abs(), quantize_tensor(t(d, d, sc=d ** -0.5)),
+            t((kk - 1) // 2, d), (torch.arange(tq, device=dev) < 6).float()[:, None])
+    tail = (1.0 + t(d, sc=0.1), t(d, sc=0.1), quantize_tensor(t(d, e, sc=d ** -0.5)),
+            quantize_tensor(t(e, d, sc=e ** -0.5)), 1.0 + t(d, sc=0.1), t(d, sc=0.1))
+    kw = {}
+    if hasattr(cb, "pack_conv_ffn_ln"):
+        kw["packed"] = cb.pack_conv_ffn_ln(*conv[3:10], *tail[2:4])
+    calls = {"conv_ffn_ln": lambda: cb.conv_ffn_ln(*conv, *tail, **kw),
+             "conv_block": lambda: cb.conv_block(*conv)}
+    for name, fn in calls.items():
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        us = []
+        for _ in range(20):
+            for _ in range(20):
+                t0 = time.perf_counter()
+                fn()
+                us.append((time.perf_counter() - t0) * 1e6)
+            torch.cuda.synchronize()
+        q1, med, q3 = np.percentile(us, [25, 50, 75])
+        print(f"{name}: host {med:.1f} us a call (quartiles {q1:.1f} .. {q3:.1f}), "
+              f"{len(us)} calls", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

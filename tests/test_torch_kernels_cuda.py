@@ -49,7 +49,8 @@ from trt_asr_tpu_torch.models.parakeet.encoder import offline_encode
 from trt_asr_tpu_torch.models.parakeet.model import ParakeetTDT
 from trt_asr_tpu_torch.ops.kernels.att_block import att_block, att_block_plain
 from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block, conv_block_plain,
-                                                      conv_ffn_ln, conv_ffn_ln_plain)
+                                                      conv_ffn_ln, conv_ffn_ln_plain,
+                                                      pack_conv_ffn_ln)
 from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn, fused_ffn_plain
 from trt_asr_tpu_torch.ops.kernels.flash_att import (copy_widths, flash_bias_attention,
                                                      flash_bias_attention_plain)
@@ -219,8 +220,15 @@ def test_conv_block_kernel_matches_plain(kind):
 
 @pytest.mark.cuda
 def test_conv_ffn_ln_kernel_matches_plain():
+    """Card-test widths, a ragged W1 slice (D 96, E 200: 12 blocks of 24
+    columns, the last three past E), one row, the full width (D 1024,
+    E 4096: 128 blocks, the main path's steady chunk), and Tq 13 (two
+    passes of 8 rows: x's rows copied again, the barriers' parities
+    toggled). The constants packed once beforehand (``packed``, as the
+    model passes them) give the same bits as those packed by the call."""
     dev = require_cuda()
-    for tq, valid, d, e in [(8, 6, 64, 128), (5, 5, 96, 200)]:
+    for tq, valid, d, e in [(8, 6, 64, 128), (5, 5, 96, 200), (1, 1, 64, 128),
+                            (8, 6, 1024, 4096), (13, 11, 96, 200), (13, 11, 1024, 4096)]:
         r = randn(dev, 7 * tq)
         conv = conv_inputs(dev, tq, tq, valid, d, "int8")
         tail = (1.0 + r(d, sc=0.2), r(d, sc=0.1), quantize_tensor(r(d, e, sc=d ** -0.5)),
@@ -229,9 +237,13 @@ def test_conv_ffn_ln_kernel_matches_plain():
         got = conv_ffn_ln(*conv, *tail)
         assert conv_ffn_ln.launches == before + 1
         want = conv_ffn_ln_plain(*conv, *tail)
+        packed = pack_conv_ffn_ln(*conv[3:10], *tail[2:4])
+        again = conv_ffn_ln(*conv, *tail, packed=packed)
         torch.cuda.synchronize()
-        for g, w in zip(got, want):
+        for g, w, a in zip(got, want, again):
             torch.testing.assert_close(g, w, atol=2e-3, rtol=1e-4)
+            assert torch.equal(a, g)
+        assert float(got[1][valid:].abs().sum()) == 0.0      # padded steps: c = 0
 
 
 @pytest.mark.cuda
@@ -254,6 +266,16 @@ def test_wrappers_raise_instead_of_falling_back():
     tail = (g, b, r(64, 128), r(128, 64), g, b)
     with pytest.raises(TypeError, match="int8"):
         conv_ffn_ln(*conv, *tail)
+    conv = conv_inputs(dev, 6, 8, 6, 64, "int8")
+    tail = (g, b, quantize_tensor(r(64, 100)), quantize_tensor(r(100, 64)), g, b)
+    before = conv_ffn_ln.launches
+    with pytest.raises(ValueError, match="multiples of 8"):
+        conv_ffn_ln(*conv, *tail)                 # E = 100: the kernel's groups are 8 wide
+    tail = (g, b, quantize_tensor(r(64, 128)), quantize_tensor(r(128, 64)), g, b)
+    packed = pack_conv_ffn_ln(*conv[3:10], *tail[2:4], sms=4)     # 4 blocks of 16 columns
+    with pytest.raises(ValueError, match="do not fit the launch plan"):
+        conv_ffn_ln(*conv, *tail, packed=packed)
+    assert conv_ffn_ln.launches == before
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -466,6 +488,8 @@ def test_gate_r3_session_with_every_kernel_matches_cpu(flags):
     tail = flags["quant"] == "all" and flags.get("use_pallas_ffn", False)
     assert (counts[0][0] > 0) == flags.get("use_pallas_ffn", False)
     assert (counts[0][1] > 0) == (not tail) and (counts[0][2] > 0) == tail
+    assert all(("conv_ffn_ln_packed" in lp) == tail for lp in gpu.layers)
+    assert not any("conv_ffn_ln_packed" in lp for lp in cpu.layers)
     assert counts[1] == [0, 0, 0]
     assert sessions[0].tokens == sessions[1].tokens
     assert len(sessions[0].tokens) > 0

@@ -1,30 +1,27 @@
-// Fused conformer convolution module for B=1 streaming chunks, alone and
-// followed by the second FFN and the layer's output LayerNorm.
+// Fused conformer convolution module for B=1 streaming chunks (the int8
+// conv module followed by the second FFN and the output LayerNorm is
+// conv_ffn_ln.cu).
 //
-// Replaces: trt_asr_tpu/ops/pallas/conv_block_kernel.py:conv_block_pallas
-// and :conv_ffn_ln_pallas. For the Tq rows x of one layer:
+// Replaces: trt_asr_tpu/ops/pallas/conv_block_kernel.py:conv_block_pallas.
+// For the Tq rows x of one layer:
 //   u = LN(x); hw = u @ pw1 (D -> 2D); c = hw[:, :D] * sigmoid(hw[:, D:])
 //   c = c * mask (padded steps are zero); ext = tc (K rows) ++ c ++ 0 (K rows)
 //   cv[t] = sum_j ext[t + j] * dw[j]; cv = (cv - m) * g * rsqrt(v + 1e-5) + b
 //   y = x + silu(cv) @ pw2
-// and returns (y, c), c being the rows that feed the time cache. The fused
-// tail continues y = LN_out(y + 0.5 * FFN2(y)).
+// and returns (y, c), c being the rows that feed the time cache.
 //
 // Bound on the H100: memory. Per layer at full size (D=1024, Tq=8) the
-// conv module must read pw1 and pw2 once: 12.6 MB f32, 3.1 MB int8; the tail
-// adds the FFN's W1 and W2 (8.4 MB int8, 11.5 MB in all). The arithmetic is
-// ~50 MFLOP (~190 with the FFN). Design: LayerNorm once; pw1 as split-K
+// conv module must read pw1 and pw2 once: 12.6 MB f32, 3.1 MB int8. The
+// arithmetic is ~50 MFLOP. Design: LayerNorm once; pw1 as split-K
 // partial sums (common.cuh); then one block per 32 columns reduces the
 // partials of column n and of its GLU gate n + D itself, so the two halves
 // meet without another pass, and walks all Tq rows of its columns: GLU,
 // mask, the K taps of the depthwise conv over shared memory (the conv mixes
 // rows, not columns), BatchNorm and SiLU, writing c and pw2's operand; then
-// pw2 as a split-K pair whose epilogue adds the residual. The tail reuses
-// the FFN sequence (common.cuh) and one more LayerNorm.
+// pw2 as a split-K pair whose epilogue adds the residual.
 //
 // Rounding points follow the TPU kernel: with bf16 or int8 weights u and
-// silu(BN(conv)) are rounded to bf16 (and, in the tail, the FFN's LN output
-// and silu(h)); x, c and the residual stream are not.
+// silu(BN(conv)) are rounded to bf16; x, c and the residual stream are not.
 #include "common.cuh"
 
 namespace port {
@@ -128,29 +125,4 @@ extern "C" int conv_block_launch(
   return (int)launch_conv_block(x, M, D, ln_g, ln_b, pw1, s1, dw, kk, bn_g, bn_b, bn_m, bn_v,
                                 pw2, s2, wtype, tc, mask, ksplit, y, c, u, a, part,
                                 (cudaStream_t)stream_ptr);
-}
-
-// The conv module, then y = LN_out(y1 + 0.5 * FFN2(y1)), int8 weights only
-// (each weight its int8 matrix and per-column scale). FFN2 expands to E;
-// ks_e = ceil(E / 64). y1, y2 [M, D] and h [M, E] are scratch besides those
-// of conv_block_launch; part holds max(ksplit * 2D, ksplit * E, ks_e * D) * M
-// floats.
-extern "C" int conv_ffn_ln_launch(
-    const float* x, int M, int D, const float* ln_g, const float* ln_b, const void* pw1,
-    const float* s1, const float* dw, int kk, const float* bn_g, const float* bn_b,
-    const float* bn_m, const float* bn_v, const void* pw2, const float* s2, const float* tc,
-    const float* mask, const float* ff_ln_g, const float* ff_ln_b, const void* fw1,
-    const float* fs1, const void* fw2, const float* fs2, int E, const float* out_ln_g,
-    const float* out_ln_b, int ksplit, int ks_e, float* y, float* c, float* u, float* a,
-    float* y1, float* y2, float* h, float* part, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (E < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = launch_conv_block(x, M, D, ln_g, ln_b, pw1, s1, dw, kk, bn_g, bn_b, bn_m,
-                                      bn_v, pw2, s2, W_I8, tc, mask, ksplit, y1, c, u, a, part,
-                                      stream);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_ffn(y1, M, D, E, ff_ln_g, ff_ln_b, fw1, fs1, fw2, fs2, W_I8, 0.5f, ksplit, ks_e,
-                   y2, u, h, part, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_layernorm(y2, M, D, out_ln_g, out_ln_b, y, stream);
 }

@@ -1,0 +1,679 @@
+// Fused conformer conv module, second FFN and output LayerNorm with int8
+// weights (B=1 streaming chunks): one persistent cooperative launch a layer.
+//
+// Replaces: trt_asr_tpu/ops/pallas/conv_block_kernel.py:conv_ffn_ln_pallas
+// (its pallas_call at :184). For the Tq rows x of one layer:
+//   u = LN_conv(x); hw = u @ pw1 (D -> 2D); c = hw[:, :D] * sigmoid(hw[:, D:])
+//   c = c * mask (padded steps are zero); ext = tc ((K-1)/2 rows) ++ c ++ 0
+//   cv[t] = sum_j ext[t + j] * dw[j]; a = silu((cv - m) * g * rsqrt(v + 1e-5) + b)
+//   y1 = x + a @ pw2; h = silu(LN_ff(y1) @ W1); y2 = y1 + 0.5 * h @ W2
+//   y = LN_out(y2)
+// and returns (y, c), c being the rows that feed the time cache. Each
+// weight is an int8 matrix [K, N] with a per-column f32 scale applied to
+// the f32 sum. The product operands u, a, LN_ff(y1) and h are rounded to
+// bf16 (the TPU kernel's MXU operands); x, c and the residual stream are not.
+//
+// Bound on the H100: memory. At full width (D 1024, E 4096, Tq 8) the four
+// weights are 11.5 MB of int8, 3.4 us at 3.35 TB/s; the products are 185
+// MFLOP, 0.2 us at the bf16 tensor-core rate.
+//
+// Design. One cooperative launch (cudaLaunchCooperativeKernel: every block
+// co-resident, one an SM; grid-wide barriers by cooperative_groups). Block
+// b owns a fixed column slice of each product over the whole K, so no
+// split-K partial sums reach device memory: cD columns of pw1 (n and its
+// GLU gate n + D together), of pw2 and of W2, and cE columns of W1 (cD = 8,
+// cE = 32 and 128 blocks at full width; the wrapper's plan sizes them from
+// D and E, ops/kernels/conv_block.py:conv_ffn_ln_plan).
+//
+// Weights. A block's 8 columns of a [K, N] int8 matrix are 8 bytes a row,
+// too narrow for a 16-byte copy and a quarter of a 32-byte sector. So each
+// layer's constants are packed once, when its int8 weights are made
+// (ops/kernels/conv_block.py:pack_conv_ffn_ln): block b's slices of the four
+// weights and its f32 columns of the scales, taps and BN lie contiguous
+// (tail_blob). Thread 0 starts bulk copies (the copy
+// engine, each on its own mbarrier): x's first rows, LN_conv's g and b,
+// the columns and pw1 at entry, the rest of the weights once x has landed;
+// each phase waits for its own bytes only.
+//
+// Phases:
+//   (a) LN_conv of all rows, in every block (one warp a row);
+//   (b) pw1 on the block's GLU pairs, GLU, mask, c; the depthwise taps over
+//       [time cache ++ c ++ 0], BatchNorm, SiLU: column-local, since the
+//       conv mixes rows, not columns; a is written as bf16;
+//   barrier; (c) pw2 + x -> y1;
+//   barrier; (d) LN_ff of all rows in every block, W1, SiLU -> h (bf16);
+//   barrier; (e) W2 * 0.5 + y1 -> y2;
+//   barrier; (f) LN_out, one row a block.
+// After a barrier, the rows other blocks wrote are bulk-copied out of L2
+// (a, h in four K chunks, so a warp's product starts when its chunk has
+// landed) or read with __ldcg, never through a possibly stale L1 line.
+//
+// Products: tensor cores, mma.sync.m16n8k16 (bf16 operands, f32 sums) with
+// the 8 rows as A (rows 8 .. 15 zero) and 8 weight columns as B; the int8
+// weights widen exactly to bf16 in registers (byte permutes and one bf16
+// subtraction). Each warp sums its run of K; the warps' sums are added in a
+// fixed order, so the kernel is deterministic (no atomics). Rows are taken
+// 8 at a time, so any Tq runs.
+//
+// CUDA graphs: the cooperative launch can be captured. chip_smoke.py phase
+// 2 captures one call into a torch.cuda.CUDAGraph, replays it and fails
+// unless the replay equals the direct call.
+#include <cooperative_groups.h>
+
+#include "common.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace port {
+
+constexpr int TL_THREADS = 512;
+constexpr int TL_WARPS = TL_THREADS / 32;
+constexpr int TL_MR = 8;                  // rows of a product pass (the mma's 8 live rows)
+constexpr int TL_GW = 8;                  // columns of a weight group (the mma's n8)
+constexpr int TL_KS = 16;                 // K of an mma step
+// mbarriers of the bulk copies: x's first rows, LN_conv's norms and the
+// block's f32 columns; the weight slices pw1, pw2, W1, W2; LN_ff's norms
+// (and, in a row's block, LN_out's); the f32 rows a phase stages; the four
+// K chunks of a product's operand rows (each reused, phase by phase)
+enum { BAR_X, BAR_PW1, BAR_PW2, BAR_W1, BAR_W2, BAR_NORMS, BAR_ROWS, BAR_CHUNK, TL_BARS =
+       BAR_CHUNK + 4 };
+constexpr int TL_CHUNK_WARPS = TL_WARPS / 4;   // warps whose K steps a chunk holds
+
+struct TailArgs {
+  const float* x;
+  int M, D, E, kk, cD, cE;
+  const float *ln_g, *ln_b, *tc, *mask, *ff_g, *ff_b, *out_g, *out_b;
+  const unsigned char* packed;            // [blocks][tail_blob bytes], see tail_blob
+  float *y, *c;
+  bf16* a;                                // scratch: [M, D] bf16
+  float* y1;                              // [M, D]
+  bf16* h;                                // [M, E] bf16
+  float* y2;                              // [M, D]
+};
+
+__host__ __device__ inline int tail_max(int a, int b) { return a > b ? a : b; }
+__host__ __device__ inline int tail_pad(int k) { return (k + TL_KS - 1) / TL_KS * TL_KS; }
+__host__ __device__ inline size_t tail_align(size_t v) { return (v + 15) & ~(size_t)15; }
+
+// A block's packed slice of the layer's constants (pack_tail in
+// ops/kernels/conv_block.py), byte offsets, in the order of the weights' shared memory:
+//   pw1 [2 cD / 8][Dp / 16][8][16] int8 (the groups of columns n, then those
+//   of their gates n + D), pw2 [cD / 8][Dp / 16][8][16], W1 [cE / 8][Dp / 16]
+//   [8][16], W2 [cD / 8][Ep / 16][8][16]; then f32 columns: pw1's scales (n,
+//   then n + D), pw2's, W1's, W2's, the conv taps [kk][cD], BN g, b, m, v:
+//   each [cD] (W1's [cE]), zero past D (E) and K past its end.
+struct TailBlob {
+  size_t pw1, pw2, w1, w2, cols, total;
+};
+
+__host__ __device__ inline int tail_cols(int kk, int cD, int cE) { return (8 + kk) * cD + cE; }
+
+__host__ __device__ inline TailBlob tail_blob(int D, int E, int kk, int cD, int cE) {
+  const size_t Dp = (D + TL_KS - 1) / TL_KS * TL_KS, Ep = (E + TL_KS - 1) / TL_KS * TL_KS;
+  TailBlob b;
+  b.pw1 = 0;
+  b.pw2 = b.pw1 + Dp * 2 * cD;
+  b.w1 = b.pw2 + Dp * cD;
+  b.w2 = b.w1 + Dp * cE;
+  b.cols = b.w2 + Ep * cD;
+  b.total = b.cols + (size_t)tail_cols(kk, cD, cE) * 4;
+  return b;
+}
+
+// Byte offsets of the dynamic shared memory, mirrored by the wrapper's plan.
+struct TailSmem {
+  size_t w, act, xs, norms, cols, mask, ext, y1c, red, bars, total;
+};
+
+__host__ __device__ inline TailSmem tail_smem(int M, int D, int E, int kk, int cD, int cE) {
+  const int Dp = tail_pad(D), Ep = tail_pad(E);
+  const size_t act_d = (size_t)TL_MR * (Dp + TL_KS) * 2;   // operand rows of K = D, bf16
+  const size_t act_e = (size_t)TL_MR * (Ep + TL_KS) * 2;
+  const size_t xs = (size_t)TL_MR * D * 4;                 // f32 rows to normalize
+  const TailBlob blob = tail_blob(D, E, kk, cD, cE);
+  TailSmem s;
+  size_t o = 0;
+  s.w = o;    o += blob.cols;                               // weight slices, as in the blob
+  s.act = o;  s.xs = o + act_d;                             // xs is free while h is staged
+  o += act_d + xs > act_e ? act_d + xs : act_e;
+  s.norms = o; o += (size_t)6 * D * 4;                      // g, b of the three LayerNorms
+  s.cols = o; o += blob.total - blob.cols;                  // the blob's f32 columns
+  s.mask = o; o += tail_align((size_t)M * 4);
+  s.ext = o;  o += tail_align((size_t)(M + kk - 1) * cD * 4);   // conv rows
+  s.y1c = o;  o += tail_align((size_t)M * cD * 4);          // the block's columns of y1
+  s.red = o;  o += (size_t)TL_WARPS * tail_max(2 * cD, cE) * TL_MR * 4;   // per-warp sums
+  s.bars = o; o += TL_BARS * 8;                             // mbarriers of the bulk copies
+  s.total = o;
+  return s;
+}
+
+// --- bulk copies (the copy engine, one instruction a contiguous run) ------
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from device
+// memory to this block's shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+// Waits until the phase of `bar` with this parity has completed (its
+// copies have landed)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity = 0) {
+  asm volatile(
+      "{\n .reg .pred done;\n"
+      "WAIT_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      " @!done bra WAIT_%=;\n}\n" ::"r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// Thread 0: `rows` rows of `bytes` (a multiple of 16) from src (row pitch
+// sp bytes) to shared memory at dst (row pitch dp bytes) on `bar`. The
+// proxy fence orders these copies after the other blocks' writes to device
+// memory, seen through the grid barrier. (The shared memory they overwrite
+// was last read before a block barrier, by loads whose values were used.)
+__device__ __forceinline__ void bulk_rows(void* dst, size_t dp, const void* src, size_t sp,
+                                          int rows, uint32_t bytes, uint64_t* bar) {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  mbar_expect(bar, rows * bytes);
+  for (int r = 0; r < rows && bytes > 0; ++r)
+    bulk_copy(static_cast<char*>(dst) + r * dp, static_cast<const char*>(src) + r * sp, bytes,
+              bar);
+}
+
+// The operand rows m0 .. m0 + mr - 1 of the bf16 matrix src [*, K] into
+// act (row pitch `pitch` elements) in four K chunks, chunk c on bars[c]
+// holding the steps of warps [c, c + 1) x TL_CHUNK_WARPS of block_product,
+// so each warp starts once its own chunk has landed. Lane 0 of warp c
+// issues chunk c: the four fences and issues run side by side.
+__device__ __forceinline__ void bulk_chunks(bf16* act, int pitch, const bf16* src, int m0,
+                                            int mr, int K, uint64_t* bars) {
+  const int c = threadIdx.x >> 5;
+  if (c >= 4 || (threadIdx.x & 31)) return;
+  const int steps = tail_pad(K) / TL_KS, per = (steps + TL_WARPS - 1) / TL_WARPS;
+  const int k0 = min(K, c * TL_CHUNK_WARPS * per * TL_KS);
+  const int k1 = min(K, (c + 1) * TL_CHUNK_WARPS * per * TL_KS);
+  bulk_rows(act + k0, (size_t)pitch * 2, src + (size_t)m0 * K + k0, (size_t)K * 2, mr,
+            (k1 - k0) * 2, bars + c);
+}
+
+// act row r (pitch) = bf16(LN(xs row r)) for r < mr, one warp a row
+// (eps 1e-5); columns [D, tail_pad(D)) are zeroed
+__device__ __forceinline__ void ln_rows(bf16* act, int pitch, const float* xs, int mr, int D,
+                                        const float* g, const float* b) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp >= mr) return;
+  const float* xr = xs + (size_t)warp * D;
+  float s = 0.f;
+  for (int i = 4 * lane; i < D; i += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(xr + i);
+    s += v.x + v.y + v.z + v.w;
+  }
+  const float mu = warp_sum(s) / (float)D;
+  float q = 0.f;
+  for (int i = 4 * lane; i < D; i += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(xr + i);
+    q = fmaf(v.x - mu, v.x - mu, q);
+    q = fmaf(v.y - mu, v.y - mu, q);
+    q = fmaf(v.z - mu, v.z - mu, q);
+    q = fmaf(v.w - mu, v.w - mu, q);
+  }
+  const float inv = 1.0f / sqrtf(warp_sum(q) / (float)D + 1e-5f);
+  bf16* ar = act + (size_t)warp * pitch;
+  for (int i = 4 * lane; i < D; i += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(xr + i);
+    const float4 gg = *reinterpret_cast<const float4*>(g + i);
+    const float4 bb = *reinterpret_cast<const float4*>(b + i);
+    uint2 packed;
+    packed.x = pack_bf16(__fadd_rn(__fmul_rn(__fmul_rn(v.x - mu, inv), gg.x), bb.x),
+                         __fadd_rn(__fmul_rn(__fmul_rn(v.y - mu, inv), gg.y), bb.y));
+    packed.y = pack_bf16(__fadd_rn(__fmul_rn(__fmul_rn(v.z - mu, inv), gg.z), bb.z),
+                         __fadd_rn(__fmul_rn(__fmul_rn(v.w - mu, inv), gg.w), bb.w));
+    *reinterpret_cast<uint2*>(ar + i) = packed;
+  }
+  for (int i = D + 4 * lane; i < tail_pad(D); i += 128)
+    *reinterpret_cast<uint2*>(ar + i) = make_uint2(0u, 0u);
+}
+
+// act rows r < mr (pitch): zero in [K, tail_pad(K))
+__device__ __forceinline__ void zero_pad(bf16* act, int pitch, int mr, int K) {
+  const int pieces = (tail_pad(K) - K) / 8;
+  for (int i = threadIdx.x; i < mr * pieces; i += TL_THREADS)
+    *reinterpret_cast<uint4*>(act + (size_t)(i / pieces) * pitch + K + 8 * (i % pieces)) =
+        make_uint4(0u, 0u, 0u, 0u);
+}
+
+// Four int8 values packed in v (k = 4t .. 4t + 3 of one column), widened
+// exactly to bf16 pairs for the mma's B fragment: a byte v with low seven
+// bits t and sign bit s is bf16(128 + t) - bf16(128 + 128 s), each term
+// built by a byte permute (exponent 2^7, mantissa t; 256 for s) and their
+// difference exact in bf16.
+__device__ __forceinline__ void i8x4_to_bf16(uint32_t v, uint32_t& b0, uint32_t& b1) {
+  const uint32_t t = v & 0x7f7f7f7fu, sign = v & 0x80808080u;
+  const uint32_t m01 = __byte_perm(t, 0x43434343u, 0x4140);
+  const uint32_t m23 = __byte_perm(t, 0x43434343u, 0x4342);
+  const uint32_t s01 = __byte_perm(sign, 0x43434343u, 0x4140);
+  const uint32_t s23 = __byte_perm(sign, 0x43434343u, 0x4342);
+  const __nv_bfloat162 d01 = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&m01),
+                                     *reinterpret_cast<const __nv_bfloat162*>(&s01));
+  const __nv_bfloat162 d23 = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&m23),
+                                     *reinterpret_cast<const __nv_bfloat162*>(&s23));
+  b0 = *reinterpret_cast<const uint32_t*>(&d01);
+  b1 = *reinterpret_cast<const uint32_t*>(&d23);
+}
+
+// Phase timeline for tail_variants.py: with TAIL_TIMELINE defined, thread 0
+// of each block stores the global timer (ns) at each mark (17 .. 24: inside the four products, after the mma loop and after
+// the block's barrier).
+#ifdef TAIL_TIMELINE
+constexpr int TL_MARKS = 25;
+__device__ unsigned long long tail_timeline[1024][TL_MARKS];
+#define TL_MARK(i)                                                              \
+  if (threadIdx.x == 0) {                                                       \
+    unsigned long long t_;                                                      \
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                      \
+    tail_timeline[blockIdx.x][i] = t_;                                          \
+  }
+#else
+#define TL_MARK(i)
+#endif
+
+// Sums of the steps [s0, s1) of GC weight groups (w: the first group,
+// [GC][steps][8 n][16 k] int8) into acc[parity][group]: runs of four steps
+// without branches, their loads first (A's four fragments and the 4 GC
+// weight words), then the widening and the mma; a tail of single steps.
+// Two accumulator sets (even and odd steps) halve the mma chain. Lane
+// (g8 = lane / 4, t = lane % 4) takes k = 4t .. 4t + 3 of a step for both
+// operands, as the mma's k = 2t, 2t + 1 (a0, b0) and 2t + 8, 2t + 9 (a2,
+// b1): the same permutation of K on both sides leaves the product as it
+// is; A's rows 8 .. 15 are zero.
+template <int GC>
+__device__ __forceinline__ void product_chunk(float (&acc)[2][GC][4], const bf16* arow,
+                                              const int8_t* w, int steps, int s0, int s1,
+                                              int lane) {
+  const int8_t* wl = w + 4 * lane;
+  int s = s0;
+  for (; s + 4 <= s1; s += 4) {
+    uint2 av[4];
+    uint32_t wv[4][GC];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) av[u] = *reinterpret_cast<const uint2*>(arow + (s + u) * TL_KS);
+#pragma unroll
+    for (int g = 0; g < GC; ++g)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        wv[u][g] = *reinterpret_cast<const uint32_t*>(
+            wl + ((size_t)g * steps + s + u) * TL_GW * TL_KS);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const uint32_t a[4] = {av[u].x, 0u, av[u].y, 0u};
+#pragma unroll
+      for (int g = 0; g < GC; ++g) {
+        uint32_t b0, b1;
+        i8x4_to_bf16(wv[u][g], b0, b1);
+        mma_bf16(acc[u & 1][g], a, b0, b1);
+      }
+    }
+  }
+  for (; s < s1; ++s) {
+    const uint2 av = *reinterpret_cast<const uint2*>(arow + s * TL_KS);
+    const uint32_t a[4] = {av.x, 0u, av.y, 0u};
+#pragma unroll
+    for (int g = 0; g < GC; ++g) {
+      uint32_t b0, b1;
+      i8x4_to_bf16(*reinterpret_cast<const uint32_t*>(wl + ((size_t)g * steps + s) * TL_GW * TL_KS),
+                   b0, b1);
+      mma_bf16(acc[0][g], a, b0, b1);
+    }
+  }
+}
+
+// A chunk of GC groups from group g0: its sums, each lane's two (row
+// lane / 4, columns 2 (lane % 4) + {0, 1}) written to red [warp][G][64]
+template <int GC>
+__device__ __forceinline__ void product_groups(const bf16* arow, const int8_t* w, int steps,
+                                               int s0, int s1, int G, int g0, float* red,
+                                               int warp, int lane) {
+  float acc[2][GC][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int g = 0; g < GC; ++g) acc[i][g][0] = acc[i][g][1] = acc[i][g][2] = acc[i][g][3] = 0.f;
+  product_chunk<GC>(acc, arow, w + (size_t)g0 * steps * TL_GW * TL_KS, steps, s0, s1, lane);
+#pragma unroll
+  for (int g = 0; g < GC; ++g)
+    *reinterpret_cast<float2*>(red + ((size_t)warp * G + g0 + g) * 64 + 2 * lane) =
+        make_float2(acc[0][g][0] + acc[1][g][0], acc[0][g][1] + acc[1][g][1]);
+}
+
+// The sums of act [8][pitch] (bf16, zero in [K, Kp)) times each of the G
+// groups of 8 columns of w ([G][Kp / 16][8 n][16 k] int8, exact in bf16),
+// left in red as [warp][G][8 rows x 8 columns] for product_sum. Tensor
+// cores: mma.sync.m16n8k16 with f32 sums, 8 live rows of 16. Warp w sums
+// its run of the Kp / 16 steps for two groups at a time (pw1's pair: W1
+// runs the same code twice, already fetched), waiting first
+// for its K chunk of act when chunk_bars is given (bulk_chunks). Ends with
+// __syncthreads().
+__device__ __noinline__ void block_product(const bf16* act, int pitch, const int8_t* w, int Kp,
+                                          int G, float* red, uint64_t* chunk_bars, int parity,
+                                          int mark) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int steps = Kp / TL_KS, per = (steps + TL_WARPS - 1) / TL_WARPS;
+  const int s0 = min(steps, warp * per), s1 = min(steps, s0 + per);
+  if (chunk_bars) mbar_wait(chunk_bars + warp / TL_CHUNK_WARPS, parity);
+  const bf16* arow = act + (size_t)(lane >> 2) * pitch + 4 * (lane & 3);
+  for (int g0 = 0; g0 < G; g0 += 2) {
+    if (G - g0 == 1)
+      product_groups<1>(arow, w, steps, s0, s1, G, g0, red, warp, lane);
+    else
+      product_groups<2>(arow, w, steps, s0, s1, G, g0, red, warp, lane);
+  }
+  TL_MARK(mark);
+  __syncthreads();
+  TL_MARK(mark + 1);
+}
+
+// Row r, column 8g + j of a block_product: the warps' sums added in a fixed
+// order (no atomics: the kernel is deterministic)
+__device__ __forceinline__ float product_sum(const float* red, int G, int r, int col) {
+  const int g = col / TL_GW, i = r * TL_GW + col % TL_GW;
+  float v = 0.f;
+#pragma unroll
+  for (int wp = 0; wp < TL_WARPS; ++wp) v += red[((size_t)wp * G + g) * 64 + i];
+  return v;
+}
+
+__global__ void __launch_bounds__(TL_THREADS, 1) conv_ffn_ln_kernel(TailArgs p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int M = p.M, D = p.D, E = p.E, cD = p.cD, cE = p.cE, kk = p.kk;
+  const TailSmem L = tail_smem(M, D, E, kk, cD, cE);
+  const TailBlob B = tail_blob(D, E, kk, cD, cE);
+  const int8_t* w_pw1 = reinterpret_cast<const int8_t*>(smem + L.w + B.pw1);
+  const int8_t* w_pw2 = reinterpret_cast<const int8_t*>(smem + L.w + B.pw2);
+  const int8_t* w_w1 = reinterpret_cast<const int8_t*>(smem + L.w + B.w1);
+  const int8_t* w_w2 = reinterpret_cast<const int8_t*>(smem + L.w + B.w2);
+  bf16* act = reinterpret_cast<bf16*>(smem + L.act);
+  float* xs = reinterpret_cast<float*>(smem + L.xs);
+  float* norms = reinterpret_cast<float*>(smem + L.norms);    // LN_conv, LN_ff, LN_out
+  float* sc1 = reinterpret_cast<float*>(smem + L.cols);       // [2 cD]: n, n + D
+  float* sc2 = sc1 + 2 * cD;                                  // [cD]
+  float* fsc1 = sc2 + cD;                                     // [cE]
+  float* fsc2 = fsc1 + cE;                                    // [cD]
+  float* dw = fsc2 + cD;                                      // [kk][cD]
+  float* bn = dw + kk * cD;                                   // [4][cD]: g, b, m, v
+  float* mask = reinterpret_cast<float*>(smem + L.mask);
+  float* ext = reinterpret_cast<float*>(smem + L.ext);
+  float* y1c = reinterpret_cast<float*>(smem + L.y1c);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  const int Dp = tail_pad(D), Ep = tail_pad(E), pd = Dp + TL_KS, pe = Ep + TL_KS;
+  const int n0 = blockIdx.x * cD, e0 = blockIdx.x * cE;
+  const int gd = cD / TL_GW, ge = cE / TL_GW, half = (kk - 1) / 2;
+  const size_t b = blockIdx.x;
+  const cg::grid_group grid = cg::this_grid();
+  TL_MARK(0);
+
+  // Thread 0 starts the bulk copies of pw1's slice and of what phase (a)
+  // reads (x's first rows, LN_conv's g and b, the block's f32 columns of
+  // the blob); once x has landed, those of pw2, W1 and W2 and of the
+  // other norms: each group on its own mbarrier, so each phase waits for
+  // its own bytes only, and pw1 has a head start on the 9.4 MB that are
+  // needed later. Meanwhile the other threads load the
+  // block's columns of the time cache and the mask.
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+  const unsigned char* mine = p.packed + b * B.total;
+  const uint32_t nb = D * 4;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < TL_BARS; ++i) mbar_init(bars + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    const uint32_t xb = min(TL_MR, M) * D * 4, cb = (uint32_t)(B.total - B.cols);
+    mbar_expect(bars + BAR_PW1, (uint32_t)(B.pw2 - B.pw1));
+    bulk_copy(smem + L.w + B.pw1, mine + B.pw1, (uint32_t)(B.pw2 - B.pw1), bars + BAR_PW1);
+    mbar_expect(bars + BAR_X, xb + 2 * nb + cb);
+    bulk_copy(xs, p.x, xb, bars + BAR_X);
+    bulk_copy(norms, p.ln_g, nb, bars + BAR_X);
+    bulk_copy(norms + D, p.ln_b, nb, bars + BAR_X);
+    bulk_copy(sc1, mine + B.cols, cb, bars + BAR_X);
+  }
+  TL_MARK(1);
+  for (int i = threadIdx.x; i < half * cD; i += TL_THREADS) {
+    const int r = i / cD, j = i - r * cD;
+    ext[i] = n0 + j < D ? p.tc[(size_t)r * D + n0 + j] : 0.f;
+  }
+  for (int i = threadIdx.x; i < M; i += TL_THREADS) mask[i] = p.mask[i];
+  for (int i = threadIdx.x; i < half * cD; i += TL_THREADS) ext[(half + M) * cD + i] = 0.f;
+  __syncthreads();                          // the mbarriers are ready
+  mbar_wait(bars + BAR_X);
+  TL_MARK(2);
+  // x has landed: the weights needed later stream behind pw1
+  if (threadIdx.x == 0) {
+    const size_t wo[4] = {B.pw2, B.w1, B.w2, B.cols};
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      mbar_expect(bars + BAR_PW2 + i, (uint32_t)(wo[i + 1] - wo[i]));
+      bulk_copy(smem + L.w + wo[i], mine + wo[i], (uint32_t)(wo[i + 1] - wo[i]),
+                bars + BAR_PW2 + i);
+    }
+    const bool row_block = blockIdx.x < M;
+    mbar_expect(bars + BAR_NORMS, (row_block ? 4 : 2) * nb);
+    bulk_copy(norms + 2 * D, p.ff_g, nb, bars + BAR_NORMS);
+    bulk_copy(norms + 3 * D, p.ff_b, nb, bars + BAR_NORMS);
+    if (row_block) {
+      bulk_copy(norms + 4 * D, p.out_g, nb, bars + BAR_NORMS);
+      bulk_copy(norms + 5 * D, p.out_b, nb, bars + BAR_NORMS);
+    }
+  }
+  int rows_parity = 0, chunk_parity = 0;    // of BAR_ROWS and BAR_CHUNK, a phase a staging
+
+  // (a, b) c = GLU(LN_conv(x) @ pw1) * mask, then the conv's taps, BN, SiLU
+  for (int m0 = 0; m0 < M; m0 += TL_MR) {
+    const int mr = min(TL_MR, M - m0);
+    if (m0 > 0) {
+      if (threadIdx.x == 0)
+        bulk_rows(xs, 0, p.x + (size_t)m0 * D, 0, 1, mr * nb, bars + BAR_ROWS);
+      mbar_wait(bars + BAR_ROWS, rows_parity);
+      rows_parity ^= 1;
+    }
+    ln_rows(act, pd, xs, mr, D, norms, norms + D);
+    mbar_wait(bars + BAR_PW1);
+    __syncthreads();
+    TL_MARK(3);
+    block_product(act, pd, w_pw1, Dp, 2 * gd, red, nullptr, 0, 17);
+    TL_MARK(4);
+    for (int i = threadIdx.x; i < mr * cD; i += TL_THREADS) {
+      const int r = i / cD, j = i - r * cD, n = n0 + j, t = m0 + r;
+      float v = 0.f;
+      if (n < D) {
+        const float hv = __fmul_rn(product_sum(red, 2 * gd, r, j), sc1[j]);
+        const float gate = __fmul_rn(product_sum(red, 2 * gd, r, cD + j), sc1[cD + j]);
+        v = __fmul_rn(__fmul_rn(hv, sigmoid_f(gate)), mask[t]);
+        p.c[(size_t)t * D + n] = v;
+      }
+      ext[(half + t) * cD + j] = v;
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < M * cD; i += TL_THREADS) {
+    const int t = i / cD, j = i - t * cD, n = n0 + j;
+    if (n >= D) continue;
+    const float bscale = __fmul_rn(bn[j], rsqrtf(bn[3 * cD + j] + 1e-5f));
+    float cv = __fmul_rn(ext[t * cD + j], dw[j]);
+    for (int q = 1; q < kk; ++q)
+      cv = __fadd_rn(cv, __fmul_rn(ext[(t + q) * cD + j], dw[q * cD + j]));
+    cv = __fadd_rn(__fmul_rn(__fsub_rn(cv, bn[2 * cD + j]), bscale), bn[cD + j]);
+    p.a[(size_t)t * D + n] = __float2bfloat16_rn(silu_f(cv));
+  }
+  TL_MARK(5);
+  grid.sync();
+  TL_MARK(6);
+
+  // (c) y1 = x + a @ pw2 (the block keeps its columns of y1 for (e))
+  for (int m0 = 0; m0 < M; m0 += TL_MR) {
+    const int mr = min(TL_MR, M - m0);
+    bulk_chunks(act, pd, p.a, m0, mr, D, bars + BAR_CHUNK);
+    zero_pad(act, pd, mr, D);
+    mbar_wait(bars + BAR_PW2);
+    __syncthreads();
+    TL_MARK(7);
+    block_product(act, pd, w_pw2, Dp, gd, red, bars + BAR_CHUNK, chunk_parity, 19);
+    chunk_parity ^= 1;
+    for (int i = threadIdx.x; i < mr * cD; i += TL_THREADS) {
+      const int r = i / cD, j = i - r * cD, n = n0 + j, t = m0 + r;
+      const float xv = n >= D ? 0.f : M <= TL_MR ? xs[t * D + n] : p.x[(size_t)t * D + n];
+      const float v = __fadd_rn(xv, __fmul_rn(product_sum(red, gd, r, j), sc2[j]));
+      y1c[t * cD + j] = v;
+      if (n < D) p.y1[(size_t)t * D + n] = v;
+    }
+    __syncthreads();
+  }
+  TL_MARK(8);
+  grid.sync();
+  TL_MARK(9);
+
+  // (d) h = bf16(silu(LN_ff(y1) @ W1))
+  for (int m0 = 0; m0 < M; m0 += TL_MR) {
+    const int mr = min(TL_MR, M - m0);
+    if (threadIdx.x == 0)
+      bulk_rows(xs, 0, p.y1 + (size_t)m0 * D, 0, 1, mr * nb, bars + BAR_ROWS);
+    mbar_wait(bars + BAR_W1);
+    mbar_wait(bars + BAR_NORMS);
+    mbar_wait(bars + BAR_ROWS, rows_parity);
+    rows_parity ^= 1;
+    ln_rows(act, pd, xs, mr, D, norms + 2 * D, norms + 3 * D);
+    __syncthreads();
+    TL_MARK(10);
+    block_product(act, pd, w_w1, Dp, ge, red, nullptr, 0, 21);
+    for (int i = threadIdx.x; i < mr * cE; i += TL_THREADS) {
+      const int r = i / cE, j = i - r * cE, ne = e0 + j, t = m0 + r;
+      if (ne < E)
+        p.h[(size_t)t * E + ne] =
+            __float2bfloat16_rn(silu_f(__fmul_rn(product_sum(red, ge, r, j), fsc1[j])));
+    }
+    __syncthreads();
+  }
+  TL_MARK(11);
+  grid.sync();
+  TL_MARK(12);
+
+  // (e) y2 = y1 + 0.5 * h @ W2
+  for (int m0 = 0; m0 < M; m0 += TL_MR) {
+    const int mr = min(TL_MR, M - m0);
+    bulk_chunks(act, pe, p.h, m0, mr, E, bars + BAR_CHUNK);
+    zero_pad(act, pe, mr, E);
+    mbar_wait(bars + BAR_W2);
+    __syncthreads();
+    TL_MARK(13);
+    block_product(act, pe, w_w2, Ep, gd, red, bars + BAR_CHUNK, chunk_parity, 23);
+    chunk_parity ^= 1;
+    for (int i = threadIdx.x; i < mr * cD; i += TL_THREADS) {
+      const int r = i / cD, j = i - r * cD, n = n0 + j, t = m0 + r;
+      if (n < D)
+        p.y2[(size_t)t * D + n] = __fadd_rn(
+            y1c[t * cD + j], __fmul_rn(0.5f, __fmul_rn(product_sum(red, gd, r, j), fsc2[j])));
+    }
+    __syncthreads();
+  }
+  TL_MARK(14);
+  grid.sync();
+  TL_MARK(15);
+
+  // (f) y = LN_out(y2), one row a block, read straight from L2 (a row is
+  // one load a thread); every warp sums the whole row itself (the same
+  // order in each), so no warp waits for another
+  const float* og = norms + 4 * D;
+  const float* ob = norms + 5 * D;
+  const int lane = threadIdx.x & 31;
+  for (int m = blockIdx.x; m < M; m += gridDim.x) {
+    for (int i = threadIdx.x; i < D / 4; i += TL_THREADS)
+      reinterpret_cast<float4*>(xs)[i] =
+          __ldcg(reinterpret_cast<const float4*>(p.y2 + (size_t)m * D) + i);
+    __syncthreads();
+    float s = 0.f;
+    for (int i = 4 * lane; i < D; i += 128) {
+      const float4 v = *reinterpret_cast<const float4*>(xs + i);
+      s += v.x + v.y + v.z + v.w;
+    }
+    const float mu = warp_sum(s) / (float)D;
+    float q = 0.f;
+    for (int i = 4 * lane; i < D; i += 128) {
+      const float4 v = *reinterpret_cast<const float4*>(xs + i);
+      q = fmaf(v.x - mu, v.x - mu, q);
+      q = fmaf(v.y - mu, v.y - mu, q);
+      q = fmaf(v.z - mu, v.z - mu, q);
+      q = fmaf(v.w - mu, v.w - mu, q);
+    }
+    const float inv = 1.0f / sqrtf(warp_sum(q) / (float)D + 1e-5f);
+    for (int i = threadIdx.x; i < D; i += TL_THREADS)
+      p.y[(size_t)m * D + i] = __fadd_rn(__fmul_rn(__fmul_rn(xs[i] - mu, inv), og[i]), ob[i]);
+    __syncthreads();
+  }
+  TL_MARK(16);
+}
+
+}  // namespace port
+
+using namespace port;
+
+static int tail_smem_set = -1;       // the kernel's dynamic shared memory limit, as set
+
+static cudaError_t set_tail_smem(int smem) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv_ffn_ln_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  tail_smem_set = err == cudaSuccess ? smem : -1;
+  return err;
+}
+
+// x, y, c [M, D] f32; tc [(kk - 1) / 2, D] (the time cache); mask [M] (1 =
+// valid step, 0 = padded); the LayerNorms' g and b [D]; packed: the layer's
+// weights and per-column constants, [blocks][tail_blob(D, E, kk, cD, cE)
+// .total] bytes (ops/kernels/conv_block.py:pack_conv_ffn_ln); D and E
+// multiples of 8. The launch plan (blocks, cD, cE, smem: dynamic shared
+// bytes) comes from the wrapper and is checked against this file's
+// layout. scratch holds
+// M * (10 D + 2 E) bytes. Returns the CUDA error code
+// (cudaErrorCooperativeLaunchTooLarge when the blocks cannot all be resident).
+extern "C" int conv_ffn_ln_launch(const float* x, int M, int D, int E, int kk,
+                                  const float* ln_g, const float* ln_b, const float* tc,
+                                  const float* mask, const float* ff_ln_g, const float* ff_ln_b,
+                                  const float* out_ln_g, const float* out_ln_b,
+                                  const void* packed, int blocks, int cD, int cE, int smem,
+                                  float* y, float* c, void* scratch, void* stream_ptr) {
+  if (M < 1 || D < 8 || E < 8 || D % TL_GW || E % TL_GW || kk < 1 || kk % 2 == 0 ||
+      cD < TL_GW || cE < TL_GW || cD % TL_GW || cE % TL_GW || blocks < 1 ||
+      (size_t)blocks * cD < (size_t)D || (size_t)(blocks - 1) * cD >= (size_t)D ||
+      (size_t)blocks * cE < (size_t)E ||
+      tail_smem(M, D, E, kk, cD, cE).total != (size_t)smem)
+    return (int)cudaErrorInvalidValue;
+  if (smem != tail_smem_set) {
+    const cudaError_t err = set_tail_smem(smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  unsigned char* s = static_cast<unsigned char*>(scratch);
+  const size_t md = (size_t)M * D;
+  TailArgs p = {x, M, D, E, kk, cD, cE, ln_g, ln_b, tc, mask, ff_ln_g, ff_ln_b, out_ln_g,
+                out_ln_b, static_cast<const unsigned char*>(packed), y, c,
+                reinterpret_cast<bf16*>(s),
+                reinterpret_cast<float*>(s + 2 * md),
+                reinterpret_cast<bf16*>(s + 6 * md),
+                reinterpret_cast<float*>(s + 6 * md + 2 * (size_t)M * E)};
+  void* args[] = {&p};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)conv_ffn_ln_kernel, dim3(blocks), dim3(TL_THREADS), args, (size_t)smem,
+      (cudaStream_t)stream_ptr);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// info[0] = blocks of the kernel an SM holds with `smem` dynamic shared
+// bytes (the CUDA occupancy API)
+extern "C" int conv_ffn_ln_occupancy(int smem, int* info) {
+  const cudaError_t err = set_tail_smem(smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[0], conv_ffn_ln_kernel,
+                                                            TL_THREADS, (size_t)smem);
+}

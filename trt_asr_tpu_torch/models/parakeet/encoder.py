@@ -29,7 +29,8 @@ from trt_asr_tpu_torch.ops.common import (batch_norm_inference, glu, layer_norm,
 from trt_asr_tpu_torch.ops.conv import (depthwise_conv1d, dw_striding_subsample,
                                         subsampled_length)
 from trt_asr_tpu_torch.ops.kernels.att_block import att_block
-from trt_asr_tpu_torch.ops.kernels.conv_block import conv_block, conv_ffn_ln
+from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block, conv_ffn_ln,
+                                                      pack_conv_ffn_ln)
 from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn
 from trt_asr_tpu_torch.ops.quant import QuantTensor, dequantize
 
@@ -97,17 +98,30 @@ def _append_cache(cache: torch.Tensor, block: torch.Tensor,
     return torch.gather(full, 1, idx[:, :, None].expand(-1, -1, full.shape[2]))
 
 
-def layer_params(params: Dict[str, Any], num_layers: int) -> List[Dict[str, Any]]:
+def layer_params(params: Dict[str, Any], num_layers: int,
+                 pack_tail: bool = False) -> List[Dict[str, Any]]:
     """Per-layer views of the stacked [L, ...] layer parameters (compute
-    once per model and pass to :func:`encode` as ``layers``)."""
+    once per model and pass to :func:`encode` as ``layers``). With
+    ``pack_tail``, a layer whose conv and FFN2 weights are int8 on the card
+    also holds them, with their scales, taps and BN, packed once for the
+    fused tail kernel (``conv_ffn_ln_packed``, :func:`pack_conv_ffn_ln`)."""
     stacked = params["encoder"]["layers"]
     out = []
     for li in range(num_layers):
         lp = {}
         for k, v in stacked.items():
             lp[k] = QuantTensor(v.q[li], v.s[li]) if isinstance(v, QuantTensor) else v[li]
+        if pack_tail and _int8_tail(lp) and lp["conv_pw1"].q.is_cuda:
+            lp["conv_ffn_ln_packed"] = pack_conv_ffn_ln(
+                lp["conv_pw1"], lp["conv_dw"], lp["conv_bn_g"], lp["conv_bn_b"],
+                lp["conv_bn_m"], lp["conv_bn_v"], lp["conv_pw2"], lp["ff2_w1"], lp["ff2_w2"])
         out.append(lp)
     return out
+
+
+def _int8_tail(lp) -> bool:
+    """Whether the layer's conv and FFN2 weights take the fused int8 tail."""
+    return isinstance(lp["conv_pw1"], QuantTensor) and isinstance(lp["ff2_w1"], QuantTensor)
 
 
 def _conformer_layer(lp, x, att_cache, time_cache, kv_cache, pos_proj, kv_mask,
@@ -167,16 +181,15 @@ def _conformer_layer(lp, x, att_cache, time_cache, kv_cache, pos_proj, kv_mask,
 
     # convolution module; with int8 weights and both flags, conv + FFN2 +
     # out-LN in one kernel
-    fused_tail = (use_pallas_conv and use_pallas_ffn
-                  and isinstance(lp["conv_pw1"], QuantTensor)
-                  and isinstance(lp["ff2_w1"], QuantTensor))
+    fused_tail = use_pallas_conv and use_pallas_ffn and _int8_tail(lp)
     if use_pallas_conv:
         conv = (x[0], lp["conv_ln_g"], lp["conv_ln_b"], lp["conv_pw1"], lp["conv_dw"],
                 lp["conv_bn_g"], lp["conv_bn_b"], lp["conv_bn_m"], lp["conv_bn_v"],
                 lp["conv_pw2"], time_cache[0], time_mask[0][:, None].float())
         if fused_tail:
             y2, c1 = conv_ffn_ln(*conv, lp["ff2_ln_g"], lp["ff2_ln_b"], lp["ff2_w1"],
-                                 lp["ff2_w2"], lp["out_ln_g"], lp["out_ln_b"])
+                                 lp["ff2_w2"], lp["out_ln_g"], lp["out_ln_b"],
+                                 packed=lp.get("conv_ffn_ln_packed"))
             if streaming:
                 time_cache.copy_(_append_cache(time_cache, c1[None, :cache_keep], appended))
             return y2[None]

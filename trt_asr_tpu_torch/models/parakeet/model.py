@@ -65,7 +65,9 @@ class ParakeetTDT:
 
             params = quantize_params(params, self.runtime.quant)
         self.params = params
-        self.layers = layer_params(params, cfg.num_layers)
+        self.layers = layer_params(
+            params, cfg.num_layers,
+            pack_tail=self.runtime.use_pallas_conv and self.runtime.use_pallas_ffn)
 
     @classmethod
     def from_model_dir(cls, model_dir: str, runtime: Optional[RuntimeConfig] = None,

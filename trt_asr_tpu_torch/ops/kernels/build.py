@@ -27,7 +27,8 @@ from trt_asr_tpu_torch.ops.quant import QuantTensor
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("att_block", "joint_step", "mel", "ffn", "conv_block", "rel_shift", "flash_att")
+SOURCES = ("att_block", "joint_step", "mel", "ffn", "conv_block", "conv_ffn_ln", "rel_shift",
+           "flash_att")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,11 +47,10 @@ _SIGNATURES = {
     "mel": {"logmel_launch": [_P, _I, _I, _P, _P, _I, _P, _I, _F, _P, _P]},
     "ffn": {"ffn_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F, _I, _I,
                            _P, _P, _P, _P, _P]},
-    "conv_block": {
-        "conv_block_launch": _CONV + [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
-        "conv_ffn_ln_launch": _CONV + [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
-                                       _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    },
+    "conv_block": {"conv_block_launch": _CONV + [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P]},
+    "conv_ffn_ln": {"conv_ffn_ln_launch": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                           _P, _I, _I, _I, _I, _P, _P, _P, _P],
+                    "conv_ffn_ln_occupancy": [_I, _P]},
     "rel_shift": {"rel_shift_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
                   "rel_shift_bf16_occupancy": [_I, _P]},
     "flash_att": {"flash_att_launch": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I,

@@ -1,18 +1,23 @@
 """Fused conformer convolution module (B=1 streaming chunks), alone and with
 the second FFN and the output LayerNorm: the CUDA kernels of
-``csrc/conv_block.cu`` and their plain PyTorch versions.
+``csrc/conv_block.cu`` and ``csrc/conv_ffn_ln.cu`` and their plain PyTorch
+versions.
 
 Replaces ``trt_asr_tpu/ops/pallas/conv_block_kernel.py:conv_block_pallas``
 and ``:conv_ffn_ln_pallas``. The bound on the H100 is memory: pw1 and pw2
 (12.6 MB f32, 3.1 MB int8 per layer at full size), plus FFN2's W1 and W2 in
 the fused tail (11.5 MB int8 in all); the kernels read each weight byte
-once for all rows (see the source's note).
+once for all rows (see the sources' notes). The fused tail is one
+persistent cooperative launch, laid out by :func:`conv_ffn_ln_plan`.
 
 Both functions return ``(y, c)``, each [Tq, D] f32: ``c`` holds the masked
 post-GLU rows whose first ``cache_keep`` rows feed the time cache.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -73,11 +78,6 @@ def _conv_args(what, x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_c
     if kk % 2 == 0 or time_cache.shape != ((kk - 1) // 2, d) or mask.shape != (tq, 1):
         raise ValueError(f"{what}: needs an odd kernel size, time_cache [(K-1)/2, D] "
                          f"and mask [Tq, 1]")
-    # the depthwise taps run over [time cache ++ Tq rows ++ zeros] in 48 KB
-    # of shared memory, 32 columns a block
-    if (tq + kk - 1) * 32 * 4 > 48 * 1024:
-        raise ValueError(f"{what}: Tq={tq} with a {kk}-tap conv exceeds the kernel's "
-                         f"shared memory")
     floats = [x, ln_g, ln_b, dw, bn_g, bn_b, bn_m, bn_v, time_cache, mask]
     if any(t.dtype != torch.float32 for t in floats):
         raise TypeError(f"{what}: activations, norms, conv weights, cache and mask must be f32")
@@ -93,8 +93,13 @@ def conv_block(x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_cache, 
     if x.device.type == "cpu":
         return conv_block_plain(*args)
     (pw1_t, s1), (pw2_t, s2), wtype, kk = _conv_args("conv_block", *args)
-    lib = kb.load("conv_block")
     tq, d = x.shape
+    # the depthwise taps run over [time cache ++ Tq rows ++ zeros] in 48 KB
+    # of shared memory, 32 columns a block
+    if (tq + kk - 1) * 32 * 4 > 48 * 1024:
+        raise ValueError(f"conv_block: Tq={tq} with a {kk}-tap conv exceeds the kernel's "
+                         f"shared memory")
+    lib = kb.load("conv_block")
     y, c, u, a = (torch.empty_like(x) for _ in range(4))
     ksplit = kb.gemm_splits(d)
     part = torch.empty((ksplit * tq * 2 * d,), dtype=torch.float32, device=x.device)
@@ -112,12 +117,163 @@ def conv_block(x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_cache, 
 conv_block.launches = 0
 
 
+class TailPlan(NamedTuple):
+    """Launch plan of the fused tail (``csrc/conv_ffn_ln.cu``)."""
+    blocks: int          # one a column slice, all co-resident
+    cols_d: int          # columns of pw1 (GLU pairs), pw2 and W2 a block
+    cols_e: int          # columns of W1 a block
+    smem: int            # dynamic shared bytes a block
+    scratch: int         # bytes of device scratch: a, y1, h, y2
+
+
+TAIL_WARPS = 16              # csrc/conv_ffn_ln.cu TL_WARPS
+TAIL_ROWS = 8                # rows of a product pass (TL_MR)
+TAIL_GROUP = 8               # columns of a weight group (TL_GW)
+TAIL_KSTEP = 16              # K of an mma step (TL_KS)
+SMEM_PER_BLOCK = 232_448     # the H100's opt-in shared memory a block
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _pad_k(k: int) -> int:
+    return -(-k // TAIL_KSTEP) * TAIL_KSTEP
+
+
+def _tail_weight_bytes(d: int, e: int, cd: int, ce: int) -> int:
+    """A block's int8 slices of pw1, pw2, W1, W2 (K padded to 16)."""
+    return _pad_k(d) * (3 * cd + ce) + _pad_k(e) * cd
+
+
+def _tail_columns(kk: int, cd: int, ce: int) -> int:
+    """A block's f32 columns: the four scales (pw1's twice), taps, BN."""
+    return (8 + kk) * cd + ce
+
+
+def conv_ffn_ln_plan(tq: int, d: int, e: int, kk: int, sms: int,
+                     smem_limit: int = SMEM_PER_BLOCK) -> TailPlan:
+    """The grid and shared memory of the fused tail for Tq rows, width D,
+    FFN expansion E, a kk-tap conv and ``sms`` SMs (one block an SM at
+    most): each block owns cD columns of pw1 (with their GLU gates), pw2
+    and W2 and cE of W1, as few as cover D and E with at most ``sms``
+    blocks. Mirrors ``tail_smem`` in the source, which checks it at launch.
+    Raises ValueError for shapes the kernel does not take (D or E not a
+    multiple of 8) or whose weight slices and staging do not fit."""
+    if tq < 1 or d < TAIL_GROUP or e < TAIL_GROUP or d % TAIL_GROUP or e % TAIL_GROUP:
+        raise ValueError(f"conv_ffn_ln: needs Tq >= 1 and D, E multiples of {TAIL_GROUP} "
+                         f"(Tq={tq}, D={d}, E={e})")
+    g = TAIL_GROUP
+    cd = g * -(-(d // g) // sms)
+    blocks = -(-d // cd)
+    ce = g * -(-e // (g * blocks))
+    dp, ep = _pad_k(d), _pad_k(e)
+    act_d, act_e = (TAIL_ROWS * (k + TAIL_KSTEP) * 2 for k in (dp, ep))   # operand rows, bf16
+    smem = (_tail_weight_bytes(d, e, cd, ce)                    # weight slices, int8
+            + max(act_d + TAIL_ROWS * d * 4, act_e)             # and f32 rows to normalize
+            + 6 * d * 4 + _tail_columns(kk, cd, ce) * 4         # norms; scales, taps, BN
+            + _align16(tq * 4) + _align16((tq + kk - 1) * cd * 4)   # mask, conv rows
+            + _align16(tq * cd * 4)                             # the block's columns of y1
+            + TAIL_WARPS * max(2 * cd, ce) * TAIL_ROWS * 4      # per-warp sums
+            + 11 * 8)                                           # mbarriers
+    if smem > smem_limit:
+        raise ValueError(f"conv_ffn_ln: {smem} B of shared memory a block at Tq={tq}, D={d}, "
+                         f"E={e} exceeds {smem_limit} B")
+    return TailPlan(blocks, cd, ce, smem, tq * (10 * d + 2 * e))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def pack_tail_weight(q: torch.Tensor, cols: int, blocks: int, glu: bool = False):
+    """The int8 matrix q [K, N] as the fused tail's blocks read it: block b's
+    ``cols`` columns b * cols .. contiguous, 8 columns a group, each group
+    as [Kp / 16][8 columns][16 rows] (the mma's B operand, a column's 16
+    rows of a step adjacent; K padded to Kp, a multiple of 16, and columns
+    past N with zeros): [blocks, cols / 8, Kp / 16, 8, 16]. With ``glu``
+    (pw1, N = 2D) each block's groups of columns n in [0, D) come first,
+    then those of their gates n + D: [blocks, 2 cols / 8, Kp / 16, 8, 16]."""
+    k, n = q.shape
+    kp, g = _pad_k(k), TAIL_GROUP
+    halves = (q[:, : n // 2], q[:, n // 2:]) if glu else (q,)
+    packed = []
+    for w in halves:
+        p = w.new_zeros((kp, blocks * cols))
+        p[:k, : w.shape[1]] = w
+        packed.append(p.view(kp // TAIL_KSTEP, TAIL_KSTEP, blocks, cols // g, g)
+                      .permute(2, 3, 0, 4, 1))
+    return torch.cat(packed, dim=1).contiguous()
+
+
+def _columns(v: torch.Tensor, cols: int, blocks: int) -> torch.Tensor:
+    """[rows, N] f32 (or [N]) -> [blocks, rows * cols]: block b's columns
+    b * cols .. of each row, zero past N."""
+    v = v.reshape(-1, v.shape[-1]).float()
+    p = v.new_zeros((v.shape[0], blocks * cols))
+    p[:, : v.shape[1]] = v
+    return p.view(v.shape[0], blocks, cols).permute(1, 0, 2).reshape(blocks, -1)
+
+
+def pack_tail(pw1, pw2, w1, w2, s1, s2, fs1, fs2, dw, bn, plan: TailPlan) -> torch.Tensor:
+    """The layer's constants as the fused tail's blocks read them, a block's
+    slice contiguous: [blocks, bytes] uint8, block b holding its int8
+    slices of pw1 (the GLU pairs), pw2, W1 and W2 (:func:`pack_tail_weight`),
+    then its f32 columns of pw1's scales (n, then n + D), pw2's, W1's and
+    W2's, the conv taps [kk, cD] and BN g, b, m, v (``tail_blob`` in the
+    source). pw1 .. w2 are int8 [K, N]; s1 .. fs2 the scales; dw [kk, D];
+    bn (g, b, m, v)."""
+    cd, ce, nb = plan.cols_d, plan.cols_e, plan.blocks
+    d = pw2.shape[0]
+    s1, s2, fs1, fs2 = (v.reshape(-1) for v in (s1, s2, fs1, fs2))
+    weights = (pack_tail_weight(pw1, cd, nb, glu=True), pack_tail_weight(pw2, cd, nb),
+               pack_tail_weight(w1, ce, nb), pack_tail_weight(w2, cd, nb))
+    cols = torch.cat([_columns(s1[:d], cd, nb), _columns(s1[d:], cd, nb),
+                      _columns(s2, cd, nb), _columns(fs1, ce, nb), _columns(fs2, cd, nb),
+                      _columns(dw, cd, nb), *[_columns(v, cd, nb) for v in bn]], dim=1)
+    return torch.cat([w.reshape(nb, -1).view(torch.uint8) for w in weights]
+                     + [cols.contiguous().view(torch.uint8)], dim=1).contiguous()
+
+
+def pack_conv_ffn_ln(pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, ff_w1, ff_w2,
+                     sms: int | None = None) -> torch.Tensor:
+    """A layer's constants for :func:`conv_ffn_ln`'s ``packed`` (int8
+    QuantTensor weights, as the wrapper takes them): :func:`pack_tail` for
+    the column slices of a card with ``sms`` SMs (by default that of the
+    weights' device). Made once, where the layer's int8 weights are made
+    (``models/parakeet/encoder.py:layer_params``): the weights are fixed
+    from then on, and a packed copy that no longer matches them gives wrong
+    results. 11.5 MB a layer at full width, beside the [K, N] matrices that
+    the plain path and the other kernels read."""
+    _require_int8(pw1, pw2, ff_w1, ff_w2)
+    if sms is None:
+        sms = _sm_count(pw1.q.device.index or 0)
+    plan = conv_ffn_ln_plan(1, pw2.q.shape[0], ff_w1.q.shape[1], dw.shape[0], sms)
+    return pack_tail(pw1.q, pw2.q, ff_w1.q, ff_w2.q, pw1.s, pw2.s, ff_w1.s, ff_w2.s, dw,
+                     (bn_g, bn_b, bn_m, bn_v), plan)
+
+
+def check_packed(packed: torch.Tensor, plan: TailPlan, d: int, e: int, kk: int) -> None:
+    """Raises ValueError unless ``packed`` has the layout of ``plan``'s
+    column slices: [blocks, bytes of a block's slice] uint8."""
+    want = (plan.blocks, _tail_weight_bytes(d, e, plan.cols_d, plan.cols_e)
+            + _tail_columns(kk, plan.cols_d, plan.cols_e) * 4)
+    if packed.dtype != torch.uint8 or tuple(packed.shape) != want:
+        raise ValueError(f"conv_ffn_ln: packed constants {packed.dtype} {tuple(packed.shape)} "
+                         f"do not fit the launch plan {want} (see pack_conv_ffn_ln)")
+
+
 def conv_ffn_ln(x, conv_ln_g, conv_ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_cache,
-                mask, ff_ln_g, ff_ln_b, ff_w1, ff_w2, out_ln_g, out_ln_b):
+                mask, ff_ln_g, ff_ln_b, ff_w1, ff_w2, out_ln_g, out_ln_b, packed=None):
     """Fused conv module + FFN2 + output LayerNorm (int8 weights only); same
     arguments and results as :func:`conv_ffn_ln_plain`. CPU tensors take
-    the plain version; CUDA tensors launch the kernel (or raise). As the
-    TPU kernel, it ignores ``TRT_ASR_Q8_ACT=split``."""
+    the plain version; CUDA tensors launch the kernel, one cooperative
+    launch (or raise: also when its blocks cannot all be resident).
+    ``packed``: the layer's weights, scales, taps and BN as
+    :func:`pack_conv_ffn_ln` lays them out for the kernel, made once with
+    the weights; without it they are packed anew at every call. As the TPU
+    kernel, it ignores ``TRT_ASR_Q8_ACT=split``."""
     conv = (x, conv_ln_g, conv_ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_cache, mask)
     tail = (ff_ln_g, ff_ln_b, ff_w1, ff_w2, out_ln_g, out_ln_b)
     if x.device.type == "cpu":
@@ -133,20 +289,23 @@ def conv_ffn_ln(x, conv_ln_g, conv_ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, t
     if any(t.dtype != torch.float32 for t in norms):
         raise TypeError("conv_ffn_ln: norms must be f32")
     kb.require_cuda("conv_ffn_ln", x, *norms, ff_w1.q, ff_w2.q, fs1, fs2)
-    lib = kb.load("conv_block")
-    y, c, u, a, y1, y2 = (torch.empty_like(x) for _ in range(6))
-    h = torch.empty((tq, e), dtype=torch.float32, device=x.device)
-    ksplit, ks_e = kb.gemm_splits(d), kb.gemm_splits(e)
-    part = torch.empty((max(ksplit * 2 * d, ksplit * e, ks_e * d) * tq,),
-                       dtype=torch.float32, device=x.device)
+    plan = conv_ffn_ln_plan(tq, d, e, kk, _sm_count(x.device.index or 0))
+    # bulk copies (16-byte aligned) of x's rows and the norms
+    kb.require_aligned("conv_ffn_ln", 4, x, conv_ln_g, conv_ln_b, *norms)
+    if packed is None:
+        packed = pack_tail(pw1.q, pw2.q, ff_w1.q, ff_w2.q, pw1.s, pw2.s, ff_w1.s, ff_w2.s, dw,
+                           (bn_g, bn_b, bn_m, bn_v), plan)
+    check_packed(packed, plan, d, e, kk)
+    kb.require_cuda("conv_ffn_ln", x, packed)
+    kb.require_aligned("conv_ffn_ln", 16, packed)
+    lib = kb.load("conv_ffn_ln")
+    y, c = torch.empty_like(x), torch.empty_like(x)
+    scratch = torch.empty((plan.scratch,), dtype=torch.uint8, device=x.device)
     rc = lib.conv_ffn_ln_launch(
-        x.data_ptr(), tq, d, conv_ln_g.data_ptr(), conv_ln_b.data_ptr(), pw1_t.data_ptr(),
-        s1.data_ptr(), dw.data_ptr(), kk, bn_g.data_ptr(), bn_b.data_ptr(), bn_m.data_ptr(),
-        bn_v.data_ptr(), pw2_t.data_ptr(), s2.data_ptr(), time_cache.data_ptr(),
-        mask.data_ptr(), ff_ln_g.data_ptr(), ff_ln_b.data_ptr(), ff_w1.q.data_ptr(),
-        fs1.data_ptr(), ff_w2.q.data_ptr(), fs2.data_ptr(), e, out_ln_g.data_ptr(),
-        out_ln_b.data_ptr(), ksplit, ks_e, y.data_ptr(), c.data_ptr(), u.data_ptr(),
-        a.data_ptr(), y1.data_ptr(), y2.data_ptr(), h.data_ptr(), part.data_ptr(),
+        x.data_ptr(), tq, d, e, kk, conv_ln_g.data_ptr(), conv_ln_b.data_ptr(),
+        time_cache.data_ptr(), mask.data_ptr(), ff_ln_g.data_ptr(), ff_ln_b.data_ptr(),
+        out_ln_g.data_ptr(), out_ln_b.data_ptr(), packed.data_ptr(), plan.blocks, plan.cols_d,
+        plan.cols_e, plan.smem, y.data_ptr(), c.data_ptr(), scratch.data_ptr(),
         kb.stream_ptr(x.device))
     kb.check(lib, rc, "conv_ffn_ln")
     conv_ffn_ln.launches += 1
