@@ -1,0 +1,270 @@
+"""The int8 attention-block kernel (``csrc/att_block_q8.cu``, one cooperative
+launch a layer) timed on the card at the main path's full-width shapes (a
+steady chunk: Tq 8 with 6 valid steps, D 1024, H 8, a full ring of C 256,
+int8 weights), beside the int8 chain of ``csrc/att_block.cu`` that it
+replaced (called through its C interface), to show where its time goes. Run
+from the repository root on a machine with the card:
+
+    python3 att_variants.py
+
+Each version is held to the plain version at ``chip_smoke.py``'s 1e-4 and
+timed with ``chip_smoke.py``'s timer, L2 scrubbed before every launch
+(cold) and left warm. ``kernel`` is the source as it is; ``timeline`` is it
+built with ``TAIL_TIMELINE``: thread 0 of each block stores the global
+timer at each phase mark, read after one launch on a scrubbed L2 and after
+one on a warm L2, and printed as the median over the blocks of the time
+since the first block began, in us.
+
+    python3 att_variants.py --against OTHER.cu [--pairs 10]
+
+times the source against another version of it in alternating pairs,
+kernel first: each pair's two medians (L2 scrubbed) and the median of each
+side and of the per-pair differences.
+
+    python3 att_variants.py --orders
+
+finds the summation orders that the kernel copies: it emulates candidate
+orders of the plain version's three f32 products (Q = bf16(u) @ Wq, the
+scores' dot (q + u_bias) . k, the context p @ v) on the host, FMA by FMA,
+and prints how many of the card's results (cuBLAS) each misses; the kernel
+sums in the order that misses none.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import math
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+import chip_smoke as cs
+from trt_asr_tpu_torch.ops.kernels import build as kb
+from trt_asr_tpu_torch.ops.kernels.att_block import att_block, att_block_plain, pack_att_block
+from trt_asr_tpu_torch.ops.quant import quantize_tensor
+
+TIMELINE_READ = """
+extern "C" int att_timeline(unsigned long long* out, int blocks) {
+  return (int)cudaMemcpyFromSymbol(out, tail_timeline,
+                                   sizeof(unsigned long long) * blocks * TL_MARKS);
+}
+"""
+# mark -> what has happened by then (the kernel's TL_MARKs, in order)
+MARKS = {0: "entry", 1: "copies issued", 2: "x, norms in", 14: "LN", 3: "Q/K/V weights in",
+         17: "Q/K/V sums", 4: "q, k_new, v_new written", 5: "after barrier 1",
+         6: "q, keys staged", 7: "scores written", 8: "after barrier 2", 9: "softmax",
+         10: "ctx written", 11: "after barrier 3", 12: "ctx staged", 19: "Wo mma loop",
+         20: "Wo block synced", 13: "end"}
+
+
+def att_inputs(dev, seed: int = 1234, tq: int = 8, valid: int = 6, d: int = 1024, h: int = 8,
+               c: int = 256):
+    """chip_smoke.py phase 2's inputs: the same draws in the same order."""
+    rng = np.random.default_rng(seed)
+    t = lambda *s, sc=1.0: torch.as_tensor(  # noqa: E731
+        (rng.standard_normal(s) * sc).astype(np.float32), device=dev)
+    x, ln_g, ln_b = t(tq, d), 1.0 + t(d, sc=0.1), t(d, sc=0.1)
+    ws = [quantize_tensor(t(d, d, sc=1 / math.sqrt(d))) for _ in range(4)]
+    bu, bv = t(h, d // h, sc=0.3), t(h, d // h, sc=0.3)
+    pos, kv = t(2 * tq + c - 1, d), t(c, 2 * d)
+    meta = torch.tensor([100, c, valid], dtype=torch.int32, device=dev)
+    return (x, ln_g, ln_b, *ws, bu, bv, pos, kv, meta), h
+
+
+def build(sources: dict) -> dict:
+    """{name: source text} -> {name: (loaded library, nvcc log)}, built in
+    parallel into trt_asr_tpu_torch/_build/variants/."""
+    out = kb.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in sources.items():
+        (out / f"att_{name}.cu").write_text(text)
+        cmd = [kb.nvcc_path(), *kb.NVCC_FLAGS, "-I", str(kb.CSRC_DIR), "-o",
+               str(out / f"att_{name}.so"), str(out / f"att_{name}.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+    libs = {}
+    for name, p in procs.items():
+        log, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
+        lib = ctypes.CDLL(str(out / f"att_{name}.so"))
+        sigs = dict(kb._SIGNATURES["att_block_q8"])
+        if name == "timeline":
+            sigs["att_timeline"] = [ctypes.c_void_p, ctypes.c_int]
+        for fn, argtypes in sigs.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.port_error_string.argtypes = [ctypes.c_int]
+        lib.port_error_string.restype = ctypes.c_char_p
+        libs[name] = (lib, log)
+    return libs
+
+
+def chain_call(args, h):
+    """The int8 chain of csrc/att_block.cu (LN, split-K Q/K/V, the attention
+    core, split-K Wo: six launches), called through its C interface."""
+    x, ln_g, ln_b, *ws = args[:7]
+    bu, bv, pos, kv, meta = args[7:]
+    tq, d = x.shape
+    lib = kb.load("att_block")
+    y, u, q, kn, vn, ctx = (torch.empty_like(x) for _ in range(6))
+    ks = kb.gemm_splits(d)
+    part = torch.empty((3, ks, tq, d), dtype=torch.float32, device=x.device)
+    rc = lib.att_block_launch(
+        x.data_ptr(), tq, d, h, ln_g.data_ptr(), ln_b.data_ptr(), *[w.q.data_ptr() for w in ws],
+        *[w.s.data_ptr() for w in ws], 2, bu.data_ptr(), bv.data_ptr(), pos.data_ptr(),
+        kv.data_ptr(), kv.shape[0], meta.data_ptr(), 1 / math.sqrt(d // h), ks, y.data_ptr(),
+        u.data_ptr(), q.data_ptr(), kn.data_ptr(), vn.data_ptr(), ctx.data_ptr(),
+        part.data_ptr(), kb.stream_ptr(x.device))
+    kb.check(lib, rc, "att_block chain")
+    return y, u, kn, vn
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", help="another version of csrc/att_block_q8.cu to time "
+                                      "against the source in alternating pairs")
+    ap.add_argument("--pairs", type=int, default=10)
+    ap.add_argument("--orders", action="store_true",
+                    help="emulate candidate summation orders of the plain version's products")
+    opts = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("att_variants: no CUDA device", file=sys.stderr)
+        return 1
+    print(cs.smi_line())
+    dev = torch.device("cuda")
+    timer = cs.Timer(torch, dev)
+    warm = cs.Timer(torch, dev)
+    warm.scrub = torch.empty(16, dtype=torch.uint8, device=dev)      # L2 left as it is
+    args, h = att_inputs(dev)
+    packed = pack_att_block(*args[3:7])                              # as the model packs them
+    run = lambda: att_block(*args, n_heads=h, packed=packed)  # noqa: E731
+    want = att_block_plain(*args, n_heads=h)
+    if opts.orders:
+        return orders(args, h)
+    src = (kb.CSRC_DIR / "att_block_q8.cu").read_text()
+    if opts.against:
+        return compare(timer, run, want, src, pathlib.Path(opts.against).read_text(),
+                       opts.pairs)
+    libs = build({"kernel": src, "timeline": "#define TAIL_TIMELINE\n" + src + TIMELINE_READ})
+    print(f"plain version {timer(lambda: att_block_plain(*args, n_heads=h)):.4f} ms")
+    err = cs.max_err(chain_call(args, h), want)
+    print(f"chain (csrc/att_block.cu, int8): {timer(lambda: chain_call(args, h)):.4f} ms, "
+          f"L2 warm {warm(lambda: chain_call(args, h)):.4f} ms, max |chain - plain| {err:.3g}")
+    for name, (lib, log) in libs.items():
+        regs = [r for r in cs.ptxas_kernels(log) if "att_block_q8_kernel" in r[0]][0]
+        kb._libs["att_block_q8"] = lib           # the wrapper launches the variant
+        err = cs.max_err(run(), want)
+        assert err <= 1e-4, f"variant {name} disagrees with the plain version ({err:.3g})"
+        print(f"{name}: {timer(run):.4f} ms, L2 warm {warm(run):.4f} ms, max |variant - plain| "
+              f"{err:.3g}; {regs[1]} registers, spills {regs[2]}/{regs[3]} B", flush=True)
+    print_timeline(libs["timeline"][0], timer, run, packed.shape[0])
+    kb._libs.pop("att_block_q8")
+    return 0
+
+
+def print_timeline(lib, timer, run, blocks: int) -> None:
+    """The marks of one launch on a scrubbed L2 and of the launch right
+    after it (warm), side by side."""
+    cols = []
+    timer.scrub.zero_()
+    for _ in range(2):
+        marks = np.zeros((blocks, 25), dtype=np.uint64)
+        run()
+        torch.cuda.synchronize()
+        kb.check(lib, lib.att_timeline(marks.ctypes.data, blocks), "timeline")
+        ns = marks.astype(np.int64)
+        cols.append((ns - int(ns[:, 0].min())) / 1e3)
+    print("  timeline (us since the first block began, median over blocks): cold | warm")
+    for i, name in MARKS.items():
+        print(f"  {i:2d} {name:26s} {np.median(cols[0][:, i]):7.3f} | "
+              f"{np.median(cols[1][:, i]):7.3f}")
+
+
+def compare(timer, run, want, src: str, other: str, pairs: int) -> int:
+    libs = build({"kernel": src, "against": other})
+    for name, (lib, _) in libs.items():
+        kb._libs["att_block_q8"] = lib
+        err = cs.max_err(run(), want)
+        assert err <= 1e-4, f"{name} disagrees with the plain version ({err:.3g})"
+    ms = {name: [] for name in libs}
+    for i in range(pairs):
+        for name, (lib, _) in libs.items():
+            kb._libs["att_block_q8"] = lib
+            ms[name].append(timer(run))
+        print(f"pair {i}: kernel {ms['kernel'][-1]:.4f} ms, against {ms['against'][-1]:.4f} ms",
+              flush=True)
+    kb._libs.pop("att_block_q8")
+    diff = np.subtract(ms["against"], ms["kernel"])
+    print(f"median of {pairs} pairs: kernel {np.median(ms['kernel']):.4f} ms, against "
+          f"{np.median(ms['against']):.4f} ms; against - kernel: median {np.median(diff):.4f} "
+          f"ms, range {diff.min():.4f} .. {diff.max():.4f} ms")
+    return 0
+
+
+def fma_sum(a, b, ks) -> np.ndarray:
+    """sum_k a[..., k] * b[..., k] over ks in order, one f32 FMA a step
+    (emulated in f64: each product of two f32 values is exact there)."""
+    acc = np.zeros(np.broadcast_shapes(a.shape, b.shape)[:-1], dtype=np.float32)
+    for k in ks:
+        acc = (a[..., k] * b[..., k] + acc.astype(np.float64)).astype(np.float32)
+    return acc
+
+
+def in_order(parts) -> np.ndarray:
+    tot = parts[0]
+    for v in parts[1:]:
+        tot = (tot + v).astype(np.float32)
+    return tot
+
+
+def orders(args, h) -> int:
+    """Candidate orders of K: `runs` contiguous runs, each summed in `inter`
+    interleaved partial sums (partial i over k = i, i + inter, ...), the
+    partials and then the runs added in order."""
+    from trt_asr_tpu_torch.ops.kernels.ffn import layer_norm_plain
+    from trt_asr_tpu_torch.ops.quant import round_bf16
+
+    x, ln_g, ln_b, wq, wk, wv = args[:6]
+    bu, pos, kv = args[7], args[9], args[10]
+    tq, d = x.shape
+    dh, c = d // h, kv.shape[0]
+    f64 = lambda t: t.double().cpu().numpy()  # noqa: E731
+    a = round_bf16(layer_norm_plain(x, ln_g, ln_b))
+    q = torch.matmul(a, wq.q.float())                   # the plain version's products
+    k_all = round_bf16(torch.cat([kv[:, :d], torch.matmul(a, wk.q.float()) * wk.s]))
+    qu = round_bf16(q * wq.s + bu.reshape(-1)).view(tq, h, dh)
+    ac = torch.einsum("thd,shd->hts", qu, k_all.view(-1, h, dh))
+    p = round_bf16(torch.softmax(ac, dim=-1))
+    v = round_bf16(torch.cat([kv[:, d:], pos[:tq]])).view(-1, h, dh)   # any f32 rows
+    ctx = torch.einsum("hts,shd->thd", p, v)
+    cases = {   # name: (a [..., K], b [..., K], the card's sums)
+        "Q": (f64(a)[:, None, :], f64(wq.q.float().t())[None], q.cpu().numpy()),
+        "scores": (f64(qu.permute(1, 0, 2))[:, :, None], f64(k_all.view(-1, h, dh).permute(1, 0, 2))
+                   [:, None], ac.cpu().numpy()),
+        "context": (f64(p)[:, :, None], f64(v.permute(1, 2, 0))[:, None],
+                    ctx.permute(1, 0, 2).cpu().numpy()),
+    }
+    for name, (u, w, want) in cases.items():
+        kk = u.shape[-1]
+        res = {}
+        for runs in (1, 2, 4, 8, 16, 32):
+            for inter in (1, 2, 4, 8, 16, 32):
+                bounds = [kk * r // runs for r in range(runs + 1)]
+                got = in_order([in_order([fma_sum(u, w, range(lo + i, hi, inter))
+                                          for i in range(inter)])
+                                for lo, hi in zip(bounds, bounds[1:])])
+                res[(runs, inter)] = int((got != want).sum())
+        best = sorted(res.items(), key=lambda kv_: kv_[1])[:4]
+        print(f"{name} (K {kk}, {want.size} sums): (runs, interleaved partials) -> sums missed: "
+              + ", ".join(f"{r}: {n}" for r, n in best), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,16 +1,18 @@
-"""Host time of one call of the fused int8 tail's wrapper (``conv_ffn_ln``)
-and, as a control, of the conv module's (``conv_block``), at the main
-path's full-width shapes (a steady chunk: Tq 8 with 6 valid steps, D 1024,
-E 4096, a 9-tap conv, int8 weights), for the port package of the directory
-it is run from. To compare two trees on one card, run it in each in turn:
+"""Host time of one call of the fused int8 tail's wrapper (``conv_ffn_ln``),
+of the attention block's with int8 weights (``att_block``) and, as a
+control, of the conv module's (``conv_block``), at the main path's
+full-width shapes (a steady chunk: Tq 8 with 6 valid steps, D 1024, E 4096,
+a 9-tap conv, H 8, a full ring of 256, int8 weights), for the port package
+of the directory it is run from. To compare two trees on one card, run it in each in turn:
 
     cd TREE && python3 PATH/TO/host_enqueue.py
 
 Each wrapper is called 20 times between device syncs, 400 calls after a
 warm-up; the host clock around each call (its Python checks, scratch
 allocations and launches) gives the median and quartiles in us. Where the
-package packs the tail's constants beforehand (``pack_conv_ffn_ln``), they
-are packed once, as the model does, and passed to every call.
+package packs the tail's constants or the attention weights beforehand
+(``pack_conv_ffn_ln``, ``pack_att_block``), they are packed once, as the
+model does, and passed to every call.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("host_enqueue: no CUDA device", file=sys.stderr)
         return 1
+    from trt_asr_tpu_torch.ops.kernels import att_block as ab
     from trt_asr_tpu_torch.ops.kernels import conv_block as cb
     from trt_asr_tpu_torch.ops.quant import quantize_tensor
 
@@ -46,7 +49,14 @@ def main() -> int:
     kw = {}
     if hasattr(cb, "pack_conv_ffn_ln"):
         kw["packed"] = cb.pack_conv_ffn_ln(*conv[3:10], *tail[2:4])
+    h, c = 8, 256
+    att = (t(tq, d), 1.0 + t(d, sc=0.1), t(d, sc=0.1),
+           *[quantize_tensor(t(d, d, sc=d ** -0.5)) for _ in range(4)], t(h, d // h, sc=0.3),
+           t(h, d // h, sc=0.3), t(2 * tq + c - 1, d), t(c, 2 * d),
+           torch.tensor([100, c, 6], dtype=torch.int32, device=dev))
+    att_kw = {"packed": ab.pack_att_block(*att[3:7])} if hasattr(ab, "pack_att_block") else {}
     calls = {"conv_ffn_ln": lambda: cb.conv_ffn_ln(*conv, *tail, **kw),
+             "att_block": lambda: ab.att_block(*att, n_heads=h, **att_kw),
              "conv_block": lambda: cb.conv_block(*conv)}
     for name, fn in calls.items():
         for _ in range(20):

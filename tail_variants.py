@@ -155,7 +155,12 @@ VARIANTS = {
 
 
 def variant_source(edits, path=None) -> str:
+    """The source with ``csrc/persistent.cuh`` (its products, copies and
+    timeline) inlined where it is included, then each edit applied."""
     src = (path or kb.CSRC_DIR / "conv_ffn_ln.cu").read_text()
+    src = src.replace('#include "persistent.cuh"\n',
+                      (kb.CSRC_DIR / "persistent.cuh").read_text()
+                      .replace("#pragma once\n", ""), 1)
     for edit in edits:
         if callable(edit):
             src = edit(src)

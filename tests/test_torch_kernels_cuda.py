@@ -47,7 +47,7 @@ from trt_asr_tpu_torch.decode.tdt_greedy import init_decode_state, prime_decode_
 from trt_asr_tpu_torch.frontend.logmel import LogMelFrontend
 from trt_asr_tpu_torch.models.parakeet.encoder import offline_encode
 from trt_asr_tpu_torch.models.parakeet.model import ParakeetTDT
-from trt_asr_tpu_torch.ops.kernels.att_block import att_block, att_block_plain
+from trt_asr_tpu_torch.ops.kernels.att_block import att_block, att_block_plain, pack_att_block
 from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block, conv_block_plain,
                                                       conv_ffn_ln, conv_ffn_ln_plain,
                                                       pack_conv_ffn_ln)
@@ -70,29 +70,84 @@ def as_weight(w: torch.Tensor, kind: str):
     return w.to(torch.bfloat16) if kind == "bf16" else w
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", WEIGHTS)
-def test_att_block_kernel_matches_plain(kind):
-    dev = require_cuda()
-    d, h, c, tq = 64, 4, 32, 8
-    rng = np.random.default_rng(5)
+# (D, H, C, Tq) of the attention block: the card-test width; with int8
+# weights (the persistent kernel) also gate_r3, Tq 13 and the full width
+ATT_SHAPES = {"f32": [(64, 4, 32, 8)], "bf16": [(64, 4, 32, 8)],
+              "int8": [(64, 4, 32, 8), (64, 4, 64, 8), (64, 4, 32, 13), (1024, 8, 256, 8),
+                       (1024, 8, 256, 13)]}
+
+
+def att_inputs(dev, seed, d, h, c, tq, kind):
+    rng = np.random.default_rng(seed)
     r = lambda *s, sc=0.3: torch.as_tensor(  # noqa: E731
         (rng.standard_normal(s) * sc).astype(np.float32), device=dev)
     x, ln_g, ln_b = r(tq, d, sc=1.0), 1.0 + r(d, sc=0.2), r(d, sc=0.1)
-    ws = [as_weight(r(d, d), kind) for _ in range(4)]
-    rest = (r(h, d // h), r(h, d // h), r(2 * tq + c - 1, d), r(c, 2 * d))
-    for cursor, cache_len, valid_tq in [(7, 19, 6), (0, 0, 6), (5, 32, 8), (31, 32, 1)]:
-        meta = torch.tensor([cursor, cache_len, valid_tq], dtype=torch.int32, device=dev)
-        args = (x, ln_g, ln_b, *ws, *rest, meta)
-        before = att_block.launches
-        got = att_block(*args, n_heads=h)
-        assert att_block.launches == before + 1
-        want = att_block_plain(*args, n_heads=h)
+    ws = [as_weight(r(d, d, sc=min(0.3, 2.4 / math.sqrt(d))), kind) for _ in range(4)]
+    return (x, ln_g, ln_b, *ws, r(h, d // h), r(h, d // h), r(2 * tq + c - 1, d), r(c, 2 * d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", WEIGHTS)
+def test_att_block_kernel_matches_plain(kind):
+    """Each weight type at the card-test width; int8 (one cooperative
+    launch a call) also at gate_r3's width, Tq 13 and the full width, with
+    a partly filled ring, an empty one, the cursor at the ring's wrap and
+    valid_tq below Tq. With int8 weights the weights packed once beforehand
+    (``packed``, as the model passes them) give the same bits as those
+    packed by the call."""
+    dev = require_cuda()
+    for i, (d, h, c, tq) in enumerate(ATT_SHAPES[kind]):
+        args = att_inputs(dev, 5 + i, d, h, c, tq, kind)
+        packed = pack_att_block(*args[3:7]) if kind == "int8" else None
+        for cursor, cache_len, valid_tq in [(7, 19, 6), (0, 0, 6), (5, c, min(tq, 8)),
+                                            (c - 1, c, 1), (c - 3, c // 2, tq - 2)]:
+            meta = torch.tensor([cursor, cache_len, valid_tq], dtype=torch.int32, device=dev)
+            before = att_block.launches
+            got = att_block(*args, meta, n_heads=h)
+            assert att_block.launches == before + 1
+            want = att_block_plain(*args, meta, n_heads=h)
+            again = att_block(*args, meta, n_heads=h, packed=packed)
+            torch.cuda.synchronize()
+            atol = 1e-4 if kind == "f32" else 2e-3
+            for g, w, a in zip(got, want, again):
+                torch.testing.assert_close(g, w, atol=atol, rtol=1e-4)
+                assert torch.equal(a, g)
+        assert math.isfinite(float(got[0].sum()))
+
+
+@pytest.mark.cuda
+def test_att_block_int8_is_one_graph_replayable_launch():
+    """The int8 kernel is one cooperative launch a call, which a CUDA graph
+    captures: the replay equals the direct call bit for bit (the kernel adds
+    in a fixed order)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = require_cuda()
+    d, h, c, tq = 1024, 8, 256, 8
+    args = att_inputs(dev, 9, d, h, c, tq, "int8")
+    meta = torch.tensor([100, c, 6], dtype=torch.int32, device=dev)
+    packed = pack_att_block(*args[3:7])
+    call = lambda: att_block(*args, meta, n_heads=h, packed=packed)  # noqa: E731
+    want = call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
         torch.cuda.synchronize()
-        atol = 1e-4 if kind == "f32" else 2e-3
-        for g, w in zip(got, want):
-            torch.testing.assert_close(g, w, atol=atol, rtol=1e-4)
-    assert math.isfinite(float(got[0].sum()))
+    kernels = [ev.key for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA and "port::" in ev.key]
+    assert len(kernels) == 1 and "att_block_q8_kernel" in kernels[0], kernels
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    for o, w in zip(out, want):
+        assert torch.equal(o, w)
 
 
 @pytest.mark.cuda
@@ -276,6 +331,15 @@ def test_wrappers_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="do not fit the launch plan"):
         conv_ffn_ln(*conv, *tail, packed=packed)
     assert conv_ffn_ln.launches == before
+    att = att_inputs(dev, 7, 48, 4, 32, 8, "int8")             # head dim 12
+    meta = torch.tensor([3, 10, 6], dtype=torch.int32, device=dev)
+    before = att_block.launches
+    with pytest.raises(ValueError, match="head dim of 16"):
+        att_block(*att, meta, n_heads=4)
+    att = att_inputs(dev, 8, 64, 4, 32, 8, "int8")
+    with pytest.raises(ValueError, match="do not fit the launch plan"):
+        att_block(*att, meta, n_heads=4, packed=pack_att_block(*att[3:7], sms=4))
+    assert att_block.launches == before
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -490,6 +554,9 @@ def test_gate_r3_session_with_every_kernel_matches_cpu(flags):
     assert (counts[0][1] > 0) == (not tail) and (counts[0][2] > 0) == tail
     assert all(("conv_ffn_ln_packed" in lp) == tail for lp in gpu.layers)
     assert not any("conv_ffn_ln_packed" in lp for lp in cpu.layers)
+    int8_att = flags["quant"] == "all"                           # use_pallas_att is on
+    assert all(("att_block_packed" in lp) == int8_att for lp in gpu.layers)
+    assert not any("att_block_packed" in lp for lp in cpu.layers)
     assert counts[1] == [0, 0, 0]
     assert sessions[0].tokens == sessions[1].tokens
     assert len(sessions[0].tokens) > 0

@@ -28,7 +28,7 @@ from trt_asr_tpu_torch.ops.common import (batch_norm_inference, glu, layer_norm,
                                           matmul, silu)
 from trt_asr_tpu_torch.ops.conv import (depthwise_conv1d, dw_striding_subsample,
                                         subsampled_length)
-from trt_asr_tpu_torch.ops.kernels.att_block import att_block
+from trt_asr_tpu_torch.ops.kernels.att_block import att_block, pack_att_block
 from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block, conv_ffn_ln,
                                                       pack_conv_ffn_ln)
 from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn
@@ -98,13 +98,16 @@ def _append_cache(cache: torch.Tensor, block: torch.Tensor,
     return torch.gather(full, 1, idx[:, :, None].expand(-1, -1, full.shape[2]))
 
 
-def layer_params(params: Dict[str, Any], num_layers: int,
-                 pack_tail: bool = False) -> List[Dict[str, Any]]:
+def layer_params(params: Dict[str, Any], num_layers: int, pack_tail: bool = False,
+                 pack_att: bool = False) -> List[Dict[str, Any]]:
     """Per-layer views of the stacked [L, ...] layer parameters (compute
     once per model and pass to :func:`encode` as ``layers``). With
     ``pack_tail``, a layer whose conv and FFN2 weights are int8 on the card
     also holds them, with their scales, taps and BN, packed once for the
-    fused tail kernel (``conv_ffn_ln_packed``, :func:`pack_conv_ffn_ln`)."""
+    fused tail kernel (``conv_ffn_ln_packed``, :func:`pack_conv_ffn_ln`);
+    with ``pack_att``, one whose attention weights are int8 on the card
+    holds them packed once for the int8 attention-block kernel
+    (``att_block_packed``, :func:`pack_att_block`)."""
     stacked = params["encoder"]["layers"]
     out = []
     for li in range(num_layers):
@@ -115,6 +118,9 @@ def layer_params(params: Dict[str, Any], num_layers: int,
             lp["conv_ffn_ln_packed"] = pack_conv_ffn_ln(
                 lp["conv_pw1"], lp["conv_dw"], lp["conv_bn_g"], lp["conv_bn_b"],
                 lp["conv_bn_m"], lp["conv_bn_v"], lp["conv_pw2"], lp["ff2_w1"], lp["ff2_w2"])
+        att = [lp[k] for k in ("att_wq", "att_wk", "att_wv", "att_wo")]
+        if pack_att and all(isinstance(w, QuantTensor) for w in att) and att[0].q.is_cuda:
+            lp["att_block_packed"] = pack_att_block(*att)
         out.append(lp)
     return out
 
@@ -155,7 +161,7 @@ def _conformer_layer(lp, x, att_cache, time_cache, kv_cache, pos_proj, kv_mask,
         y1, u1, kn1, vn1 = att_block(
             x[0], lp["att_ln_g"], lp["att_ln_b"], lp["att_wq"], lp["att_wk"],
             lp["att_wv"], lp["att_wo"], lp["att_bias_u"], lp["att_bias_v"],
-            pos_proj, kv_cache[0], att_meta, n_heads=n_heads)
+            pos_proj, kv_cache[0], att_meta, n_heads=n_heads, packed=lp.get("att_block_packed"))
         u, k_new, v_new, x = u1[None], kn1[None], vn1[None], y1[None]
     else:
         u = layer_norm(x, lp["att_ln_g"], lp["att_ln_b"])

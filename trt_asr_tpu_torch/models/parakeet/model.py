@@ -67,7 +67,8 @@ class ParakeetTDT:
         self.params = params
         self.layers = layer_params(
             params, cfg.num_layers,
-            pack_tail=self.runtime.use_pallas_conv and self.runtime.use_pallas_ffn)
+            pack_tail=self.runtime.use_pallas_conv and self.runtime.use_pallas_ffn,
+            pack_att=self.runtime.use_pallas_att)
 
     @classmethod
     def from_model_dir(cls, model_dir: str, runtime: Optional[RuntimeConfig] = None,

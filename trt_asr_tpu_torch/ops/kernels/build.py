@@ -27,8 +27,8 @@ from trt_asr_tpu_torch.ops.quant import QuantTensor
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("att_block", "joint_step", "mel", "ffn", "conv_block", "conv_ffn_ln", "rel_shift",
-           "flash_att")
+SOURCES = ("att_block", "att_block_q8", "joint_step", "mel", "ffn", "conv_block", "conv_ffn_ln",
+           "rel_shift", "flash_att")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,6 +41,10 @@ _SIGNATURES = {
     "att_block": {"att_block_launch":
                   [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                    _P, _P, _P, _P, _I, _P, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P]},
+    "att_block_q8": {"att_block_q8_launch":
+                     [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I,
+                      _P, _P, _P, _P, _P, _P],
+                     "att_block_q8_occupancy": [_I, _P]},
     "joint_step": {"joint_step_launch":
                    [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
                     _I, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]},
@@ -85,7 +89,7 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for src in (CSRC_DIR / "common.cuh", CSRC_DIR / f"{name}.cu"):
+    for src in (*sorted(CSRC_DIR.glob("*.cuh")), CSRC_DIR / f"{name}.cu"):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"

@@ -133,17 +133,25 @@ TAIL_KSTEP = 16              # K of an mma step (TL_KS)
 SMEM_PER_BLOCK = 232_448     # the H100's opt-in shared memory a block
 
 
-def _align16(n: int) -> int:
+def align16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
-def _pad_k(k: int) -> int:
+def pad_k(k: int) -> int:
     return -(-k // TAIL_KSTEP) * TAIL_KSTEP
+
+
+def column_slices(d: int, sms: int) -> tuple[int, int]:
+    """(columns a block, blocks) of a persistent int8 kernel: the fewest
+    8-column groups a block that cover D with at most ``sms`` blocks, one
+    an SM."""
+    cols = TAIL_GROUP * -(-(d // TAIL_GROUP) // sms)
+    return cols, -(-d // cols)
 
 
 def _tail_weight_bytes(d: int, e: int, cd: int, ce: int) -> int:
     """A block's int8 slices of pw1, pw2, W1, W2 (K padded to 16)."""
-    return _pad_k(d) * (3 * cd + ce) + _pad_k(e) * cd
+    return pad_k(d) * (3 * cd + ce) + pad_k(e) * cd
 
 
 def _tail_columns(kk: int, cd: int, ce: int) -> int:
@@ -164,16 +172,15 @@ def conv_ffn_ln_plan(tq: int, d: int, e: int, kk: int, sms: int,
         raise ValueError(f"conv_ffn_ln: needs Tq >= 1 and D, E multiples of {TAIL_GROUP} "
                          f"(Tq={tq}, D={d}, E={e})")
     g = TAIL_GROUP
-    cd = g * -(-(d // g) // sms)
-    blocks = -(-d // cd)
+    cd, blocks = column_slices(d, sms)
     ce = g * -(-e // (g * blocks))
-    dp, ep = _pad_k(d), _pad_k(e)
+    dp, ep = pad_k(d), pad_k(e)
     act_d, act_e = (TAIL_ROWS * (k + TAIL_KSTEP) * 2 for k in (dp, ep))   # operand rows, bf16
     smem = (_tail_weight_bytes(d, e, cd, ce)                    # weight slices, int8
             + max(act_d + TAIL_ROWS * d * 4, act_e)             # and f32 rows to normalize
             + 6 * d * 4 + _tail_columns(kk, cd, ce) * 4         # norms; scales, taps, BN
-            + _align16(tq * 4) + _align16((tq + kk - 1) * cd * 4)   # mask, conv rows
-            + _align16(tq * cd * 4)                             # the block's columns of y1
+            + align16(tq * 4) + align16((tq + kk - 1) * cd * 4)   # mask, conv rows
+            + align16(tq * cd * 4)                             # the block's columns of y1
             + TAIL_WARPS * max(2 * cd, ce) * TAIL_ROWS * 4      # per-warp sums
             + 11 * 8)                                           # mbarriers
     if smem > smem_limit:
@@ -183,7 +190,7 @@ def conv_ffn_ln_plan(tq: int, d: int, e: int, kk: int, sms: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
+def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -196,7 +203,7 @@ def pack_tail_weight(q: torch.Tensor, cols: int, blocks: int, glu: bool = False)
     (pw1, N = 2D) each block's groups of columns n in [0, D) come first,
     then those of their gates n + D: [blocks, 2 cols / 8, Kp / 16, 8, 16]."""
     k, n = q.shape
-    kp, g = _pad_k(k), TAIL_GROUP
+    kp, g = pad_k(k), TAIL_GROUP
     halves = (q[:, : n // 2], q[:, n // 2:]) if glu else (q,)
     packed = []
     for w in halves:
@@ -207,7 +214,7 @@ def pack_tail_weight(q: torch.Tensor, cols: int, blocks: int, glu: bool = False)
     return torch.cat(packed, dim=1).contiguous()
 
 
-def _columns(v: torch.Tensor, cols: int, blocks: int) -> torch.Tensor:
+def pack_columns(v: torch.Tensor, cols: int, blocks: int) -> torch.Tensor:
     """[rows, N] f32 (or [N]) -> [blocks, rows * cols]: block b's columns
     b * cols .. of each row, zero past N."""
     v = v.reshape(-1, v.shape[-1]).float()
@@ -229,9 +236,10 @@ def pack_tail(pw1, pw2, w1, w2, s1, s2, fs1, fs2, dw, bn, plan: TailPlan) -> tor
     s1, s2, fs1, fs2 = (v.reshape(-1) for v in (s1, s2, fs1, fs2))
     weights = (pack_tail_weight(pw1, cd, nb, glu=True), pack_tail_weight(pw2, cd, nb),
                pack_tail_weight(w1, ce, nb), pack_tail_weight(w2, cd, nb))
-    cols = torch.cat([_columns(s1[:d], cd, nb), _columns(s1[d:], cd, nb),
-                      _columns(s2, cd, nb), _columns(fs1, ce, nb), _columns(fs2, cd, nb),
-                      _columns(dw, cd, nb), *[_columns(v, cd, nb) for v in bn]], dim=1)
+    cols = torch.cat([pack_columns(s1[:d], cd, nb), pack_columns(s1[d:], cd, nb),
+                      pack_columns(s2, cd, nb), pack_columns(fs1, ce, nb),
+                      pack_columns(fs2, cd, nb), pack_columns(dw, cd, nb),
+                      *[pack_columns(v, cd, nb) for v in bn]], dim=1)
     return torch.cat([w.reshape(nb, -1).view(torch.uint8) for w in weights]
                      + [cols.contiguous().view(torch.uint8)], dim=1).contiguous()
 
@@ -248,7 +256,7 @@ def pack_conv_ffn_ln(pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, ff_w1, ff_w2,
     the plain path and the other kernels read."""
     _require_int8(pw1, pw2, ff_w1, ff_w2)
     if sms is None:
-        sms = _sm_count(pw1.q.device.index or 0)
+        sms = sm_count(pw1.q.device.index or 0)
     plan = conv_ffn_ln_plan(1, pw2.q.shape[0], ff_w1.q.shape[1], dw.shape[0], sms)
     return pack_tail(pw1.q, pw2.q, ff_w1.q, ff_w2.q, pw1.s, pw2.s, ff_w1.s, ff_w2.s, dw,
                      (bn_g, bn_b, bn_m, bn_v), plan)
@@ -289,7 +297,7 @@ def conv_ffn_ln(x, conv_ln_g, conv_ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, t
     if any(t.dtype != torch.float32 for t in norms):
         raise TypeError("conv_ffn_ln: norms must be f32")
     kb.require_cuda("conv_ffn_ln", x, *norms, ff_w1.q, ff_w2.q, fs1, fs2)
-    plan = conv_ffn_ln_plan(tq, d, e, kk, _sm_count(x.device.index or 0))
+    plan = conv_ffn_ln_plan(tq, d, e, kk, sm_count(x.device.index or 0))
     # bulk copies (16-byte aligned) of x's rows and the norms
     kb.require_aligned("conv_ffn_ln", 4, x, conv_ln_g, conv_ln_b, *norms)
     if packed is None:
