@@ -28,6 +28,18 @@ orders of the plain version's three f32 products (Q = bf16(u) @ Wq, the
 scores' dot (q + u_bias) . k, the context p @ v) on the host, FMA by FMA,
 and prints how many of the card's results (cuBLAS) each misses; the kernel
 sums in the order that misses none.
+
+    python3 att_variants.py --f32 [--stages 4,8,12,16,22] [--against OTHER.cu]
+
+does the same for the f32 kernel (``csrc/att_block_f32.cu``) at the same
+shapes with f32 weights, held to the plain version at ``chip_smoke.py``'s
+2e-4: the f32 chain of ``csrc/att_block.cu`` beside it, the kernel with its
+weights' ring at each stage count (the plan's default marked), and the
+timeline at the default; with ``--against``, the source against another
+version of it in alternating pairs, as above. On the f32 kernel the pairs
+favour the other version: the source against an identical copy of itself
+read 1.1 us slower (twice, on the H100), so time each version in both
+roles (as the source, with the other one against it, and the other way).
 """
 
 from __future__ import annotations
@@ -53,7 +65,11 @@ extern "C" int att_timeline(unsigned long long* out, int blocks) {
                                    sizeof(unsigned long long) * blocks * TL_MARKS);
 }
 """
-# mark -> what has happened by then (the kernel's TL_MARKs, in order)
+# mark -> what has happened by then (the kernels' TL_MARKs, in order)
+MARKS_F32 = {0: "entry", 1: "copies issued", 2: "x, norms in", 14: "LN", 17: "Q/K/V sums",
+             4: "q, k_new, v_new written", 5: "after barrier 1", 6: "q, keys staged",
+             7: "scores written", 8: "after barrier 2", 9: "softmax", 10: "ctx written",
+             11: "after barrier 3", 12: "ctx staged", 19: "Wo sums", 13: "end"}
 MARKS = {0: "entry", 1: "copies issued", 2: "x, norms in", 14: "LN", 3: "Q/K/V weights in",
          17: "Q/K/V sums", 4: "q, k_new, v_new written", 5: "after barrier 1",
          6: "q, keys staged", 7: "scores written", 8: "after barrier 2", 9: "softmax",
@@ -62,22 +78,24 @@ MARKS = {0: "entry", 1: "copies issued", 2: "x, norms in", 14: "LN", 3: "Q/K/V w
 
 
 def att_inputs(dev, seed: int = 1234, tq: int = 8, valid: int = 6, d: int = 1024, h: int = 8,
-               c: int = 256):
+               c: int = 256, int8: bool = True):
     """chip_smoke.py phase 2's inputs: the same draws in the same order."""
     rng = np.random.default_rng(seed)
     t = lambda *s, sc=1.0: torch.as_tensor(  # noqa: E731
         (rng.standard_normal(s) * sc).astype(np.float32), device=dev)
     x, ln_g, ln_b = t(tq, d), 1.0 + t(d, sc=0.1), t(d, sc=0.1)
-    ws = [quantize_tensor(t(d, d, sc=1 / math.sqrt(d))) for _ in range(4)]
+    ws = [t(d, d, sc=1 / math.sqrt(d)) for _ in range(4)]
+    ws = [quantize_tensor(w) for w in ws] if int8 else ws
     bu, bv = t(h, d // h, sc=0.3), t(h, d // h, sc=0.3)
     pos, kv = t(2 * tq + c - 1, d), t(c, 2 * d)
     meta = torch.tensor([100, c, valid], dtype=torch.int32, device=dev)
     return (x, ln_g, ln_b, *ws, bu, bv, pos, kv, meta), h
 
 
-def build(sources: dict) -> dict:
+def build(sources: dict, lib_name: str = "att_block_q8") -> dict:
     """{name: source text} -> {name: (loaded library, nvcc log)}, built in
-    parallel into trt_asr_tpu_torch/_build/variants/."""
+    parallel into trt_asr_tpu_torch/_build/variants/ with the bindings of
+    csrc/<lib_name>.cu."""
     out = kb.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -93,7 +111,7 @@ def build(sources: dict) -> dict:
         if p.returncode:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
         lib = ctypes.CDLL(str(out / f"att_{name}.so"))
-        sigs = dict(kb._SIGNATURES["att_block_q8"])
+        sigs = dict(kb._SIGNATURES[lib_name])
         if name == "timeline":
             sigs["att_timeline"] = [ctypes.c_void_p, ctypes.c_int]
         for fn, argtypes in sigs.items():
@@ -132,6 +150,9 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--orders", action="store_true",
                     help="emulate candidate summation orders of the plain version's products")
+    ap.add_argument("--f32", action="store_true", help="the f32 kernel, csrc/att_block_f32.cu")
+    ap.add_argument("--stages", default="4,8,12,16,22",
+                    help="--f32: ring stage counts to time")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("att_variants: no CUDA device", file=sys.stderr)
@@ -141,6 +162,9 @@ def main() -> int:
     timer = cs.Timer(torch, dev)
     warm = cs.Timer(torch, dev)
     warm.scrub = torch.empty(16, dtype=torch.uint8, device=dev)      # L2 left as it is
+    if opts.f32:
+        return f32_variants(timer, warm, [int(v) for v in opts.stages.split(",")],
+                            opts.against, opts.pairs)
     args, h = att_inputs(dev)
     packed = pack_att_block(*args[3:7])                              # as the model packs them
     run = lambda: att_block(*args, n_heads=h, packed=packed)  # noqa: E731
@@ -168,7 +192,52 @@ def main() -> int:
     return 0
 
 
-def print_timeline(lib, timer, run, blocks: int) -> None:
+def f32_variants(timer, warm, stage_counts, against, pairs) -> int:
+    """The f32 kernel beside the f32 chain and at each ring stage count, or
+    against another version of its source."""
+    from trt_asr_tpu_torch.ops.kernels import att_block as ab
+
+    args, h = att_inputs(torch.device("cuda"), int8=False)
+    packed = pack_att_block(*args[3:7])                              # as the model packs them
+    run = lambda: att_block(*args, n_heads=h, packed=packed)  # noqa: E731
+    chain = lambda: ab.att_block_chain(*args, n_heads=h)  # noqa: E731
+    want = att_block_plain(*args, n_heads=h)
+    src = (kb.CSRC_DIR / "att_block_f32.cu").read_text()
+    if against:
+        return compare(timer, run, want, src, pathlib.Path(against).read_text(), pairs,
+                       "att_block_f32", 2e-4)
+    libs = build({"kernel": src, "timeline": "#define TAIL_TIMELINE\n" + src + TIMELINE_READ},
+                 "att_block_f32")
+    print(f"plain version {timer(lambda: att_block_plain(*args, n_heads=h)):.4f} ms")
+    print(f"chain (csrc/att_block.cu, f32): {timer(chain):.4f} ms, L2 warm {warm(chain):.4f} ms, "
+          f"max |chain - plain| {cs.max_err(chain(), want):.3g}")
+    plan = ab.att_block_f32_plan
+    tq, d = args[0].shape
+    default = plan(tq, d, h, args[10].shape[0],
+                   torch.cuda.get_device_properties(0).multi_processor_count).stages
+    for name, (lib, log) in libs.items():
+        regs = [r for r in cs.ptxas_kernels(log) if "att_block_f32_kernel" in r[0]][0]
+        kb._libs["att_block_f32"] = lib          # the wrapper launches the variant
+        counts = stage_counts if name == "kernel" else [default]
+        for stages in counts:
+            ab.att_block_f32_plan = lambda *a, _s=stages, **k: plan(*a, stages=_s, **k)
+            try:
+                err = cs.max_err(run(), want)
+                assert err <= 2e-4, f"{name} at {stages} stages disagrees ({err:.3g})"
+                mark = " (the plan's default)" if stages == default else ""
+                print(f"{name}, {stages} stages{mark}: {timer(run):.4f} ms, L2 warm "
+                      f"{warm(run):.4f} ms, max |variant - plain| {err:.3g}; {regs[1]} "
+                      f"registers, spills {regs[2]}/{regs[3]} B", flush=True)
+            except ValueError as e:                                  # does not fit
+                print(f"{name}, {stages} stages: {e}")
+            finally:
+                ab.att_block_f32_plan = plan
+    print_timeline(libs["timeline"][0], timer, run, packed.shape[0], MARKS_F32)
+    kb._libs.pop("att_block_f32")
+    return 0
+
+
+def print_timeline(lib, timer, run, blocks: int, names=MARKS) -> None:
     """The marks of one launch on a scrubbed L2 and of the launch right
     after it (warm), side by side."""
     cols = []
@@ -181,25 +250,29 @@ def print_timeline(lib, timer, run, blocks: int) -> None:
         ns = marks.astype(np.int64)
         cols.append((ns - int(ns[:, 0].min())) / 1e3)
     print("  timeline (us since the first block began, median over blocks): cold | warm")
-    for i, name in MARKS.items():
+    for i, name in names.items():
         print(f"  {i:2d} {name:26s} {np.median(cols[0][:, i]):7.3f} | "
               f"{np.median(cols[1][:, i]):7.3f}")
 
 
-def compare(timer, run, want, src: str, other: str, pairs: int) -> int:
-    libs = build({"kernel": src, "against": other})
-    for name, (lib, _) in libs.items():
-        kb._libs["att_block_q8"] = lib
+def compare(timer, run, want, src: str, other: str, pairs: int, lib_name: str = "att_block_q8",
+            tol: float = 1e-4) -> int:
+    libs = build({"kernel": src, "against": other}, lib_name)
+    for name, (lib, log) in libs.items():
+        kb._libs[lib_name] = lib
         err = cs.max_err(run(), want)
-        assert err <= 1e-4, f"{name} disagrees with the plain version ({err:.3g})"
+        assert err <= tol, f"{name} disagrees with the plain version ({err:.3g})"
+        regs = [r for r in cs.ptxas_kernels(log) if f"{lib_name}_kernel" in r[0]][0]
+        print(f"{name}: max |variant - plain| {err:.3g}; {regs[1]} registers, spills "
+              f"{regs[2]}/{regs[3]} B")
     ms = {name: [] for name in libs}
     for i in range(pairs):
         for name, (lib, _) in libs.items():
-            kb._libs["att_block_q8"] = lib
+            kb._libs[lib_name] = lib
             ms[name].append(timer(run))
         print(f"pair {i}: kernel {ms['kernel'][-1]:.4f} ms, against {ms['against'][-1]:.4f} ms",
               flush=True)
-    kb._libs.pop("att_block_q8")
+    kb._libs.pop(lib_name)
     diff = np.subtract(ms["against"], ms["kernel"])
     print(f"median of {pairs} pairs: kernel {np.median(ms['kernel']):.4f} ms, against "
           f"{np.median(ms['against']):.4f} ms; against - kernel: median {np.median(diff):.4f} "

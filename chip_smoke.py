@@ -11,8 +11,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    each kernel's registers, spills and static shared memory (ptxas), and
    the dynamic shared memory and blocks an SM of the flash kernels (bf16
    and f32), of the bf16 rel-shift kernel, of the fused conv + FFN2 +
-   out-LN tail and of the int8 attention block (each one cooperative
-   launch: its grid at full width must be resident at once).
+   out-LN tail and of the int8 and f32 attention blocks (each one
+   cooperative launch: its grid at full width must be resident at once).
 2. each kernel against its plain PyTorch version on the card at the
    full-size main-path shapes (a steady chunk: 8 rows, 6 valid; f32 and
    int8 weights for the attention block, the joint step, the FFN and the
@@ -22,12 +22,13 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    Each int8 tolerance, and bf16 flash
    attention's, is shown to fail a kernel without the bf16 rounding points
    (the plain version on the dequantized weights, or on the bf16 operands
-   widened to f32, where p is not rounded). The tail and the int8
-   attention block (``csrc/att_block_q8.cu``; f32 weights take the chain of
-   ``csrc/att_block.cu``) run on constants packed once beforehand, as the
-   model packs them; each one's cooperative launch is captured into a CUDA
-   graph and replayed, and the replay must equal the direct call bit for
-   bit.
+   widened to f32, where p is not rounded). The tail and the int8 and f32
+   attention blocks (``csrc/att_block_q8.cu``, ``csrc/att_block_f32.cu``)
+   run on constants packed once beforehand, as the model packs them; each
+   one's cooperative launch is captured into a CUDA graph and replayed, and
+   the replay must equal the direct call bit for bit. The f32 attention
+   block is timed beside the chain of ``csrc/att_block.cu`` that it
+   replaced (which bf16 weights keep).
 3. full-width session (``ModelConfig()``, seeded random weights from the
    port's ``init_params``): a seeded synthetic utterance of 12 words
    (~6 s) pushed in 0.5 s pieces, with a blank bias set so the plain f32
@@ -43,10 +44,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the tail's constants).
    Launch counts are reset just before each kernel arm and read just after.
    In each arm's profile every wrapper call of the fused tail is one kernel
-   (``conv_ffn_ln_kernel``), and no conv module kernel runs beside it; with
-   int8 weights every call of the attention block is one kernel
-   (``att_block_q8_kernel``) and none of the chain's runs, with f32 weights
-   the chain runs.
+   (``conv_ffn_ln_kernel``), and no conv module kernel runs beside it; every
+   call of the attention block is one kernel, ``att_block_q8_kernel`` with
+   int8 weights and ``att_block_f32_kernel`` with f32, and none of the
+   chain's runs.
    Phase 2 also holds the offline kernels, rel shift (f32, bf16) and
    flash attention (f32, bf16), at the offline batch's shapes (B 8, T 368,
    H 8, dh 128; a short row and a zero-length row in the mask). bf16 rel
@@ -125,7 +126,9 @@ PEAK_OPS = {"f32": 67e12,          # f32 outside the tensor cores
 # short name -> (launch counter, source, the TPU kernel it replaces, and
 # per weight type the full-width arm whose session reads its launches)
 KERNEL_SRCS = {
-    "att": ("att_block", "trt_asr_tpu_torch/csrc/att_block.cu",
+    # the attention block with f32 weights: its own persistent kernel (bf16
+    # weights keep the chain of csrc/att_block.cu, on no path yet)
+    "att": ("att_block", "trt_asr_tpu_torch/csrc/att_block_f32.cu",
             "trt_asr_tpu/ops/pallas/att_block_kernel.py:170", {"f32": "f32_on"}),
     # the attention block with int8 weights: its own persistent kernel
     "attq": ("att_block", "trt_asr_tpu_torch/csrc/att_block_q8.cu",
@@ -272,12 +275,12 @@ def ptxas_kernels(text: str):
 def log_resources(torch, build, cfg) -> None:
     """Registers, spills and static shared memory of every kernel (ptxas),
     and the dynamic shared memory and the blocks an SM holds of the flash
-    kernels, the bf16 rel-shift kernel (bf16 at the full-width head dim) and
-    the fused tail (a steady chunk's 8 rows at full width; the CUDA
-    occupancy API)."""
+    kernels, the bf16 rel-shift kernel (bf16 at the full-width head dim),
+    the fused tail and the int8 and f32 attention blocks (a steady chunk's
+    8 rows at full width; the CUDA occupancy API)."""
     import ctypes
 
-    from trt_asr_tpu_torch.ops.kernels.att_block import att_block_q8_plan
+    from trt_asr_tpu_torch.ops.kernels.att_block import att_block_f32_plan, att_block_q8_plan
     from trt_asr_tpu_torch.ops.kernels.conv_block import conv_ffn_ln_plan
 
     for src in build.SOURCES:
@@ -315,6 +318,15 @@ def log_resources(torch, build, cfg) -> None:
         f"{plan.ranges} scores items a head of {plan.slots} kv positions, {plan.smem} B of "
         f"dynamic shared memory, {info[0]} blocks an SM, {sms} SMs")
     assert info[0] >= 1 and plan.blocks <= info[0] * sms, "att_block[int8]'s grid is not resident"
+    plan = att_block_f32_plan(8, cfg.d_model, cfg.n_heads, cfg.att_cache_size, sms)
+    lib = build.load("att_block_f32")
+    build.check(lib, lib.att_block_f32_occupancy(plan.smem, ctypes.addressof(info)),
+                "att_block_f32_occupancy")
+    log(f"  att_block[f32] at Tq 8: {plan.blocks} blocks of {plan.cols} columns, "
+        f"{plan.ranges} scores items a head of {plan.slots} kv positions, a ring of "
+        f"{plan.stages} slots for the weights, {plan.smem} B of dynamic shared memory, "
+        f"{info[0]} blocks an SM, {sms} SMs")
+    assert info[0] >= 1 and plan.blocks <= info[0] * sms, "att_block[f32]'s grid is not resident"
 
 
 # --- phase 2: kernels against their plain versions ---------------------------
@@ -331,8 +343,8 @@ def check_rounding_points(label, tol, got, unrounded) -> None:
 
 
 def check_kernels(torch, dev, timer, cfg):
-    from trt_asr_tpu_torch.ops.kernels.att_block import (att_block, att_block_plain,
-                                                         pack_att_block)
+    from trt_asr_tpu_torch.ops.kernels.att_block import (att_block, att_block_chain,
+                                                         att_block_plain, pack_att_block)
     from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block, conv_block_plain,
                                                           conv_ffn_ln, conv_ffn_ln_plain,
                                                           pack_conv_ffn_ln)
@@ -360,13 +372,17 @@ def check_kernels(torch, dev, timer, cfg):
     kv = t(c, 2 * d)
     meta = torch.tensor([100, c, valid_tq], dtype=torch.int32, device=dev)
     qws = [quantize_tensor(w) for w in ws]
-    # the int8 kernel's weights packed once, as the model packs them
-    t0 = time.perf_counter()
-    att_packed = pack_att_block(*qws)
-    torch.cuda.synchronize()
-    log(f"  att_block[int8]: one layer's weights packed in "
-        f"{1e3 * (time.perf_counter() - t0):.2f} ms ({att_packed.numel()} B)")
-    for arm, wts, tol, packed in (("f32", ws, 2e-4, None), ("int8", qws, 1e-4, att_packed)):
+    # the kernels' weights packed once, as the model packs them
+    att_packed = {}
+    for arm, wts in (("f32", ws), ("int8", qws)):
+        t0 = time.perf_counter()
+        att_packed[arm] = pack_att_block(*wts)
+        torch.cuda.synchronize()
+        log(f"  att_block[{arm}]: one layer's weights packed in "
+            f"{1e3 * (time.perf_counter() - t0):.2f} ms "
+            f"({att_packed[arm].numel() * att_packed[arm].element_size()} B)")
+    for arm, wts, tol in (("f32", ws, 2e-4), ("int8", qws, 1e-4)):
+        packed = att_packed[arm]
         args = (x, ln_g, ln_b, *wts, bu, bv, pos, kv, meta)
         got = att_block(*args, n_heads=h, packed=packed)
         want = att_block_plain(*args, n_heads=h)
@@ -387,8 +403,13 @@ def check_kernels(torch, dev, timer, cfg):
         records[arm + ("_att" if arm == "f32" else "_attq")] = measure(
             f"att_block[{arm}]", timer, err, kernel, lambda: att_block_plain(*args, n_heads=h),
             nbytes, ops, "f32" if arm == "f32" else "bf16")
-        if arm == "int8":
-            check_graph_capture(torch, "att_block[int8]", kernel, (), got)
+        if arm == "f32":
+            # the 6-launch chain that the f32 kernel replaced, in the same call
+            chain = lambda: att_block_chain(*args, n_heads=h)  # noqa: E731
+            chain_err = max_err(chain(), want)
+            log(f"  att_block[f32] chain (csrc/att_block.cu): {timer(chain):.4f} ms (host "
+                f"enqueue {timer.host_us:.1f} us/call), max |chain - plain| {chain_err:.3g}")
+        check_graph_capture(torch, f"att_block[{arm}]", kernel, (), got)
 
     # joint step: rows = one padded steady chunk (B=1, Tq=8)
     rows, j, p, v = tq, cfg.joint_hidden, cfg.pred_hidden, cfg.joint_vocab_size
@@ -881,9 +902,9 @@ def profile_session(torch, label, model, rt, audio, piece: int) -> None:
     """Device busy share and kernel time by name over one session
     (torch.profiler): where a steady chunk's time goes. Each wrapper call of
     the fused tail must be one kernel, with no conv module kernel beside
-    it; with int8 attention weights each call of the attention block must
-    be one kernel (``att_block_q8_kernel``), with no kernel of the chain
-    beside it, and with float weights none."""
+    it; each call of the attention block must be one kernel of its weights'
+    type (``att_block_q8_kernel`` with int8 weights, ``att_block_f32_kernel``
+    with f32), with no kernel of the chain beside it."""
     reset_counts()
     rows = profile_run(torch, label, "chunk",
                        lambda: len(run_session(torch, model, rt, audio, piece).chunk_latencies_ms))
@@ -895,14 +916,15 @@ def profile_session(torch, label, model, rt, audio, piece: int) -> None:
         f"{conv} conv_module_kernel launches")
     assert tail == calls, f"profile[{label}]: conv_ffn_ln is not one kernel a call"
     assert not (calls and conv), f"profile[{label}]: the tail launched the conv module kernel"
-    att, att_q8, chain = counts["att_block"], launched("att_block_q8_kernel"), launched(
-        "rel_attention_kernel")
+    att, att_q8, att_f32, chain = (counts["att_block"], launched("att_block_q8_kernel"),
+                                   launched("att_block_f32_kernel"),
+                                   launched("rel_attention_kernel"))
     log(f"  profile[{label}]: {att} att_block calls, {att_q8} att_block_q8_kernel launches, "
-        f"{chain} rel_attention_kernel launches")
+        f"{att_f32} att_block_f32_kernel launches, {chain} rel_attention_kernel launches")
     int8_att = rt.quant in ("encoder", "all")
-    assert att_q8 == (att if int8_att else 0), (
-        f"profile[{label}]: att_block is not {'one kernel' if int8_att else 'the chain'} a call")
-    assert chain == (0 if int8_att else att), f"profile[{label}]: att_block ran the wrong kernels"
+    assert (att_q8, att_f32) == ((att, 0) if int8_att else (0, att)), (
+        f"profile[{label}]: att_block is not one {'int8' if int8_att else 'f32'} kernel a call")
+    assert chain == 0, f"profile[{label}]: att_block ran the chain"
 
 
 def profile_run(torch, label, unit: str, fn):

@@ -1,6 +1,6 @@
 """Host time of one call of the fused int8 tail's wrapper (``conv_ffn_ln``),
-of the attention block's with int8 weights (``att_block``) and, as a
-control, of the conv module's (``conv_block``), at the main path's
+of the attention block's with int8 and with f32 weights (``att_block``) and,
+as a control, of the conv module's (``conv_block``), at the main path's
 full-width shapes (a steady chunk: Tq 8 with 6 valid steps, D 1024, E 4096,
 a 9-tap conv, H 8, a full ring of 256, int8 weights), for the port package
 of the directory it is run from. To compare two trees on one card, run it in each in turn:
@@ -11,8 +11,9 @@ Each wrapper is called 20 times between device syncs, 400 calls after a
 warm-up; the host clock around each call (its Python checks, scratch
 allocations and launches) gives the median and quartiles in us. Where the
 package packs the tail's constants or the attention weights beforehand
-(``pack_conv_ffn_ln``, ``pack_att_block``), they are packed once, as the
-model does, and passed to every call.
+(``pack_conv_ffn_ln``, ``pack_att_block``; f32 attention weights where it
+has ``att_block_f32_plan``), they are packed once, as the model does, and
+passed to every call.
 """
 
 from __future__ import annotations
@@ -55,8 +56,12 @@ def main() -> int:
            t(h, d // h, sc=0.3), t(2 * tq + c - 1, d), t(c, 2 * d),
            torch.tensor([100, c, 6], dtype=torch.int32, device=dev))
     att_kw = {"packed": ab.pack_att_block(*att[3:7])} if hasattr(ab, "pack_att_block") else {}
+    att_f32 = (*att[:3], *[t(d, d, sc=d ** -0.5) for _ in range(4)], *att[7:])
+    f32_kw = ({"packed": ab.pack_att_block(*att_f32[3:7])}
+              if hasattr(ab, "att_block_f32_plan") else {})
     calls = {"conv_ffn_ln": lambda: cb.conv_ffn_ln(*conv, *tail, **kw),
              "att_block": lambda: ab.att_block(*att, n_heads=h, **att_kw),
+             "att_block[f32]": lambda: ab.att_block(*att_f32, n_heads=h, **f32_kw),
              "conv_block": lambda: cb.conv_block(*conv)}
     for name, fn in calls.items():
         for _ in range(20):

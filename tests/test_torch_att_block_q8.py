@@ -154,8 +154,13 @@ def test_check_packed_att_refuses_another_layout(change):
 
 
 def test_pack_att_block_takes_int8_weights_only():
+    """Of the quantized and low-precision weights, int8 ones only: bf16
+    weights take the chain, which packs nothing (f32 weights take their
+    own kernel: test_torch_att_block_f32.py)."""
     with pytest.raises(TypeError, match="int8"):
-        pack_att_block(*[torch.zeros(64, 64)] * 4, sms=H100_SMS)
+        pack_att_block(*[torch.zeros(64, 64, dtype=torch.bfloat16)] * 4, sms=H100_SMS)
+    with pytest.raises(TypeError, match="int8"):
+        pack_att_block(quant(0, 64), *[torch.zeros(64, 64)] * 3, sms=H100_SMS)
 
 
 def test_layer_params_pack_attention_on_the_card_only():

@@ -70,11 +70,12 @@ def as_weight(w: torch.Tensor, kind: str):
     return w.to(torch.bfloat16) if kind == "bf16" else w
 
 
-# (D, H, C, Tq) of the attention block: the card-test width; with int8
-# weights (the persistent kernel) also gate_r3, Tq 13 and the full width
-ATT_SHAPES = {"f32": [(64, 4, 32, 8)], "bf16": [(64, 4, 32, 8)],
-              "int8": [(64, 4, 32, 8), (64, 4, 64, 8), (64, 4, 32, 13), (1024, 8, 256, 8),
-                       (1024, 8, 256, 13)]}
+# (D, H, C, Tq) of the attention block: the card-test width; with int8 or
+# f32 weights (the persistent kernels) also gate_r3, Tq 13 and the full width
+PERSISTENT_ATT_SHAPES = [(64, 4, 32, 8), (64, 4, 64, 8), (64, 4, 32, 13), (1024, 8, 256, 8),
+                         (1024, 8, 256, 13)]
+ATT_SHAPES = {"f32": PERSISTENT_ATT_SHAPES, "bf16": [(64, 4, 32, 8)],
+              "int8": PERSISTENT_ATT_SHAPES}
 
 
 def att_inputs(dev, seed, d, h, c, tq, kind):
@@ -89,16 +90,16 @@ def att_inputs(dev, seed, d, h, c, tq, kind):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", WEIGHTS)
 def test_att_block_kernel_matches_plain(kind):
-    """Each weight type at the card-test width; int8 (one cooperative
-    launch a call) also at gate_r3's width, Tq 13 and the full width, with
-    a partly filled ring, an empty one, the cursor at the ring's wrap and
-    valid_tq below Tq. With int8 weights the weights packed once beforehand
-    (``packed``, as the model passes them) give the same bits as those
-    packed by the call."""
+    """Each weight type at the card-test width; int8 and f32 (one
+    cooperative launch a call) also at gate_r3's width, Tq 13 and the full
+    width, with a partly filled ring, an empty one, the cursor at the ring's
+    wrap and valid_tq below Tq. With int8 and f32 weights the weights packed
+    once beforehand (``packed``, as the model passes them) give the same
+    bits as those packed by the call."""
     dev = require_cuda()
     for i, (d, h, c, tq) in enumerate(ATT_SHAPES[kind]):
         args = att_inputs(dev, 5 + i, d, h, c, tq, kind)
-        packed = pack_att_block(*args[3:7]) if kind == "int8" else None
+        packed = pack_att_block(*args[3:7]) if kind != "bf16" else None
         for cursor, cache_len, valid_tq in [(7, 19, 6), (0, 0, 6), (5, c, min(tq, 8)),
                                             (c - 1, c, 1), (c - 3, c // 2, tq - 2)]:
             meta = torch.tensor([cursor, cache_len, valid_tq], dtype=torch.int32, device=dev)
@@ -116,15 +117,17 @@ def test_att_block_kernel_matches_plain(kind):
 
 
 @pytest.mark.cuda
-def test_att_block_int8_is_one_graph_replayable_launch():
-    """The int8 kernel is one cooperative launch a call, which a CUDA graph
-    captures: the replay equals the direct call bit for bit (the kernel adds
-    in a fixed order)."""
+@pytest.mark.parametrize("kind,kernel", [("int8", "att_block_q8_kernel"),
+                                         ("f32", "att_block_f32_kernel")])
+def test_att_block_is_one_graph_replayable_launch(kind, kernel):
+    """The int8 and the f32 kernel are each one cooperative launch a call,
+    which a CUDA graph captures: the replay equals the direct call bit for
+    bit (the kernels add in a fixed order)."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = require_cuda()
     d, h, c, tq = 1024, 8, 256, 8
-    args = att_inputs(dev, 9, d, h, c, tq, "int8")
+    args = att_inputs(dev, 9, d, h, c, tq, kind)
     meta = torch.tensor([100, c, 6], dtype=torch.int32, device=dev)
     packed = pack_att_block(*args[3:7])
     call = lambda: att_block(*args, meta, n_heads=h, packed=packed)  # noqa: E731
@@ -135,7 +138,7 @@ def test_att_block_int8_is_one_graph_replayable_launch():
         torch.cuda.synchronize()
     kernels = [ev.key for ev in prof.key_averages()
                if ev.device_type == torch.autograd.DeviceType.CUDA and "port::" in ev.key]
-    assert len(kernels) == 1 and "att_block_q8_kernel" in kernels[0], kernels
+    assert len(kernels) == 1 and kernel in kernels[0], kernels
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -339,6 +342,13 @@ def test_wrappers_raise_instead_of_falling_back():
     att = att_inputs(dev, 8, 64, 4, 32, 8, "int8")
     with pytest.raises(ValueError, match="do not fit the launch plan"):
         att_block(*att, meta, n_heads=4, packed=pack_att_block(*att[3:7], sms=4))
+    with pytest.raises(ValueError, match="head dim of 16"):
+        att_block(*att_inputs(dev, 7, 48, 4, 32, 8, "f32"), meta, n_heads=4)
+    att = att_inputs(dev, 8, 64, 4, 32, 8, "f32")
+    for wrong in (pack_att_block(*att[3:7], sms=4),                  # another card's slices
+                  pack_att_block(*[quantize_tensor(w) for w in att[3:7]])):   # int8's layout
+        with pytest.raises(ValueError, match="do not fit the launch plan"):
+            att_block(*att, meta, n_heads=4, packed=wrong)
     assert att_block.launches == before
 
 
@@ -554,8 +564,7 @@ def test_gate_r3_session_with_every_kernel_matches_cpu(flags):
     assert (counts[0][1] > 0) == (not tail) and (counts[0][2] > 0) == tail
     assert all(("conv_ffn_ln_packed" in lp) == tail for lp in gpu.layers)
     assert not any("conv_ffn_ln_packed" in lp for lp in cpu.layers)
-    int8_att = flags["quant"] == "all"                           # use_pallas_att is on
-    assert all(("att_block_packed" in lp) == int8_att for lp in gpu.layers)
+    assert all("att_block_packed" in lp for lp in gpu.layers)    # int8 or f32: use_pallas_att
     assert not any("att_block_packed" in lp for lp in cpu.layers)
     assert counts[1] == [0, 0, 0]
     assert sessions[0].tokens == sessions[1].tokens

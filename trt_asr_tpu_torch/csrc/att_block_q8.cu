@@ -2,8 +2,9 @@
 // one persistent cooperative launch a layer.
 //
 // Replaces: trt_asr_tpu/ops/pallas/att_block_kernel.py:att_block_pallas (its
-// pallas_call at :170) with int8 weights; f32 and bf16 weights keep the
-// chain of csrc/att_block.cu. For the M (= Tq) new rows x of one layer:
+// pallas_call at :170) with int8 weights; f32 weights take
+// csrc/att_block_f32.cu, bf16 weights the chain of csrc/att_block.cu. For
+// the M (= Tq) new rows x of one layer:
 //   u = LN(x); q, k_new, v_new = (u @ Wq) sq, (u @ Wk) sk, (u @ Wv) sv
 //   per head: scores[t, s] = ((q+u_bias)[t] . k[s] + (q+v_bias)[t] . pos[r0[s]-t]) / sqrt(dh)
 //             over the ring kv cache (C slots) ++ the current rows, masked;
@@ -67,11 +68,7 @@
 // replays it bit for bit (chip_smoke.py phase 2). Rows are taken 8 at a
 // time in the products, all at once in the attention core, so any Tq runs
 // whose staging fits shared memory (the plan checks it).
-#include <cooperative_groups.h>
-
-#include "persistent.cuh"
-
-namespace cg = cooperative_groups;
+#include "att_core.cuh"
 
 namespace port {
 
@@ -80,19 +77,6 @@ namespace port {
 // positional band and the key rows of the block's scores item; x's later
 // rows (Tq > 8); the four K chunks of ctx's rows (reused pass by pass)
 enum { AB_X, AB_QKV, AB_WO, AB_BAND, AB_KEYS, AB_ROWS, AB_CHUNK, AB_BARS = AB_CHUNK + 4 };
-
-struct AttArgs {
-  const float* x;
-  int M, D, H, C, cD, ranges, slots;      // scores items: `ranges` a head, `slots` each
-  const float *ln_g, *ln_b, *bias_u, *bias_v, *pos, *kv;
-  const int* meta;                        // cursor, cache_len, valid_tq
-  float scale;
-  const unsigned char* packed;            // [blocks][att_blob bytes], see att_blob
-  float *y, *u, *k_new, *v_new;
-  float* q;                               // scratch: [M, D]
-  float* scores;                          // [H, M, att_s4(C + M)], ring-slot order
-  bf16* ctx;                              // [M, D]
-};
 
 // A block's packed slice of the layer's weights (pack_att in
 // ops/kernels/att_block.py), byte offsets: Wq, Wk, Wv, Wo, each
@@ -113,16 +97,7 @@ __host__ __device__ inline AttBlob att_blob(int D, int cD) {
 
 constexpr int AB_RUN = 64;                // rows of K a run of the Q/K/V sums
 
-// Row pitch (floats) of a head's scores: the C + M slots rounded up to 4,
-// so that rows are copied in 16-byte pieces
-__host__ __device__ inline int att_s4(int S) { return (S + 3) & ~3; }
-
 __host__ __device__ inline int att_runs(int D) { return (D + AB_RUN - 1) / AB_RUN; }
-
-// Row pitch (floats) of the staged [rows, dh] tiles of the scores: dh + 4,
-// an odd number of float4s (dh is a multiple of 8), so that neighbouring
-// rows start in distinct bank groups
-__host__ __device__ inline int att_pitch(int dh) { return dh + 4; }
 
 // Byte offsets of the dynamic shared memory, mirrored by the wrapper's plan.
 struct AttSmem {
@@ -153,36 +128,6 @@ __host__ __device__ inline AttSmem att_smem(int M, int D, int H, int C, int cD, 
 
 __device__ __forceinline__ float4 round4(float4 v) {
   return make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z), round_bf16(v.w));
-}
-
-// The dot product of rows a and b (dh floats, 16-byte aligned), summed as
-// the plain version's einsums sum on the H100 (cuBLAS; found by emulating
-// candidate orders against its results at the full width): 16 partial sums,
-// partial i over k = i, i + 16, ... in order (FMAs), then the partials added
-// in order. dh is a multiple of 16.
-__device__ __forceinline__ float dot_by16(const float* a, const float* b, int dh) {
-  float acc[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
-  for (int k0 = 0; k0 < dh; k0 += 16) {
-    float4 x[4], y[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      x[u] = *reinterpret_cast<const float4*>(a + k0 + 4 * u);
-      y[u] = *reinterpret_cast<const float4*>(b + k0 + 4 * u);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      acc[4 * u] = fmaf(x[u].x, y[u].x, acc[4 * u]);
-      acc[4 * u + 1] = fmaf(x[u].y, y[u].y, acc[4 * u + 1]);
-      acc[4 * u + 2] = fmaf(x[u].z, y[u].z, acc[4 * u + 2]);
-      acc[4 * u + 3] = fmaf(x[u].w, y[u].w, acc[4 * u + 3]);
-    }
-  }
-  float v = acc[0];
-#pragma unroll
-  for (int i = 1; i < 16; ++i) v = __fadd_rn(v, acc[i]);
-  return v;
 }
 
 // Four int8 values packed in v, widened exactly to f32 with integer byte
@@ -253,8 +198,10 @@ __global__ void __launch_bounds__(TL_THREADS, 1) att_block_q8_kernel(AttArgs p) 
   extern __shared__ __align__(16) unsigned char smem[];
   const int M = p.M, D = p.D, H = p.H, C = p.C, cD = p.cD;
   const int dh = D / H, S = C + M, Dp = tail_pad(D), pd = Dp + TL_KS, gd = cD / TL_GW;
+  bf16* ctx = static_cast<bf16*>(p.ctx);
   const AttSmem L = att_smem(M, D, H, C, cD, p.slots);
   const AttBlob B = att_blob(D, cD);
+  const unsigned char* packed = static_cast<const unsigned char*>(p.packed);
   const int8_t* w_qkv = reinterpret_cast<const int8_t*>(smem + L.w);
   const int8_t* w_o = w_qkv + B.wo;
   const float* scl = reinterpret_cast<const float*>(smem + L.w + B.cols);   // [4][cD]
@@ -294,7 +241,7 @@ __global__ void __launch_bounds__(TL_THREADS, 1) att_block_q8_kernel(AttArgs p) 
   if (threadIdx.x == 0) {
     for (int i = 0; i < AB_BARS; ++i) mbar_init(bars + i);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    const unsigned char* mine = p.packed + blockIdx.x * B.total;
+    const unsigned char* mine = packed + blockIdx.x * B.total;
     const uint32_t xb = min(TL_MR, M) * D * 4, nb = D * 4, cb = (uint32_t)(B.total - B.cols);
     mbar_expect(bars + AB_QKV, (uint32_t)B.wo + cb);
     bulk_copy(smem + L.w, mine, (uint32_t)B.wo, bars + AB_QKV);
@@ -307,7 +254,7 @@ __global__ void __launch_bounds__(TL_THREADS, 1) att_block_q8_kernel(AttArgs p) 
   __syncthreads();                          // the mbarriers are ready
   if (threadIdx.x == 0) {
     mbar_expect(bars + AB_WO, (uint32_t)(B.cols - B.wo));
-    bulk_copy(smem + L.w + B.wo, p.packed + blockIdx.x * B.total + B.wo,
+    bulk_copy(smem + L.w + B.wo, packed + blockIdx.x * B.total + B.wo,
               (uint32_t)(B.cols - B.wo), bars + AB_WO);
   } else if (item && warp == 1) {
     // positional rows r = i0 .. i1 + M - 2, the head's columns
@@ -486,7 +433,7 @@ __global__ void __launch_bounds__(TL_THREADS, 1) att_block_q8_kernel(AttArgs p) 
     }
     __syncthreads();
     for (int o = threadIdx.x; o < O; o += TL_THREADS)
-      p.ctx[(size_t)(o / TL_GW) * D + col0 + o % TL_GW] =
+      ctx[(size_t)(o / TL_GW) * D + col0 + o % TL_GW] =
           __float2bfloat16_rn(__fadd_rn(part[o], part[O + o]));
     __syncthreads();
   }
@@ -498,7 +445,7 @@ __global__ void __launch_bounds__(TL_THREADS, 1) att_block_q8_kernel(AttArgs p) 
   mbar_wait(bars + AB_WO);
   for (int m0 = 0; m0 < M; m0 += TL_MR) {
     const int mr = min(TL_MR, M - m0);
-    bulk_chunks(act, pd, p.ctx, m0, mr, D, bars + AB_CHUNK);
+    bulk_chunks(act, pd, ctx, m0, mr, D, bars + AB_CHUNK);
     zero_pad(act, pd, mr, D);
     __syncthreads();
     TL_MARK(12);
@@ -558,8 +505,8 @@ extern "C" int att_block_q8_launch(const float* x, int M, int D, int H, int C,
   }
   unsigned char* s = static_cast<unsigned char*>(scratch);
   const size_t qb = (size_t)M * D * 4, sb = (size_t)H * M * att_s4(C + M) * 4;
-  AttArgs p = {x, M, D, H, C, cD, ranges, slots, ln_g, ln_b, bias_u, bias_v, pos, kv, meta,
-               scale, static_cast<const unsigned char*>(packed), y, u, k_new, v_new,
+  AttArgs p = {x, M, D, H, C, cD, ranges, slots, 0, ln_g, ln_b, bias_u, bias_v, pos, kv, meta,
+               scale, packed, y, u, k_new, v_new,
                reinterpret_cast<float*>(s), reinterpret_cast<float*>(s + qb),
                reinterpret_cast<bf16*>(s + tail_align(qb + sb))};
   void* args[] = {&p};

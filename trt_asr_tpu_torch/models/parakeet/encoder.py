@@ -105,8 +105,8 @@ def layer_params(params: Dict[str, Any], num_layers: int, pack_tail: bool = Fals
     ``pack_tail``, a layer whose conv and FFN2 weights are int8 on the card
     also holds them, with their scales, taps and BN, packed once for the
     fused tail kernel (``conv_ffn_ln_packed``, :func:`pack_conv_ffn_ln`);
-    with ``pack_att``, one whose attention weights are int8 on the card
-    holds them packed once for the int8 attention-block kernel
+    with ``pack_att``, one whose attention weights are int8 or f32 on the
+    card holds them packed once for the attention-block kernel of that type
     (``att_block_packed``, :func:`pack_att_block`)."""
     stacked = params["encoder"]["layers"]
     out = []
@@ -119,10 +119,19 @@ def layer_params(params: Dict[str, Any], num_layers: int, pack_tail: bool = Fals
                 lp["conv_pw1"], lp["conv_dw"], lp["conv_bn_g"], lp["conv_bn_b"],
                 lp["conv_bn_m"], lp["conv_bn_v"], lp["conv_pw2"], lp["ff2_w1"], lp["ff2_w2"])
         att = [lp[k] for k in ("att_wq", "att_wk", "att_wv", "att_wo")]
-        if pack_att and all(isinstance(w, QuantTensor) for w in att) and att[0].q.is_cuda:
+        if pack_att and _persistent_att(att):
             lp["att_block_packed"] = pack_att_block(*att)
         out.append(lp)
     return out
+
+
+def _persistent_att(att) -> bool:
+    """Whether attention weights on the card take a persistent kernel: all
+    int8 or all f32 (bf16 weights take the chain)."""
+    if all(isinstance(w, QuantTensor) for w in att):
+        return att[0].q.is_cuda
+    return all(isinstance(w, torch.Tensor) and w.dtype == torch.float32 and w.is_cuda
+               for w in att)
 
 
 def _int8_tail(lp) -> bool:

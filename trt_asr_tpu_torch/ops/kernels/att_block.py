@@ -1,7 +1,9 @@
 """Fused conformer attention block (B=1 streaming chunks): the CUDA kernels
-``csrc/att_block.cu`` (f32 and bf16 weights, a chain of launches) and
-``csrc/att_block_q8.cu`` (int8 weights, one persistent cooperative launch
-laid out by :func:`att_block_q8_plan`), and their plain PyTorch version.
+``csrc/att_block_q8.cu`` (int8 weights) and ``csrc/att_block_f32.cu`` (f32
+weights, streamed through shared memory in runs of K), each one persistent
+cooperative launch laid out by :func:`att_block_q8_plan` or
+:func:`att_block_f32_plan`, the chain of launches of ``csrc/att_block.cu``
+(bf16 weights), and their plain PyTorch version.
 
 Replaces ``trt_asr_tpu/ops/pallas/att_block_kernel.py:att_block_pallas``
 (with ``build_rel_selection``). The bound on the H100 is memory: the four
@@ -83,16 +85,21 @@ def att_block_plain(x, ln_g, ln_b, wq, wk, wv, wo, bias_u, bias_v, pos_proj,
 
 
 class AttPlan(NamedTuple):
-    """Launch plan of the int8 attention block (``csrc/att_block_q8.cu``)."""
+    """Launch plan of a persistent attention block (``csrc/att_block_q8.cu``,
+    ``csrc/att_block_f32.cu``)."""
     blocks: int          # one a column slice, all co-resident
     cols: int            # columns of Wq, Wk, Wv and Wo a block
     ranges: int          # scores items a head, one a block
     slots: int           # kv positions a scores item
     smem: int            # dynamic shared bytes a block
     scratch: int         # bytes of device scratch: q, the scores, ctx
+    stages: int = 0      # f32 weights: slots of the weights' ring (0: the int8 kernel)
 
 
-ATT_RUN = 64                 # rows of K a run of the Q/K/V sums (csrc/att_block_q8.cu AB_RUN)
+# rows of K a run of the products' sums (csrc/att_block_q8.cu AB_RUN), and of
+# the f32 weights' runs through the ring (csrc/att_block_f32.cu AF_RUN)
+ATT_RUN = 64
+ATT_F32_BARS = 3 + TAIL_WARPS    # csrc/att_block_f32.cu AF_PIECE: mbarriers besides the pieces'
 
 
 def _att_blob_bytes(d: int, cols: int) -> int:
@@ -101,45 +108,92 @@ def _att_blob_bytes(d: int, cols: int) -> int:
     return 4 * pad_k(d) * cols + 4 * cols * 4
 
 
+def _att_items(what: str, tq: int, d: int, h: int, c: int, sms: int):
+    """(cols, blocks, ranges, slots, s4, core bytes) of a persistent attention
+    block: each block owns ``cols`` columns of Wq, Wk, Wv and Wo
+    (:func:`~trt_asr_tpu_torch.ops.kernels.conv_block.column_slices`, as the
+    fused tail), and block b < H * ranges the scores of head b // ranges over
+    kv positions [(b % ranges) * slots, + slots) of the C + Tq; ``s4`` is a
+    row of a head's scores in floats, rounded up to 16 bytes, and the core
+    bytes are the shared memory of the attention core (csrc/att_core.cuh) and
+    of v_new's columns. Raises ValueError for shapes the kernels do not take
+    (D not a multiple of 8, the head dim not one of 16, fewer blocks than
+    heads)."""
+    dh = d // max(h, 1)
+    if tq < 1 or c < 1 or h < 1 or d % h or d % TAIL_GROUP or dh % 16:
+        raise ValueError(f"{what}: needs Tq, C, H >= 1, D a multiple of "
+                         f"{TAIL_GROUP} and the head dim of 16 (Tq={tq}, D={d}, H={h}, C={c})")
+    cols, blocks = column_slices(d, sms)
+    if blocks < h:
+        raise ValueError(f"{what}: {blocks} blocks for {h} heads at D={d} on "
+                         f"{sms} SMs; the scores need a block a head")
+    s = c + tq
+    s4 = -(-s // 4) * 4
+    slots = -(-s // max(1, blocks // h))
+    ranges = -(-s // slots)
+    core = ((2 * tq + 2 * slots + tq - 1) * (dh + 4) * 4       # q + biases, keys, band
+            + align16(2 * tq * slots * 4)                        # the item's dots
+            + c * cols * 4 + align16(tq * cols * 4)              # the block's columns of v
+            + tq * s4 * 4                                        # a head's scores, then p
+            + 2 * tq * TAIL_GROUP * 4)                           # the context's halves
+    return cols, blocks, ranges, slots, s4, core
+
+
+def _check_fits(what: str, smem: int, smem_limit: int, tq: int, d: int, h: int, c: int):
+    if smem > smem_limit:
+        raise ValueError(f"{what}: {smem} B of shared memory a block at Tq={tq}, "
+                         f"D={d}, H={h}, C={c} exceeds {smem_limit} B")
+
+
 def att_block_q8_plan(tq: int, d: int, h: int, c: int, sms: int,
                       smem_limit: int = SMEM_PER_BLOCK) -> AttPlan:
     """The grid and shared memory of the int8 attention block for Tq rows,
     width D, H heads, a ring cache of C slots and ``sms`` SMs (one block an
-    SM at most): each block owns ``cols`` columns of Wq, Wk, Wv and Wo
-    (:func:`~trt_asr_tpu_torch.ops.kernels.conv_block.column_slices`, as
-    the fused tail), and block b < H * ranges the scores of head b // ranges
-    over kv positions [(b % ranges) * slots, + slots) of the C + Tq. Mirrors
-    ``att_smem`` in the source, which checks it at launch. Raises
-    ValueError for shapes the kernel does not take (D not a multiple of 8,
-    the head dim not one of 16, fewer blocks than heads) or whose staging
-    does not fit."""
-    dh = d // max(h, 1)
-    if tq < 1 or c < 1 or h < 1 or d % h or d % TAIL_GROUP or dh % 16:
-        raise ValueError(f"att_block[int8]: needs Tq, C, H >= 1, D a multiple of "
-                         f"{TAIL_GROUP} and the head dim of 16 (Tq={tq}, D={d}, H={h}, C={c})")
-    cols, blocks = column_slices(d, sms)
-    if blocks < h:
-        raise ValueError(f"att_block[int8]: {blocks} blocks for {h} heads at D={d} on "
-                         f"{sms} SMs; the scores need a block a head")
-    s = c + tq
-    s4 = -(-s // 4) * 4                 # a row of a head's scores, in 16-byte pieces
-    slots = -(-s // max(1, blocks // h))
-    ranges = -(-s // slots)
+    SM at most; the layout of :func:`_att_items`). Mirrors ``att_smem`` in
+    the source, which checks it at launch. Raises ValueError for shapes the
+    kernel does not take or whose staging does not fit."""
+    what = "att_block[int8]"
+    cols, blocks, ranges, slots, s4, core = _att_items(what, tq, d, h, c, sms)
     smem = (_att_blob_bytes(d, cols)                             # weight slices, scales
             + TAIL_ROWS * (pad_k(d) + TAIL_KSTEP) * 2            # operand rows, bf16
             + TAIL_ROWS * d * 4 + 2 * d * 4                      # x's rows; LN's g, b
-            + (2 * tq + 2 * slots + tq - 1) * (dh + 4) * 4       # q + biases, keys, band
-            + align16(2 * tq * slots * 4)                        # the item's dots
-            + c * cols * 4 + align16(tq * cols * 4)              # the block's columns of v
-            + tq * s4 * 4                                        # a head's scores, then p
-            + 2 * tq * TAIL_GROUP * 4                            # the context's halves
+            + core
             + max(TAIL_WARPS, -(-d // ATT_RUN)) * 3 * cols * TAIL_ROWS * 4   # products' sums
             + 10 * 8)                                            # mbarriers
-    if smem > smem_limit:
-        raise ValueError(f"att_block[int8]: {smem} B of shared memory a block at Tq={tq}, "
-                         f"D={d}, H={h}, C={c} exceeds {smem_limit} B")
+    _check_fits(what, smem, smem_limit, tq, d, h, c)
     return AttPlan(blocks, cols, ranges, slots, smem,
                    align16(tq * d * 4 + h * tq * s4 * 4) + tq * d * 2)
+
+
+def _f32_runs(d: int) -> int:
+    return -(-d // ATT_RUN)
+
+
+def att_block_f32_plan(tq: int, d: int, h: int, c: int, sms: int,
+                       smem_limit: int = SMEM_PER_BLOCK, stages: int | None = None) -> AttPlan:
+    """The grid and shared memory of the f32 attention block (the layout of
+    :func:`_att_items`), whose weights stream through a ring of ``stages``
+    slots of shared memory, one run of ATT_RUN rows of K of the block's
+    Q/K/V columns a slot: by default as many as there are runs, or as fit.
+    Mirrors ``af_smem`` in the source, which checks it at launch. Raises
+    ValueError for shapes the kernel does not take or whose staging does
+    not fit with at least one slot."""
+    what = "att_block[f32]"
+    cols, blocks, ranges, slots, s4, core = _att_items(what, tq, d, h, c, sms)
+    runs = _f32_runs(d)
+    slot = ATT_RUN * 3 * cols * 4                                # a Q/K/V run of the columns
+    fixed = (tq * runs * ATT_RUN * 4                             # x's rows, u's, ctx's
+             + core
+             + max(runs * tq * 3 * cols, 2 * d) * 4              # products' sums; LN's g, b
+             + (ATT_F32_BARS + 2 * runs) * 8)                    # mbarriers: one a piece
+    if stages is None:
+        stages = max(1, min(runs, (smem_limit - fixed) // slot))
+    if not 1 <= stages <= 2 * runs:
+        raise ValueError(f"{what}: {stages} ring slots for {runs} runs of K")
+    smem = fixed + stages * slot
+    _check_fits(what, smem, smem_limit, tq, d, h, c)
+    return AttPlan(blocks, cols, ranges, slots, smem,
+                   align16(tq * d * 4 + h * tq * s4 * 4) + tq * d * 4, stages)
 
 
 def pack_att(wq, wk, wv, wo, sq, sk, sv, so, cols: int, blocks: int) -> torch.Tensor:
@@ -156,33 +210,62 @@ def pack_att(wq, wk, wv, wo, sq, sk, sv, so, cols: int, blocks: int) -> torch.Te
     return torch.cat(weights + [scales.contiguous().view(torch.uint8)], dim=1).contiguous()
 
 
-def _require_int8(*ws) -> None:
-    if not all(isinstance(w, QuantTensor) for w in ws):
-        raise TypeError("att_block[int8] takes int8 QuantTensor weights only")
+def pack_att_f32(wq, wk, wv, wo, cols: int, blocks: int) -> torch.Tensor:
+    """The layer's f32 weights as the f32 attention block's ring takes them,
+    a block's slice contiguous: [blocks, runs * ATT_RUN * 4 * cols] f32,
+    block b holding for its ``cols`` columns b * cols .. the runs of
+    ATT_RUN rows of K of Wq, Wk and Wv, each [3][ATT_RUN / 4][cols][4] (a
+    column's four consecutive K values together), then those of Wo, each
+    [ATT_RUN / 4][cols][4]; zero past K and D (``af_issue`` in the
+    source). wq .. wo are f32 [D, D]."""
+    d = wq.shape[0]
+    runs = _f32_runs(d)
+
+    def cut(w):
+        full = w.new_zeros((runs * ATT_RUN, blocks * cols))
+        full[:d, :d] = w
+        return full.view(runs, ATT_RUN // 4, 4, blocks, cols).permute(3, 0, 1, 4, 2)
+
+    qkv = torch.stack([cut(w) for w in (wq, wk, wv)], dim=2)     # [b, run, 3, K/4, col, 4]
+    return torch.cat([qkv.reshape(blocks, -1), cut(wo).reshape(blocks, -1)], dim=1).contiguous()
 
 
 def pack_att_block(wq, wk, wv, wo, sms: int | None = None) -> torch.Tensor:
-    """A layer's weights for :func:`att_block`'s ``packed`` (int8
-    QuantTensors): :func:`pack_att` for the column slices of a card with
-    ``sms`` SMs (by default that of the weights' device). Made once, where
-    the layer's int8 weights are made (``models/parakeet/encoder.py:
-    layer_params``): a packed copy that no longer matches the weights gives
-    wrong results. 4.2 MB a layer at full width, beside the [D, D] matrices
-    that the plain path reads."""
-    _require_int8(wq, wk, wv, wo)
-    if sms is None:
-        sms = sm_count(wq.q.device.index or 0)
-    return pack_att(wq.q, wk.q, wv.q, wo.q, wq.s, wk.s, wv.s, wo.s,
-                    *column_slices(wq.q.shape[0], sms))
+    """A layer's weights for :func:`att_block`'s ``packed``, for the column
+    slices of a card with ``sms`` SMs (by default that of the weights'
+    device): int8 QuantTensors by :func:`pack_att`, 4.2 MB a layer at full
+    width; f32 weights by :func:`pack_att_f32`, 16.8 MB a layer (403 MB for
+    24 layers). Each is held beside the [D, D] matrices that the plain path
+    reads. Made once, where the layer's weights are made
+    (``models/parakeet/encoder.py:layer_params``): a packed copy that no
+    longer matches the weights gives wrong results. Raises TypeError for
+    other weights (bf16 weights take the chain, which reads them as they
+    are)."""
+    ws = (wq, wk, wv, wo)
+    if all(isinstance(w, QuantTensor) for w in ws):
+        sms = sm_count(wq.q.device.index or 0) if sms is None else sms
+        return pack_att(wq.q, wk.q, wv.q, wo.q, wq.s, wk.s, wv.s, wo.s,
+                        *column_slices(wq.q.shape[0], sms))
+    if all(isinstance(w, torch.Tensor) and w.dtype == torch.float32 for w in ws):
+        sms = sm_count(wq.device.index or 0) if sms is None else sms
+        return pack_att_f32(wq, wk, wv, wo, *column_slices(wq.shape[0], sms))
+    raise TypeError("pack_att_block takes int8 QuantTensor or f32 weights")
 
 
 def check_packed_att(packed: torch.Tensor, plan: AttPlan, d: int) -> None:
     """Raises ValueError unless ``packed`` has the layout of ``plan``'s
-    column slices: [blocks, bytes of a block's slice] uint8."""
-    want = (plan.blocks, _att_blob_bytes(d, plan.cols))
-    if packed.dtype != torch.uint8 or tuple(packed.shape) != want:
-        raise ValueError(f"att_block[int8]: packed weights {packed.dtype} "
-                         f"{tuple(packed.shape)} do not fit the launch plan {want} "
+    column slices: with an int8 plan [blocks, bytes of a block's slice]
+    uint8, with an f32 plan (``stages`` > 0) [blocks, floats of a block's
+    slice] f32."""
+    if plan.stages:
+        what, dtype, want = ("att_block[f32]", torch.float32,
+                             (plan.blocks, _f32_runs(d) * ATT_RUN * 4 * plan.cols))
+    else:
+        what, dtype, want = ("att_block[int8]", torch.uint8,
+                             (plan.blocks, _att_blob_bytes(d, plan.cols)))
+    if packed.dtype != dtype or tuple(packed.shape) != want:
+        raise ValueError(f"{what}: packed weights {packed.dtype} "
+                         f"{tuple(packed.shape)} do not fit the launch plan {dtype} {want} "
                          f"(see pack_att_block)")
 
 
@@ -205,31 +288,46 @@ def att_block(x, ln_g, ln_b, wq, wk, wv, wo, bias_u, bias_v, pos_proj,
               kv_cache, meta, *, n_heads: int, packed=None):
     """Fused attention block; same arguments and results as
     :func:`att_block_plain`. CPU tensors take the plain version; CUDA
-    tensors launch a kernel (or raise): with int8 weights the persistent
-    kernel, one cooperative launch (raising also when its blocks cannot all
-    be resident), else the chain. ``packed``: the int8 weights as
+    tensors launch a kernel (or raise): with int8 or f32 weights the
+    persistent kernel of that type, one cooperative launch (raising also
+    when its blocks cannot all be resident), with bf16 weights the chain
+    (:func:`att_block_chain`). ``packed``: the int8 or f32 weights as
     :func:`pack_att_block` lays them out, made once with the weights;
     without it they are packed anew at every call."""
     if x.device.type == "cpu":
         return att_block_plain(x, ln_g, ln_b, wq, wk, wv, wo, bias_u, bias_v,
                                pos_proj, kv_cache, meta, n_heads=n_heads)
-    if any(isinstance(w, QuantTensor) for w in (wq, wk, wv, wo)):
-        return _att_block_q8(x, ln_g, ln_b, wq, wk, wv, wo, bias_u, bias_v, pos_proj,
-                             kv_cache, meta, n_heads, packed)
+    ws = (wq, wk, wv, wo)
+    if any(isinstance(w, QuantTensor) for w in ws):
+        return _att_block_persistent(x, ln_g, ln_b, ws, bias_u, bias_v, pos_proj, kv_cache,
+                                     meta, n_heads, packed, "int8")
+    if all(w.dtype == torch.float32 for w in ws):
+        return _att_block_persistent(x, ln_g, ln_b, ws, bias_u, bias_v, pos_proj, kv_cache,
+                                     meta, n_heads, packed, "f32")
+    return att_block_chain(x, ln_g, ln_b, wq, wk, wv, wo, bias_u, bias_v, pos_proj,
+                           kv_cache, meta, n_heads=n_heads)
+
+
+def att_block_chain(x, ln_g, ln_b, wq, wk, wv, wo, bias_u, bias_v, pos_proj,
+                    kv_cache, meta, *, n_heads: int):
+    """The chain of ``csrc/att_block.cu`` on CUDA tensors (LayerNorm, split-K
+    Q/K/V, the attention core, split-K Wo: six launches) with f32 or bf16
+    weights: :func:`att_block`'s kernel for bf16 weights, and the f32
+    kernel's predecessor, kept so that ``chip_smoke.py`` times the two in
+    one run."""
     tq, d = x.shape
     c = kv_cache.shape[0]
     parts = [kb.weight_parts(w) for w in (wq, wk, wv, wo)]
     wtype = parts[0][2]
-    if any(p[2] != wtype for p in parts):
-        raise ValueError("att_block: q/k/v/o weights must share one storage type")
+    if any(p[2] != wtype for p in parts) or wtype == 2:
+        raise ValueError("att_block: q/k/v/o weights must share one float storage type")
     floats = _check_inputs(x, ln_g, ln_b, bias_u, bias_v, pos_proj, kv_cache, meta)
     # the kernel reads key, value and positional rows with 16-byte loads,
     # four lanes a row
     if (d // n_heads) % 16 or pos_proj.data_ptr() % 16 or kv_cache.data_ptr() % 16:
         raise ValueError("att_block: needs a head dim divisible by 16 and 16-byte "
                          "aligned pos_proj and kv_cache")
-    kb.require_cuda("att_block", *floats, meta, *[p[0] for p in parts],
-                    *[p[1] for p in parts if p[1] is not None])
+    kb.require_cuda("att_block", *floats, meta, *[p[0] for p in parts])
     lib = kb.load("att_block")
     y, u, q, k_new, v_new, ctx = (torch.empty_like(x) for _ in range(6))
     ksplit = kb.gemm_splits(d)
@@ -246,34 +344,42 @@ def att_block(x, ln_g, ln_b, wq, wk, wv, wo, bias_u, bias_v, pos_proj,
     return y, u, k_new, v_new
 
 
-def _att_block_q8(x, ln_g, ln_b, wq, wk, wv, wo, bias_u, bias_v, pos_proj, kv_cache, meta,
-                  n_heads, packed):
-    """The int8 kernel (``csrc/att_block_q8.cu``) on CUDA tensors."""
-    _require_int8(wq, wk, wv, wo)
+def _att_block_persistent(x, ln_g, ln_b, ws, bias_u, bias_v, pos_proj, kv_cache, meta,
+                          n_heads, packed, kind):
+    """The persistent kernel of ``kind`` (``csrc/att_block_q8.cu`` for int8
+    QuantTensor weights, ``csrc/att_block_f32.cu`` for f32) on CUDA
+    tensors."""
+    int8 = kind == "int8"
+    if not all(isinstance(w, QuantTensor) == int8 for w in ws):
+        raise TypeError(f"att_block[{kind}]: q/k/v/o weights must all be {kind}")
     tq, d = x.shape
     c = kv_cache.shape[0]
-    if any(w.q.shape != (d, d) for w in (wq, wk, wv, wo)):
+    mats = [w.q if int8 else w for w in ws]
+    if any(m.shape != (d, d) for m in mats):
         raise ValueError(f"att_block: weights must be [D, D] (D={d})")
     floats = _check_inputs(x, ln_g, ln_b, bias_u, bias_v, pos_proj, kv_cache, meta)
-    plan = att_block_q8_plan(tq, d, n_heads, c, sm_count(x.device.index or 0))
+    plan = (att_block_q8_plan if int8 else att_block_f32_plan)(
+        tq, d, n_heads, c, sm_count(x.device.index or 0))
     if packed is None:
-        packed = pack_att(wq.q, wk.q, wv.q, wo.q, wq.s, wk.s, wv.s, wo.s, plan.cols,
-                          plan.blocks)
+        packed = (pack_att(*mats, *[w.s for w in ws], plan.cols, plan.blocks) if int8
+                  else pack_att_f32(*mats, plan.cols, plan.blocks))
     check_packed_att(packed, plan, d)
     kb.require_cuda("att_block", *floats, meta, packed)
     # bulk copies of x's rows, the norms and the key and positional rows;
     # 16-byte reads of the biases
     kb.require_aligned("att_block", 4, *floats)
-    kb.require_aligned("att_block", 16, packed)
-    lib = kb.load("att_block_q8")
+    kb.require_aligned("att_block", 16 if int8 else 4, packed)
+    lib = kb.load("att_block_q8" if int8 else "att_block_f32")
     y, u, k_new, v_new = (torch.empty_like(x) for _ in range(4))
     scratch = torch.empty((plan.scratch,), dtype=torch.uint8, device=x.device)
-    rc = lib.att_block_q8_launch(
+    stages = () if int8 else (plan.stages,)
+    launch = lib.att_block_q8_launch if int8 else lib.att_block_f32_launch
+    rc = launch(
         x.data_ptr(), tq, d, n_heads, c, ln_g.data_ptr(), ln_b.data_ptr(), bias_u.data_ptr(),
         bias_v.data_ptr(), pos_proj.data_ptr(), kv_cache.data_ptr(), meta.data_ptr(),
         1.0 / math.sqrt(d // n_heads), packed.data_ptr(), plan.blocks, plan.cols, plan.ranges,
-        plan.slots, plan.smem, y.data_ptr(), u.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        scratch.data_ptr(), kb.stream_ptr(x.device))
+        plan.slots, *stages, plan.smem, y.data_ptr(), u.data_ptr(), k_new.data_ptr(),
+        v_new.data_ptr(), scratch.data_ptr(), kb.stream_ptr(x.device))
     kb.check(lib, rc, "att_block")
     att_block.launches += 1
     return y, u, k_new, v_new
