@@ -27,7 +27,17 @@ finds the summation orders that the kernel copies: it emulates candidate
 orders of the plain version's three f32 products (Q = bf16(u) @ Wq, the
 scores' dot (q + u_bias) . k, the context p @ v) on the host, FMA by FMA,
 and prints how many of the card's results (cuBLAS) each misses; the kernel
-sums in the order that misses none.
+sums in the order that misses none. It does the same for the int8 joint
+step's hidden product (bf16(g) @ W_pred, ``csrc/joint_step_q8.cu``) at each
+rows count of the card tests and the main path, at the card-test, gate_r3
+and full widths.
+
+    python3 att_variants.py --joint [--against OTHER.cu]
+
+does the same for the int8 joint step (``csrc/joint_step_q8.cu``) at the
+main path's shapes (8 rows, P = J = 640, V 8198), held to its plain version
+at ``chip_smoke.py``'s 1e-4 (logits) with equal tokens and durations: the
+three launches of ``csrc/joint_step.cu`` beside it, and the timeline.
 
     python3 att_variants.py --f32 [--stages 4,8,12,16,22] [--against OTHER.cu]
 
@@ -70,6 +80,11 @@ MARKS_F32 = {0: "entry", 1: "copies issued", 2: "x, norms in", 14: "LN", 17: "Q/
              4: "q, k_new, v_new written", 5: "after barrier 1", 6: "q, keys staged",
              7: "scores written", 8: "after barrier 2", 9: "softmax", 10: "ctx written",
              11: "after barrier 3", 12: "ctx staged", 19: "Wo sums", 13: "end"}
+MARKS_JOINT = {0: "entry", 1: "copies issued", 2: "W_pred in", 12: "g in", 13: "g rounded",
+               3: "h sums",
+               4: "h written", 5: "after the barrier", 6: "W_out in", 7: "h staged",
+               19: "logits mma loop", 20: "logits block synced", 8: "logits written",
+               9: "pairs written", 10: "ticket taken", 11: "end"}
 MARKS = {0: "entry", 1: "copies issued", 2: "x, norms in", 14: "LN", 3: "Q/K/V weights in",
          17: "Q/K/V sums", 4: "q, k_new, v_new written", 5: "after barrier 1",
          6: "q, keys staged", 7: "scores written", 8: "after barrier 2", 9: "softmax",
@@ -151,6 +166,8 @@ def main() -> int:
     ap.add_argument("--orders", action="store_true",
                     help="emulate candidate summation orders of the plain version's products")
     ap.add_argument("--f32", action="store_true", help="the f32 kernel, csrc/att_block_f32.cu")
+    ap.add_argument("--joint", action="store_true",
+                    help="the int8 joint step, csrc/joint_step_q8.cu")
     ap.add_argument("--stages", default="4,8,12,16,22",
                     help="--f32: ring stage counts to time")
     opts = ap.parse_args()
@@ -162,6 +179,8 @@ def main() -> int:
     timer = cs.Timer(torch, dev)
     warm = cs.Timer(torch, dev)
     warm.scrub = torch.empty(16, dtype=torch.uint8, device=dev)      # L2 left as it is
+    if opts.joint:
+        return joint_variants(timer, warm, opts.against, opts.pairs)
     if opts.f32:
         return f32_variants(timer, warm, [int(v) for v in opts.stages.split(",")],
                             opts.against, opts.pairs)
@@ -170,7 +189,7 @@ def main() -> int:
     run = lambda: att_block(*args, n_heads=h, packed=packed)  # noqa: E731
     want = att_block_plain(*args, n_heads=h)
     if opts.orders:
-        return orders(args, h)
+        return orders(args, h) or joint_orders(dev)
     src = (kb.CSRC_DIR / "att_block_q8.cu").read_text()
     if opts.against:
         return compare(timer, run, want, src, pathlib.Path(opts.against).read_text(),
@@ -237,9 +256,52 @@ def f32_variants(timer, warm, stage_counts, against, pairs) -> int:
     return 0
 
 
+def joint_variants(timer, warm, against, pairs) -> int:
+    """The int8 joint step beside its three launches, and its timeline; or
+    against another version of its source."""
+    from trt_asr_tpu_torch.ops.kernels import joint_step as js
+
+    rng = np.random.default_rng(1234)
+    t = lambda *s, sc=1.0: torch.as_tensor(  # noqa: E731
+        (rng.standard_normal(s) * sc).astype(np.float32), device="cuda")
+    p, j, v, rows = 640, 640, 8198, 8
+    args = (t(rows, j), t(rows, p, sc=0.5), quantize_tensor(t(p, j, sc=p ** -0.5)),
+            t(j, sc=0.1), quantize_tensor(t(j, v, sc=j ** -0.5)), t(v, sc=0.1))
+    kw = dict(ths=8193, ndur=5, blank_id=8192, blank_penalty=0.5)
+    packed = js.pack_joint_step(*args[2:])                          # as the model packs them
+    run = lambda: js.joint_step(*args, **kw, packed=packed)  # noqa: E731
+    want = js.joint_step_plain(*args, **kw)
+
+    def check(got) -> float:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        return float((got[2] - want[2]).abs().max())
+
+    src = (kb.CSRC_DIR / "joint_step_q8.cu").read_text()
+    if against:
+        return compare(timer, run, want[2:], src, pathlib.Path(against).read_text(), pairs,
+                       "joint_step_q8", out=lambda r: r[2:])
+    libs = build({"kernel": src, "timeline": "#define TAIL_TIMELINE\n" + src + TIMELINE_READ},
+                 "joint_step_q8")
+    chain = lambda: js.joint_step_chain(*args, **kw)  # noqa: E731
+    print(f"plain version {timer(lambda: js.joint_step_plain(*args, **kw)):.4f} ms")
+    print(f"three launches (csrc/joint_step.cu, int8): {timer(chain):.4f} ms, L2 warm "
+          f"{warm(chain):.4f} ms, max |logits - plain| {check(chain()):.3g}")
+    for name, (lib, log) in libs.items():
+        regs = [r for r in cs.ptxas_kernels(log) if "joint_step_q8_kernel" in r[0]][0]
+        kb._libs["joint_step_q8"] = lib          # the wrapper launches the variant
+        err = check(run())
+        assert err <= 1e-4, f"variant {name} disagrees with the plain version ({err:.3g})"
+        print(f"{name}: {timer(run):.4f} ms, L2 warm {warm(run):.4f} ms, max |logits - plain| "
+              f"{err:.3g}; {regs[1]} registers, spills {regs[2]}/{regs[3]} B", flush=True)
+    print_timeline(libs["timeline"][0], timer, run, packed.shape[0], MARKS_JOINT)
+    kb._libs.pop("joint_step_q8")
+    return 0
+
+
 def print_timeline(lib, timer, run, blocks: int, names=MARKS) -> None:
     """The marks of one launch on a scrubbed L2 and of the launch right
-    after it (warm), side by side."""
+    after it (warm), side by side: the median over the blocks and the
+    latest block."""
     cols = []
     timer.scrub.zero_()
     for _ in range(2):
@@ -249,18 +311,20 @@ def print_timeline(lib, timer, run, blocks: int, names=MARKS) -> None:
         kb.check(lib, lib.att_timeline(marks.ctypes.data, blocks), "timeline")
         ns = marks.astype(np.int64)
         cols.append((ns - int(ns[:, 0].min())) / 1e3)
-    print("  timeline (us since the first block began, median over blocks): cold | warm")
+    print("  timeline (us since the first block began, median over blocks, then the last "
+          "block's): cold | warm | cold last | warm last")
     for i, name in names.items():
         print(f"  {i:2d} {name:26s} {np.median(cols[0][:, i]):7.3f} | "
-              f"{np.median(cols[1][:, i]):7.3f}")
+              f"{np.median(cols[1][:, i]):7.3f} | {cols[0][:, i].max():7.3f} | "
+              f"{cols[1][:, i].max():7.3f}")
 
 
 def compare(timer, run, want, src: str, other: str, pairs: int, lib_name: str = "att_block_q8",
-            tol: float = 1e-4) -> int:
+            tol: float = 1e-4, out=lambda r: r) -> int:
     libs = build({"kernel": src, "against": other}, lib_name)
     for name, (lib, log) in libs.items():
         kb._libs[lib_name] = lib
-        err = cs.max_err(run(), want)
+        err = cs.max_err(out(run()), want)
         assert err <= tol, f"{name} disagrees with the plain version ({err:.3g})"
         regs = [r for r in cs.ptxas_kernels(log) if f"{lib_name}_kernel" in r[0]][0]
         print(f"{name}: max |variant - plain| {err:.3g}; {regs[1]} registers, spills "
@@ -336,6 +400,42 @@ def orders(args, h) -> int:
         best = sorted(res.items(), key=lambda kv_: kv_[1])[:4]
         print(f"{name} (K {kk}, {want.size} sums): (runs, interleaved partials) -> sums missed: "
               + ", ".join(f"{r}: {n}" for r, n in best), flush=True)
+    return 0
+
+
+def joint_orders(dev) -> int:
+    """Candidate orders of the joint's hidden product g @ W_pred (K = P):
+    runs of `run` rows of K, each summed in `inter` interleaved partials,
+    the partials and then the runs added in order; and the order of the
+    three-launch route (csrc/joint_step.cu: runs of 64, each 8 chains of 8
+    added in order)."""
+    from trt_asr_tpu_torch.ops.quant import round_bf16
+
+    rng = np.random.default_rng(7)
+    for rows, p, j in [(1, 32, 48), (8, 32, 48), (16, 32, 48), (37, 32, 48), (128, 32, 48),
+                       (8, 32, 32), (8, 32, 64), (1, 640, 640), (8, 640, 640), (16, 640, 640),
+                       (128, 640, 640)]:
+        g = torch.as_tensor((rng.standard_normal((rows, p)) * 0.5).astype(np.float32), device=dev)
+        wp = quantize_tensor(torch.as_tensor(
+            (rng.standard_normal((p, j)) / math.sqrt(p)).astype(np.float32), device=dev))
+        a = round_bf16(g)
+        want = torch.matmul(a, wp.q.float()).cpu().numpy()      # the plain version's product
+        u = a.double().cpu().numpy()[:, None, :]
+        w = wp.q.double().t().cpu().numpy()[None]
+        res = {}
+        for run in (8, 16, 32, 64, 128, p):
+            for inter in (1, 2, 4, 8):
+                got = in_order([in_order([fma_sum(u, w, range(lo + i, min(p, lo + run), inter))
+                                          for i in range(inter)])
+                                for lo in range(0, p, run)])
+                res[(run, inter)] = int((got != want).sum())
+        res["route"] = int((in_order([in_order([fma_sum(u, w, range(c, min(p, c + 8)))
+                                                  for c in range(lo, min(p, lo + 64), 8)])
+                                         for lo in range(0, p, 64)]) != want).sum())
+        best = sorted(res.items(), key=lambda kv_: kv_[1])[:5]
+        print(f"joint hidden (rows {rows}, K {p}, {want.size} sums): (run, interleaved "
+              f"partials) -> sums missed: " + ", ".join(f"{r}: {n}" for r, n in best)
+              + f"; run 64 in order: {res[(64, 1)]}", flush=True)
     return 0
 
 

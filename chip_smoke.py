@@ -11,8 +11,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    each kernel's registers, spills and static shared memory (ptxas), and
    the dynamic shared memory and blocks an SM of the flash kernels (bf16
    and f32), of the bf16 rel-shift kernel, of the fused conv + FFN2 +
-   out-LN tail and of the int8 and f32 attention blocks (each one
-   cooperative launch: its grid at full width must be resident at once).
+   out-LN tail, of the int8 and f32 attention blocks and of the int8 joint
+   step (each one cooperative launch: its grid at full width must be
+   resident at once).
 2. each kernel against its plain PyTorch version on the card at the
    full-size main-path shapes (a steady chunk: 8 rows, 6 valid; f32 and
    int8 weights for the attention block, the joint step, the FFN and the
@@ -28,7 +29,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    one's cooperative launch is captured into a CUDA graph and replayed, and
    the replay must equal the direct call bit for bit. The f32 attention
    block is timed beside the chain of ``csrc/att_block.cu`` that it
-   replaced (which bf16 weights keep).
+   replaced (which bf16 weights keep). The int8 joint step
+   (``csrc/joint_step_q8.cu``) runs on its weights packed once, is captured
+   and replayed, and is timed beside the three launches of
+   ``csrc/joint_step.cu`` that it replaced (which f32 and bf16 weights
+   keep).
 3. full-width session (``ModelConfig()``, seeded random weights from the
    port's ``init_params``): a seeded synthetic utterance of 12 words
    (~6 s) pushed in 0.5 s pieces, with a blank bias set so the plain f32
@@ -47,7 +52,14 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    (``conv_ffn_ln_kernel``), and no conv module kernel runs beside it; every
    call of the attention block is one kernel, ``att_block_q8_kernel`` with
    int8 weights and ``att_block_f32_kernel`` with f32, and none of the
-   chain's runs.
+   chain's runs; every call of the joint step is one
+   ``joint_step_q8_kernel`` with int8 weights and the three-launch route
+   with f32. No int8 arm widens an int8 weight at a call
+   (``q8_matmul.widened`` stays 0: the model's bf16 copies feed the
+   tensor cores), here and in phase 4; the memory the copies take is
+   logged. Each int8 arm's tokens are set beside those of its session on
+   the port's previous int8 routes (q widened to f32 at each call, the
+   three-launch joint step).
    Phase 2 also holds the offline kernels, rel shift (f32, bf16) and
    flash attention (f32, bf16), at the offline batch's shapes (B 8, T 368,
    H 8, dh 128; a short row and a zero-length row in the mask). bf16 rel
@@ -133,9 +145,12 @@ KERNEL_SRCS = {
     # the attention block with int8 weights: its own persistent kernel
     "attq": ("att_block", "trt_asr_tpu_torch/csrc/att_block_q8.cu",
              "trt_asr_tpu/ops/pallas/att_block_kernel.py:170", {"int8": "int8_on"}),
+    # the joint step with f32 weights: the three launches of csrc/joint_step.cu
     "joint": ("joint_step", "trt_asr_tpu_torch/csrc/joint_step.cu",
-              "trt_asr_tpu/ops/pallas/joint_step_kernel.py:124",
-              {"f32": "f32_on", "int8": "int8_on"}),
+              "trt_asr_tpu/ops/pallas/joint_step_kernel.py:124", {"f32": "f32_on"}),
+    # the joint step with int8 weights: its own persistent kernel
+    "jointq": ("joint_step", "trt_asr_tpu_torch/csrc/joint_step_q8.cu",
+               "trt_asr_tpu/ops/pallas/joint_step_kernel.py:124", {"int8": "int8_on"}),
     "mel": ("logmel", "trt_asr_tpu_torch/csrc/mel.cu",
             "trt_asr_tpu/ops/pallas/mel_kernel.py:65", {"f32": "f32_on"}),
     "ffn": ("ffn", "trt_asr_tpu_torch/csrc/ffn.cu",
@@ -276,12 +291,13 @@ def log_resources(torch, build, cfg) -> None:
     """Registers, spills and static shared memory of every kernel (ptxas),
     and the dynamic shared memory and the blocks an SM holds of the flash
     kernels, the bf16 rel-shift kernel (bf16 at the full-width head dim),
-    the fused tail and the int8 and f32 attention blocks (a steady chunk's
-    8 rows at full width; the CUDA occupancy API)."""
+    the fused tail, the int8 and f32 attention blocks and the int8 joint
+    step (a steady chunk's 8 rows at full width; the CUDA occupancy API)."""
     import ctypes
 
     from trt_asr_tpu_torch.ops.kernels.att_block import att_block_f32_plan, att_block_q8_plan
     from trt_asr_tpu_torch.ops.kernels.conv_block import conv_ffn_ln_plan
+    from trt_asr_tpu_torch.ops.kernels.joint_step import joint_step_q8_plan
 
     for src in build.SOURCES:
         for name, regs, st, ld, smem in ptxas_kernels(build.build_log(src)):
@@ -327,6 +343,14 @@ def log_resources(torch, build, cfg) -> None:
         f"{plan.stages} slots for the weights, {plan.smem} B of dynamic shared memory, "
         f"{info[0]} blocks an SM, {sms} SMs")
     assert info[0] >= 1 and plan.blocks <= info[0] * sms, "att_block[f32]'s grid is not resident"
+    plan = joint_step_q8_plan(8, cfg.pred_hidden, cfg.joint_hidden, cfg.joint_vocab_size, sms)
+    lib = build.load("joint_step_q8")
+    build.check(lib, lib.joint_step_q8_occupancy(plan.smem, ctypes.addressof(info)),
+                "joint_step_q8_occupancy")
+    log(f"  joint_step[int8] at 8 rows: {plan.blocks} blocks of {plan.groups} column groups "
+        f"and {plan.hcols} hidden columns, {plan.smem} B of dynamic shared memory, {info[0]} "
+        f"blocks an SM, {sms} SMs")
+    assert info[0] >= 1 and plan.blocks <= info[0] * sms, "joint_step[int8]'s grid is not resident"
 
 
 # --- phase 2: kernels against their plain versions ---------------------------
@@ -349,7 +373,8 @@ def check_kernels(torch, dev, timer, cfg):
                                                           conv_ffn_ln, conv_ffn_ln_plain,
                                                           pack_conv_ffn_ln)
     from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn, fused_ffn_plain, layer_norm_plain
-    from trt_asr_tpu_torch.ops.kernels.joint_step import joint_step, joint_step_plain
+    from trt_asr_tpu_torch.ops.kernels.joint_step import (joint_step, joint_step_chain,
+                                                          joint_step_plain, pack_joint_step)
     from trt_asr_tpu_torch.ops.kernels.mel import logmel, logmel_plain
     from trt_asr_tpu_torch.ops.quant import QuantTensor, dequantize, quantize_tensor
     from trt_asr_tpu_torch.frontend.logmel import LogMelFrontend
@@ -411,17 +436,25 @@ def check_kernels(torch, dev, timer, cfg):
                 f"enqueue {timer.host_us:.1f} us/call), max |chain - plain| {chain_err:.3g}")
         check_graph_capture(torch, f"att_block[{arm}]", kernel, (), got)
 
-    # joint step: rows = one padded steady chunk (B=1, Tq=8)
+    # joint step: rows = one padded steady chunk (B=1, Tq=8); int8 weights
+    # take the persistent kernel on weights packed once, as the model packs
+    # them, and are timed beside the three launches it replaced
     rows, j, p, v = tq, cfg.joint_hidden, cfg.pred_hidden, cfg.joint_vocab_size
     e, g = t(rows, j), t(rows, p, sc=0.5)
     wp, wo = t(p, j, sc=1 / math.sqrt(p)), t(j, v, sc=1 / math.sqrt(j))
     bp, bo = t(j, sc=0.1), t(v, sc=0.1)
     kw = dict(ths=cfg.token_head_size, ndur=cfg.num_duration_bins, blank_id=cfg.blank_id,
               blank_penalty=0.5)
-    for arm, (wpp, woo), tol in (("f32", (wp, wo), 1e-4),
-                                 ("int8", (quantize_tensor(wp), quantize_tensor(wo)), 1e-4)):
+    qwp, qwo = quantize_tensor(wp), quantize_tensor(wo)
+    t0 = time.perf_counter()
+    joint_packed = pack_joint_step(qwp, bp, qwo, bo)
+    torch.cuda.synchronize()
+    log(f"  joint_step[int8]: the joint's weights packed in "
+        f"{1e3 * (time.perf_counter() - t0):.2f} ms ({joint_packed.numel()} B)")
+    for arm, (wpp, woo), tol, jkw in (("f32", (wp, wo), 1e-4, {}),
+                                      ("int8", (qwp, qwo), 1e-4, {"packed": joint_packed})):
         args = (e, g, wpp, bp, woo, bo)
-        tok, dur, logits = joint_step(*args, **kw)
+        tok, dur, logits = joint_step(*args, **kw, **jkw)
         tok_p, dur_p, logits_p = joint_step_plain(*args, **kw)
         torch.cuda.synchronize()
         err = float((logits - logits_p).abs().max())
@@ -442,10 +475,18 @@ def check_kernels(torch, dev, timer, cfg):
             f"{bool((dur == dur_p).all())}")
         nbytes = (e.numel() + g.numel() + j + v) * 4 + wbytes(wpp) + wbytes(woo) + rows * v * 4 + rows * 8
         ops = 2 * rows * (p * j + j * v)
-        records[arm + "_joint"] = measure(
-            f"joint_step[{arm}]", timer, err, lambda: joint_step(*args, **kw),
-            lambda: joint_step_plain(*args, **kw), nbytes, ops,
-            "f32" if arm == "f32" else "bf16")
+        kernel = lambda: joint_step(*args, **kw, **jkw)  # noqa: E731
+        records[arm + ("_joint" if arm == "f32" else "_jointq")] = measure(
+            f"joint_step[{arm}]", timer, err, kernel, lambda: joint_step_plain(*args, **kw),
+            nbytes, ops, "f32" if arm == "f32" else "bf16")
+        if arm == "int8":
+            # the three launches that the int8 kernel replaced, in the same call
+            chain = lambda: joint_step_chain(*args, **kw)  # noqa: E731
+            chain_err = float((chain()[2] - logits_p).abs().max())
+            log(f"  joint_step[int8] three launches (csrc/joint_step.cu): {timer(chain):.4f} ms "
+                f"(host enqueue {timer.host_us:.1f} us/call), max |logits - plain| "
+                f"{chain_err:.3g}")
+            check_graph_capture(torch, "joint_step[int8]", kernel, (), (tok, dur, logits))
 
     # log-mel: one 0.5 s push = 50 frames of 400 samples
     fe = LogMelFrontend(FrontendSpec(n_mels=cfg.feat_in), device=dev)
@@ -904,7 +945,10 @@ def profile_session(torch, label, model, rt, audio, piece: int) -> None:
     the fused tail must be one kernel, with no conv module kernel beside
     it; each call of the attention block must be one kernel of its weights'
     type (``att_block_q8_kernel`` with int8 weights, ``att_block_f32_kernel``
-    with f32), with no kernel of the chain beside it."""
+    with f32), with no kernel of the chain beside it; each call of the joint
+    step must be one ``joint_step_q8_kernel`` with int8 weights and the
+    three launches of ``csrc/joint_step.cu`` (one ``argmax_reduce_kernel``)
+    with f32."""
     reset_counts()
     rows = profile_run(torch, label, "chunk",
                        lambda: len(run_session(torch, model, rt, audio, piece).chunk_latencies_ms))
@@ -925,6 +969,13 @@ def profile_session(torch, label, model, rt, audio, piece: int) -> None:
     assert (att_q8, att_f32) == ((att, 0) if int8_att else (0, att)), (
         f"profile[{label}]: att_block is not one {'int8' if int8_att else 'f32'} kernel a call")
     assert chain == 0, f"profile[{label}]: att_block ran the chain"
+    joint, joint_q8, joint_chain = (counts["joint_step"], launched("joint_step_q8_kernel"),
+                                    launched("argmax_reduce_kernel"))
+    log(f"  profile[{label}]: {joint} joint_step calls, {joint_q8} joint_step_q8_kernel "
+        f"launches, {joint_chain} argmax_reduce_kernel launches (csrc/joint_step.cu)")
+    int8_joint = rt.quant in ("joint", "all")
+    assert (joint_q8, joint_chain) == ((joint, 0) if int8_joint else (0, joint)), (
+        f"profile[{label}]: joint_step is not one {'int8' if int8_joint else 'f32'} route a call")
 
 
 def profile_run(torch, label, unit: str, fn):
@@ -1017,6 +1068,8 @@ def calibrate_blank_bias(model, n_words: int, count_tokens, what: str) -> float:
 def full_width_session(torch, dev, n_words: int, seed: int):
     from trt_asr_tpu_torch.config import ModelConfig, RuntimeConfig
     from trt_asr_tpu_torch.models.parakeet.params import init_params_numpy
+    from trt_asr_tpu_torch.models.parakeet.quant import keep_bf16_copies, quantize_params
+    from trt_asr_tpu_torch.ops.quant import q8_matmul
     from trt_asr_tpu_torch.tokenizer import Tokenizer, make_synthetic_vocab
 
     cfg = ModelConfig()
@@ -1039,14 +1092,22 @@ def full_width_session(torch, dev, n_words: int, seed: int):
         "int8_all": (RuntimeConfig(**every, quant="all"), True),
         "int8_conv": (RuntimeConfig(**on, use_pallas_conv=True, quant="all"), True),
     }
-    results = {}
+    results, previous = {}, {}      # per arm; int8 arms' tokens on the previous routes
     model_f32 = None
     for name, (rt, mel_k) in arms.items():
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         model = make_model(torch, cfg, params if model_f32 is None else model_f32.params,
                            tok, rt, dev, mel_k)
         torch.cuda.synchronize()
         made_ms = (time.perf_counter() - t0) * 1e3      # quantizing and packing included
+        if rt.quant != "none":
+            log(f"session[{name}]: making the model allocated "
+                f"{(torch.cuda.memory_allocated() - mem0) / 2**20:.1f} MiB on the card, of "
+                f"which the bf16 copies of its int8 weights {model.bf16_copy_bytes / 2**20:.1f} "
+                f"MiB")
+        q8_matmul.widened = 0
         if model_f32 is None:
             model_f32 = model
             bias = calibrate_blank_bias(
@@ -1056,6 +1117,9 @@ def full_width_session(torch, dev, n_words: int, seed: int):
         reset_counts()
         sess = run_session(torch, model, rt, audio, piece)
         counts = read_counts()
+        if rt.quant != "none":
+            with previous_int8_routes(torch):
+                previous[name] = run_session(torch, model, rt, audio, piece).tokens
         lat = np.asarray(sess.chunk_latencies_ms)
         steady = lat[1:-1]
         n_chunks = len(lat)
@@ -1064,6 +1128,8 @@ def full_width_session(torch, dev, n_words: int, seed: int):
                              p90_ms=float(np.percentile(steady, 90)))
         iters, syncs = decode_and_sync_counts(torch, model, rt, audio, piece)
         profile_session(torch, name, model, rt, audio[: len(audio) // 3], piece)
+        assert q8_matmul.widened == 0, (
+            f"session[{name}] widened an int8 weight at {q8_matmul.widened} calls")
         log(f"session[{name}]: {len(audio) / 16000:.2f} s audio, {n_chunks} chunks, "
             f"{len(sess.tokens)} tokens ({len(sess.tokens) / n_chunks:.2f}/chunk), steady "
             f"chunk median {results[name]['median_ms']:.3f} ms p90 {results[name]['p90_ms']:.3f} ms, "
@@ -1072,6 +1138,16 @@ def full_width_session(torch, dev, n_words: int, seed: int):
             f"launches {counts} ({ {k: round(v / n_chunks, 2) for k, v in counts.items()} }/chunk), "
             f"decode iterations {iters:.2f}/chunk, host syncs {syncs:.2f}/chunk")
         del model, sess
+    # the card memory the bf16 copies of the int8 weights add, alone
+    q = quantize_params(model_f32.params, "all")
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    nbytes = keep_bf16_copies(q)
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    log(f"bf16 copies of the full-width quant='all' int8 weights: memory_allocated {mem0} -> "
+        f"{mem1} B (+{(mem1 - mem0) / 2**20:.1f} MiB; {nbytes} B, 2 B a weight)")
+    del q
     a_off = results["f32_off"]
     assert not any(a_off["counts"].values()), f"f32_off launched {a_off['counts']}"
     assert len(a_off["tokens"]) >= n_words, "f32 session emitted too few tokens to compare"
@@ -1086,9 +1162,35 @@ def full_width_session(torch, dev, n_words: int, seed: int):
         same = sum(x == y for x, y in zip(a_off["tokens"], b))
         log(f"session[{name}] agreement with f32: {same}/{max(len(a_off['tokens']), len(b))} "
             f"positions, exact={a_off['tokens'] == b}")
+        prev = previous[name]
+        same = sum(x == y for x, y in zip(prev, b))
+        log(f"session[{name}] agreement with the previous int8 routes: "
+            f"{same}/{max(len(prev), len(b))} positions, exact={prev == b} ({len(b)} tokens "
+            f"against {len(prev)}): {b} against {prev}")
     log(f"f32 kernels on and all kernels == kernels off: token-exact "
         f"({len(a_off['tokens'])} tokens)")
     return results, model_f32.params, tok, bias
+
+
+@contextlib.contextmanager
+def previous_int8_routes(torch):
+    """The int8 routes the port took before the tensor-core products and
+    the persistent joint step, for comparing their tokens: ``q8_matmul``
+    widening q to f32 at every call (the f32 product on the CUDA cores,
+    TF32 off), the int8 joint step through the three launches of
+    ``csrc/joint_step.cu``."""
+    from trt_asr_tpu_torch.ops import quant
+    from trt_asr_tpu_torch.ops.kernels import joint_step as js
+
+    saved = quant._q8_matmul_cuda, js._joint_step_q8
+    quant._q8_matmul_cuda = quant._q8_matmul_f32
+    js._joint_step_q8 = lambda e, g, wp, bp, wo, bo, ths, ndur, blank_id, penalty, packed: (
+        js.joint_step_chain(e, g, wp, bp, wo, bo, ths=ths, ndur=ndur, blank_id=blank_id,
+                            blank_penalty=penalty))
+    try:
+        yield
+    finally:
+        quant._q8_matmul_cuda, js._joint_step_q8 = saved
 
 
 def gate_r3_session(torch, dev):
@@ -1102,6 +1204,7 @@ def gate_r3_session(torch, dev):
     from trt_asr_tpu_torch.contract import FrontendSpec
     from trt_asr_tpu_torch.frontend.logmel import LogMelFrontend
     from trt_asr_tpu_torch.models.parakeet.model import ParakeetTDT
+    from trt_asr_tpu_torch.ops.quant import q8_matmul
 
     md = os.path.join(ROOT, "artifacts", "models", "gate_r3")
     rng = np.random.default_rng(7)
@@ -1121,7 +1224,9 @@ def gate_r3_session(torch, dev):
             model.frontend = LogMelFrontend(FrontendSpec(n_mels=model.cfg.feat_in),
                                             use_kernel=True, device=d)
             reset_counts()
+            q8_matmul.widened = 0
             out[str(d)] = (run_session(torch, model, rt, audio, 8000), read_counts())
+            assert q8_matmul.widened == 0, f"gate_r3[{label}] widened an int8 weight at a call"
         (s_gpu, counts), (s_cpu, cpu_counts) = out[str(dev)], out["cpu"]
         log(f"gate_r3[{label}] on the card (kernels on, launches {counts}): {s_gpu.text!r}")
         log(f"gate_r3[{label}] on the CPU (plain path):               {s_cpu.text!r}")

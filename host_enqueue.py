@@ -1,19 +1,21 @@
 """Host time of one call of the fused int8 tail's wrapper (``conv_ffn_ln``),
-of the attention block's with int8 and with f32 weights (``att_block``) and,
-as a control, of the conv module's (``conv_block``), at the main path's
-full-width shapes (a steady chunk: Tq 8 with 6 valid steps, D 1024, E 4096,
-a 9-tap conv, H 8, a full ring of 256, int8 weights), for the port package
-of the directory it is run from. To compare two trees on one card, run it in each in turn:
+of the attention block's with int8 and with f32 weights (``att_block``), of
+the joint step's with int8 weights (``joint_step``; and, where the package
+has it, its three-launch route ``joint_step_chain``) and, as a control, of
+the conv module's (``conv_block``), at the main path's full-width shapes (a
+steady chunk: Tq 8 with 6 valid steps, D 1024, E 4096, a 9-tap conv, H 8, a
+full ring of 256, int8 weights; the joint at 8 rows, P = J = 640, V 8198),
+for the port package of the directory it is run from. To compare two trees on one card, run it in each in turn:
 
     cd TREE && python3 PATH/TO/host_enqueue.py
 
 Each wrapper is called 20 times between device syncs, 400 calls after a
 warm-up; the host clock around each call (its Python checks, scratch
 allocations and launches) gives the median and quartiles in us. Where the
-package packs the tail's constants or the attention weights beforehand
-(``pack_conv_ffn_ln``, ``pack_att_block``; f32 attention weights where it
-has ``att_block_f32_plan``), they are packed once, as the model does, and
-passed to every call.
+package packs the tail's constants, the attention weights or the joint's
+beforehand (``pack_conv_ffn_ln``, ``pack_att_block``; f32 attention weights
+where it has ``att_block_f32_plan``; ``pack_joint_step``), they are packed
+once, as the model does, and passed to every call.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ def main() -> int:
         return 1
     from trt_asr_tpu_torch.ops.kernels import att_block as ab
     from trt_asr_tpu_torch.ops.kernels import conv_block as cb
+    from trt_asr_tpu_torch.ops.kernels import joint_step as js
     from trt_asr_tpu_torch.ops.quant import quantize_tensor
 
     dev = torch.device("cuda")
@@ -59,10 +62,19 @@ def main() -> int:
     att_f32 = (*att[:3], *[t(d, d, sc=d ** -0.5) for _ in range(4)], *att[7:])
     f32_kw = ({"packed": ab.pack_att_block(*att_f32[3:7])}
               if hasattr(ab, "att_block_f32_plan") else {})
+    p, j, v = 640, 640, 8198
+    joint = (t(tq, j), t(tq, p, sc=0.5), quantize_tensor(t(p, j, sc=p ** -0.5)), t(j, sc=0.1),
+             quantize_tensor(t(j, v, sc=j ** -0.5)), t(v, sc=0.1))
+    jkw = dict(ths=8193, ndur=5, blank_id=8192, blank_penalty=0.5)
+    joint_kw = ({"packed": js.pack_joint_step(*joint[2:])}
+                if hasattr(js, "pack_joint_step") else {})
     calls = {"conv_ffn_ln": lambda: cb.conv_ffn_ln(*conv, *tail, **kw),
              "att_block": lambda: ab.att_block(*att, n_heads=h, **att_kw),
              "att_block[f32]": lambda: ab.att_block(*att_f32, n_heads=h, **f32_kw),
+             "joint_step[int8]": lambda: js.joint_step(*joint, **jkw, **joint_kw),
              "conv_block": lambda: cb.conv_block(*conv)}
+    if hasattr(js, "joint_step_chain"):
+        calls["joint_step[int8] three launches"] = lambda: js.joint_step_chain(*joint, **jkw)
     for name, fn in calls.items():
         for _ in range(20):
             fn()

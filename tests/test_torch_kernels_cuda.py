@@ -54,11 +54,13 @@ from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block, conv_block_pla
 from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn, fused_ffn_plain
 from trt_asr_tpu_torch.ops.kernels.flash_att import (copy_widths, flash_bias_attention,
                                                      flash_bias_attention_plain)
-from trt_asr_tpu_torch.ops.kernels.joint_step import joint_step, joint_step_plain
+from trt_asr_tpu_torch.ops.kernels.joint_step import (joint_step, joint_step_plain,
+                                                      pack_joint_step)
 from trt_asr_tpu_torch.ops.kernels.mel import logmel, logmel_plain
 from trt_asr_tpu_torch.ops.kernels.rel_shift import (rel_pos_bias_shifted,
                                                      rel_pos_bias_shifted_plain, rel_shift)
-from trt_asr_tpu_torch.ops.quant import quantize_tensor
+from trt_asr_tpu_torch.ops import quant
+from trt_asr_tpu_torch.ops.quant import QuantTensor, quantize_tensor
 from trt_asr_tpu_torch.streaming.session import StreamingSession
 
 WEIGHTS = ["f32", "bf16", "int8"]
@@ -156,38 +158,72 @@ def test_att_block_is_one_graph_replayable_launch(kind, kernel):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", WEIGHTS)
 def test_joint_step_kernel_matches_plain(kind):
+    """Each weight type at the card-test width, at rows 1, 8, 16, 37 and 128
+    (the gate admits B*T <= 128); int8 weights (one cooperative launch a
+    call, ``csrc/joint_step_q8.cu``) also packed once beforehand
+    (``packed``, as the model passes them), giving the same bits."""
     dev = require_cuda()
     p, j, vocab, ndur = 32, 48, 64, 5
     ths = vocab + 1
     v = ths + ndur
-    for rows in (1, 8, 37):                       # one and several 8-row passes
+    for rows in (1, 8, 16, 37, 128):              # one and several 8-row passes
         rng = np.random.default_rng(rows)
         r = lambda *s, sc=1.0: torch.as_tensor(  # noqa: E731
             (rng.standard_normal(s) * sc).astype(np.float32), device=dev)
         wp, wo = as_weight(r(p, j, sc=0.3), kind), as_weight(r(j, v, sc=0.3), kind)
         args = (r(rows, j), r(rows, p, sc=0.5), wp, r(j, sc=0.1), wo, r(v, sc=0.1))
         kw = dict(ths=ths, ndur=ndur, blank_id=vocab, blank_penalty=0.7)
+        before = joint_step.launches
         tok, dur, lg = joint_step(*args, **kw)
+        assert joint_step.launches == before + 1
         tok_p, dur_p, lg_p = joint_step_plain(*args, **kw)
         torch.cuda.synchronize()
         torch.testing.assert_close(lg, lg_p, atol=1e-4, rtol=1e-4)
         assert torch.equal(tok, tok_p) and torch.equal(dur, dur_p)
+        if kind == "int8":
+            packed = pack_joint_step(wp, args[3], wo, args[5])
+            for a, b in zip(joint_step(*args, **kw, packed=packed), (tok, dur, lg)):
+                assert torch.equal(a, b)
+
+
+def joint_tie_inputs(dev, rows, kind, p=8, j=16, v=24):
+    """Zero activations and weights, so the logits are the biases: token
+    columns 3 and 11 tie (blocks 0 and 1 of the int8 kernel, 8 columns a
+    block at this width), the blank column 12 lies 1 above them before the
+    penalty, and duration columns 14 and 16 (ths 13, a head cut between
+    blocks 1 and 2) tie."""
+    z = lambda *s: torch.zeros(s, device=dev)  # noqa: E731
+    bo = z(v)
+    bo[[3, 11]] = 1.0
+    bo[12] = 2.0
+    bo[[14, 16]] = 3.0
+    return (z(rows, j), z(rows, p), as_weight(z(p, j), kind), z(j), as_weight(z(j, v), kind), bo)
 
 
 @pytest.mark.cuda
-def test_joint_step_kernel_tie_picks_first_index():
+@pytest.mark.parametrize("kind", WEIGHTS)
+def test_joint_step_kernel_tie_picks_first_index(kind):
+    """Ties pick the smaller index, also across the int8 kernel's blocks,
+    and the penalty moves the blank column alone, at rows 1, 8, 16 and
+    128."""
     dev = require_cuda()
     j, v, ths = 16, 12, 8
     e = torch.zeros((2, j), device=dev)
     g = torch.zeros((2, 4), device=dev)
-    wp = torch.zeros((4, j), device=dev)
-    wo = torch.zeros((j, v), device=dev)
+    wp = as_weight(torch.zeros((4, j), device=dev), kind)
+    wo = as_weight(torch.zeros((j, v), device=dev), kind)
     bo = torch.zeros(v, device=dev)
     bo[[2, 5]] = 1.0                              # token tie between 2 and 5
     bo[[ths + 1, ths + 3]] = 2.0                  # duration tie between 1 and 3
     tok, dur, _ = joint_step(e, g, wp, torch.zeros(j, device=dev), wo, bo,
                              ths=ths, ndur=v - ths, blank_id=ths - 1)
     assert tok.tolist() == [2, 2] and dur.tolist() == [1, 1]
+    for rows in (1, 8, 16, 128):
+        args = joint_tie_inputs(dev, rows, kind)
+        for penalty, want in ((1.5, 3), (0.5, 12)):
+            tok, dur, lg = joint_step(*args, ths=13, ndur=5, blank_id=12, blank_penalty=penalty)
+            assert tok.tolist() == [want] * rows and dur.tolist() == [1] * rows
+            assert torch.equal(lg, args[5].expand(rows, -1))      # logits before the penalty
 
 
 @pytest.mark.cuda
@@ -350,6 +386,74 @@ def test_wrappers_raise_instead_of_falling_back():
         with pytest.raises(ValueError, match="do not fit the launch plan"):
             att_block(*att, meta, n_heads=4, packed=wrong)
     assert att_block.launches == before
+    before = joint_step.launches
+    jargs = (r(8, 16), r(8, 6), quantize_tensor(r(6, 16)), r(16), quantize_tensor(r(16, 40)),
+             r(40))
+    with pytest.raises(ValueError, match="P a multiple of 4"):
+        joint_step(*jargs, ths=33, ndur=5, blank_id=32)
+    jargs = (r(8, 16), r(8, 8), quantize_tensor(r(8, 16)), r(16), quantize_tensor(r(16, 40)),
+             r(40))
+    with pytest.raises(ValueError, match="do not fit the launch plan"):
+        joint_step(*jargs, ths=33, ndur=5, blank_id=32,
+                   packed=pack_joint_step(*jargs[2:], sms=2))      # another card's slices
+    with pytest.raises(ValueError, match="int8 weights only"):
+        joint_step(*jargs[:2], r(8, 16), jargs[3], r(16, 40), jargs[5], ths=33, ndur=5,
+                   blank_id=32, packed=pack_joint_step(*jargs[2:]))
+    assert joint_step.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["bf16", "split"])
+def test_q8_matmul_on_the_tensor_cores_matches_cpu(monkeypatch, policy):
+    """The card's int8 product (bf16 operands on the tensor cores, f32
+    sums) against the CPU path (the f32 product of the same operands) at
+    1e-5 of the largest value: the same exact products summed in another
+    order. 2-D and 3-D activations; a weight with its bf16 copy reads the
+    same bits as one widened at the call, which the counter counts."""
+    dev = require_cuda()
+    monkeypatch.setattr(quant, "_Q8_ACT", policy)
+    rng = np.random.default_rng(11)
+    w = quantize_tensor(torch.as_tensor(rng.standard_normal((640, 4096)).astype(np.float32)))
+    for shape in ((8, 640), (2, 7, 640)):
+        a = torch.as_tensor(rng.standard_normal(shape).astype(np.float32))
+        want = quant.q8_matmul(a, w)
+        wd = QuantTensor(w.q.to(dev), w.s.to(dev))
+        before = quant.q8_matmul.widened
+        got = quant.q8_matmul(a.to(dev), wd)
+        assert quant.q8_matmul.widened == before + 1
+        quant.keep_bf16_copy(wd.q)
+        again = quant.q8_matmul(a.to(dev), wd)
+        assert quant.q8_matmul.widened == before + 1
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == torch.float32
+        assert torch.equal(got, again)
+        err = float((got.cpu() - want).abs().max()) / float(want.abs().max())
+        assert err <= 1e-5, err
+
+
+@pytest.mark.cuda
+def test_int8_model_keeps_bf16_copies_and_widens_nothing():
+    """An int8 model on the card keeps a bf16 copy of every int8 weight
+    (each layer's view a view of it), and a session and an offline
+    transcription with it widen no weight at a call."""
+    dev = require_cuda()
+    rt = RuntimeConfig(quant="all", use_pallas_att=True, use_pallas_joint=True)
+    model = ParakeetTDT.from_model_dir(GATE_R3, runtime=rt, device=dev)
+    for lp in model.layers:
+        for w in lp.values():
+            if isinstance(w, QuantTensor):
+                assert torch.equal(quant.bf16_copy(w.q).float(), w.q.float())
+    assert model.joint_packed is not None
+    before = quant.q8_matmul.widened
+    sess = StreamingSession(model, rt)
+    audio = synth_audio(seed=23, words=4)
+    for i in range(0, len(audio), 8000):
+        sess.push_audio(audio[i:i + 8000])
+    sess.finalize()
+    model.transcribe_offline(audio)
+    torch.cuda.synchronize()
+    assert quant.q8_matmul.widened == before
+    assert len(sess.tokens) > 0
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:

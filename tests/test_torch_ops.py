@@ -100,6 +100,41 @@ def test_q8_matmul_and_dispatch():
     close(p_common.matmul(t(a), pq), j_common.matmul(jnp.asarray(a), jq))
 
 
+def test_bf16_copies_of_int8_weights_are_exact_and_made_once():
+    """The bf16 copy of each int8 weight that ``q8_matmul`` reads on the
+    card (kept beside q once, where the model is made) holds q exactly
+    (|q| <= 127 is exact in bf16); each layer's view of a stacked weight
+    carries its layer of the one copy, the same tensor on two calls of
+    ``layer_params``. On the CPU the model keeps none, so the copies are
+    made here by hand."""
+    from trt_asr_tpu_torch.config import ModelConfig
+    from trt_asr_tpu_torch.models.parakeet.encoder import layer_params
+    from trt_asr_tpu_torch.models.parakeet.params import init_params
+    from trt_asr_tpu_torch.models.parakeet.quant import quantize_params
+
+    cfg = ModelConfig.tiny()
+    params = quantize_params(init_params(cfg, seed=3), "all")
+    stacked = params["encoder"]["layers"]
+    quants = [w for w in stacked.values() if isinstance(w, p_quant.QuantTensor)]
+    quants += [params["joint"][k]["w"] for k in ("enc", "pred", "out")]
+    assert len(quants) == 13
+    for w in quants:
+        assert p_quant.bf16_copy(w.q) is None
+        p_quant.keep_bf16_copy(w.q)
+        copy = p_quant.bf16_copy(w.q)
+        assert copy.dtype == torch.bfloat16 and p_quant.bf16_copy(w.q) is copy
+        assert torch.equal(copy.float(), w.q.float())
+    first, again = (layer_params(params, cfg.num_layers) for _ in range(2))
+    for li, (a, b) in enumerate(zip(first, again)):
+        for k, w in stacked.items():
+            if isinstance(w, p_quant.QuantTensor):
+                ca, cb = p_quant.bf16_copy(a[k].q), p_quant.bf16_copy(b[k].q)
+                assert torch.equal(ca.float(), a[k].q.float())
+                assert ca.data_ptr() == cb.data_ptr() == p_quant.bf16_copy(w.q)[li].data_ptr()
+    with pytest.raises(ValueError, match="does not fit"):
+        p_quant.keep_bf16_copy(quants[0].q, quants[1].q.to(torch.bfloat16)[:1])
+
+
 def test_depthwise_conv1d():
     rng = np.random.default_rng(5)
     x, w, b = rnd(rng, 2, 17, 12), rnd(rng, 9, 12), rnd(rng, 12)

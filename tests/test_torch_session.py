@@ -153,6 +153,77 @@ def test_snapshot_restore_continues_identically(port_model):
     assert b.token_timestamps() == whole.token_timestamps()
 
 
+def test_one_utterance_is_invariant_to_push_granularity(port_model):
+    """The port's version of ``tests/test_session.py``'s chunking
+    invariance: one utterance pushed in 0.2 s and 1 s pieces and whole
+    gives the same tokens and stamps."""
+    audio = synth_audio(seed=14, words=6)
+    runs = [run(StreamingSession(port_model, RuntimeConfig()), audio, piece)
+            for piece in (3200, 16000, len(audio))]
+    assert len(runs[0].tokens) > 0
+    for other in runs[1:]:
+        assert other.tokens == runs[0].tokens
+        assert other.token_timestamps() == runs[0].token_timestamps()
+
+
+def test_fast_mode_production_invariants():
+    """The port's version of ``tests/test_session.py``'s fast-mode test on
+    gate_r3: int8 weights (quant="all") with the fused attention block and
+    joint step (their plain versions on CPU tensors) and batched decode
+    keep push-granularity invariance and snapshot/restore identity."""
+    rt = RuntimeConfig(quant="all", use_pallas_att=True, use_pallas_joint=True,
+                       batched_decode=True)
+    qm = ParakeetTDT.from_model_dir(GATE_R3, runtime=rt, device="cpu")
+    audio = synth_audio(seed=15, words=5)
+    a, b = run(StreamingSession(qm, rt), audio, 3200), run(StreamingSession(qm, rt), audio, 16000)
+    assert len(a.tokens) > 0
+    assert a.tokens == b.tokens, "granularity invariance broke in fast mode"
+    s1 = StreamingSession(qm, rt)
+    s1.push_audio(audio[:16000])
+    snap = s1.snapshot()
+    s2 = StreamingSession(qm, rt)
+    s2.restore(snap)
+    for sess in (s1, s2):
+        sess.push_audio(audio[16000:])
+        sess.finalize()
+    assert s2.tokens == s1.tokens == a.tokens
+
+
+def test_concurrent_push_poll(port_model):
+    """The port's version of ``tests/test_session.py``'s producer/consumer
+    test: a poller drains the event queue while a pusher streams; the final
+    transcript equals the serial run's and every event is well-formed."""
+    import threading
+
+    audio = synth_audio(seed=16, words=5)
+    serial = events_of(run(StreamingSession(port_model, RuntimeConfig()), audio, 8000))
+    sess = StreamingSession(port_model, RuntimeConfig())
+    done, push_err, events = threading.Event(), [], []
+
+    def pusher():
+        try:
+            run(sess, audio, 8000)
+        except Exception as e:  # noqa: BLE001
+            push_err.append(e)
+        finally:
+            done.set()
+
+    t = threading.Thread(target=pusher)
+    t.start()
+    while not done.is_set():
+        ev = sess.poll_event()
+        if ev is None:
+            done.wait(0.001)                    # leave the pusher the interpreter
+        else:
+            events.append(ev)
+    t.join()
+    assert not push_err, push_err
+    events += events_of(sess)
+    assert all(e.type in (EventType.PARTIAL_TEXT, EventType.FINAL_TEXT) for e in events)
+    finals = [e for e in events if e.type == EventType.FINAL_TEXT]
+    assert finals and finals[-1].text == serial[-1].text and finals[-1].tokens == serial[-1].tokens
+
+
 def test_cache_fault_paths_match_jax(jax_model, port_model):
     audio = synth_audio(seed=13, words=4)
     for kw in (dict(disable_cache=True), dict(cache_len_override=5)):

@@ -126,24 +126,6 @@ __host__ __device__ inline AttSmem att_smem(int M, int D, int H, int C, int cD, 
   return s;
 }
 
-__device__ __forceinline__ float4 round4(float4 v) {
-  return make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z), round_bf16(v.w));
-}
-
-// Four int8 values packed in v, widened exactly to f32 with integer byte
-// permutes and one f32 subtraction each (the conversion instruction runs at
-// a quarter of the FMA rate): byte b + 128 under the exponent of 2^23 is
-// 2^23 + 128 + b.
-__device__ __forceinline__ void i8x4_to_f32(uint32_t v, float& f0, float& f1, float& f2,
-                                            float& f3) {
-  const uint32_t u = v ^ 0x80808080u;
-  const float base = 8388736.f;             // 2^23 + 128
-  f0 = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7650)) - base;
-  f1 = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7651)) - base;
-  f2 = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7652)) - base;
-  f3 = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7653)) - base;
-}
-
 // The Q/K/V sums of the 8 operand rows af (f32 values of bf16, row pitch
 // D; rows past the pass's zero) with the block's cD columns of Wq, Wk and
 // Wv (w: each weight's slice [cD / 8][Kp / 16][8][16] int8, one after the

@@ -1,6 +1,7 @@
 // Building blocks of the persistent int8 kernels (csrc/conv_ffn_ln.cu,
-// csrc/att_block_q8.cu): one cooperative launch of TL_THREADS-thread blocks,
-// one an SM, each owning a column slice of every product over the whole K.
+// csrc/att_block_q8.cu, csrc/joint_step_q8.cu): one cooperative launch of
+// TL_THREADS-thread blocks, one an SM, each owning a column slice of every
+// product over the whole K.
 //   - bulk copies (the copy engine) into shared memory, each group of copies
 //     completing on its own mbarrier;
 //   - LayerNorm of up to TL_MR rows, one warp a row, into bf16 operand rows;
@@ -152,6 +153,25 @@ __device__ __forceinline__ void i8x4_to_bf16(uint32_t v, uint32_t& b0, uint32_t&
                                      *reinterpret_cast<const __nv_bfloat162*>(&s23));
   b0 = *reinterpret_cast<const uint32_t*>(&d01);
   b1 = *reinterpret_cast<const uint32_t*>(&d23);
+}
+
+// v's four values rounded to bf16, kept in f32
+__device__ __forceinline__ float4 round4(float4 v) {
+  return make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z), round_bf16(v.w));
+}
+
+// Four int8 values packed in v, widened exactly to f32 with integer byte
+// permutes and one f32 subtraction each (the conversion instruction runs at
+// a quarter of the FMA rate): byte b + 128 under the exponent of 2^23 is
+// 2^23 + 128 + b.
+__device__ __forceinline__ void i8x4_to_f32(uint32_t v, float& f0, float& f1, float& f2,
+                                            float& f3) {
+  const uint32_t u = v ^ 0x80808080u;
+  const float base = 8388736.f;             // 2^23 + 128
+  f0 = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7650)) - base;
+  f1 = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7651)) - base;
+  f2 = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7652)) - base;
+  f3 = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7653)) - base;
 }
 
 // Phase timeline for tail_variants.py: with TAIL_TIMELINE defined, thread 0

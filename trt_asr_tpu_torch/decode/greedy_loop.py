@@ -43,10 +43,12 @@ if TYPE_CHECKING:
 def greedy_decode_loop(params, cfg: ModelConfig, enc, t_enc, state: DecodeState, *,
                        max_tokens: int, max_symbols: Optional[int], blank_penalty: float,
                        emitted_so_far, punct_mask, use_punct_mask: bool,
-                       with_timestamps: bool, blank_run: bool, use_kernel: bool):
+                       with_timestamps: bool, blank_run: bool, use_kernel: bool,
+                       joint_packed=None):
     """Decode enc [B, T, D] from ``state`` in the regime the caller chose:
     ``blank_run`` (else per-row), with the joint-step kernel in the
-    blank-run recomputes when ``use_kernel``. Arguments and results as
+    blank-run recomputes when ``use_kernel`` (on ``joint_packed``, the int8
+    weights packed once, where given). Arguments and results as
     :func:`~trt_asr_tpu_torch.decode.batched.tdt_greedy_decode_batch`."""
     b, tq = enc.shape[0], enc.shape[1]
     dev = enc.device
@@ -93,7 +95,8 @@ def greedy_decode_loop(params, cfg: ModelConfig, enc, t_enc, state: DecodeState,
             toks, dur_sel, logits = joint_step(
                 enc_proj.reshape(b * tq, -1), g.repeat_interleave(tq, dim=0),
                 jp["pred"]["w"], jp["pred"]["b"], jp["out"]["w"], jp["out"]["b"],
-                ths=ths, ndur=nd, blank_id=blank, blank_penalty=blank_penalty)
+                ths=ths, ndur=nd, blank_id=blank, blank_penalty=blank_penalty,
+                packed=joint_packed)
             toks = toks.view(b, tq).long()
             dur_sel = dur_sel.view(b, tq).long()
             tok_logits = penalized(logits[:, :ths].reshape(b, tq, ths))

@@ -65,6 +65,7 @@ def tdt_greedy_decode_chunk(
     use_punct_mask: bool = False,
     use_pallas_joint: bool = False,
     with_timestamps: bool = False,
+    joint_packed=None,              # the int8 joint weights packed once (pack_joint_step)
 ):
     """Decode one chunk of one stream, as the JAX package's
     ``decode/tdt_greedy.py`` ``tdt_greedy_decode_chunk``: blank-run batching
@@ -80,7 +81,7 @@ def tdt_greedy_decode_chunk(
         max_tokens=max_tokens, max_symbols=max_symbols, blank_penalty=blank_penalty,
         emitted_so_far=[int(emitted_so_far)], punct_mask=punct_mask,
         use_punct_mask=use_punct_mask, with_timestamps=with_timestamps,
-        blank_run=True, use_kernel=use_pallas_joint)
+        blank_run=True, use_kernel=use_pallas_joint, joint_packed=joint_packed)
     tokens, n, new_state = out[0][0], out[1][0], out[2]
     if with_timestamps:
         return tokens, n, new_state, tuple(x[0] for x in out[3])

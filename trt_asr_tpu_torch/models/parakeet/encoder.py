@@ -32,7 +32,7 @@ from trt_asr_tpu_torch.ops.kernels.att_block import att_block, pack_att_block
 from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block, conv_ffn_ln,
                                                       pack_conv_ffn_ln)
 from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn
-from trt_asr_tpu_torch.ops.quant import QuantTensor, dequantize
+from trt_asr_tpu_torch.ops.quant import QuantTensor, bf16_copy, dequantize, keep_bf16_copy
 
 
 class EncoderState(NamedTuple):
@@ -101,7 +101,9 @@ def _append_cache(cache: torch.Tensor, block: torch.Tensor,
 def layer_params(params: Dict[str, Any], num_layers: int, pack_tail: bool = False,
                  pack_att: bool = False) -> List[Dict[str, Any]]:
     """Per-layer views of the stacked [L, ...] layer parameters (compute
-    once per model and pass to :func:`encode` as ``layers``). With
+    once per model and pass to :func:`encode` as ``layers``); an int8
+    weight's view carries its layer of the bf16 copy the model keeps on the
+    card (``keep_bf16_copies``). With
     ``pack_tail``, a layer whose conv and FFN2 weights are int8 on the card
     also holds them, with their scales, taps and BN, packed once for the
     fused tail kernel (``conv_ffn_ln_packed``, :func:`pack_conv_ffn_ln`);
@@ -113,7 +115,7 @@ def layer_params(params: Dict[str, Any], num_layers: int, pack_tail: bool = Fals
     for li in range(num_layers):
         lp = {}
         for k, v in stacked.items():
-            lp[k] = QuantTensor(v.q[li], v.s[li]) if isinstance(v, QuantTensor) else v[li]
+            lp[k] = _layer_weight(v, li) if isinstance(v, QuantTensor) else v[li]
         if pack_tail and _int8_tail(lp) and lp["conv_pw1"].q.is_cuda:
             lp["conv_ffn_ln_packed"] = pack_conv_ffn_ln(
                 lp["conv_pw1"], lp["conv_dw"], lp["conv_bn_g"], lp["conv_bn_b"],
@@ -123,6 +125,16 @@ def layer_params(params: Dict[str, Any], num_layers: int, pack_tail: bool = Fals
             lp["att_block_packed"] = pack_att_block(*att)
         out.append(lp)
     return out
+
+
+def _layer_weight(v: QuantTensor, li: int) -> QuantTensor:
+    """Layer ``li`` of a stacked int8 weight, with its layer of the stacked
+    bf16 copy where the model keeps one."""
+    q = v.q[li]
+    copy = bf16_copy(v.q)
+    if copy is not None:
+        keep_bf16_copy(q, copy[li])
+    return QuantTensor(q, v.s[li])
 
 
 def _persistent_att(att) -> bool:

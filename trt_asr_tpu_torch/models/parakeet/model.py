@@ -29,6 +29,8 @@ from trt_asr_tpu_torch.models.parakeet.params import (
     params_from_numpy,
     params_to,
 )
+from trt_asr_tpu_torch.ops.kernels.joint_step import pack_joint_step
+from trt_asr_tpu_torch.ops.quant import QuantTensor
 from trt_asr_tpu_torch.tokenizer import Tokenizer, make_synthetic_vocab
 
 
@@ -60,15 +62,24 @@ class ParakeetTDT:
                 **params["joint"],
                 "out": {"w": out["w"][:, perm].contiguous(), "b": out["b"][perm].contiguous()}}}
         params = params_to(params, self.device)
+        # bytes of the bf16 copies of the int8 weights kept on the card
+        self.bf16_copy_bytes = 0
         if self.runtime.quant != "none":
-            from trt_asr_tpu_torch.models.parakeet.quant import quantize_params
+            from trt_asr_tpu_torch.models.parakeet.quant import keep_bf16_copies, quantize_params
 
             params = quantize_params(params, self.runtime.quant)
+            self.bf16_copy_bytes = keep_bf16_copies(params)
         self.params = params
         self.layers = layer_params(
             params, cfg.num_layers,
             pack_tail=self.runtime.use_pallas_conv and self.runtime.use_pallas_ffn,
             pack_att=self.runtime.use_pallas_att)
+        # the int8 joint step's weights packed once (ops/kernels/joint_step.py)
+        jp, wo = params["joint"], params["joint"]["out"]["w"]
+        self.joint_packed = (
+            pack_joint_step(jp["pred"]["w"], jp["pred"]["b"], wo, jp["out"]["b"])
+            if self.runtime.use_pallas_joint and isinstance(wo, QuantTensor) and wo.q.is_cuda
+            else None)
 
     @classmethod
     def from_model_dir(cls, model_dir: str, runtime: Optional[RuntimeConfig] = None,
@@ -161,7 +172,7 @@ class ParakeetTDT:
                                           torch.tensor([chunk.shape[0]]), layers=self.layers)
             toks, n, dec = tdt_greedy_decode_chunk(
                 self.params, self.cfg, enc[0], enc_len[0], dec, emitted_so_far=len(ids),
-                **self._decode_kwargs(enc.shape[1]))
+                joint_packed=self.joint_packed, **self._decode_kwargs(enc.shape[1]))
             ids.extend(toks[:int(n)].tolist())
         return self.tokenizer.decode(ids), ids
 
@@ -194,7 +205,7 @@ class ParakeetTDT:
                                           mask_pad_subsample=True, layers=self.layers)
             toks, n, dec = tdt_greedy_decode_batch(
                 self.params, self.cfg, enc, enc_len, dec, emitted_so_far=emitted,
-                **self._decode_kwargs(enc.shape[1]))
+                joint_packed=self.joint_packed, **self._decode_kwargs(enc.shape[1]))
             emitted = emitted + n.numpy()
             for i in range(b):
                 ids[i].extend(toks[i, :int(n[i])].tolist())

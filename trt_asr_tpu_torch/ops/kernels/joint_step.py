@@ -1,5 +1,8 @@
-"""Fused TDT joint decode step: the CUDA kernel ``csrc/joint_step.cu`` and
-its plain PyTorch version.
+"""Fused TDT joint decode step: the CUDA kernels ``csrc/joint_step_q8.cu``
+(int8 weights: one persistent cooperative launch laid out by
+:func:`joint_step_q8_plan`) and ``csrc/joint_step.cu`` (f32 and bf16
+weights: three launches, :func:`joint_step_chain`), and their plain PyTorch
+version.
 
 Replaces ``trt_asr_tpu/ops/pallas/joint_step_kernel.py:
 joint_step_pallas_prepadded`` (the TPU's lane padding is not needed: only
@@ -9,10 +12,17 @@ of W_out [640, 8198] (21 MB f32, 5.2 MB int8) per call, for all rows.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from trt_asr_tpu_torch.ops.kernels import build as kb
-from trt_asr_tpu_torch.ops.quant import is_low_precision, round_bf16, scaled_matmul
+from trt_asr_tpu_torch.ops.kernels.conv_block import (SMEM_PER_BLOCK, TAIL_GROUP, TAIL_KSTEP,
+                                                      TAIL_ROWS, TAIL_WARPS, align16,
+                                                      pack_columns, pack_tail_weight, pad_k,
+                                                      sm_count)
+from trt_asr_tpu_torch.ops.quant import (QuantTensor, is_low_precision, round_bf16,
+                                         scaled_matmul)
 
 
 def joint_step_plain(e, g, wp, bp, wo, bo, *, ths: int, ndur: int,
@@ -35,25 +45,179 @@ def joint_step_plain(e, g, wp, bp, wo, bo, *, ths: int, ndur: int,
     return tok, dur, logits
 
 
+class JointPlan(NamedTuple):
+    """Launch plan of the int8 joint step (``csrc/joint_step_q8.cu``)."""
+    blocks: int          # one a run of W_out's column groups, all co-resident
+    groups: int          # 8-column groups of W_out a block
+    hcols: int           # columns of W_pred (of h) a block
+    smem: int            # dynamic shared bytes a block
+    scratch: int         # bytes of device scratch: the ticket, h, the blocks' argmax pairs
+
+
+JOINT_RUN = 64           # rows of K a run of the hidden product's sums (csrc JS_RUN)
+JOINT_BARS = 3           # mbarriers: W_pred's slice, g's rows, W_out's slice
+
+
+def _joint_blob_bytes(p: int, j: int, hcols: int, groups: int) -> int:
+    """A block's slice: W_pred's ``hcols`` columns [hcols][Pp] int8, their
+    f32 scales and biases (16-byte aligned), W_out's groups [groups][Jp / 16]
+    [8][16] int8, their f32 scales and biases (``joint_blob`` in the
+    source)."""
+    return (hcols * pad_k(p) + align16(8 * hcols) + groups * TAIL_GROUP * pad_k(j)
+            + 2 * groups * TAIL_GROUP * 4)
+
+
+def joint_step_q8_plan(rows: int, p: int, j: int, v: int, sms: int,
+                       smem_limit: int = SMEM_PER_BLOCK) -> JointPlan:
+    """The grid and shared memory of the int8 joint step for ``rows``
+    encoder positions, P predictor and J joint columns, V logits and
+    ``sms`` SMs (one block an SM at most): each block owns the fewest
+    8-column groups of W_out that cover V with at most ``sms`` blocks, and
+    ``hcols`` = ceil(J / blocks) columns of W_pred. Mirrors ``joint_smem``
+    in the source, which checks it at launch. Raises ValueError for shapes
+    the kernel does not take (P not a multiple of 4, J not one of 8) or
+    whose staging does not fit."""
+    if rows < 1 or p < 4 or j < TAIL_GROUP or v < 1 or p % 4 or j % TAIL_GROUP:
+        raise ValueError(f"joint_step[int8]: needs rows >= 1, P a multiple of 4 and J one of "
+                         f"{TAIL_GROUP} (rows={rows}, P={p}, J={j}, V={v})")
+    n_groups = -(-v // TAIL_GROUP)
+    groups = -(-n_groups // sms)
+    blocks = -(-n_groups // groups)
+    hcols = -(-j // blocks)
+    runs = -(-p // JOINT_RUN)
+    cols = groups * TAIL_GROUP
+    smem = (_joint_blob_bytes(p, j, hcols, groups)
+            + TAIL_ROWS * (p + 4) * 4                                  # g's rows
+            + TAIL_ROWS * (pad_k(j) + TAIL_KSTEP) * 2                  # h's rows, bf16
+            + TAIL_ROWS * cols * 4                                     # a pass's logits
+            + align16(max(TAIL_WARPS * groups * 64, TAIL_ROWS * hcols * runs) * 4)   # sums
+            + JOINT_BARS * 8)
+    if smem > smem_limit:
+        raise ValueError(f"joint_step[int8]: {smem} B of shared memory a block at P={p}, "
+                         f"J={j}, V={v} exceeds {smem_limit} B")
+    return JointPlan(blocks, groups, hcols, smem, 16 + align16(rows * j * 2) + rows * blocks * 16)
+
+
+def pack_joint(wp, sp, bp, wo, so, bo, plan: JointPlan) -> torch.Tensor:
+    """The joint's int8 weights as the int8 joint step's blocks read them, a
+    block's slice contiguous: [blocks, bytes] uint8, block b holding W_pred's
+    columns b * hcols .. as [hcols][Pp] (a column's K contiguous, zero past
+    P and J), their scales and biases, then W_out's ``groups`` 8-column
+    groups from b * groups (:func:`~trt_asr_tpu_torch.ops.kernels.conv_block.
+    pack_tail_weight`), their scales and biases (zero past V). wp [P, J] and
+    wo [J, V] are int8; sp, bp [J] and so, bo [V] f32."""
+    p, j = wp.shape
+    blocks, hc, cols = plan.blocks, plan.hcols, plan.groups * TAIL_GROUP
+    wpp = wp.new_zeros((pad_k(p), blocks * hc))
+    wpp[:p, :j] = wp
+    wpp = wpp.view(pad_k(p), blocks, hc).permute(1, 2, 0).reshape(blocks, -1)
+    pred_cols = torch.cat([pack_columns(x.reshape(-1), hc, blocks) for x in (sp, bp)], dim=1)
+    pred_cols = torch.cat([pred_cols, pred_cols.new_zeros((blocks, (align16(8 * hc) - 8 * hc) // 4))],
+                          dim=1)
+    out_w = pack_tail_weight(wo, cols, blocks).reshape(blocks, -1)
+    out_cols = torch.cat([pack_columns(x.reshape(-1), cols, blocks) for x in (so, bo)], dim=1)
+    return torch.cat([wpp.view(torch.uint8), pred_cols.contiguous().view(torch.uint8),
+                      out_w.view(torch.uint8), out_cols.contiguous().view(torch.uint8)],
+                     dim=1).contiguous()
+
+
+def pack_joint_step(wp, bp, wo, bo, sms: int | None = None) -> torch.Tensor:
+    """The joint's int8 weights for :func:`joint_step`'s ``packed``, for the
+    launch plan of a card with ``sms`` SMs (by default that of the weights'
+    device): 5.6 MB at full width, beside the [P, J] and [J, V] matrices
+    that the plain path reads. Made once, where the model is made: a packed
+    copy that no longer matches the weights or biases gives wrong results.
+    Raises TypeError for float weights (they take :func:`joint_step_chain`,
+    which reads them as they are)."""
+    if not (isinstance(wp, QuantTensor) and isinstance(wo, QuantTensor)):
+        raise TypeError("pack_joint_step takes int8 QuantTensor weights")
+    sms = sm_count(wp.q.device.index or 0) if sms is None else sms
+    p, j = wp.q.shape
+    plan = joint_step_q8_plan(1, p, j, wo.q.shape[1], sms)
+    return pack_joint(wp.q, wp.s, bp, wo.q, wo.s, bo, plan)
+
+
+def check_packed_joint(packed: torch.Tensor, plan: JointPlan, p: int, j: int) -> None:
+    """Raises ValueError unless ``packed`` has the layout of ``plan``'s
+    slices: [blocks, bytes of a block's slice] uint8."""
+    want = (plan.blocks, _joint_blob_bytes(p, j, plan.hcols, plan.groups))
+    if packed.dtype != torch.uint8 or tuple(packed.shape) != want:
+        raise ValueError(f"joint_step[int8]: packed weights {packed.dtype} "
+                         f"{tuple(packed.shape)} do not fit the launch plan uint8 {want} "
+                         f"(see pack_joint_step)")
+
+
 def joint_step(e, g, wp, bp, wo, bo, *, ths: int, ndur: int, blank_id: int,
-               blank_penalty: float = 0.0):
+               blank_penalty: float = 0.0, packed=None):
     """Fused joint step; same arguments and results as
     :func:`joint_step_plain`. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (or raise)."""
+    tensors launch a kernel (or raise): with int8 weights the persistent
+    kernel, one cooperative launch (raising also when its blocks cannot all
+    be resident), with f32 or bf16 weights :func:`joint_step_chain`.
+    ``packed``: the int8 weights as :func:`pack_joint_step` lays them out,
+    made once with the model; without it they are packed anew at every
+    call."""
     if e.device.type == "cpu":
         return joint_step_plain(e, g, wp, bp, wo, bo, ths=ths, ndur=ndur,
                                 blank_id=blank_id, blank_penalty=blank_penalty)
+    if isinstance(wp, QuantTensor) or isinstance(wo, QuantTensor):
+        return _joint_step_q8(e, g, wp, bp, wo, bo, ths, ndur, blank_id, blank_penalty, packed)
+    if packed is not None:
+        raise ValueError("joint_step: packed weights are for int8 weights only")
+    return joint_step_chain(e, g, wp, bp, wo, bo, ths=ths, ndur=ndur, blank_id=blank_id,
+                            blank_penalty=blank_penalty)
+
+
+def _check_args(e, g, wp_t, wo_t, bp, bo, ths, ndur):
     rows, j = e.shape
-    p = g.shape[1]
+    p, v = g.shape[1], wo_t.shape[1]
+    if wp_t.shape != (p, j) or wo_t.shape[0] != j or g.shape[0] != rows:
+        raise ValueError("joint_step: shape mismatch")
+    if ths + ndur > v:
+        raise ValueError(f"joint_step: ths + ndur = {ths + ndur} exceeds V = {v}")
+    if any(t.dtype != torch.float32 for t in (e, g, bp, bo)):
+        raise TypeError("joint_step: e, g and biases must be f32")
+    return rows, p, j, v
+
+
+def _joint_step_q8(e, g, wp, bp, wo, bo, ths, ndur, blank_id, blank_penalty, packed):
+    """The persistent kernel of ``csrc/joint_step_q8.cu`` on CUDA tensors."""
+    if not (isinstance(wp, QuantTensor) and isinstance(wo, QuantTensor)):
+        raise ValueError("joint_step: pred and out weights must share one storage type")
+    rows, p, j, v = _check_args(e, g, wp.q, wo.q, bp, bo, ths, ndur)
+    plan = joint_step_q8_plan(rows, p, j, v, sm_count(e.device.index or 0))
+    if packed is None:
+        packed = pack_joint(wp.q, wp.s, bp, wo.q, wo.s, bo, plan)
+    check_packed_joint(packed, plan, p, j)
+    kb.require_cuda("joint_step", e, g, packed)
+    kb.require_aligned("joint_step", 4, g)        # g's rows are read 16 bytes at a time
+    kb.require_aligned("joint_step", 16, packed)  # bulk copies of the slices
+    lib = kb.load("joint_step_q8")
+    logits = torch.empty((rows, v), dtype=torch.float32, device=e.device)
+    idx = torch.empty((2, rows), dtype=torch.int32, device=e.device)
+    scratch = torch.empty((plan.scratch,), dtype=torch.uint8, device=e.device)
+    rc = lib.joint_step_q8_launch(
+        e.data_ptr(), g.data_ptr(), rows, p, j, v, packed.data_ptr(), plan.blocks,
+        plan.groups, plan.hcols, plan.smem, ths, ndur, blank_id, float(blank_penalty),
+        logits.data_ptr(), idx[0].data_ptr(), idx[1].data_ptr(), scratch.data_ptr(),
+        kb.stream_ptr(e.device))
+    kb.check(lib, rc, "joint_step")
+    joint_step.launches += 1
+    return idx[0], idx[1], logits
+
+
+def joint_step_chain(e, g, wp, bp, wo, bo, *, ths: int, ndur: int, blank_id: int,
+                     blank_penalty: float = 0.0):
+    """The three launches of ``csrc/joint_step.cu`` on CUDA tensors (split-K
+    hidden product, split-K output product with 32-column argmax tiles, a
+    per-row reduction) with f32, bf16 or int8 weights: :func:`joint_step`'s
+    kernel for float weights, and the int8 kernel's predecessor, kept so
+    that ``chip_smoke.py`` times the two in one run."""
     wp_t, sp, wtype = kb.weight_parts(wp)
     wo_t, so, wtype_o = kb.weight_parts(wo)
     if wtype != wtype_o:
         raise ValueError("joint_step: pred and out weights must share one storage type")
-    v = wo_t.shape[1]
-    if wp_t.shape != (p, j) or wo_t.shape[0] != j or g.shape[0] != rows:
-        raise ValueError("joint_step: shape mismatch")
-    if any(t.dtype != torch.float32 for t in (e, g, bp, bo)):
-        raise TypeError("joint_step: e, g and biases must be f32")
+    rows, p, j, v = _check_args(e, g, wp_t, wo_t, bp, bo, ths, ndur)
     kb.require_cuda("joint_step", e, g, bp, bo, wp_t, wo_t,
                     *[s for s in (sp, so) if s is not None])
     lib = kb.load("joint_step")

@@ -9,6 +9,14 @@ f32 accumulator.
 Activation policy for f32 callers (``TRT_ASR_Q8_ACT``, read once):
 "bf16" (default) rounds activations to bf16 before the product; "split"
 splits ``a = hi + lo`` into two exact bf16 operands and sums both products.
+
+On the card the product runs as the JAX package computes it: q widened to
+bf16 (exact, |q| <= 127) times the bf16 activation on the tensor cores, with
+f32 sums (cuBLAS's bf16 product with an f32 output), the scale on the f32
+sums. The model keeps each weight's bf16 copy beside q, made once
+(:func:`keep_bf16_copy`); a weight on the card without one is widened at the
+call and counted in ``q8_matmul.widened``. On the CPU the product is the f32
+product of the rounded activation and the widened q.
 """
 
 from __future__ import annotations
@@ -51,9 +59,40 @@ def round_bf16(a: torch.Tensor) -> torch.Tensor:
     return a.to(torch.bfloat16).float()
 
 
+# the attribute of a QuantTensor's q that holds its bf16 copy on the card
+_BF16_COPY = "q8_bf16"
+
+
+def keep_bf16_copy(q: torch.Tensor, copy: torch.Tensor | None = None) -> None:
+    """Keeps a bf16 copy of the int8 tensor ``q`` beside it (an attribute of
+    ``q``), for :func:`q8_matmul` on the card: ``copy`` (a view of a larger
+    tensor's copy, e.g. one layer of a stacked weight) or ``q`` widened now.
+    Made once, where the weights are made: a copy that no longer matches q
+    gives wrong results. 2 bytes a weight."""
+    if copy is None:
+        copy = q.to(torch.bfloat16)
+    if copy.shape != q.shape or copy.dtype != torch.bfloat16 or copy.device != q.device:
+        raise ValueError(f"bf16 copy {copy.dtype} {tuple(copy.shape)} on {copy.device} does "
+                         f"not fit q {tuple(q.shape)} on {q.device}")
+    setattr(q, _BF16_COPY, copy)
+
+
+def bf16_copy(q: torch.Tensor) -> torch.Tensor | None:
+    """The bf16 copy kept beside ``q`` by :func:`keep_bf16_copy`, if any."""
+    return getattr(q, _BF16_COPY, None)
+
+
 def q8_matmul(a: torch.Tensor, t: QuantTensor) -> torch.Tensor:
     """a @ dequantize(t), computed as (a @ q) * s with f32 accumulation.
-    Output dtype follows the activation dtype (matches ops.common.matmul)."""
+    Output dtype follows the activation dtype (matches ops.common.matmul).
+    CUDA tensors take the tensor cores (:func:`_q8_matmul_cuda`), CPU
+    tensors the f32 product (:func:`_q8_matmul_f32`)."""
+    return (_q8_matmul_cuda if a.is_cuda else _q8_matmul_f32)(a, t)
+
+
+def _q8_matmul_f32(a: torch.Tensor, t: QuantTensor) -> torch.Tensor:
+    """:func:`q8_matmul` as the f32 product of the rounded activation and q
+    widened to f32 (exact integers) at the call."""
     w = t.q.float()                                   # exact integers
     if a.dtype == torch.float32 and _Q8_ACT == "split":
         hi = round_bf16(a)
@@ -62,6 +101,31 @@ def q8_matmul(a: torch.Tensor, t: QuantTensor) -> torch.Tensor:
     else:
         out = torch.matmul(round_bf16(a.float()), w)
     out = out * t.s
+    return out.to(a.dtype) if a.dtype == torch.bfloat16 else out
+
+
+q8_matmul.widened = 0     # calls on the card that widened q for want of its copy
+
+
+def _q8_matmul_cuda(a: torch.Tensor, t: QuantTensor) -> torch.Tensor:
+    """:func:`q8_matmul` on the card: bf16 operands, f32 sums
+    (``torch.mm(..., out_dtype=torch.float32)``, CUDA only), activations of
+    any rank taken as 2-D rows."""
+    if t.q.dim() != 2:
+        raise ValueError(f"q8_matmul: the card takes a 2-D weight, got {tuple(t.q.shape)}")
+    w = bf16_copy(t.q)
+    if w is None:
+        q8_matmul.widened += 1
+        w = t.q.to(torch.bfloat16)                    # exact
+    a2 = a.reshape(-1, a.shape[-1])
+    if a.dtype == torch.float32 and _Q8_ACT == "split":
+        hi = a2.to(torch.bfloat16)
+        lo = (a2 - hi.float()).to(torch.bfloat16)
+        out = (torch.mm(hi, w, out_dtype=torch.float32)
+               + torch.mm(lo, w, out_dtype=torch.float32))
+    else:
+        out = torch.mm(a2.to(torch.bfloat16), w, out_dtype=torch.float32)
+    out = (out * t.s).reshape(*a.shape[:-1], w.shape[1])
     return out.to(a.dtype) if a.dtype == torch.bfloat16 else out
 
 

@@ -346,7 +346,7 @@ def _session_step(model: ParakeetTDT, feats: torch.Tensor, valid: int,
         max_tokens=cfg.max_symbols_per_timestep * tq, blank_penalty=blank_penalty,
         emitted_so_far=np.array([emitted_so_far]), punct_mask=punct_mask,
         use_punct_mask=punct_mask is not None, use_pallas_joint=use_pallas_joint,
-        with_timestamps=True)
+        with_timestamps=True, joint_packed=model.joint_packed)
     fr, du, lp = stamps
     t_out = int(out_len[0])
     return toks[0], n[0], enc_state, dec_state, (fr[0], du[0], lp[0]), t_out
