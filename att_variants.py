@@ -32,11 +32,12 @@ step's hidden product (bf16(g) @ W_pred, ``csrc/joint_step_q8.cu``) at each
 rows count of the card tests and the main path, at the card-test, gate_r3
 and full widths.
 
-    python3 att_variants.py --joint [--against OTHER.cu]
+    python3 att_variants.py --joint [--f32] [--against OTHER.cu]
 
-does the same for the int8 joint step (``csrc/joint_step_q8.cu``) at the
-main path's shapes (8 rows, P = J = 640, V 8198), held to its plain version
-at ``chip_smoke.py``'s 1e-4 (logits) with equal tokens and durations: the
+does the same for the int8 joint step (``csrc/joint_step_q8.cu``; with
+``--f32`` the f32 one, ``csrc/joint_step_f32.cu``) at the main path's
+shapes (8 rows, P = J = 640, V 8198), held to its plain version at
+``chip_smoke.py``'s 1e-4 (logits) with equal tokens and durations: the
 three launches of ``csrc/joint_step.cu`` beside it, and the timeline.
 
     python3 att_variants.py --f32 [--stages 4,8,12,16,22] [--against OTHER.cu]
@@ -85,6 +86,11 @@ MARKS_JOINT = {0: "entry", 1: "copies issued", 2: "W_pred in", 12: "g in", 13: "
                4: "h written", 5: "after the barrier", 6: "W_out in", 7: "h staged",
                19: "logits mma loop", 20: "logits block synced", 8: "logits written",
                9: "pairs written", 10: "ticket taken", 11: "end"}
+MARKS_JOINT_F32 = {0: "entry", 1: "copies issued", 2: "W_pred in", 12: "g in", 3: "h sums",
+                   4: "h written", 5: "after the barrier", 7: "h range staged (warp 0's)",
+                   6: "W_out in", 19: "logits sums (warp 0's)", 20: "logits block synced",
+                   8: "logits and pairs written", 9: "pass done", 10: "ticket taken",
+                   11: "end"}
 MARKS = {0: "entry", 1: "copies issued", 2: "x, norms in", 14: "LN", 3: "Q/K/V weights in",
          17: "Q/K/V sums", 4: "q, k_new, v_new written", 5: "after barrier 1",
          6: "q, keys staged", 7: "scores written", 8: "after barrier 2", 9: "softmax",
@@ -165,7 +171,8 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--orders", action="store_true",
                     help="emulate candidate summation orders of the plain version's products")
-    ap.add_argument("--f32", action="store_true", help="the f32 kernel, csrc/att_block_f32.cu")
+    ap.add_argument("--f32", action="store_true", help="the f32 kernel, csrc/att_block_f32.cu "
+                                                       "(with --joint: csrc/joint_step_f32.cu)")
     ap.add_argument("--joint", action="store_true",
                     help="the int8 joint step, csrc/joint_step_q8.cu")
     ap.add_argument("--stages", default="4,8,12,16,22",
@@ -180,7 +187,7 @@ def main() -> int:
     warm = cs.Timer(torch, dev)
     warm.scrub = torch.empty(16, dtype=torch.uint8, device=dev)      # L2 left as it is
     if opts.joint:
-        return joint_variants(timer, warm, opts.against, opts.pairs)
+        return joint_variants(timer, warm, opts.against, opts.pairs, opts.f32)
     if opts.f32:
         return f32_variants(timer, warm, [int(v) for v in opts.stages.split(",")],
                             opts.against, opts.pairs)
@@ -256,17 +263,19 @@ def f32_variants(timer, warm, stage_counts, against, pairs) -> int:
     return 0
 
 
-def joint_variants(timer, warm, against, pairs) -> int:
-    """The int8 joint step beside its three launches, and its timeline; or
-    against another version of its source."""
+def joint_variants(timer, warm, against, pairs, f32: bool = False) -> int:
+    """The int8 (or f32) joint step beside its three launches, and its
+    timeline; or against another version of its source."""
     from trt_asr_tpu_torch.ops.kernels import joint_step as js
 
     rng = np.random.default_rng(1234)
     t = lambda *s, sc=1.0: torch.as_tensor(  # noqa: E731
         (rng.standard_normal(s) * sc).astype(np.float32), device="cuda")
     p, j, v, rows = 640, 640, 8198, 8
-    args = (t(rows, j), t(rows, p, sc=0.5), quantize_tensor(t(p, j, sc=p ** -0.5)),
-            t(j, sc=0.1), quantize_tensor(t(j, v, sc=j ** -0.5)), t(v, sc=0.1))
+    weight = (lambda w: w) if f32 else quantize_tensor
+    args = (t(rows, j), t(rows, p, sc=0.5), weight(t(p, j, sc=p ** -0.5)),
+            t(j, sc=0.1), weight(t(j, v, sc=j ** -0.5)), t(v, sc=0.1))
+    name, kind = ("joint_step_f32", "f32") if f32 else ("joint_step_q8", "int8")
     kw = dict(ths=8193, ndur=5, blank_id=8192, blank_penalty=0.5)
     packed = js.pack_joint_step(*args[2:])                          # as the model packs them
     run = lambda: js.joint_step(*args, **kw, packed=packed)  # noqa: E731
@@ -276,25 +285,26 @@ def joint_variants(timer, warm, against, pairs) -> int:
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         return float((got[2] - want[2]).abs().max())
 
-    src = (kb.CSRC_DIR / "joint_step_q8.cu").read_text()
+    src = (kb.CSRC_DIR / f"{name}.cu").read_text()
     if against:
         return compare(timer, run, want[2:], src, pathlib.Path(against).read_text(), pairs,
-                       "joint_step_q8", out=lambda r: r[2:])
+                       name, out=lambda r: r[2:])
     libs = build({"kernel": src, "timeline": "#define TAIL_TIMELINE\n" + src + TIMELINE_READ},
-                 "joint_step_q8")
+                 name)
     chain = lambda: js.joint_step_chain(*args, **kw)  # noqa: E731
     print(f"plain version {timer(lambda: js.joint_step_plain(*args, **kw)):.4f} ms")
-    print(f"three launches (csrc/joint_step.cu, int8): {timer(chain):.4f} ms, L2 warm "
+    print(f"three launches (csrc/joint_step.cu, {kind}): {timer(chain):.4f} ms, L2 warm "
           f"{warm(chain):.4f} ms, max |logits - plain| {check(chain()):.3g}")
-    for name, (lib, log) in libs.items():
-        regs = [r for r in cs.ptxas_kernels(log) if "joint_step_q8_kernel" in r[0]][0]
-        kb._libs["joint_step_q8"] = lib          # the wrapper launches the variant
+    for variant, (lib, log) in libs.items():
+        regs = [r for r in cs.ptxas_kernels(log) if f"{name}_kernel" in r[0]][0]
+        kb._libs[name] = lib                     # the wrapper launches the variant
         err = check(run())
-        assert err <= 1e-4, f"variant {name} disagrees with the plain version ({err:.3g})"
-        print(f"{name}: {timer(run):.4f} ms, L2 warm {warm(run):.4f} ms, max |logits - plain| "
+        assert err <= 1e-4, f"variant {variant} disagrees with the plain version ({err:.3g})"
+        print(f"{variant}: {timer(run):.4f} ms, L2 warm {warm(run):.4f} ms, max |logits - plain| "
               f"{err:.3g}; {regs[1]} registers, spills {regs[2]}/{regs[3]} B", flush=True)
-    print_timeline(libs["timeline"][0], timer, run, packed.shape[0], MARKS_JOINT)
-    kb._libs.pop("joint_step_q8")
+    print_timeline(libs["timeline"][0], timer, run, packed.shape[0],
+                   MARKS_JOINT_F32 if f32 else MARKS_JOINT)
+    kb._libs.pop(name)
     return 0
 
 

@@ -11,9 +11,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    each kernel's registers, spills and static shared memory (ptxas), and
    the dynamic shared memory and blocks an SM of the flash kernels (bf16
    and f32), of the bf16 rel-shift kernel, of the fused conv + FFN2 +
-   out-LN tail, of the int8 and f32 attention blocks and of the int8 joint
-   step (each one cooperative launch: its grid at full width must be
-   resident at once).
+   out-LN tail, of the int8 and f32 attention blocks and of the int8 and
+   f32 joint steps (each one cooperative launch: its grid at full width must
+   be resident at once), and the log-mel kernel's grid at a 0.5 s push.
 2. each kernel against its plain PyTorch version on the card at the
    full-size main-path shapes (a steady chunk: 8 rows, 6 valid; f32 and
    int8 weights for the attention block, the joint step, the FFN and the
@@ -29,11 +29,14 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    one's cooperative launch is captured into a CUDA graph and replayed, and
    the replay must equal the direct call bit for bit. The f32 attention
    block is timed beside the chain of ``csrc/att_block.cu`` that it
-   replaced (which bf16 weights keep). The int8 joint step
-   (``csrc/joint_step_q8.cu``) runs on its weights packed once, is captured
-   and replayed, and is timed beside the three launches of
-   ``csrc/joint_step.cu`` that it replaced (which f32 and bf16 weights
-   keep).
+   replaced (which bf16 weights keep). The int8 and f32 joint steps
+   (``csrc/joint_step_q8.cu``, ``csrc/joint_step_f32.cu``) run on their
+   weights packed once, as the model packs them, are captured and replayed,
+   and are timed beside the three launches of ``csrc/joint_step.cu`` that
+   they replaced (which bf16 weights keep). The log-mel kernel runs at T 1,
+   50 (a 0.5 s push, the kernels line's reading), 51 and 300 (a flush),
+   each held at 1e-3, timed beside its plain version and replayed from a
+   captured graph.
 3. full-width session (``ModelConfig()``, seeded random weights from the
    port's ``init_params``): a seeded synthetic utterance of 12 words
    (~6 s) pushed in 0.5 s pieces, with a blank bias set so the plain f32
@@ -53,8 +56,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    call of the attention block is one kernel, ``att_block_q8_kernel`` with
    int8 weights and ``att_block_f32_kernel`` with f32, and none of the
    chain's runs; every call of the joint step is one
-   ``joint_step_q8_kernel`` with int8 weights and the three-launch route
-   with f32. No int8 arm widens an int8 weight at a call
+   ``joint_step_q8_kernel`` with int8 weights and one
+   ``joint_step_f32_kernel`` with f32, and no ``argmax_reduce_kernel`` (the
+   three-launch route) runs. No int8 arm widens an int8 weight at a call
    (``q8_matmul.widened`` stays 0: the model's bf16 copies feed the
    tensor cores), here and in phase 4; the memory the copies take is
    logged. Each int8 arm's tokens are set beside those of its session on
@@ -145,8 +149,9 @@ KERNEL_SRCS = {
     # the attention block with int8 weights: its own persistent kernel
     "attq": ("att_block", "trt_asr_tpu_torch/csrc/att_block_q8.cu",
              "trt_asr_tpu/ops/pallas/att_block_kernel.py:170", {"int8": "int8_on"}),
-    # the joint step with f32 weights: the three launches of csrc/joint_step.cu
-    "joint": ("joint_step", "trt_asr_tpu_torch/csrc/joint_step.cu",
+    # the joint step with f32 weights: its own persistent kernel (bf16
+    # weights keep the three launches of csrc/joint_step.cu, on no path yet)
+    "joint": ("joint_step", "trt_asr_tpu_torch/csrc/joint_step_f32.cu",
               "trt_asr_tpu/ops/pallas/joint_step_kernel.py:124", {"f32": "f32_on"}),
     # the joint step with int8 weights: its own persistent kernel
     "jointq": ("joint_step", "trt_asr_tpu_torch/csrc/joint_step_q8.cu",
@@ -291,13 +296,15 @@ def log_resources(torch, build, cfg) -> None:
     """Registers, spills and static shared memory of every kernel (ptxas),
     and the dynamic shared memory and the blocks an SM holds of the flash
     kernels, the bf16 rel-shift kernel (bf16 at the full-width head dim),
-    the fused tail, the int8 and f32 attention blocks and the int8 joint
-    step (a steady chunk's 8 rows at full width; the CUDA occupancy API)."""
+    the fused tail, the int8 and f32 attention blocks and the int8 and f32
+    joint steps (a steady chunk's 8 rows at full width; the CUDA occupancy
+    API), and the log-mel kernel's grid at a 0.5 s push (50 frames)."""
     import ctypes
 
     from trt_asr_tpu_torch.ops.kernels.att_block import att_block_f32_plan, att_block_q8_plan
     from trt_asr_tpu_torch.ops.kernels.conv_block import conv_ffn_ln_plan
-    from trt_asr_tpu_torch.ops.kernels.joint_step import joint_step_q8_plan
+    from trt_asr_tpu_torch.ops.kernels.joint_step import joint_step_f32_plan, joint_step_q8_plan
+    from trt_asr_tpu_torch.ops.kernels.mel import MEL_CL, logmel_plan
 
     for src in build.SOURCES:
         for name, regs, st, ld, smem in ptxas_kernels(build.build_log(src)):
@@ -351,6 +358,18 @@ def log_resources(torch, build, cfg) -> None:
         f"and {plan.hcols} hidden columns, {plan.smem} B of dynamic shared memory, {info[0]} "
         f"blocks an SM, {sms} SMs")
     assert info[0] >= 1 and plan.blocks <= info[0] * sms, "joint_step[int8]'s grid is not resident"
+    plan = joint_step_f32_plan(8, cfg.pred_hidden, cfg.joint_hidden, cfg.joint_vocab_size, sms)
+    lib = build.load("joint_step_f32")
+    build.check(lib, lib.joint_step_f32_occupancy(plan.smem, ctypes.addressof(info)),
+                "joint_step_f32_occupancy")
+    log(f"  joint_step[f32] at 8 rows: {plan.blocks} blocks of {plan.groups} column groups "
+        f"and {plan.hcols} hidden columns, {plan.smem} B of dynamic shared memory, {info[0]} "
+        f"blocks an SM, {sms} SMs")
+    assert info[0] >= 1 and plan.blocks <= info[0] * sms, "joint_step[f32]'s grid is not resident"
+    plan = logmel_plan(50, 400, 257, cfg.feat_in)
+    log(f"  logmel[f32] at 50 frames: {plan.frame_tiles} clusters of {MEL_CL} blocks = "
+        f"{plan.frame_tiles * MEL_CL} blocks on {sms} SMs, {plan.bins} DFT bins a block, "
+        f"{plan.smem} B of dynamic shared memory a block")
 
 
 # --- phase 2: kernels against their plain versions ---------------------------
@@ -436,9 +455,9 @@ def check_kernels(torch, dev, timer, cfg):
                 f"enqueue {timer.host_us:.1f} us/call), max |chain - plain| {chain_err:.3g}")
         check_graph_capture(torch, f"att_block[{arm}]", kernel, (), got)
 
-    # joint step: rows = one padded steady chunk (B=1, Tq=8); int8 weights
-    # take the persistent kernel on weights packed once, as the model packs
-    # them, and are timed beside the three launches it replaced
+    # joint step: rows = one padded steady chunk (B=1, Tq=8); int8 and f32
+    # weights take their persistent kernels on weights packed once, as the
+    # model packs them, each timed beside the three launches it replaced
     rows, j, p, v = tq, cfg.joint_hidden, cfg.pred_hidden, cfg.joint_vocab_size
     e, g = t(rows, j), t(rows, p, sc=0.5)
     wp, wo = t(p, j, sc=1 / math.sqrt(p)), t(j, v, sc=1 / math.sqrt(j))
@@ -446,14 +465,16 @@ def check_kernels(torch, dev, timer, cfg):
     kw = dict(ths=cfg.token_head_size, ndur=cfg.num_duration_bins, blank_id=cfg.blank_id,
               blank_penalty=0.5)
     qwp, qwo = quantize_tensor(wp), quantize_tensor(wo)
-    t0 = time.perf_counter()
-    joint_packed = pack_joint_step(qwp, bp, qwo, bo)
-    torch.cuda.synchronize()
-    log(f"  joint_step[int8]: the joint's weights packed in "
-        f"{1e3 * (time.perf_counter() - t0):.2f} ms ({joint_packed.numel()} B)")
-    for arm, (wpp, woo), tol, jkw in (("f32", (wp, wo), 1e-4, {}),
-                                      ("int8", (qwp, qwo), 1e-4, {"packed": joint_packed})):
-        args = (e, g, wpp, bp, woo, bo)
+    joint_packed = {}
+    for arm, (wpp, woo) in (("f32", (wp, wo)), ("int8", (qwp, qwo))):
+        t0 = time.perf_counter()
+        joint_packed[arm] = pack_joint_step(wpp, bp, woo, bo)
+        torch.cuda.synchronize()
+        log(f"  joint_step[{arm}]: the joint's weights packed in "
+            f"{1e3 * (time.perf_counter() - t0):.2f} ms "
+            f"({joint_packed[arm].numel() * joint_packed[arm].element_size()} B)")
+    for arm, (wpp, woo), tol in (("f32", (wp, wo), 1e-4), ("int8", (qwp, qwo), 1e-4)):
+        args, jkw = (e, g, wpp, bp, woo, bo), {"packed": joint_packed[arm]}
         tok, dur, logits = joint_step(*args, **kw, **jkw)
         tok_p, dur_p, logits_p = joint_step_plain(*args, **kw)
         torch.cuda.synchronize()
@@ -479,30 +500,38 @@ def check_kernels(torch, dev, timer, cfg):
         records[arm + ("_joint" if arm == "f32" else "_jointq")] = measure(
             f"joint_step[{arm}]", timer, err, kernel, lambda: joint_step_plain(*args, **kw),
             nbytes, ops, "f32" if arm == "f32" else "bf16")
-        if arm == "int8":
-            # the three launches that the int8 kernel replaced, in the same call
-            chain = lambda: joint_step_chain(*args, **kw)  # noqa: E731
-            chain_err = float((chain()[2] - logits_p).abs().max())
-            log(f"  joint_step[int8] three launches (csrc/joint_step.cu): {timer(chain):.4f} ms "
-                f"(host enqueue {timer.host_us:.1f} us/call), max |logits - plain| "
-                f"{chain_err:.3g}")
-            check_graph_capture(torch, "joint_step[int8]", kernel, (), (tok, dur, logits))
+        # the three launches that the kernel replaced, in the same call
+        chain = lambda: joint_step_chain(*args, **kw)  # noqa: E731
+        chain_err = float((chain()[2] - logits_p).abs().max())
+        log(f"  joint_step[{arm}] three launches (csrc/joint_step.cu): {timer(chain):.4f} ms "
+            f"(host enqueue {timer.host_us:.1f} us/call), max |logits - plain| "
+            f"{chain_err:.3g}")
+        check_graph_capture(torch, f"joint_step[{arm}]", kernel, (), (tok, dur, logits))
 
-    # log-mel: one 0.5 s push = 50 frames of 400 samples
-    fe = LogMelFrontend(FrontendSpec(n_mels=cfg.feat_in), device=dev)
-    frames = t(50, 400, sc=0.3)
-    margs = (frames, fe._wcos, fe._wsin, fe._mel, fe.spec.log_floor)
-    got, want = logmel(*margs), logmel_plain(*margs)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    tol = 1e-3
-    log(f"logmel[f32]: max |kernel - plain| = {err:.3g} (tolerance {tol:g})")
-    assert err <= tol, "logmel disagrees with its plain version"
+    # log-mel: the bases packed once by the frontend; a 0.5 s push is 50
+    # frames of 400 samples (the kernels line's reading); T 1 and 51 cut a
+    # frame tile short, 300 is a flush
+    fe = LogMelFrontend(FrontendSpec(n_mels=cfg.feat_in), use_kernel=True, device=dev)
+    log(f"  logmel[f32]: the bases packed once by the frontend "
+        f"({fe._basis.numel() * fe._basis.element_size()} B)")
     nb, nm = fe._mel.shape
-    nbytes = (frames.numel() + 2 * fe._wcos.numel() + fe._mel.numel() + 50 * nm) * 4
-    ops = 2 * 50 * 400 * nb * 2 + 2 * 50 * nb * nm + 3 * 50 * nb
-    records["f32_mel"] = measure("logmel[f32]", timer, err, lambda: logmel(*margs),
-                                 lambda: logmel_plain(*margs), nbytes, ops, "f32")
+    tol = 1e-3
+    for n_t in (1, 50, 51, 300):
+        frames = t(n_t, 400, sc=0.3)
+        margs = (frames, fe._wcos, fe._wsin, fe._mel, fe.spec.log_floor)
+        kernel = lambda: logmel(*margs, packed=fe._basis)  # noqa: E731
+        got, want = kernel(), logmel_plain(*margs)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        log(f"logmel[f32] at T {n_t}: max |kernel - plain| = {err:.3g} (tolerance {tol:g})")
+        assert err <= tol, f"logmel at T {n_t} disagrees with its plain version"
+        nbytes = (frames.numel() + 2 * fe._wcos.numel() + fe._mel.numel() + n_t * nm) * 4
+        ops = 2 * n_t * 400 * nb * 2 + 2 * n_t * nb * nm + 3 * n_t * nb
+        rec = measure(f"logmel[f32] at T {n_t}", timer, err, kernel,
+                      lambda: logmel_plain(*margs), nbytes, ops, "f32")
+        if n_t == 50:
+            records["f32_mel"] = rec
+        check_graph_capture(torch, f"logmel[f32] at T {n_t}", lambda: (kernel(),), (), (got,))
 
     # FFN, conv module and the fused tail on the steady chunk's 8 rows
     # (6 valid: the conv masks the 2 padded rows)
@@ -576,9 +605,10 @@ def check_kernels(torch, dev, timer, cfg):
 
 
 def check_graph_capture(torch, label, fn, args, want) -> None:
-    """Capture one call into a CUDA graph and replay it: a graph of the
-    chunk step needs the cooperative launch to be capturable. The kernel is
-    deterministic, so the replay must equal the direct call bit for bit."""
+    """Capture one call into a CUDA graph and replay it twice: a graph of
+    the chunk step needs the cooperative launch to be capturable. The kernel
+    is deterministic (and leaves no state behind: the log-mel tickets return
+    to zero), so each replay must equal the direct call bit for bit."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -587,11 +617,14 @@ def check_graph_capture(torch, label, fn, args, want) -> None:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = fn(*args)
-    graph.replay()
-    torch.cuda.synchronize()
-    err = max_err(out, want)
-    log(f"  {label}: captured into a CUDA graph and replayed, max |replay - direct| = {err:.3g}")
-    assert err == 0, f"{label}: the graph's replay differs from the direct call"
+    errs = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        errs.append(max_err(out, want))
+    log(f"  {label}: captured into a CUDA graph and replayed twice, max |replay - direct| = "
+        f"{max(errs):.3g}")
+    assert max(errs) == 0, f"{label}: the graph's replay differs from the direct call"
 
 
 # bf16 flash attention: the kernel sums q . k on the tensor cores, whose f32
@@ -946,9 +979,10 @@ def profile_session(torch, label, model, rt, audio, piece: int) -> None:
     it; each call of the attention block must be one kernel of its weights'
     type (``att_block_q8_kernel`` with int8 weights, ``att_block_f32_kernel``
     with f32), with no kernel of the chain beside it; each call of the joint
-    step must be one ``joint_step_q8_kernel`` with int8 weights and the
-    three launches of ``csrc/joint_step.cu`` (one ``argmax_reduce_kernel``)
-    with f32."""
+    step must be one kernel of its weights' type (``joint_step_q8_kernel``
+    with int8 weights, ``joint_step_f32_kernel`` with f32), with none of
+    the three launches of ``csrc/joint_step.cu`` (``argmax_reduce_kernel``)
+    beside it."""
     reset_counts()
     rows = profile_run(torch, label, "chunk",
                        lambda: len(run_session(torch, model, rt, audio, piece).chunk_latencies_ms))
@@ -969,13 +1003,16 @@ def profile_session(torch, label, model, rt, audio, piece: int) -> None:
     assert (att_q8, att_f32) == ((att, 0) if int8_att else (0, att)), (
         f"profile[{label}]: att_block is not one {'int8' if int8_att else 'f32'} kernel a call")
     assert chain == 0, f"profile[{label}]: att_block ran the chain"
-    joint, joint_q8, joint_chain = (counts["joint_step"], launched("joint_step_q8_kernel"),
-                                    launched("argmax_reduce_kernel"))
+    joint, joint_q8, joint_f32, joint_chain = (
+        counts["joint_step"], launched("joint_step_q8_kernel"), launched("joint_step_f32_kernel"),
+        launched("argmax_reduce_kernel"))
     log(f"  profile[{label}]: {joint} joint_step calls, {joint_q8} joint_step_q8_kernel "
-        f"launches, {joint_chain} argmax_reduce_kernel launches (csrc/joint_step.cu)")
+        f"launches, {joint_f32} joint_step_f32_kernel launches, {joint_chain} "
+        f"argmax_reduce_kernel launches (csrc/joint_step.cu)")
     int8_joint = rt.quant in ("joint", "all")
-    assert (joint_q8, joint_chain) == ((joint, 0) if int8_joint else (0, joint)), (
-        f"profile[{label}]: joint_step is not one {'int8' if int8_joint else 'f32'} route a call")
+    assert (joint_q8, joint_f32) == ((joint, 0) if int8_joint else (0, joint)), (
+        f"profile[{label}]: joint_step is not one {'int8' if int8_joint else 'f32'} kernel a call")
+    assert joint_chain == 0, f"profile[{label}]: joint_step ran the three launches"
 
 
 def profile_run(torch, label, unit: str, fn):
@@ -1102,6 +1139,10 @@ def full_width_session(torch, dev, n_words: int, seed: int):
                            tok, rt, dev, mel_k)
         torch.cuda.synchronize()
         made_ms = (time.perf_counter() - t0) * 1e3      # quantizing and packing included
+        if model.joint_packed is not None:
+            log(f"session[{name}]: the joint's weights packed once for its kernel: "
+                f"{model.joint_packed.numel() * model.joint_packed.element_size()} B "
+                f"({model.joint_packed.dtype})")
         if rt.quant != "none":
             log(f"session[{name}]: making the model allocated "
                 f"{(torch.cuda.memory_allocated() - mem0) / 2**20:.1f} MiB on the card, of "

@@ -146,10 +146,17 @@ def test_check_packed_joint_refuses_another_layout(change):
 
 
 def test_pack_joint_step_takes_int8_weights_only():
+    """pack_joint_step packs int8 weights and f32 weights (each its own
+    layout), and refuses bf16 weights and a pair of two storage types."""
     wp, bp, wo, bo = int8_joint(32, 48, 70, seed=5)
-    with pytest.raises(TypeError, match="int8"):
-        pack_joint_step(wp.q.float() * wp.s, bp, wo, bo, sms=H100_SMS)
-    with pytest.raises(TypeError, match="int8"):
+    assert pack_joint_step(wp, bp, wo, bo, sms=H100_SMS).dtype == torch.uint8
+    fwp, fwo = wp.q.float() * wp.s, wo.q.float() * wo.s
+    assert pack_joint_step(fwp, bp, fwo, bo, sms=H100_SMS).dtype == torch.float32
+    with pytest.raises(TypeError, match="int8 QuantTensor or f32"):
+        pack_joint_step(fwp.bfloat16(), bp, fwo.bfloat16(), bo, sms=H100_SMS)
+    with pytest.raises(TypeError, match="int8 QuantTensor or f32"):
+        pack_joint_step(fwp, bp, wo, bo, sms=H100_SMS)
+    with pytest.raises(TypeError, match="int8 QuantTensor or f32"):
         pack_joint_step(wp, bp, wo.q.float(), bo, sms=H100_SMS)
 
 

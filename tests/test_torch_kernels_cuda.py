@@ -56,7 +56,7 @@ from trt_asr_tpu_torch.ops.kernels.flash_att import (copy_widths, flash_bias_att
                                                      flash_bias_attention_plain)
 from trt_asr_tpu_torch.ops.kernels.joint_step import (joint_step, joint_step_plain,
                                                       pack_joint_step)
-from trt_asr_tpu_torch.ops.kernels.mel import logmel, logmel_plain
+from trt_asr_tpu_torch.ops.kernels.mel import logmel, logmel_plain, pack_logmel_basis
 from trt_asr_tpu_torch.ops.kernels.rel_shift import (rel_pos_bias_shifted,
                                                      rel_pos_bias_shifted_plain, rel_shift)
 from trt_asr_tpu_torch.ops import quant
@@ -159,9 +159,10 @@ def test_att_block_is_one_graph_replayable_launch(kind, kernel):
 @pytest.mark.parametrize("kind", WEIGHTS)
 def test_joint_step_kernel_matches_plain(kind):
     """Each weight type at the card-test width, at rows 1, 8, 16, 37 and 128
-    (the gate admits B*T <= 128); int8 weights (one cooperative launch a
-    call, ``csrc/joint_step_q8.cu``) also packed once beforehand
-    (``packed``, as the model passes them), giving the same bits."""
+    (the gate admits B*T <= 128); int8 and f32 weights (each one cooperative
+    launch a call, ``csrc/joint_step_q8.cu`` and ``csrc/joint_step_f32.cu``)
+    also packed once beforehand (``packed``, as the model passes them),
+    giving the same bits."""
     dev = require_cuda()
     p, j, vocab, ndur = 32, 48, 64, 5
     ths = vocab + 1
@@ -180,7 +181,7 @@ def test_joint_step_kernel_matches_plain(kind):
         torch.cuda.synchronize()
         torch.testing.assert_close(lg, lg_p, atol=1e-4, rtol=1e-4)
         assert torch.equal(tok, tok_p) and torch.equal(dur, dur_p)
-        if kind == "int8":
+        if kind != "bf16":
             packed = pack_joint_step(wp, args[3], wo, args[5])
             for a, b in zip(joint_step(*args, **kw, packed=packed), (tok, dur, lg)):
                 assert torch.equal(a, b)
@@ -227,16 +228,70 @@ def test_joint_step_kernel_tie_picks_first_index(kind):
 
 
 @pytest.mark.cuda
-def test_logmel_kernel_matches_plain():
+@pytest.mark.parametrize("frames", [1, 50, 51, 53, 300])
+def test_logmel_kernel_matches_plain(frames):
+    """One launch a call at T 1, a 0.5 s push (50), a frame tile cut short
+    (51, 53) and a flush-sized T (300); the bases packed once by the
+    frontend give the same bits as bases packed at the call."""
     dev = require_cuda()
-    fe = LogMelFrontend(FrontendSpec(n_mels=128), device=dev)
-    frames = torch.as_tensor(
-        (np.random.default_rng(5).standard_normal((53, 400)) * 0.3).astype(np.float32), device=dev)
-    args = (frames, fe._wcos, fe._wsin, fe._mel, fe.spec.log_floor)
+    fe = LogMelFrontend(FrontendSpec(n_mels=128), use_kernel=True, device=dev)
+    x = torch.as_tensor(
+        (np.random.default_rng(frames).standard_normal((frames, 400)) * 0.3).astype(np.float32),
+        device=dev)
+    args = (x, fe._wcos, fe._wsin, fe._mel, fe.spec.log_floor)
     before = logmel.launches
-    got = logmel(*args)
+    got = logmel(*args, packed=fe._basis)
     assert logmel.launches == before + 1
     torch.testing.assert_close(got, logmel_plain(*args), atol=1e-3, rtol=1e-5)
+    assert torch.equal(logmel(*args), got)
+    assert torch.equal(fe._basis, pack_logmel_basis(fe._wcos, fe._wsin))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["joint_step_f32_kernel", "logmel_kernel"])
+def test_joint_f32_and_logmel_are_one_graph_replayable_launch(kernel):
+    """The f32 joint step and the log-mel kernel are each one launch a call
+    (the joint's a cooperative one), which a CUDA graph captures: the
+    replay equals the direct call bit for bit (both add in a fixed order;
+    the log-mel tickets return to zero after every launch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = require_cuda()
+    rng = np.random.default_rng(11)
+    r = lambda *s, sc=1.0: torch.as_tensor(  # noqa: E731
+        (rng.standard_normal(s) * sc).astype(np.float32), device=dev)
+    if kernel == "logmel_kernel":
+        fe = LogMelFrontend(FrontendSpec(n_mels=128), use_kernel=True, device=dev)
+        args = (r(50, 400, sc=0.3), fe._wcos, fe._wsin, fe._mel, fe.spec.log_floor)
+        call = lambda: (logmel(*args, packed=fe._basis),)  # noqa: E731
+    else:
+        p, j, v = 640, 640, 8198
+        wargs = (r(p, j, sc=p ** -0.5), r(j, sc=0.1), r(j, v, sc=j ** -0.5), r(v, sc=0.1))
+        packed = pack_joint_step(*wargs)
+        e, g = r(8, j), r(8, p, sc=0.5)
+        call = lambda: joint_step(e, g, *wargs, ths=8193, ndur=5, blank_id=8192,  # noqa: E731
+                                  blank_penalty=0.5, packed=packed)
+    want = call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [ev.key for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA and "port::" in ev.key]
+    assert len(kernels) == 1 and kernel in kernels[0], kernels
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, w in zip(out, want):
+            assert torch.equal(o, w)
 
 
 @pytest.mark.cuda
@@ -396,10 +451,19 @@ def test_wrappers_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="do not fit the launch plan"):
         joint_step(*jargs, ths=33, ndur=5, blank_id=32,
                    packed=pack_joint_step(*jargs[2:], sms=2))      # another card's slices
-    with pytest.raises(ValueError, match="int8 weights only"):
+    with pytest.raises(ValueError, match="do not fit the launch plan"):
         joint_step(*jargs[:2], r(8, 16), jargs[3], r(16, 40), jargs[5], ths=33, ndur=5,
-                   blank_id=32, packed=pack_joint_step(*jargs[2:]))
+                   blank_id=32, packed=pack_joint_step(*jargs[2:]))     # int8's layout
+    with pytest.raises(ValueError, match="int8 and f32 weights only"):
+        joint_step(*jargs[:2], r(8, 16).bfloat16(), jargs[3], r(16, 40).bfloat16(), jargs[5],
+                   ths=33, ndur=5, blank_id=32, packed=pack_joint_step(*jargs[2:]))
     assert joint_step.launches == before
+    fe = LogMelFrontend(FrontendSpec(n_mels=128), device=dev)
+    margs = (r(8, 400), fe._wcos, fe._wsin, fe._mel, fe.spec.log_floor)
+    before = logmel.launches
+    with pytest.raises(ValueError, match="pack_logmel_basis"):
+        logmel(*margs, packed=pack_logmel_basis(fe._wcos, fe._wsin)[..., :16].contiguous())
+    assert logmel.launches == before
 
 
 @pytest.mark.cuda
@@ -443,7 +507,7 @@ def test_int8_model_keeps_bf16_copies_and_widens_nothing():
         for w in lp.values():
             if isinstance(w, QuantTensor):
                 assert torch.equal(quant.bf16_copy(w.q).float(), w.q.float())
-    assert model.joint_packed is not None
+    assert model.joint_packed is not None and model.joint_packed.dtype == torch.uint8
     before = quant.q8_matmul.widened
     sess = StreamingSession(model, rt)
     audio = synth_audio(seed=23, words=4)
@@ -454,6 +518,21 @@ def test_int8_model_keeps_bf16_copies_and_widens_nothing():
     torch.cuda.synchronize()
     assert quant.q8_matmul.widened == before
     assert len(sess.tokens) > 0
+
+
+@pytest.mark.cuda
+def test_f32_model_packs_the_joint_once():
+    """An f32 model on the card with the joint kernel on packs the joint's
+    f32 weights once (``csrc/joint_step_f32.cu``'s layout); bf16 weights
+    keep the three launches and pack nothing."""
+    dev = require_cuda()
+    rt = RuntimeConfig(use_pallas_joint=True)
+    model = ParakeetTDT.from_model_dir(GATE_R3, runtime=rt, device=dev)
+    jp = model.params["joint"]
+    assert torch.equal(model.joint_packed, pack_joint_step(jp["pred"]["w"], jp["pred"]["b"],
+                                                           jp["out"]["w"], jp["out"]["b"]))
+    assert model.joint_packed.dtype == torch.float32
+    assert ParakeetTDT.from_model_dir(GATE_R3, device=dev).joint_packed is None
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:

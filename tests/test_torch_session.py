@@ -5,7 +5,8 @@ give the same transcript, tokens and token/word stamps as the JAX
 on (their plain versions on CPU tensors), and with every kernel flag on
 (FFN and conv module too) in f32 and int8; the env names of the flags; the
 event protocol, reset/reuse,
-push-after-finalize and snapshot/restore; the package imports nothing of
+push-after-finalize and snapshot/restore; the language and extra prompt
+tokens against the JAX model's on one synthetic vocabulary; the package imports nothing of
 JAX; without a CUDA device the entry points raise unless asked for the CPU.
 
 Tolerance: transcripts, tokens, frames and durations exact; per-token
@@ -222,6 +223,59 @@ def test_concurrent_push_poll(port_model):
     assert all(e.type in (EventType.PARTIAL_TEXT, EventType.FINAL_TEXT) for e in events)
     finals = [e for e in events if e.type == EventType.FINAL_TEXT]
     assert finals and finals[-1].text == serial[-1].text and finals[-1].tokens == serial[-1].tokens
+
+
+def prompt_models(prompt_tokens):
+    """The JAX and the port's tiny random models on one synthetic vocabulary
+    that holds ``prompt_tokens``."""
+    from trt_asr_tpu.config import ModelConfig as JConfig
+    from trt_asr_tpu.tokenizer import Tokenizer as JTokenizer
+    from trt_asr_tpu.tokenizer import make_synthetic_vocab as j_vocab
+    from trt_asr_tpu_torch.tokenizer import Tokenizer, make_synthetic_vocab
+
+    jm = JModel.random(JConfig.tiny(), seed=1)
+    jm.tokenizer = JTokenizer(j_vocab(64, prompt_tokens=prompt_tokens), blank_id=jm.cfg.blank_id)
+    m = ParakeetTDT.random(ModelConfig.tiny(), seed=1, device="cpu")
+    m.tokenizer = Tokenizer(make_synthetic_vocab(64, prompt_tokens=prompt_tokens),
+                            blank_id=m.cfg.blank_id)
+    assert m.tokenizer.vocab == jm.tokenizer.vocab
+    return jm, m
+
+
+def test_language_prompt_selection_matches_jax(monkeypatch):
+    """The port's counterpart of tests/test_session.py's
+    test_language_prompt_selection: the language prompt token follows
+    ``language`` (TRT_ASR_LANG), a language missing from the vocabulary
+    primes the start token alone, and the default is <|en|>, as the JAX
+    model's ``prompt_ids`` on the same vocabulary."""
+    jm, m = prompt_models(("<|startoftranscript|>", "<|en|>", "<|de|>"))
+    tok = m.tokenizer
+    sot = tok.token_id("<|startoftranscript|>")
+    assert m.prompt_ids == jm.prompt_ids == [sot, tok.token_id("<|en|>")]
+    for lang, want in (("de", [sot, tok.token_id("<|de|>")]), ("xx", [sot])):
+        jm.runtime, m.runtime = JRuntime(language=lang), RuntimeConfig(language=lang)
+        assert m.prompt_ids == jm.prompt_ids == want
+    monkeypatch.setenv("TRT_ASR_LANG", "de")
+    assert RuntimeConfig.from_env().language == JRuntime.from_env().language == "de"
+
+
+def test_extra_prompt_tokens_match_jax(monkeypatch):
+    """The port's counterpart of tests/test_session.py's
+    test_extra_prompt_tokens: ``extra_prompt`` (TRT_ASR_EXTRA_PROMPT) primes
+    its tokens after the start and language tokens, in order; absent tokens
+    are skipped; the default primes none, as the JAX model's
+    ``prompt_ids`` on the same vocabulary."""
+    jm, m = prompt_models(("<|startoftranscript|>", "<|en|>"))
+    tok = m.tokenizer
+    sot, en, nopnc = (tok.token_id(t) for t in ("<|startoftranscript|>", "<|en|>", "<|nopnc|>"))
+    assert nopnc >= 0
+    assert m.prompt_ids == jm.prompt_ids == [sot, en]
+    for extra, want in (("<|nopnc|>,<|noitn|>", [sot, en, nopnc, tok.token_id("<|noitn|>")]),
+                        ("<|missing|>", [sot, en])):
+        jm.runtime, m.runtime = JRuntime(extra_prompt=extra), RuntimeConfig(extra_prompt=extra)
+        assert m.prompt_ids == jm.prompt_ids == want
+    monkeypatch.setenv("TRT_ASR_EXTRA_PROMPT", "<|nopnc|>")
+    assert RuntimeConfig.from_env().extra_prompt == JRuntime.from_env().extra_prompt == "<|nopnc|>"
 
 
 def test_cache_fault_paths_match_jax(jax_model, port_model):

@@ -33,15 +33,15 @@ def tdt_greedy_decode_batch(
     use_punct_mask: bool = False,
     use_pallas_joint: bool = False,
     with_timestamps: bool = False,
-    joint_packed=None,              # the int8 joint weights packed once (pack_joint_step)
+    joint_packed=None,              # the int8 or f32 joint weights packed once (pack_joint_step)
 ):
     """Returns (tokens [B, max_tokens] (-1 padded), n [B], new_state) and,
     with ``with_timestamps``, ``(frames, durs, logps)`` [B, max_tokens]
     (-1/-1/0 padded): each token's within-chunk frame, predicted duration
     and decode-time log-softmax confidence. Tokens, counts and stamps are
     host (CPU) tensors; the new state stays on the device. ``joint_packed``
-    goes to the joint-step kernel (int8 weights), which packs anew at every
-    call without it."""
+    goes to the joint-step kernel (int8 or f32 weights), which packs anew at
+    every call without it."""
     b, tq = enc.shape[0], enc.shape[1]
     return greedy_decode_loop(
         params, cfg, enc, t_enc, state, max_tokens=max_tokens, max_symbols=max_symbols,

@@ -48,7 +48,7 @@ def greedy_decode_loop(params, cfg: ModelConfig, enc, t_enc, state: DecodeState,
     """Decode enc [B, T, D] from ``state`` in the regime the caller chose:
     ``blank_run`` (else per-row), with the joint-step kernel in the
     blank-run recomputes when ``use_kernel`` (on ``joint_packed``, the int8
-    weights packed once, where given). Arguments and results as
+    or f32 weights packed once, where given). Arguments and results as
     :func:`~trt_asr_tpu_torch.decode.batched.tdt_greedy_decode_batch`."""
     b, tq = enc.shape[0], enc.shape[1]
     dev = enc.device

@@ -65,7 +65,7 @@ def tdt_greedy_decode_chunk(
     use_punct_mask: bool = False,
     use_pallas_joint: bool = False,
     with_timestamps: bool = False,
-    joint_packed=None,              # the int8 joint weights packed once (pack_joint_step)
+    joint_packed=None,              # the int8 or f32 joint weights packed once (pack_joint_step)
 ):
     """Decode one chunk of one stream, as the JAX package's
     ``decode/tdt_greedy.py`` ``tdt_greedy_decode_chunk``: blank-run batching

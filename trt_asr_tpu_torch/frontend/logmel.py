@@ -17,7 +17,7 @@ import torch
 
 from trt_asr_tpu_torch.contract import FrontendSpec
 from trt_asr_tpu_torch.device import resolve_device
-from trt_asr_tpu_torch.ops.kernels.mel import logmel, logmel_plain
+from trt_asr_tpu_torch.ops.kernels.mel import logmel, logmel_plain, pack_logmel_basis
 
 
 def hann_window(size: int) -> np.ndarray:
@@ -82,6 +82,9 @@ class LogMelFrontend:
         self._mel = as_t(mel_filterbank(s.n_mels, s.n_fft, s.sample_rate_hz,
                                         s.mel_fmin_hz, s.mel_fmax_hz).T)  # [bins, mels]
         self.use_kernel = use_kernel
+        # the bases as the kernel reads them, packed once on the card
+        self._basis = (pack_logmel_basis(self._wcos, self._wsin)
+                       if use_kernel and self._wcos.is_cuda else None)
 
     def num_frames(self, num_samples: int) -> int:
         s = self.spec
@@ -99,8 +102,11 @@ class LogMelFrontend:
         frames = audio.unfold(-1, s.win_length, s.hop_length)[..., :n_frames, :]
         lead = frames.shape[:-2]
         flat = frames.reshape(-1, s.win_length).contiguous()
-        fn = logmel if self.use_kernel else logmel_plain
-        out = fn(flat, self._wcos, self._wsin, self._mel, s.log_floor)
+        if self.use_kernel:
+            out = logmel(flat, self._wcos, self._wsin, self._mel, s.log_floor,
+                         packed=self._basis)
+        else:
+            out = logmel_plain(flat, self._wcos, self._wsin, self._mel, s.log_floor)
         return out.reshape(*lead, n_frames, s.n_mels)
 
 

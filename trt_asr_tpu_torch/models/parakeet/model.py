@@ -74,11 +74,14 @@ class ParakeetTDT:
             params, cfg.num_layers,
             pack_tail=self.runtime.use_pallas_conv and self.runtime.use_pallas_ffn,
             pack_att=self.runtime.use_pallas_att)
-        # the int8 joint step's weights packed once (ops/kernels/joint_step.py)
+        # the persistent joint step's int8 or f32 weights packed once
+        # (ops/kernels/joint_step.py; bf16 weights take the chain, unpacked)
         jp, wo = params["joint"], params["joint"]["out"]["w"]
+        wo_t = wo.q if isinstance(wo, QuantTensor) else wo
         self.joint_packed = (
             pack_joint_step(jp["pred"]["w"], jp["pred"]["b"], wo, jp["out"]["b"])
-            if self.runtime.use_pallas_joint and isinstance(wo, QuantTensor) and wo.q.is_cuda
+            if self.runtime.use_pallas_joint and wo_t.is_cuda
+            and wo_t.dtype in (torch.int8, torch.float32)
             else None)
 
     @classmethod

@@ -27,8 +27,8 @@ from trt_asr_tpu_torch.ops.quant import QuantTensor
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("att_block", "att_block_q8", "att_block_f32", "joint_step", "joint_step_q8", "mel",
-           "ffn", "conv_block", "conv_ffn_ln", "rel_shift", "flash_att")
+SOURCES = ("att_block", "att_block_q8", "att_block_f32", "joint_step", "joint_step_q8",
+           "joint_step_f32", "mel", "ffn", "conv_block", "conv_ffn_ln", "rel_shift", "flash_att")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -56,7 +56,11 @@ _SIGNATURES = {
                       [_P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P,
                        _P, _P],
                       "joint_step_q8_occupancy": [_I, _P]},
-    "mel": {"logmel_launch": [_P, _I, _I, _P, _P, _I, _P, _I, _F, _P, _P]},
+    "joint_step_f32": {"joint_step_f32_launch":
+                       [_P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P,
+                        _P, _P],
+                       "joint_step_f32_occupancy": [_I, _P]},
+    "mel": {"logmel_launch": [_P, _I, _I, _P, _I, _P, _I, _F, _I, _I, _P, _P]},
     "ffn": {"ffn_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F, _I, _I,
                            _P, _P, _P, _P, _P]},
     "conv_block": {"conv_block_launch": _CONV + [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P]},

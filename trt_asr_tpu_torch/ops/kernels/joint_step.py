@@ -1,8 +1,9 @@
 """Fused TDT joint decode step: the CUDA kernels ``csrc/joint_step_q8.cu``
 (int8 weights: one persistent cooperative launch laid out by
-:func:`joint_step_q8_plan`) and ``csrc/joint_step.cu`` (f32 and bf16
-weights: three launches, :func:`joint_step_chain`), and their plain PyTorch
-version.
+:func:`joint_step_q8_plan`), ``csrc/joint_step_f32.cu`` (f32 weights: one
+persistent cooperative launch laid out by :func:`joint_step_f32_plan`) and
+``csrc/joint_step.cu`` (bf16 weights: three launches,
+:func:`joint_step_chain`), and their plain PyTorch version.
 
 Replaces ``trt_asr_tpu/ops/pallas/joint_step_kernel.py:
 joint_step_pallas_prepadded`` (the TPU's lane padding is not needed: only
@@ -46,7 +47,8 @@ def joint_step_plain(e, g, wp, bp, wo, bo, *, ths: int, ndur: int,
 
 
 class JointPlan(NamedTuple):
-    """Launch plan of the int8 joint step (``csrc/joint_step_q8.cu``)."""
+    """Launch plan of the persistent joint step (``csrc/joint_step_q8.cu``,
+    ``csrc/joint_step_f32.cu``)."""
     blocks: int          # one a run of W_out's column groups, all co-resident
     groups: int          # 8-column groups of W_out a block
     hcols: int           # columns of W_pred (of h) a block
@@ -54,8 +56,10 @@ class JointPlan(NamedTuple):
     scratch: int         # bytes of device scratch: the ticket, h, the blocks' argmax pairs
 
 
-JOINT_RUN = 64           # rows of K a run of the hidden product's sums (csrc JS_RUN)
-JOINT_BARS = 3           # mbarriers: W_pred's slice, g's rows, W_out's slice
+JOINT_RUN = 64           # rows of K a run of the hidden product's sums (csrc JS_RUN, JF_RUN)
+JOINT_BARS = 3           # mbarriers: W_pred's slice, g's rows, W_out's slice (f32: its first half,
+                         # and one more a late warp's range of it)
+JOINT_F32_GROUPS = 8     # W_out groups an f32 block takes at most, two a lane (csrc JF_GROUPS)
 
 
 def _joint_blob_bytes(p: int, j: int, hcols: int, groups: int) -> int:
@@ -65,6 +69,20 @@ def _joint_blob_bytes(p: int, j: int, hcols: int, groups: int) -> int:
     source)."""
     return (hcols * pad_k(p) + align16(8 * hcols) + groups * TAIL_GROUP * pad_k(j)
             + 2 * groups * TAIL_GROUP * 4)
+
+
+def _plan_grid(rows: int, p: int, j: int, v: int, sms: int, what: str):
+    """(blocks, groups, hcols) of a persistent joint step: each block owns
+    the fewest 8-column groups of W_out that cover V with at most ``sms``
+    blocks, and ``hcols`` = ceil(J / blocks) columns of W_pred. Raises
+    ValueError for shapes the kernels do not take."""
+    if rows < 1 or p < 4 or j < TAIL_GROUP or v < 1 or p % 4 or j % TAIL_GROUP:
+        raise ValueError(f"joint_step[{what}]: needs rows >= 1, P a multiple of 4 and J one of "
+                         f"{TAIL_GROUP} (rows={rows}, P={p}, J={j}, V={v})")
+    n_groups = -(-v // TAIL_GROUP)
+    groups = -(-n_groups // sms)
+    blocks = -(-n_groups // groups)
+    return blocks, groups, -(-j // blocks)
 
 
 def joint_step_q8_plan(rows: int, p: int, j: int, v: int, sms: int,
@@ -77,13 +95,7 @@ def joint_step_q8_plan(rows: int, p: int, j: int, v: int, sms: int,
     in the source, which checks it at launch. Raises ValueError for shapes
     the kernel does not take (P not a multiple of 4, J not one of 8) or
     whose staging does not fit."""
-    if rows < 1 or p < 4 or j < TAIL_GROUP or v < 1 or p % 4 or j % TAIL_GROUP:
-        raise ValueError(f"joint_step[int8]: needs rows >= 1, P a multiple of 4 and J one of "
-                         f"{TAIL_GROUP} (rows={rows}, P={p}, J={j}, V={v})")
-    n_groups = -(-v // TAIL_GROUP)
-    groups = -(-n_groups // sms)
-    blocks = -(-n_groups // groups)
-    hcols = -(-j // blocks)
+    blocks, groups, hcols = _plan_grid(rows, p, j, v, sms, "int8")
     runs = -(-p // JOINT_RUN)
     cols = groups * TAIL_GROUP
     smem = (_joint_blob_bytes(p, j, hcols, groups)
@@ -96,6 +108,62 @@ def joint_step_q8_plan(rows: int, p: int, j: int, v: int, sms: int,
         raise ValueError(f"joint_step[int8]: {smem} B of shared memory a block at P={p}, "
                          f"J={j}, V={v} exceeds {smem_limit} B")
     return JointPlan(blocks, groups, hcols, smem, 16 + align16(rows * j * 2) + rows * blocks * 16)
+
+
+def _joint_f32_blob_floats(p: int, j: int, hcols: int, groups: int) -> int:
+    """A block's f32 slice in floats: W_pred's ``hcols`` columns [hcols][P],
+    b_pred's values (zero to a multiple of 4), b_out's, W_out's groups
+    [J / 4][8 groups][4] (``jf_blob`` in the source)."""
+    cols = groups * TAIL_GROUP
+    return hcols * p + -(-hcols // 4) * 4 + cols + j * cols
+
+
+def joint_step_f32_plan(rows: int, p: int, j: int, v: int, sms: int,
+                        smem_limit: int = SMEM_PER_BLOCK) -> JointPlan:
+    """The grid and shared memory of the f32 joint step
+    (``csrc/joint_step_f32.cu``), as :func:`joint_step_q8_plan` lays out
+    the int8 one: the block's whole f32 slice stays in shared memory, g's
+    rows and h's rows share one buffer, and each of the 16 warps sums a
+    sixteenth of K for all the block's columns. Mirrors ``jf_smem`` in the
+    source, which checks it at launch. Raises ValueError for shapes the
+    kernel does not take (more than 8 column groups a block among them) or
+    whose staging does not fit."""
+    blocks, groups, hcols = _plan_grid(rows, p, j, v, sms, "f32")
+    if groups > JOINT_F32_GROUPS:
+        raise ValueError(f"joint_step[f32]: {groups} column groups a block at V={v} on {sms} "
+                         f"SMs; the kernel takes at most {JOINT_F32_GROUPS}")
+    runs = -(-p // JOINT_RUN)
+    cols = groups * TAIL_GROUP
+    smem = (4 * _joint_f32_blob_floats(p, j, hcols, groups)
+            + TAIL_ROWS * max(p + 4, j + 4) * 4                           # g's rows, then h's
+            + align16(max(TAIL_ROWS * hcols * runs, TAIL_WARPS * TAIL_ROWS * cols) * 4)  # sums
+            + (JOINT_BARS + TAIL_WARPS) * 8)                              # mbarriers
+    if smem > smem_limit:
+        raise ValueError(f"joint_step[f32]: {smem} B of shared memory a block at P={p}, "
+                         f"J={j}, V={v} exceeds {smem_limit} B")
+    return JointPlan(blocks, groups, hcols, smem, 16 + align16(rows * j * 4) + rows * blocks * 16)
+
+
+def pack_joint_f32(wp, bp, wo, bo, plan: JointPlan) -> torch.Tensor:
+    """The joint's f32 weights as the f32 joint step's blocks read them, a
+    block's slice contiguous: [blocks, floats] f32, block b holding W_pred's
+    columns b * hcols .. as [hcols][P] (a column's K contiguous, zero past
+    J), their biases (zero to a multiple of 4), the biases of W_out's
+    ``groups`` 8-column groups from b * groups, then those groups as
+    [J / 4][cols][4] (a column's four consecutive K values in one float4,
+    the columns side by side; zero past V). wp [P, J], wo [J, V], bp [J],
+    bo [V] f32."""
+    p, j = wp.shape
+    blocks, hc, cols = plan.blocks, plan.hcols, plan.groups * TAIL_GROUP
+    wpp = wp.new_zeros((p, blocks * hc))
+    wpp[:, :j] = wp
+    wpp = wpp.view(p, blocks, hc).permute(1, 2, 0).reshape(blocks, -1)
+    bpp = pack_columns(bp, hc, blocks)
+    bpp = torch.cat([bpp, bpp.new_zeros((blocks, -(-hc // 4) * 4 - hc))], dim=1)
+    wop = wo.new_zeros((j, blocks * cols))
+    wop[:, :wo.shape[1]] = wo
+    wop = wop.view(j // 4, 4, blocks, cols).permute(2, 0, 3, 1).reshape(blocks, -1)
+    return torch.cat([wpp, bpp, pack_columns(bo, cols, blocks), wop], dim=1).float().contiguous()
 
 
 def pack_joint(wp, sp, bp, wo, so, bo, plan: JointPlan) -> torch.Tensor:
@@ -122,48 +190,60 @@ def pack_joint(wp, sp, bp, wo, so, bo, plan: JointPlan) -> torch.Tensor:
 
 
 def pack_joint_step(wp, bp, wo, bo, sms: int | None = None) -> torch.Tensor:
-    """The joint's int8 weights for :func:`joint_step`'s ``packed``, for the
+    """The joint's weights for :func:`joint_step`'s ``packed``, for the
     launch plan of a card with ``sms`` SMs (by default that of the weights'
-    device): 5.6 MB at full width, beside the [P, J] and [J, V] matrices
-    that the plain path reads. Made once, where the model is made: a packed
-    copy that no longer matches the weights or biases gives wrong results.
-    Raises TypeError for float weights (they take :func:`joint_step_chain`,
-    which reads them as they are)."""
-    if not (isinstance(wp, QuantTensor) and isinstance(wo, QuantTensor)):
-        raise TypeError("pack_joint_step takes int8 QuantTensor weights")
-    sms = sm_count(wp.q.device.index or 0) if sms is None else sms
-    p, j = wp.q.shape
-    plan = joint_step_q8_plan(1, p, j, wo.q.shape[1], sms)
-    return pack_joint(wp.q, wp.s, bp, wo.q, wo.s, bo, plan)
+    device): int8 QuantTensors by :func:`pack_joint`, 5.6 MB at full width;
+    f32 weights by :func:`pack_joint_f32`, 22.6 MB. Each is held beside the
+    [P, J] and [J, V] matrices that the plain path reads. Made once, where
+    the model is made: a packed copy that no longer matches the weights or
+    biases gives wrong results. Raises TypeError for other weights (bf16
+    weights take :func:`joint_step_chain`, which reads them as they are)."""
+    if isinstance(wp, QuantTensor) and isinstance(wo, QuantTensor):
+        sms = sm_count(wp.q.device.index or 0) if sms is None else sms
+        p, j = wp.q.shape
+        plan = joint_step_q8_plan(1, p, j, wo.q.shape[1], sms)
+        return pack_joint(wp.q, wp.s, bp, wo.q, wo.s, bo, plan)
+    if not any(isinstance(w, QuantTensor) or w.dtype != torch.float32 for w in (wp, wo)):
+        sms = sm_count(wp.device.index or 0) if sms is None else sms
+        p, j = wp.shape
+        return pack_joint_f32(wp, bp, wo, bo, joint_step_f32_plan(1, p, j, wo.shape[1], sms))
+    raise TypeError("pack_joint_step takes int8 QuantTensor or f32 weights, both of one type")
 
 
-def check_packed_joint(packed: torch.Tensor, plan: JointPlan, p: int, j: int) -> None:
+def check_packed_joint(packed: torch.Tensor, plan: JointPlan, p: int, j: int,
+                       f32: bool = False) -> None:
     """Raises ValueError unless ``packed`` has the layout of ``plan``'s
-    slices: [blocks, bytes of a block's slice] uint8."""
-    want = (plan.blocks, _joint_blob_bytes(p, j, plan.hcols, plan.groups))
-    if packed.dtype != torch.uint8 or tuple(packed.shape) != want:
-        raise ValueError(f"joint_step[int8]: packed weights {packed.dtype} "
-                         f"{tuple(packed.shape)} do not fit the launch plan uint8 {want} "
-                         f"(see pack_joint_step)")
+    slices: [blocks, bytes of a block's slice] uint8 for int8 weights,
+    [blocks, floats of a block's slice] f32 for f32 weights."""
+    if f32:
+        want = (torch.float32, (plan.blocks, _joint_f32_blob_floats(p, j, plan.hcols, plan.groups)))
+    else:
+        want = (torch.uint8, (plan.blocks, _joint_blob_bytes(p, j, plan.hcols, plan.groups)))
+    if (packed.dtype, tuple(packed.shape)) != want:
+        raise ValueError(f"joint_step[{'f32' if f32 else 'int8'}]: packed weights "
+                         f"{packed.dtype} {tuple(packed.shape)} do not fit the launch plan "
+                         f"{want[0]} {want[1]} (see pack_joint_step)")
 
 
 def joint_step(e, g, wp, bp, wo, bo, *, ths: int, ndur: int, blank_id: int,
                blank_penalty: float = 0.0, packed=None):
     """Fused joint step; same arguments and results as
     :func:`joint_step_plain`. CPU tensors take the plain version; CUDA
-    tensors launch a kernel (or raise): with int8 weights the persistent
-    kernel, one cooperative launch (raising also when its blocks cannot all
-    be resident), with f32 or bf16 weights :func:`joint_step_chain`.
-    ``packed``: the int8 weights as :func:`pack_joint_step` lays them out,
-    made once with the model; without it they are packed anew at every
+    tensors launch a kernel (or raise): with int8 or f32 weights a
+    persistent kernel, one cooperative launch (raising also when its blocks
+    cannot all be resident), with bf16 weights :func:`joint_step_chain`.
+    ``packed``: the int8 or f32 weights as :func:`pack_joint_step` lays them
+    out, made once with the model; without it they are packed anew at that
     call."""
     if e.device.type == "cpu":
         return joint_step_plain(e, g, wp, bp, wo, bo, ths=ths, ndur=ndur,
                                 blank_id=blank_id, blank_penalty=blank_penalty)
     if isinstance(wp, QuantTensor) or isinstance(wo, QuantTensor):
         return _joint_step_q8(e, g, wp, bp, wo, bo, ths, ndur, blank_id, blank_penalty, packed)
+    if wp.dtype == torch.float32 and wo.dtype == torch.float32:
+        return _joint_step_f32(e, g, wp, bp, wo, bo, ths, ndur, blank_id, blank_penalty, packed)
     if packed is not None:
-        raise ValueError("joint_step: packed weights are for int8 weights only")
+        raise ValueError("joint_step: packed weights are for int8 and f32 weights only")
     return joint_step_chain(e, g, wp, bp, wo, bo, ths=ths, ndur=ndur, blank_id=blank_id,
                             blank_penalty=blank_penalty)
 
@@ -189,14 +269,32 @@ def _joint_step_q8(e, g, wp, bp, wo, bo, ths, ndur, blank_id, blank_penalty, pac
     if packed is None:
         packed = pack_joint(wp.q, wp.s, bp, wo.q, wo.s, bo, plan)
     check_packed_joint(packed, plan, p, j)
+    return _launch_persistent("joint_step_q8", e, g, rows, p, j, v, packed, plan, ths, ndur,
+                              blank_id, blank_penalty)
+
+
+def _joint_step_f32(e, g, wp, bp, wo, bo, ths, ndur, blank_id, blank_penalty, packed):
+    """The persistent kernel of ``csrc/joint_step_f32.cu`` on CUDA tensors."""
+    rows, p, j, v = _check_args(e, g, wp, wo, bp, bo, ths, ndur)
+    plan = joint_step_f32_plan(rows, p, j, v, sm_count(e.device.index or 0))
+    if packed is None:
+        packed = pack_joint_f32(wp, bp, wo, bo, plan)
+    check_packed_joint(packed, plan, p, j, f32=True)
+    return _launch_persistent("joint_step_f32", e, g, rows, p, j, v, packed, plan, ths, ndur,
+                              blank_id, blank_penalty)
+
+
+def _launch_persistent(name, e, g, rows, p, j, v, packed, plan: JointPlan, ths, ndur, blank_id,
+                       blank_penalty):
+    """One cooperative launch of ``csrc/<name>.cu`` on its packed weights."""
     kb.require_cuda("joint_step", e, g, packed)
     kb.require_aligned("joint_step", 4, g)        # g's rows are read 16 bytes at a time
-    kb.require_aligned("joint_step", 16, packed)  # bulk copies of the slices
-    lib = kb.load("joint_step_q8")
+    kb.require_aligned("joint_step", 16 // packed.element_size(), packed)   # bulk copies
+    lib = kb.load(name)
     logits = torch.empty((rows, v), dtype=torch.float32, device=e.device)
     idx = torch.empty((2, rows), dtype=torch.int32, device=e.device)
     scratch = torch.empty((plan.scratch,), dtype=torch.uint8, device=e.device)
-    rc = lib.joint_step_q8_launch(
+    rc = getattr(lib, f"{name}_launch")(
         e.data_ptr(), g.data_ptr(), rows, p, j, v, packed.data_ptr(), plan.blocks,
         plan.groups, plan.hcols, plan.smem, ths, ndur, blank_id, float(blank_penalty),
         logits.data_ptr(), idx[0].data_ptr(), idx[1].data_ptr(), scratch.data_ptr(),
@@ -211,8 +309,9 @@ def joint_step_chain(e, g, wp, bp, wo, bo, *, ths: int, ndur: int, blank_id: int
     """The three launches of ``csrc/joint_step.cu`` on CUDA tensors (split-K
     hidden product, split-K output product with 32-column argmax tiles, a
     per-row reduction) with f32, bf16 or int8 weights: :func:`joint_step`'s
-    kernel for float weights, and the int8 kernel's predecessor, kept so
-    that ``chip_smoke.py`` times the two in one run."""
+    kernel for bf16 weights, and the predecessor of the int8 and f32
+    kernels, kept so that ``chip_smoke.py`` times them side by side in one
+    run."""
     wp_t, sp, wtype = kb.weight_parts(wp)
     wo_t, so, wtype_o = kb.weight_parts(wo)
     if wtype != wtype_o:
