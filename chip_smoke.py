@@ -11,9 +11,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    each kernel's registers, spills and static shared memory (ptxas), and
    the dynamic shared memory and blocks an SM of the flash kernels (bf16
    and f32), of the bf16 rel-shift kernel, of the fused conv + FFN2 +
-   out-LN tail, of the int8 and f32 attention blocks and of the int8 and
-   f32 joint steps (each one cooperative launch: its grid at full width must
-   be resident at once), and the log-mel kernel's grid at a 0.5 s push.
+   out-LN tail, of the int8 and f32 attention blocks, of the int8 and f32
+   joint steps and of the int8 and f32 FFNs (each one cooperative launch:
+   its grid at full width must be resident at once), and the log-mel
+   kernel's grid at a 0.5 s push.
 2. each kernel against its plain PyTorch version on the card at the
    full-size main-path shapes (a steady chunk: 8 rows, 6 valid; f32 and
    int8 weights for the attention block, the joint step, the FFN and the
@@ -33,7 +34,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    (``csrc/joint_step_q8.cu``, ``csrc/joint_step_f32.cu``) run on their
    weights packed once, as the model packs them, are captured and replayed,
    and are timed beside the three launches of ``csrc/joint_step.cu`` that
-   they replaced (which bf16 weights keep). The log-mel kernel runs at T 1,
+   they replaced (which bf16 weights keep). The int8 and f32 FFNs
+   (``csrc/ffn_q8.cu``, ``csrc/ffn_f32.cu``) run on their weights packed
+   once, as the model packs them, are captured and replayed, and are timed
+   beside the five launches of ``csrc/ffn.cu`` that they replaced (which
+   bf16 weights keep). The log-mel kernel runs at T 1,
    50 (a 0.5 s push, the kernels line's reading), 51 and 300 (a flush),
    each held at 1e-3, timed beside its plain version and replayed from a
    captured graph.
@@ -58,12 +63,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    chain's runs; every call of the joint step is one
    ``joint_step_q8_kernel`` with int8 weights and one
    ``joint_step_f32_kernel`` with f32, and no ``argmax_reduce_kernel`` (the
-   three-launch route) runs. No int8 arm widens an int8 weight at a call
-   (``q8_matmul.widened`` stays 0: the model's bf16 copies feed the
-   tensor cores), here and in phase 4; the memory the copies take is
-   logged. Each int8 arm's tokens are set beside those of its session on
-   the port's previous int8 routes (q widened to f32 at each call, the
-   three-launch joint step).
+   three-launch route) runs; every call of the FFN is one ``ffn_q8_kernel``
+   with int8 weights and one ``ffn_f32_kernel`` with f32, and no kernel of
+   the FFN's five-launch chain runs (``layernorm_kernel`` launches only
+   for the conv module's chain, one a call). The bytes of each arm's
+   packed FFN, attention and tail copies are logged. No int8 arm widens an
+   int8 weight at a call (``q8_matmul.widened`` stays 0: the model's bf16
+   copies feed the tensor cores), here and in phase 4; the memory the
+   copies take is logged. Each int8 arm's tokens are set beside those of
+   its session on the port's previous int8 routes (q widened to f32 at
+   each call, the three-launch joint step).
    Phase 2 also holds the offline kernels, rel shift (f32, bf16) and
    flash attention (f32, bf16), at the offline batch's shapes (B 8, T 368,
    H 8, dh 128; a short row and a zero-length row in the mask). bf16 rel
@@ -158,9 +167,12 @@ KERNEL_SRCS = {
                "trt_asr_tpu/ops/pallas/joint_step_kernel.py:124", {"int8": "int8_on"}),
     "mel": ("logmel", "trt_asr_tpu_torch/csrc/mel.cu",
             "trt_asr_tpu/ops/pallas/mel_kernel.py:65", {"f32": "f32_on"}),
-    "ffn": ("ffn", "trt_asr_tpu_torch/csrc/ffn.cu",
-            "trt_asr_tpu/ops/pallas/ffn_kernel.py:115",
-            {"f32": "f32_all", "int8": "int8_all"}),
+    # the FFN with f32 and with int8 weights: a persistent kernel each (bf16
+    # weights keep the five launches of csrc/ffn.cu, on no path yet)
+    "ffn": ("ffn", "trt_asr_tpu_torch/csrc/ffn_f32.cu",
+            "trt_asr_tpu/ops/pallas/ffn_kernel.py:115", {"f32": "f32_all"}),
+    "ffnq": ("ffn", "trt_asr_tpu_torch/csrc/ffn_q8.cu",
+             "trt_asr_tpu/ops/pallas/ffn_kernel.py:115", {"int8": "int8_all"}),
     "conv": ("conv_block", "trt_asr_tpu_torch/csrc/conv_block.cu",
              "trt_asr_tpu/ops/pallas/conv_block_kernel.py:99",
              {"f32": "f32_all", "int8": "int8_conv"}),
@@ -298,11 +310,13 @@ def log_resources(torch, build, cfg) -> None:
     kernels, the bf16 rel-shift kernel (bf16 at the full-width head dim),
     the fused tail, the int8 and f32 attention blocks and the int8 and f32
     joint steps (a steady chunk's 8 rows at full width; the CUDA occupancy
-    API), and the log-mel kernel's grid at a 0.5 s push (50 frames)."""
+    API), the int8 and f32 FFNs (the same rows), and the log-mel kernel's
+    grid at a 0.5 s push (50 frames)."""
     import ctypes
 
     from trt_asr_tpu_torch.ops.kernels.att_block import att_block_f32_plan, att_block_q8_plan
     from trt_asr_tpu_torch.ops.kernels.conv_block import conv_ffn_ln_plan
+    from trt_asr_tpu_torch.ops.kernels.ffn import ffn_f32_plan, ffn_q8_plan
     from trt_asr_tpu_torch.ops.kernels.joint_step import joint_step_f32_plan, joint_step_q8_plan
     from trt_asr_tpu_torch.ops.kernels.mel import MEL_CL, logmel_plan
 
@@ -366,6 +380,17 @@ def log_resources(torch, build, cfg) -> None:
         f"and {plan.hcols} hidden columns, {plan.smem} B of dynamic shared memory, {info[0]} "
         f"blocks an SM, {sms} SMs")
     assert info[0] >= 1 and plan.blocks <= info[0] * sms, "joint_step[f32]'s grid is not resident"
+    e = cfg.d_model * cfg.ff_expansion_factor
+    for arm, plan, lib_name in (("int8", ffn_q8_plan(cfg.d_model, e, sms), "ffn_q8"),
+                                ("f32", ffn_f32_plan(cfg.d_model, e, sms), "ffn_f32")):
+        lib = build.load(lib_name)
+        build.check(lib, getattr(lib, f"{lib_name}_occupancy")(plan.smem, ctypes.addressof(info)),
+                    f"{lib_name}_occupancy")
+        ring = f", a ring of {plan.stages} slots for the weights" if plan.stages else ""
+        log(f"  ffn[{arm}] at 8 rows: {plan.blocks} blocks of {plan.cols_e} expansion columns "
+            f"and {plan.cols_d} columns of y{ring}, {plan.smem} B of dynamic shared memory, "
+            f"{info[0]} blocks an SM, {sms} SMs")
+        assert info[0] >= 1 and plan.blocks <= info[0] * sms, f"ffn[{arm}]'s grid is not resident"
     plan = logmel_plan(50, 400, 257, cfg.feat_in)
     log(f"  logmel[f32] at 50 frames: {plan.frame_tiles} clusters of {MEL_CL} blocks = "
         f"{plan.frame_tiles * MEL_CL} blocks on {sms} SMs, {plan.bins} DFT bins a block, "
@@ -391,7 +416,8 @@ def check_kernels(torch, dev, timer, cfg):
     from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block, conv_block_plain,
                                                           conv_ffn_ln, conv_ffn_ln_plain,
                                                           pack_conv_ffn_ln)
-    from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn, fused_ffn_plain, layer_norm_plain
+    from trt_asr_tpu_torch.ops.kernels.ffn import (fused_ffn, fused_ffn_chain, fused_ffn_plain,
+                                                   layer_norm_plain, pack_ffn)
     from trt_asr_tpu_torch.ops.kernels.joint_step import (joint_step, joint_step_chain,
                                                           joint_step_plain, pack_joint_step)
     from trt_asr_tpu_torch.ops.kernels.mel import logmel, logmel_plain
@@ -553,9 +579,41 @@ def check_kernels(torch, dev, timer, cfg):
     ffn_ops = 4 * tq * d * e
     conv_ops = 2 * tq * d * 3 * d + 2 * tq * kk * d
     conv_args = lambda a, b: (x, *cln, a, dw, *bn, b, tc, mask)  # noqa: E731
+
+    # the FFN: int8 and f32 weights take their persistent kernels on weights
+    # packed once, as the model packs them, each timed beside the five
+    # launches it replaced
+    for arm, short, tol, (a1, a2) in (("f32", "ffn", 2e-4, (w1, w2)),
+                                      ("int8", "ffnq", 1e-4, (qw1, qw2))):
+        t0 = time.perf_counter()
+        packed = pack_ffn(a1, a2)
+        torch.cuda.synchronize()
+        log(f"  ffn[{arm}]: one FFN's weights packed in {1e3 * (time.perf_counter() - t0):.2f} ms "
+            f"({packed.numel() * packed.element_size()} B)")
+        args = (x, *fln, a1, a2)
+        got = fused_ffn(*args, packed=packed)
+        want = fused_ffn_plain(*args)
+        torch.cuda.synchronize()
+        err = max_err((got,), (want,))
+        log(f"ffn[{arm}]: max |kernel - plain| = {err:.3g} (tolerance {tol:g})")
+        assert err <= tol, f"ffn[{arm}] disagrees with its plain version"
+        if arm == "int8":
+            check_rounding_points("ffn[int8]", tol, (got,), (fused_ffn_plain(
+                x, *fln, dequantize(a1), dequantize(a2)),))
+        kernel = lambda: fused_ffn(*args, packed=packed)  # noqa: E731
+        rec = records[f"{arm}_{short}"] = measure(
+            f"ffn[{arm}]", timer, err, kernel, lambda: fused_ffn_plain(*args),
+            ffn_bytes + wbytes(a1) + wbytes(a2), ffn_ops, "f32" if arm == "f32" else "bf16")
+        # the five launches that the kernel replaced, in the same call
+        chain = lambda: fused_ffn_chain(*args)  # noqa: E731
+        chain_err = max_err((chain(),), (want,))
+        chain_ms = timer(chain)
+        log(f"  ffn[{arm}] five launches (csrc/ffn.cu): {chain_ms:.4f} ms (host enqueue "
+            f"{timer.host_us:.1f} us/call), max |chain - plain| {chain_err:.3g}")
+        assert rec["ms"] < chain_ms, f"ffn[{arm}] is not faster than the chain it replaced"
+        check_graph_capture(torch, f"ffn[{arm}]", lambda: (kernel(),), (), (got,))
+
     cases = [  # short name, arm, tolerance, arguments, weights, other bytes, ops
-        ("ffn", "f32", 2e-4, (x, *fln, w1, w2), (w1, w2), ffn_bytes, ffn_ops),
-        ("ffn", "int8", 1e-4, (x, *fln, qw1, qw2), (qw1, qw2), ffn_bytes, ffn_ops),
         ("conv", "f32", 2e-4, conv_args(pw1, pw2), (pw1, pw2), conv_bytes, conv_ops),
         ("conv", "int8", 1e-4, conv_args(qpw1, qpw2), (qpw1, qpw2), conv_bytes, conv_ops),
         ("tail", "int8", 1e-4, (*conv_args(qpw1, qpw2), *fln, qw1, qw2, *oln),
@@ -579,8 +637,7 @@ def check_kernels(torch, dev, timer, cfg):
     def tail_kernel(*a):
         return conv_ffn_ln(*a, packed=tail_packed)
 
-    kernels = {"ffn": (fused_ffn, fused_ffn_plain, fused_ffn_plain),
-               "conv": (conv_block, conv_block_plain, conv_block_plain),
+    kernels = {"conv": (conv_block, conv_block_plain, conv_block_plain),
                "tail": (tail_kernel, conv_ffn_ln_plain, tail_composed)}
     tup = lambda r: r if isinstance(r, tuple) else (r,)  # noqa: E731
     for short, arm, tol, args, ws, other_bytes, ops in cases:
@@ -982,7 +1039,10 @@ def profile_session(torch, label, model, rt, audio, piece: int) -> None:
     step must be one kernel of its weights' type (``joint_step_q8_kernel``
     with int8 weights, ``joint_step_f32_kernel`` with f32), with none of
     the three launches of ``csrc/joint_step.cu`` (``argmax_reduce_kernel``)
-    beside it."""
+    beside it; each call of the FFN must be one kernel of its weights' type
+    (``ffn_q8_kernel``, ``ffn_f32_kernel``), with none of the five launches
+    of ``csrc/ffn.cu`` (``layernorm_kernel`` runs once a conv module call
+    and nowhere else)."""
     reset_counts()
     rows = profile_run(torch, label, "chunk",
                        lambda: len(run_session(torch, model, rt, audio, piece).chunk_latencies_ms))
@@ -1013,6 +1073,15 @@ def profile_session(torch, label, model, rt, audio, piece: int) -> None:
     assert (joint_q8, joint_f32) == ((joint, 0) if int8_joint else (0, joint)), (
         f"profile[{label}]: joint_step is not one {'int8' if int8_joint else 'f32'} kernel a call")
     assert joint_chain == 0, f"profile[{label}]: joint_step ran the three launches"
+    ffn, ffn_q8, ffn_f32, ln = (counts["ffn"], launched("ffn_q8_kernel"),
+                                launched("ffn_f32_kernel"), launched("port::layernorm_kernel"))
+    log(f"  profile[{label}]: {ffn} ffn calls, {ffn_q8} ffn_q8_kernel launches, {ffn_f32} "
+        f"ffn_f32_kernel launches, {ln} layernorm_kernel launches ({counts['conv_block']} "
+        f"conv_block calls)")
+    int8_ffn = rt.quant in ("encoder", "all")
+    assert (ffn_q8, ffn_f32) == ((ffn, 0) if int8_ffn else (0, ffn)), (
+        f"profile[{label}]: the FFN is not one {'int8' if int8_ffn else 'f32'} kernel a call")
+    assert ln == counts["conv_block"], f"profile[{label}]: the FFN ran the five launches"
 
 
 def profile_run(torch, label, unit: str, fn):
@@ -1139,6 +1208,11 @@ def full_width_session(torch, dev, n_words: int, seed: int):
                            tok, rt, dev, mel_k)
         torch.cuda.synchronize()
         made_ms = (time.perf_counter() - t0) * 1e3      # quantizing and packing included
+        packs = {k: sum(lp[k].numel() * lp[k].element_size() for lp in model.layers if k in lp)
+                 for k in ("att_block_packed", "ff1_packed", "ff2_packed", "conv_ffn_ln_packed")}
+        if any(packs.values()):
+            log(f"session[{name}]: the layers' weights packed once for their kernels, bytes: "
+                f"{ {k: v for k, v in packs.items() if v} }")
         if model.joint_packed is not None:
             log(f"session[{name}]: the joint's weights packed once for its kernel: "
                 f"{model.joint_packed.numel() * model.joint_packed.element_size()} B "

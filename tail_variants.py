@@ -39,6 +39,16 @@ times the source against another version of it (built as variant
 ``against``) in alternating pairs, kernel first, on one card: each pair's
 two medians (L2 scrubbed) and, at the end, the median of each side and of
 the per-pair differences.
+
+    python3 tail_variants.py --ffn [--f32] [--against OTHER.cu] [--pairs 10]
+
+does the same for the persistent FFN (``csrc/ffn_q8.cu``; with ``--f32``
+``csrc/ffn_f32.cu``) at a steady chunk's shapes (8 rows, D 1024, E 4096),
+held to its plain version at ``chip_smoke.py``'s tolerance (int8 1e-4, f32
+2e-4): the plain version and the five launches of ``csrc/ffn.cu`` beside
+it, the kernel, and its timeline (``att_variants.py``'s, a median over the
+blocks and the last block); with ``--f32``, the kernel at each ring stage
+count of ``--stages`` too.
 """
 
 from __future__ import annotations
@@ -223,6 +233,9 @@ def main() -> int:
     ap.add_argument("--against", help="another version of csrc/conv_ffn_ln.cu to time "
                                       "against the source in alternating pairs")
     ap.add_argument("--pairs", type=int, default=10)
+    ap.add_argument("--ffn", action="store_true", help="the int8 FFN, csrc/ffn_q8.cu")
+    ap.add_argument("--f32", action="store_true", help="with --ffn: csrc/ffn_f32.cu")
+    ap.add_argument("--stages", default="8,16,22", help="--ffn --f32: ring stage counts to time")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("tail_variants: no CUDA device", file=sys.stderr)
@@ -230,6 +243,9 @@ def main() -> int:
     print(cs.smi_line())
     dev = torch.device("cuda")
     timer = cs.Timer(torch, dev)
+    if opts.ffn:
+        return ffn_variants(timer, dev, opts.f32, opts.against, opts.pairs,
+                            [int(v) for v in opts.stages.split(",")])
     if opts.against:
         return compare(timer, dev, opts.against, opts.pairs)
     warm = cs.Timer(torch, dev)
@@ -315,6 +331,71 @@ def print_timeline(lib, timer, args, run) -> None:
         cols = [t[:rows, i] if i == 16 else t[:, i] for t in times]   # LN_out: a row a block
         print(f"  {i:2d} {name:28s} " + " | ".join(
             f"{np.median(c):7.3f} {c.max():7.3f}" for c in cols))
+
+
+# the FFN kernels' TL_MARKs, in order: what has happened by then
+MARKS_FFN_F32 = {0: "entry", 1: "copies issued", 2: "x, norms in", 3: "LN",
+                 17: "W1 sums (warp 0's)", 4: "W1 block synced", 5: "h", 6: "W2 partial (warp 0's)",
+                 7: "after the barrier", 8: "end"}
+MARKS_FFN_Q8 = {0: "entry", 1: "copies issued", 2: "x, norms in", 3: "LN, W1 in",
+                17: "W1 mma loop", 18: "W1 block synced", 4: "h written", 5: "after the barrier",
+                6: "h's copies issued, W2 in", 19: "W2 mma loop", 20: "W2 block synced",
+                7: "end"}
+
+
+def ffn_variants(timer, dev, f32: bool, against, pairs: int, stage_counts) -> int:
+    """The int8 (or f32) FFN beside its plain version and the five launches
+    it replaced, and its timeline; or against another version of its
+    source."""
+    import pathlib
+
+    import att_variants as av
+    from trt_asr_tpu_torch.ops.kernels import ffn as kf
+
+    rng = np.random.default_rng(1234)
+    t = lambda *s, sc=1.0: torch.as_tensor(  # noqa: E731
+        (rng.standard_normal(s) * sc).astype(np.float32), device=dev)
+    d, e = 1024, 4096
+    weight = (lambda w: w) if f32 else quantize_tensor
+    args = (t(8, d), 1.0 + t(d, sc=0.1), t(d, sc=0.1), weight(t(d, e, sc=d ** -0.5)),
+            weight(t(e, d, sc=e ** -0.5)))
+    name, tol = ("ffn_f32", 2e-4) if f32 else ("ffn_q8", 1e-4)
+    packed = kf.pack_ffn(*args[3:])                                 # as the model packs them
+    run = lambda: kf.fused_ffn(*args, packed=packed)  # noqa: E731
+    want = kf.fused_ffn_plain(*args)
+    src = (kb.CSRC_DIR / f"{name}.cu").read_text()
+    if against:
+        return av.compare(timer, run, (want,), src, pathlib.Path(against).read_text(), pairs,
+                          name, tol, out=lambda r: (r,))
+    warm = cs.Timer(torch, dev)
+    warm.scrub = torch.empty(16, dtype=torch.uint8, device=dev)      # L2 left as it is
+    libs = av.build({"kernel": src,
+                     "timeline": "#define TAIL_TIMELINE\n" + src + av.TIMELINE_READ}, name)
+    chain = lambda: kf.fused_ffn_chain(*args)  # noqa: E731
+    print(f"plain version {timer(lambda: kf.fused_ffn_plain(*args)):.4f} ms")
+    print(f"five launches (csrc/ffn.cu): {timer(chain):.4f} ms, L2 warm {warm(chain):.4f} ms, "
+          f"max |chain - plain| {cs.max_err((chain(),), (want,)):.3g}")
+    plan = kf.ffn_f32_plan
+    default = plan(d, e, torch.cuda.get_device_properties(0).multi_processor_count).stages
+    for variant, (lib, log) in libs.items():
+        regs = [r for r in cs.ptxas_kernels(log) if f"{name}_kernel" in r[0]][0]
+        kb._libs[name] = lib                     # the wrapper launches the variant
+        for stages in stage_counts if f32 and variant == "kernel" else [default]:
+            kf.ffn_f32_plan = lambda *a, _s=stages, **k: plan(*a, stages=_s, **k)
+            try:
+                err = cs.max_err((run(),), (want,))
+                assert err <= tol, f"variant {variant} disagrees with the plain version ({err:.3g})"
+                ring = f", {stages} stages" + (" (the plan's default)" if stages == default
+                                               else "") if f32 else ""
+                print(f"{variant}{ring}: {timer(run):.4f} ms, L2 warm {warm(run):.4f} ms, max "
+                      f"|variant - plain| {err:.3g}; {regs[1]} registers, spills "
+                      f"{regs[2]}/{regs[3]} B", flush=True)
+            finally:
+                kf.ffn_f32_plan = plan
+    av.print_timeline(libs["timeline"][0], timer, run, packed.shape[0],
+                      MARKS_FFN_F32 if f32 else MARKS_FFN_Q8)
+    kb._libs.pop(name)
+    return 0
 
 
 def _plan(args):

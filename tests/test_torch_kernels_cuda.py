@@ -51,7 +51,7 @@ from trt_asr_tpu_torch.ops.kernels.att_block import att_block, att_block_plain, 
 from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block, conv_block_plain,
                                                       conv_ffn_ln, conv_ffn_ln_plain,
                                                       pack_conv_ffn_ln)
-from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn, fused_ffn_plain
+from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn, fused_ffn_plain, pack_ffn
 from trt_asr_tpu_torch.ops.kernels.flash_att import (copy_widths, flash_bias_attention,
                                                      flash_bias_attention_plain)
 from trt_asr_tpu_torch.ops.kernels.joint_step import (joint_step, joint_step_plain,
@@ -323,11 +323,24 @@ def randn(dev, seed):
         (rng.standard_normal(s) * sc).astype(np.float32), device=dev)
 
 
+# (x's shape, D, E) of the FFN: the card-test widths, a ragged expansion
+# slice (E 200), two passes of 8 rows (13); with int8 or f32 weights (the
+# persistent kernels) also one row, 16 rows and the full width (D 1024, E
+# 4096: 128 blocks), where a steady chunk's 8 rows of int8 are held at
+# chip_smoke.py phase 2's 1e-4
+FFN_SHAPES = [((8,), 64, 128), ((1, 6), 64, 128), ((13,), 96, 200)]
+PERSISTENT_FFN_SHAPES = FFN_SHAPES + [((1,), 96, 200), ((2, 8), 64, 256), ((8,), 1024, 4096),
+                                      ((13,), 1024, 4096)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", WEIGHTS)
 def test_ffn_kernel_matches_plain(kind):
+    """With int8 and f32 weights (one cooperative launch a call) the weights
+    packed once beforehand (``packed``, as the model passes them) give the
+    same bits as those packed by the call."""
     dev = require_cuda()
-    for shape, d, e in [((8,), 64, 128), ((1, 6), 64, 128), ((13,), 96, 200)]:
+    for shape, d, e in FFN_SHAPES if kind == "bf16" else PERSISTENT_FFN_SHAPES:
         r = randn(dev, d + len(shape))
         x, g, b = r(*shape, d, sc=1.0), 1.0 + r(d, sc=0.2), r(d, sc=0.1)
         w1, w2 = as_weight(r(d, e, sc=d ** -0.5), kind), as_weight(r(e, d, sc=e ** -0.5), kind)
@@ -337,7 +350,52 @@ def test_ffn_kernel_matches_plain(kind):
         want = fused_ffn_plain(x, g, b, w1, w2, 0.5)
         torch.cuda.synchronize()
         atol = 1e-4 if kind == "f32" else 2e-3
+        if shape == (8,) and d == 1024:
+            atol = 1e-4
         torch.testing.assert_close(got, want, atol=atol, rtol=1e-4)
+        if kind != "bf16":
+            again = fused_ffn(x, g, b, w1, w2, 0.5, packed=pack_ffn(w1, w2))
+            torch.cuda.synchronize()
+            assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,kernel", [("int8", "ffn_q8_kernel"), ("f32", "ffn_f32_kernel")])
+def test_ffn_is_one_graph_replayable_launch(kind, kernel):
+    """With int8 and with f32 weights an FFN call is one cooperative launch
+    and no kernel of the five-launch chain (``csrc/ffn.cu``) runs; a CUDA
+    graph captures it, and the replay equals the direct call bit for bit
+    (the kernels add in a fixed order)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = require_cuda()
+    d, e = 1024, 4096
+    r = randn(dev, 17)
+    x, g, b = r(8, d, sc=1.0), 1.0 + r(d, sc=0.2), r(d, sc=0.1)
+    w1, w2 = as_weight(r(d, e, sc=d ** -0.5), kind), as_weight(r(e, d, sc=e ** -0.5), kind)
+    packed = pack_ffn(w1, w2)
+    call = lambda: fused_ffn(x, g, b, w1, w2, 0.5, packed=packed)  # noqa: E731
+    want = call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [ev.key for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA and "port::" in ev.key]
+    assert len(kernels) == 1 and kernel in kernels[0], kernels
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(2):
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
 
 
 def conv_inputs(dev, seed, tq, valid, d, kind):
@@ -406,6 +464,17 @@ def test_wrappers_raise_instead_of_falling_back():
     before = fused_ffn.launches
     with pytest.raises(ValueError, match="contiguous"):
         fused_ffn(x, g, b, r(64, 128), r(128, 64))
+    x = r(8, 64, sc=1.0)
+    with pytest.raises(ValueError, match="a multiple of 8"):          # D 60, int8
+        fused_ffn(r(8, 60), g[:60].contiguous(), b[:60].contiguous(),
+                  quantize_tensor(r(60, 128)), quantize_tensor(r(128, 60)))
+    fw = (r(64, 128), r(128, 64))
+    for wrong in (pack_ffn(*fw, sms=2),                               # another card's slices
+                  pack_ffn(*[quantize_tensor(w) for w in fw])):       # int8's layout
+        with pytest.raises(ValueError, match="do not fit the launch plan"):
+            fused_ffn(x, g, b, *fw, packed=wrong)
+    with pytest.raises(ValueError, match="int8 and f32 weights only"):
+        fused_ffn(x, g, b, *[w.bfloat16() for w in fw], packed=pack_ffn(*fw))
     assert fused_ffn.launches == before
     conv = list(conv_inputs(dev, 4, 8, 6, 64, "f32"))
     conv[10] = r(64, 4).t()                       # time cache, not contiguous
@@ -725,6 +794,7 @@ def test_offline_wrappers_raise_instead_of_falling_back():
     dict(quant="none", use_pallas_ffn=True, use_pallas_conv=True),
     dict(quant="all", use_pallas_ffn=True, use_pallas_conv=True),   # fused conv+FFN2+LN
     dict(quant="all", use_pallas_conv=True),                        # conv_block[int8]
+    dict(quant="all", use_pallas_ffn=True),                         # both FFNs, ffn[int8]
 ])
 def test_gate_r3_session_with_every_kernel_matches_cpu(flags):
     dev = require_cuda()
@@ -742,10 +812,15 @@ def test_gate_r3_session_with_every_kernel_matches_cpu(flags):
         sess.finalize()
         sessions.append(sess)
         counts.append([k.launches - n for k, n in zip(kernels, before)])
-    tail = flags["quant"] == "all" and flags.get("use_pallas_ffn", False)
-    assert (counts[0][0] > 0) == flags.get("use_pallas_ffn", False)
-    assert (counts[0][1] > 0) == (not tail) and (counts[0][2] > 0) == tail
+    ffn, conv = flags.get("use_pallas_ffn", False), flags.get("use_pallas_conv", False)
+    tail = flags["quant"] == "all" and ffn and conv
+    assert (counts[0][0] > 0) == ffn
+    assert (counts[0][1] > 0) == (conv and not tail) and (counts[0][2] > 0) == tail
     assert all(("conv_ffn_ln_packed" in lp) == tail for lp in gpu.layers)
+    # each FFN that the FFN kernel runs is packed once (FFN2 not in the tail)
+    assert all(("ff1_packed" in lp) == ffn and ("ff2_packed" in lp) == (ffn and not tail)
+               for lp in gpu.layers)
+    assert not any("ff1_packed" in lp or "ff2_packed" in lp for lp in cpu.layers)
     assert not any("conv_ffn_ln_packed" in lp for lp in cpu.layers)
     assert all("att_block_packed" in lp for lp in gpu.layers)    # int8 or f32: use_pallas_att
     assert not any("att_block_packed" in lp for lp in cpu.layers)

@@ -125,43 +125,6 @@ __device__ __forceinline__ void af_refill(int i, int R, int cD, int stages, cons
   }
 }
 
-// u = LN(x) of rows t < M of xs (row pitch `pitch`) in place, one warp a
-// row (eps 1e-5, the sums of ln_rows in csrc/persistent.cuh); with `out`,
-// also stored there (row pitch D)
-__device__ __forceinline__ void ln_rows_f32(float* xs, int pitch, int M, int D, const float* g,
-                                            const float* b, float* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int t = warp; t < M; t += TL_WARPS) {
-    float* xr = xs + (size_t)t * pitch;
-    float s = 0.f;
-    for (int i = 4 * lane; i < D; i += 128) {
-      const float4 v = *reinterpret_cast<const float4*>(xr + i);
-      s += v.x + v.y + v.z + v.w;
-    }
-    const float mu = warp_sum(s) / (float)D;
-    float q = 0.f;
-    for (int i = 4 * lane; i < D; i += 128) {
-      const float4 v = *reinterpret_cast<const float4*>(xr + i);
-      q = fmaf(v.x - mu, v.x - mu, q);
-      q = fmaf(v.y - mu, v.y - mu, q);
-      q = fmaf(v.z - mu, v.z - mu, q);
-      q = fmaf(v.w - mu, v.w - mu, q);
-    }
-    const float inv = 1.0f / sqrtf(warp_sum(q) / (float)D + 1e-5f);
-    for (int i = 4 * lane; i < D; i += 128) {
-      const float4 v = *reinterpret_cast<const float4*>(xr + i);
-      const float4 gg = *reinterpret_cast<const float4*>(g + i);
-      const float4 bb = *reinterpret_cast<const float4*>(b + i);
-      const float4 o = make_float4(__fadd_rn(__fmul_rn(__fmul_rn(v.x - mu, inv), gg.x), bb.x),
-                                   __fadd_rn(__fmul_rn(__fmul_rn(v.y - mu, inv), gg.y), bb.y),
-                                   __fadd_rn(__fmul_rn(__fmul_rn(v.z - mu, inv), gg.z), bb.z),
-                                   __fadd_rn(__fmul_rn(__fmul_rn(v.w - mu, inv), gg.w), bb.w));
-      *reinterpret_cast<float4*>(xr + i) = o;
-      if (out) *reinterpret_cast<float4*>(out + (size_t)t * D + i) = o;
-    }
-  }
-}
-
 // A warp's Q/K/V sums of run r: rows t < M of xs (row pitch Kp, zero in
 // [D, Kp)) over the run's K with the block's cD columns of Wq, Wk, Wv (w:
 // the run's slot, [3][AF_RUN / 4][cD][4]), K in order (FMAs), into red

@@ -86,24 +86,6 @@ enum { JF_PRED, JF_G, JF_OUT, JF_BARS };
 
 __host__ __device__ inline int jf_pad4(int n) { return (n + 3) & ~3; }
 
-// An L2 policy for data read once: its lines are evicted first, so the
-// weights streamed through L2 displace one another rather than lines that
-// would be written back (or read again)
-__device__ __forceinline__ uint64_t evict_first() {
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
-  return policy;
-}
-
-// bulk_copy (csrc/persistent.cuh) under an L2 policy
-__device__ __forceinline__ void bulk_copy_hint(void* dst, const void* src, uint32_t bytes,
-                                               uint64_t* bar, uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
-      " [%0], [%1], %2, [%3], %4;\n"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy) : "memory");
-}
-
 // A block's packed slice (pack_joint_f32 in ops/kernels/joint_step.py),
 // offsets in floats: W_pred's hc columns [hc][P] at 0; b_pred's hc values
 // at bp (zero to a multiple of 4); b_out's 8 gb values at bo; W_out's gb

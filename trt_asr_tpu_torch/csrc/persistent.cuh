@@ -1,10 +1,12 @@
-// Building blocks of the persistent int8 kernels (csrc/conv_ffn_ln.cu,
-// csrc/att_block_q8.cu, csrc/joint_step_q8.cu): one cooperative launch of
-// TL_THREADS-thread blocks, one an SM, each owning a column slice of every
-// product over the whole K.
+// Building blocks of the persistent kernels (csrc/conv_ffn_ln.cu,
+// csrc/att_block_q8.cu, csrc/joint_step_q8.cu, csrc/ffn_q8.cu and their f32
+// counterparts): one cooperative launch of TL_THREADS-thread blocks, one an
+// SM, each owning a slice of every product.
 //   - bulk copies (the copy engine) into shared memory, each group of copies
-//     completing on its own mbarrier;
-//   - LayerNorm of up to TL_MR rows, one warp a row, into bf16 operand rows;
+//     completing on its own mbarrier, optionally under an L2 evict-first
+//     policy for weights read once;
+//   - LayerNorm of up to TL_MR rows, one warp a row, into bf16 operand rows
+//     (or in place in f32);
 //   - products of TL_MR bf16 operand rows with int8 weight groups of TL_GW
 //     columns ([K / 16][8 columns][16 rows], as the packers in
 //     ops/kernels/conv_block.py and ops/kernels/att_block.py lay them out),
@@ -68,6 +70,24 @@ __device__ __forceinline__ void bulk_rows(void* dst, size_t dp, const void* src,
               bar);
 }
 
+// An L2 policy for data read once: its lines are evicted first, so the
+// weights streamed through L2 displace one another rather than lines that
+// would be written back (or read again)
+__device__ __forceinline__ uint64_t evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// bulk_copy under an L2 policy
+__device__ __forceinline__ void bulk_copy_hint(void* dst, const void* src, uint32_t bytes,
+                                               uint64_t* bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1], %2, [%3], %4;\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy) : "memory");
+}
+
 // The operand rows m0 .. m0 + mr - 1 of the bf16 matrix src [*, K] into
 // act (row pitch `pitch` elements) in four K chunks, chunk c on bars[c]
 // holding the steps of warps [c, c + 1) x TL_CHUNK_WARPS of block_product,
@@ -126,6 +146,43 @@ __device__ __forceinline__ void ln_rows(bf16* act, int pitch, const float* xs, i
   }
   for (int i = D + 4 * lane; i < tail_pad(D); i += 128)
     *reinterpret_cast<uint2*>(ar + i) = make_uint2(0u, 0u);
+}
+
+// u = LN(x) of rows t < M of xs (row pitch `pitch`) in place, f32, one
+// warp a row (eps 1e-5, the sums of ln_rows); with `out`, also stored
+// there (row pitch D)
+__device__ __forceinline__ void ln_rows_f32(float* xs, int pitch, int M, int D, const float* g,
+                                            const float* b, float* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int t = warp; t < M; t += TL_WARPS) {
+    float* xr = xs + (size_t)t * pitch;
+    float s = 0.f;
+    for (int i = 4 * lane; i < D; i += 128) {
+      const float4 v = *reinterpret_cast<const float4*>(xr + i);
+      s += v.x + v.y + v.z + v.w;
+    }
+    const float mu = warp_sum(s) / (float)D;
+    float q = 0.f;
+    for (int i = 4 * lane; i < D; i += 128) {
+      const float4 v = *reinterpret_cast<const float4*>(xr + i);
+      q = fmaf(v.x - mu, v.x - mu, q);
+      q = fmaf(v.y - mu, v.y - mu, q);
+      q = fmaf(v.z - mu, v.z - mu, q);
+      q = fmaf(v.w - mu, v.w - mu, q);
+    }
+    const float inv = 1.0f / sqrtf(warp_sum(q) / (float)D + 1e-5f);
+    for (int i = 4 * lane; i < D; i += 128) {
+      const float4 v = *reinterpret_cast<const float4*>(xr + i);
+      const float4 gg = *reinterpret_cast<const float4*>(g + i);
+      const float4 bb = *reinterpret_cast<const float4*>(b + i);
+      const float4 o = make_float4(__fadd_rn(__fmul_rn(__fmul_rn(v.x - mu, inv), gg.x), bb.x),
+                                   __fadd_rn(__fmul_rn(__fmul_rn(v.y - mu, inv), gg.y), bb.y),
+                                   __fadd_rn(__fmul_rn(__fmul_rn(v.z - mu, inv), gg.z), bb.z),
+                                   __fadd_rn(__fmul_rn(__fmul_rn(v.w - mu, inv), gg.w), bb.w));
+      *reinterpret_cast<float4*>(xr + i) = o;
+      if (out) *reinterpret_cast<float4*>(out + (size_t)t * D + i) = o;
+    }
+  }
 }
 
 // act rows r < mr (pitch): zero in [K, tail_pad(K))

@@ -31,6 +31,7 @@ from trt_asr_tpu_torch.ops.conv import (depthwise_conv1d, dw_striding_subsample,
 from trt_asr_tpu_torch.ops.kernels.att_block import att_block, pack_att_block
 from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block, conv_ffn_ln,
                                                       pack_conv_ffn_ln)
+from trt_asr_tpu_torch.ops.kernels import ffn as kernel_ffn
 from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn
 from trt_asr_tpu_torch.ops.quant import QuantTensor, bf16_copy, dequantize, keep_bf16_copy
 
@@ -99,7 +100,7 @@ def _append_cache(cache: torch.Tensor, block: torch.Tensor,
 
 
 def layer_params(params: Dict[str, Any], num_layers: int, pack_tail: bool = False,
-                 pack_att: bool = False) -> List[Dict[str, Any]]:
+                 pack_att: bool = False, pack_ffn: bool = False) -> List[Dict[str, Any]]:
     """Per-layer views of the stacked [L, ...] layer parameters (compute
     once per model and pass to :func:`encode` as ``layers``); an int8
     weight's view carries its layer of the bf16 copy the model keeps on the
@@ -109,7 +110,11 @@ def layer_params(params: Dict[str, Any], num_layers: int, pack_tail: bool = Fals
     fused tail kernel (``conv_ffn_ln_packed``, :func:`pack_conv_ffn_ln`);
     with ``pack_att``, one whose attention weights are int8 or f32 on the
     card holds them packed once for the attention-block kernel of that type
-    (``att_block_packed``, :func:`pack_att_block`)."""
+    (``att_block_packed``, :func:`pack_att_block`); with ``pack_ffn``, each
+    FFN whose weights are int8 or f32 on the card holds them packed once
+    for the FFN kernel of that type (``ff1_packed``, ``ff2_packed``,
+    :func:`~trt_asr_tpu_torch.ops.kernels.ffn.pack_ffn`), FFN2 only where the
+    fused tail does not take it."""
     stacked = params["encoder"]["layers"]
     out = []
     for li in range(num_layers):
@@ -121,8 +126,13 @@ def layer_params(params: Dict[str, Any], num_layers: int, pack_tail: bool = Fals
                 lp["conv_pw1"], lp["conv_dw"], lp["conv_bn_g"], lp["conv_bn_b"],
                 lp["conv_bn_m"], lp["conv_bn_v"], lp["conv_pw2"], lp["ff2_w1"], lp["ff2_w2"])
         att = [lp[k] for k in ("att_wq", "att_wk", "att_wv", "att_wo")]
-        if pack_att and _persistent_att(att):
+        if pack_att and _persistent_weights(att):
             lp["att_block_packed"] = pack_att_block(*att)
+        for f in ("ff1", "ff2"):
+            ws = lp[f"{f}_w1"], lp[f"{f}_w2"]
+            tail = f == "ff2" and pack_tail and _int8_tail(lp)
+            if pack_ffn and not tail and _persistent_weights(ws):
+                lp[f"{f}_packed"] = kernel_ffn.pack_ffn(*ws)
         out.append(lp)
     return out
 
@@ -137,13 +147,14 @@ def _layer_weight(v: QuantTensor, li: int) -> QuantTensor:
     return QuantTensor(q, v.s[li])
 
 
-def _persistent_att(att) -> bool:
-    """Whether attention weights on the card take a persistent kernel: all
-    int8 or all f32 (bf16 weights take the chain)."""
-    if all(isinstance(w, QuantTensor) for w in att):
-        return att[0].q.is_cuda
+def _persistent_weights(ws) -> bool:
+    """Whether a module's weights on the card take a persistent kernel (the
+    attention block's, the FFN's): all int8 or all f32 (bf16 weights take
+    the chain)."""
+    if all(isinstance(w, QuantTensor) for w in ws):
+        return ws[0].q.is_cuda
     return all(isinstance(w, torch.Tensor) and w.dtype == torch.float32 and w.is_cuda
-               for w in att)
+               for w in ws)
 
 
 def _int8_tail(lp) -> bool:
@@ -170,13 +181,14 @@ def _conformer_layer(lp, x, att_cache, time_cache, kv_cache, pos_proj, kv_mask,
     dh = d // n_heads
     streaming = att_cache is not None
 
-    def ffn(xx, ln_g, ln_b, w1, w2):
+    def ffn(xx, f):
+        ln_g, ln_b, w1, w2 = (lp[f"{f}_{k}"] for k in ("ln_g", "ln_b", "w1", "w2"))
         if use_pallas_ffn:
-            return fused_ffn(xx, ln_g, ln_b, w1, w2, scale=0.5)
+            return fused_ffn(xx, ln_g, ln_b, w1, w2, scale=0.5, packed=lp.get(f"{f}_packed"))
         hh = layer_norm(xx, ln_g, ln_b)
         return xx + 0.5 * matmul(silu(matmul(hh, w1)), w2)
 
-    x = ffn(x, lp["ff1_ln_g"], lp["ff1_ln_b"], lp["ff1_w1"], lp["ff1_w2"])
+    x = ffn(x, "ff1")
 
     if att_meta is not None:
         y1, u1, kn1, vn1 = att_block(
@@ -235,7 +247,7 @@ def _conformer_layer(lp, x, att_cache, time_cache, kv_cache, pos_proj, kv_mask,
     if streaming:
         time_cache.copy_(_append_cache(time_cache, c[:, :cache_keep], appended))
 
-    x = ffn(x, lp["ff2_ln_g"], lp["ff2_ln_b"], lp["ff2_w1"], lp["ff2_w2"])
+    x = ffn(x, "ff2")
     return layer_norm(x, lp["out_ln_g"], lp["out_ln_b"])
 
 

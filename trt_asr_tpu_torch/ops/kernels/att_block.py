@@ -24,11 +24,11 @@ from typing import NamedTuple, Tuple
 import torch
 
 from trt_asr_tpu_torch.ops.kernels import build as kb
-from trt_asr_tpu_torch.ops.kernels.conv_block import (SMEM_PER_BLOCK, TAIL_GROUP, TAIL_KSTEP,
+from trt_asr_tpu_torch.ops.kernels.ffn import layer_norm_plain
+from trt_asr_tpu_torch.ops.kernels.persistent import (SMEM_PER_BLOCK, TAIL_GROUP, TAIL_KSTEP,
                                                       TAIL_ROWS, TAIL_WARPS, align16,
                                                       column_slices, pack_columns, pad_k,
                                                       pack_tail_weight, sm_count)
-from trt_asr_tpu_torch.ops.kernels.ffn import layer_norm_plain
 from trt_asr_tpu_torch.ops.quant import (QuantTensor, is_low_precision, round_bf16,
                                          scaled_matmul)
 

@@ -16,7 +16,6 @@ post-GLU rows whose first ``cache_keep`` rows feed the time cache.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
@@ -24,6 +23,10 @@ import torch
 from trt_asr_tpu_torch.ops.common import silu
 from trt_asr_tpu_torch.ops.kernels import build as kb
 from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn_plain, layer_norm_plain
+from trt_asr_tpu_torch.ops.kernels.persistent import (SMEM_PER_BLOCK, TAIL_GROUP, TAIL_KSTEP,
+                                                      TAIL_ROWS, TAIL_WARPS, align16,
+                                                      column_slices, pack_columns, pad_k,
+                                                      pack_tail_weight, sm_count)
 from trt_asr_tpu_torch.ops.quant import QuantTensor, is_low_precision, round_bf16, scaled_matmul
 
 
@@ -126,29 +129,6 @@ class TailPlan(NamedTuple):
     scratch: int         # bytes of device scratch: a, y1, h, y2
 
 
-TAIL_WARPS = 16              # csrc/conv_ffn_ln.cu TL_WARPS
-TAIL_ROWS = 8                # rows of a product pass (TL_MR)
-TAIL_GROUP = 8               # columns of a weight group (TL_GW)
-TAIL_KSTEP = 16              # K of an mma step (TL_KS)
-SMEM_PER_BLOCK = 232_448     # the H100's opt-in shared memory a block
-
-
-def align16(n: int) -> int:
-    return (n + 15) // 16 * 16
-
-
-def pad_k(k: int) -> int:
-    return -(-k // TAIL_KSTEP) * TAIL_KSTEP
-
-
-def column_slices(d: int, sms: int) -> tuple[int, int]:
-    """(columns a block, blocks) of a persistent int8 kernel: the fewest
-    8-column groups a block that cover D with at most ``sms`` blocks, one
-    an SM."""
-    cols = TAIL_GROUP * -(-(d // TAIL_GROUP) // sms)
-    return cols, -(-d // cols)
-
-
 def _tail_weight_bytes(d: int, e: int, cd: int, ce: int) -> int:
     """A block's int8 slices of pw1, pw2, W1, W2 (K padded to 16)."""
     return pad_k(d) * (3 * cd + ce) + pad_k(e) * cd
@@ -187,40 +167,6 @@ def conv_ffn_ln_plan(tq: int, d: int, e: int, kk: int, sms: int,
         raise ValueError(f"conv_ffn_ln: {smem} B of shared memory a block at Tq={tq}, D={d}, "
                          f"E={e} exceeds {smem_limit} B")
     return TailPlan(blocks, cd, ce, smem, tq * (10 * d + 2 * e))
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def pack_tail_weight(q: torch.Tensor, cols: int, blocks: int, glu: bool = False):
-    """The int8 matrix q [K, N] as the fused tail's blocks read it: block b's
-    ``cols`` columns b * cols .. contiguous, 8 columns a group, each group
-    as [Kp / 16][8 columns][16 rows] (the mma's B operand, a column's 16
-    rows of a step adjacent; K padded to Kp, a multiple of 16, and columns
-    past N with zeros): [blocks, cols / 8, Kp / 16, 8, 16]. With ``glu``
-    (pw1, N = 2D) each block's groups of columns n in [0, D) come first,
-    then those of their gates n + D: [blocks, 2 cols / 8, Kp / 16, 8, 16]."""
-    k, n = q.shape
-    kp, g = pad_k(k), TAIL_GROUP
-    halves = (q[:, : n // 2], q[:, n // 2:]) if glu else (q,)
-    packed = []
-    for w in halves:
-        p = w.new_zeros((kp, blocks * cols))
-        p[:k, : w.shape[1]] = w
-        packed.append(p.view(kp // TAIL_KSTEP, TAIL_KSTEP, blocks, cols // g, g)
-                      .permute(2, 3, 0, 4, 1))
-    return torch.cat(packed, dim=1).contiguous()
-
-
-def pack_columns(v: torch.Tensor, cols: int, blocks: int) -> torch.Tensor:
-    """[rows, N] f32 (or [N]) -> [blocks, rows * cols]: block b's columns
-    b * cols .. of each row, zero past N."""
-    v = v.reshape(-1, v.shape[-1]).float()
-    p = v.new_zeros((v.shape[0], blocks * cols))
-    p[:, : v.shape[1]] = v
-    return p.view(v.shape[0], blocks, cols).permute(1, 0, 2).reshape(blocks, -1)
 
 
 def pack_tail(pw1, pw2, w1, w2, s1, s2, fs1, fs2, dw, bn, plan: TailPlan) -> torch.Tensor:

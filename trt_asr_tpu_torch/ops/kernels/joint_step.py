@@ -18,7 +18,7 @@ from typing import NamedTuple
 import torch
 
 from trt_asr_tpu_torch.ops.kernels import build as kb
-from trt_asr_tpu_torch.ops.kernels.conv_block import (SMEM_PER_BLOCK, TAIL_GROUP, TAIL_KSTEP,
+from trt_asr_tpu_torch.ops.kernels.persistent import (SMEM_PER_BLOCK, TAIL_GROUP, TAIL_KSTEP,
                                                       TAIL_ROWS, TAIL_WARPS, align16,
                                                       pack_columns, pack_tail_weight, pad_k,
                                                       sm_count)
