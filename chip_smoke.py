@@ -12,9 +12,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the dynamic shared memory and blocks an SM of the flash kernels (bf16
    and f32), of the bf16 rel-shift kernel, of the fused conv + FFN2 +
    out-LN tail, of the int8 and f32 attention blocks, of the int8 and f32
-   joint steps and of the int8 and f32 FFNs (each one cooperative launch:
-   its grid at full width must be resident at once), and the log-mel
-   kernel's grid at a 0.5 s push.
+   joint steps, of the int8 and f32 FFNs and of the int8 and f32 conv
+   modules (each one cooperative launch: its grid at full width must be
+   resident at once), and the log-mel kernel's grid at a 0.5 s push.
 2. each kernel against its plain PyTorch version on the card at the
    full-size main-path shapes (a steady chunk: 8 rows, 6 valid; f32 and
    int8 weights for the attention block, the joint step, the FFN and the
@@ -38,7 +38,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    (``csrc/ffn_q8.cu``, ``csrc/ffn_f32.cu``) run on their weights packed
    once, as the model packs them, are captured and replayed, and are timed
    beside the five launches of ``csrc/ffn.cu`` that they replaced (which
-   bf16 weights keep). The log-mel kernel runs at T 1,
+   bf16 weights keep). The int8 and f32 conv modules
+   (``csrc/conv_block_q8.cu``, ``csrc/conv_block_f32.cu``) run on their
+   constants packed once, as the model packs them, are captured and
+   replayed, and are timed beside the five launches of
+   ``csrc/conv_block.cu`` that they replaced (which bf16 weights keep).
+   The log-mel kernel runs at T 1,
    50 (a 0.5 s push, the kernels line's reading), 51 and 300 (a flush),
    each held at 1e-3, timed beside its plain version and replayed from a
    captured graph.
@@ -65,14 +70,17 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``joint_step_f32_kernel`` with f32, and no ``argmax_reduce_kernel`` (the
    three-launch route) runs; every call of the FFN is one ``ffn_q8_kernel``
    with int8 weights and one ``ffn_f32_kernel`` with f32, and no kernel of
-   the FFN's five-launch chain runs (``layernorm_kernel`` launches only
-   for the conv module's chain, one a call). The bytes of each arm's
-   packed FFN, attention and tail copies are logged. No int8 arm widens an
+   the FFN's five-launch chain runs; every call of the conv module is one
+   ``conv_block_q8_kernel`` with int8 weights and one
+   ``conv_block_f32_kernel`` with f32, and no kernel of its five-launch
+   chain runs (no ``conv_module_kernel``, ``small_m_gemm_*`` or
+   ``layernorm_kernel`` in any arm). The bytes of each arm's packed FFN,
+   attention, conv and tail copies are logged. No int8 arm widens an
    int8 weight at a call (``q8_matmul.widened`` stays 0: the model's bf16
    copies feed the tensor cores), here and in phase 4; the memory the
    copies take is logged. Each int8 arm's tokens are set beside those of
    its session on the port's previous int8 routes (q widened to f32 at
-   each call, the three-launch joint step).
+   each call, the three-launch joint step, the five-launch conv module).
    Phase 2 also holds the offline kernels, rel shift (f32, bf16) and
    flash attention (f32, bf16), at the offline batch's shapes (B 8, T 368,
    H 8, dh 128; a short row and a zero-length row in the mask). bf16 rel
@@ -173,9 +181,13 @@ KERNEL_SRCS = {
             "trt_asr_tpu/ops/pallas/ffn_kernel.py:115", {"f32": "f32_all"}),
     "ffnq": ("ffn", "trt_asr_tpu_torch/csrc/ffn_q8.cu",
              "trt_asr_tpu/ops/pallas/ffn_kernel.py:115", {"int8": "int8_all"}),
-    "conv": ("conv_block", "trt_asr_tpu_torch/csrc/conv_block.cu",
-             "trt_asr_tpu/ops/pallas/conv_block_kernel.py:99",
-             {"f32": "f32_all", "int8": "int8_conv"}),
+    # the conv module with f32 and with int8 weights: a persistent kernel
+    # each (bf16 weights keep the five launches of csrc/conv_block.cu, on
+    # no path yet)
+    "conv": ("conv_block", "trt_asr_tpu_torch/csrc/conv_block_f32.cu",
+             "trt_asr_tpu/ops/pallas/conv_block_kernel.py:99", {"f32": "f32_all"}),
+    "convq": ("conv_block", "trt_asr_tpu_torch/csrc/conv_block_q8.cu",
+              "trt_asr_tpu/ops/pallas/conv_block_kernel.py:99", {"int8": "int8_conv"}),
     "tail": ("conv_ffn_ln", "trt_asr_tpu_torch/csrc/conv_ffn_ln.cu",
              "trt_asr_tpu/ops/pallas/conv_block_kernel.py:184", {"int8": "int8_all"}),
     # offline kernels: the offline arm reads their launches (rel shift runs
@@ -310,12 +322,13 @@ def log_resources(torch, build, cfg) -> None:
     kernels, the bf16 rel-shift kernel (bf16 at the full-width head dim),
     the fused tail, the int8 and f32 attention blocks and the int8 and f32
     joint steps (a steady chunk's 8 rows at full width; the CUDA occupancy
-    API), the int8 and f32 FFNs (the same rows), and the log-mel kernel's
-    grid at a 0.5 s push (50 frames)."""
+    API), the int8 and f32 FFNs and conv modules (the same rows), and the
+    log-mel kernel's grid at a 0.5 s push (50 frames)."""
     import ctypes
 
     from trt_asr_tpu_torch.ops.kernels.att_block import att_block_f32_plan, att_block_q8_plan
-    from trt_asr_tpu_torch.ops.kernels.conv_block import conv_ffn_ln_plan
+    from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block_f32_plan,
+                                                          conv_block_q8_plan, conv_ffn_ln_plan)
     from trt_asr_tpu_torch.ops.kernels.ffn import ffn_f32_plan, ffn_q8_plan
     from trt_asr_tpu_torch.ops.kernels.joint_step import joint_step_f32_plan, joint_step_q8_plan
     from trt_asr_tpu_torch.ops.kernels.mel import MEL_CL, logmel_plan
@@ -391,6 +404,18 @@ def log_resources(torch, build, cfg) -> None:
             f"and {plan.cols_d} columns of y{ring}, {plan.smem} B of dynamic shared memory, "
             f"{info[0]} blocks an SM, {sms} SMs")
         assert info[0] >= 1 and plan.blocks <= info[0] * sms, f"ffn[{arm}]'s grid is not resident"
+    kk = cfg.conv_kernel_size
+    for arm, plan, lib_name in (("int8", conv_block_q8_plan(8, cfg.d_model, kk, sms),
+                                 "conv_block_q8"),
+                                ("f32", conv_block_f32_plan(8, cfg.d_model, kk, sms),
+                                 "conv_block_f32")):
+        lib = build.load(lib_name)
+        build.check(lib, getattr(lib, f"{lib_name}_occupancy")(plan.smem, ctypes.addressof(info)),
+                    f"{lib_name}_occupancy")
+        log(f"  conv_block[{arm}] at Tq 8: {plan.blocks} blocks of {plan.cols_d} columns, "
+            f"{plan.smem} B of dynamic shared memory, {info[0]} blocks an SM, {sms} SMs")
+        assert info[0] >= 1 and plan.blocks <= info[0] * sms, (
+            f"conv_block[{arm}]'s grid is not resident")
     plan = logmel_plan(50, 400, 257, cfg.feat_in)
     log(f"  logmel[f32] at 50 frames: {plan.frame_tiles} clusters of {MEL_CL} blocks = "
         f"{plan.frame_tiles * MEL_CL} blocks on {sms} SMs, {plan.bins} DFT bins a block, "
@@ -413,8 +438,9 @@ def check_rounding_points(label, tol, got, unrounded) -> None:
 def check_kernels(torch, dev, timer, cfg):
     from trt_asr_tpu_torch.ops.kernels.att_block import (att_block, att_block_chain,
                                                          att_block_plain, pack_att_block)
-    from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block, conv_block_plain,
-                                                          conv_ffn_ln, conv_ffn_ln_plain,
+    from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block, conv_block_chain,
+                                                          conv_block_plain, conv_ffn_ln,
+                                                          conv_ffn_ln_plain, pack_conv_block,
                                                           pack_conv_ffn_ln)
     from trt_asr_tpu_torch.ops.kernels.ffn import (fused_ffn, fused_ffn_chain, fused_ffn_plain,
                                                    layer_norm_plain, pack_ffn)
@@ -613,9 +639,42 @@ def check_kernels(torch, dev, timer, cfg):
         assert rec["ms"] < chain_ms, f"ffn[{arm}] is not faster than the chain it replaced"
         check_graph_capture(torch, f"ffn[{arm}]", lambda: (kernel(),), (), (got,))
 
+    # the conv module: int8 and f32 weights take their persistent kernels on
+    # constants packed once, as the model packs them, each timed beside the
+    # five launches it replaced
+    for arm, short, tol, (a1, a2) in (("f32", "conv", 2e-4, (pw1, pw2)),
+                                      ("int8", "convq", 1e-4, (qpw1, qpw2))):
+        t0 = time.perf_counter()
+        packed = pack_conv_block(a1, dw, *bn, a2)
+        torch.cuda.synchronize()
+        log(f"  conv_block[{arm}]: one layer's constants packed in "
+            f"{1e3 * (time.perf_counter() - t0):.2f} ms "
+            f"({packed.numel() * packed.element_size()} B)")
+        args = conv_args(a1, a2)
+        got = conv_block(*args, packed=packed)
+        want = conv_block_plain(*args)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        log(f"conv_block[{arm}]: max |kernel - plain| over the outputs = {err:.3g} "
+            f"(tolerance {tol:g})")
+        assert err <= tol, f"conv_block[{arm}] disagrees with its plain version"
+        if arm == "int8":
+            check_rounding_points("conv_block[int8]", tol, got, conv_block_plain(
+                *conv_args(dequantize(a1), dequantize(a2))))
+        kernel = lambda: conv_block(*args, packed=packed)  # noqa: E731
+        rec = records[f"{arm}_{short}"] = measure(
+            f"conv_block[{arm}]", timer, err, kernel, lambda: conv_block_plain(*args),
+            conv_bytes + wbytes(a1) + wbytes(a2), conv_ops, "f32" if arm == "f32" else "bf16")
+        # the five launches that the kernel replaced, in the same call
+        chain = lambda: conv_block_chain(*args)  # noqa: E731
+        chain_err = max_err(chain(), want)
+        chain_ms = timer(chain)
+        log(f"  conv_block[{arm}] five launches (csrc/conv_block.cu): {chain_ms:.4f} ms (host "
+            f"enqueue {timer.host_us:.1f} us/call), max |chain - plain| {chain_err:.3g}")
+        assert rec["ms"] < chain_ms, f"conv_block[{arm}] is not faster than the chain it replaced"
+        check_graph_capture(torch, f"conv_block[{arm}]", kernel, (), got)
+
     cases = [  # short name, arm, tolerance, arguments, weights, other bytes, ops
-        ("conv", "f32", 2e-4, conv_args(pw1, pw2), (pw1, pw2), conv_bytes, conv_ops),
-        ("conv", "int8", 1e-4, conv_args(qpw1, qpw2), (qpw1, qpw2), conv_bytes, conv_ops),
         ("tail", "int8", 1e-4, (*conv_args(qpw1, qpw2), *fln, qw1, qw2, *oln),
          (qpw1, qpw2, qw1, qw2), conv_bytes + 4 * d * 4, conv_ops + ffn_ops),
     ]
@@ -637,8 +696,7 @@ def check_kernels(torch, dev, timer, cfg):
     def tail_kernel(*a):
         return conv_ffn_ln(*a, packed=tail_packed)
 
-    kernels = {"conv": (conv_block, conv_block_plain, conv_block_plain),
-               "tail": (tail_kernel, conv_ffn_ln_plain, tail_composed)}
+    kernels = {"tail": (tail_kernel, conv_ffn_ln_plain, tail_composed)}
     tup = lambda r: r if isinstance(r, tuple) else (r,)  # noqa: E731
     for short, arm, tol, args, ws, other_bytes, ops in cases:
         name = KERNEL_SRCS[short][0]
@@ -656,8 +714,7 @@ def check_kernels(torch, dev, timer, cfg):
         records[f"{arm}_{short}"] = measure(
             f"{name}[{arm}]", timer, err, lambda: kernel(*args), lambda: plain(*args),
             nbytes, ops, "f32" if arm == "f32" else "bf16")
-        if short == "tail":
-            check_graph_capture(torch, f"{name}[{arm}]", kernel, args, got)
+        check_graph_capture(torch, f"{name}[{arm}]", kernel, args, got)
     return records
 
 
@@ -1041,8 +1098,11 @@ def profile_session(torch, label, model, rt, audio, piece: int) -> None:
     the three launches of ``csrc/joint_step.cu`` (``argmax_reduce_kernel``)
     beside it; each call of the FFN must be one kernel of its weights' type
     (``ffn_q8_kernel``, ``ffn_f32_kernel``), with none of the five launches
-    of ``csrc/ffn.cu`` (``layernorm_kernel`` runs once a conv module call
-    and nowhere else)."""
+    of ``csrc/ffn.cu``; each call of the conv module must be one kernel of
+    its weights' type (``conv_block_q8_kernel``, ``conv_block_f32_kernel``),
+    and no kernel of the five launches of ``csrc/conv_block.cu``
+    (``conv_module_kernel``, ``small_m_gemm_*``, ``layernorm_kernel``) runs
+    in any arm."""
     reset_counts()
     rows = profile_run(torch, label, "chunk",
                        lambda: len(run_session(torch, model, rt, audio, piece).chunk_latencies_ms))
@@ -1073,15 +1133,24 @@ def profile_session(torch, label, model, rt, audio, piece: int) -> None:
     assert (joint_q8, joint_f32) == ((joint, 0) if int8_joint else (0, joint)), (
         f"profile[{label}]: joint_step is not one {'int8' if int8_joint else 'f32'} kernel a call")
     assert joint_chain == 0, f"profile[{label}]: joint_step ran the three launches"
-    ffn, ffn_q8, ffn_f32, ln = (counts["ffn"], launched("ffn_q8_kernel"),
-                                launched("ffn_f32_kernel"), launched("port::layernorm_kernel"))
+    ffn, ffn_q8, ffn_f32 = (counts["ffn"], launched("ffn_q8_kernel"),
+                            launched("ffn_f32_kernel"))
     log(f"  profile[{label}]: {ffn} ffn calls, {ffn_q8} ffn_q8_kernel launches, {ffn_f32} "
-        f"ffn_f32_kernel launches, {ln} layernorm_kernel launches ({counts['conv_block']} "
-        f"conv_block calls)")
-    int8_ffn = rt.quant in ("encoder", "all")
-    assert (ffn_q8, ffn_f32) == ((ffn, 0) if int8_ffn else (0, ffn)), (
-        f"profile[{label}]: the FFN is not one {'int8' if int8_ffn else 'f32'} kernel a call")
-    assert ln == counts["conv_block"], f"profile[{label}]: the FFN ran the five launches"
+        f"ffn_f32_kernel launches")
+    int8_enc = rt.quant in ("encoder", "all")
+    assert (ffn_q8, ffn_f32) == ((ffn, 0) if int8_enc else (0, ffn)), (
+        f"profile[{label}]: the FFN is not one {'int8' if int8_enc else 'f32'} kernel a call")
+    conv, conv_q8, conv_f32 = (counts["conv_block"], launched("conv_block_q8_kernel"),
+                               launched("conv_block_f32_kernel"))
+    chain = {k: launched(k) for k in ("conv_module_kernel", "small_m_gemm",
+                                      "port::layernorm_kernel")}
+    log(f"  profile[{label}]: {conv} conv_block calls, {conv_q8} conv_block_q8_kernel "
+        f"launches, {conv_f32} conv_block_f32_kernel launches; the chains' kernels "
+        f"(csrc/conv_block.cu, csrc/ffn.cu): {chain}")
+    assert (conv_q8, conv_f32) == ((conv, 0) if int8_enc else (0, conv)), (
+        f"profile[{label}]: the conv module is not one {'int8' if int8_enc else 'f32'} kernel "
+        f"a call")
+    assert not any(chain.values()), f"profile[{label}]: a chain ran: {chain}"
 
 
 def profile_run(torch, label, unit: str, fn):
@@ -1209,7 +1278,8 @@ def full_width_session(torch, dev, n_words: int, seed: int):
         torch.cuda.synchronize()
         made_ms = (time.perf_counter() - t0) * 1e3      # quantizing and packing included
         packs = {k: sum(lp[k].numel() * lp[k].element_size() for lp in model.layers if k in lp)
-                 for k in ("att_block_packed", "ff1_packed", "ff2_packed", "conv_ffn_ln_packed")}
+                 for k in ("att_block_packed", "ff1_packed", "ff2_packed", "conv_block_packed",
+                           "conv_ffn_ln_packed")}
         if any(packs.values()):
             log(f"session[{name}]: the layers' weights packed once for their kernels, bytes: "
                 f"{ {k: v for k, v in packs.items() if v} }")
@@ -1290,22 +1360,26 @@ def full_width_session(torch, dev, n_words: int, seed: int):
 @contextlib.contextmanager
 def previous_int8_routes(torch):
     """The int8 routes the port took before the tensor-core products and
-    the persistent joint step, for comparing their tokens: ``q8_matmul``
-    widening q to f32 at every call (the f32 product on the CUDA cores,
-    TF32 off), the int8 joint step through the three launches of
-    ``csrc/joint_step.cu``."""
+    the persistent joint step and conv module, for comparing their tokens:
+    ``q8_matmul`` widening q to f32 at every call (the f32 product on the
+    CUDA cores, TF32 off), the int8 joint step through the three launches
+    of ``csrc/joint_step.cu``, the conv module through the five launches of
+    ``csrc/conv_block.cu``."""
+    from trt_asr_tpu_torch.models.parakeet import encoder
     from trt_asr_tpu_torch.ops import quant
+    from trt_asr_tpu_torch.ops.kernels import conv_block as cb
     from trt_asr_tpu_torch.ops.kernels import joint_step as js
 
-    saved = quant._q8_matmul_cuda, js._joint_step_q8
+    saved = quant._q8_matmul_cuda, js._joint_step_q8, encoder.conv_block
     quant._q8_matmul_cuda = quant._q8_matmul_f32
     js._joint_step_q8 = lambda e, g, wp, bp, wo, bo, ths, ndur, blank_id, penalty, packed: (
         js.joint_step_chain(e, g, wp, bp, wo, bo, ths=ths, ndur=ndur, blank_id=blank_id,
                             blank_penalty=penalty))
+    encoder.conv_block = lambda *args, packed=None: cb.conv_block_chain(*args)
     try:
         yield
     finally:
-        quant._q8_matmul_cuda, js._joint_step_q8 = saved
+        quant._q8_matmul_cuda, js._joint_step_q8, encoder.conv_block = saved
 
 
 def gate_r3_session(torch, dev):

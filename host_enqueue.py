@@ -1,11 +1,13 @@
 """Host time of one call of the fused int8 tail's wrapper (``conv_ffn_ln``),
 of the attention block's with int8 and with f32 weights (``att_block``), of
 the joint step's with int8 weights (``joint_step``; and, where the package
-has it, its three-launch route ``joint_step_chain``) and, as a control, of
-the conv module's (``conv_block``), at the main path's full-width shapes (a
-steady chunk: Tq 8 with 6 valid steps, D 1024, E 4096, a 9-tap conv, H 8, a
-full ring of 256, int8 weights; the joint at 8 rows, P = J = 640, V 8198),
-for the port package of the directory it is run from. To compare two trees on one card, run it in each in turn:
+has it, its three-launch route ``joint_step_chain``) and of the conv
+module's with int8 and with f32 weights (``conv_block``), at the main
+path's full-width shapes (a steady chunk: Tq 8 with 6 valid steps, D 1024,
+E 4096, a 9-tap conv, H 8, a full ring of 256, int8 weights unless named;
+the joint at 8 rows, P = J = 640, V 8198), for the port package of the
+directory it is run from. To compare two trees on one card, run it in each
+in turn:
 
     cd TREE && python3 PATH/TO/host_enqueue.py
 
@@ -14,8 +16,9 @@ warm-up; the host clock around each call (its Python checks, scratch
 allocations and launches) gives the median and quartiles in us. Where the
 package packs the tail's constants, the attention weights or the joint's
 beforehand (``pack_conv_ffn_ln``, ``pack_att_block``; f32 attention weights
-where it has ``att_block_f32_plan``; ``pack_joint_step``), they are packed
-once, as the model does, and passed to every call.
+where it has ``att_block_f32_plan``; ``pack_joint_step``;
+``pack_conv_block``), they are packed once, as the model does, and passed
+to every call.
 """
 
 from __future__ import annotations
@@ -68,11 +71,17 @@ def main() -> int:
     jkw = dict(ths=8193, ndur=5, blank_id=8192, blank_penalty=0.5)
     joint_kw = ({"packed": js.pack_joint_step(*joint[2:])}
                 if hasattr(js, "pack_joint_step") else {})
+    conv_f32 = (*conv[:3], t(d, 2 * d, sc=d ** -0.5), *conv[4:9], t(d, d, sc=d ** -0.5),
+                *conv[10:])
+    conv_kw = {arm: {"packed": cb.pack_conv_block(*args[3:10])}
+               if hasattr(cb, "pack_conv_block") else {}
+               for arm, args in (("int8", conv), ("f32", conv_f32))}
     calls = {"conv_ffn_ln": lambda: cb.conv_ffn_ln(*conv, *tail, **kw),
              "att_block": lambda: ab.att_block(*att, n_heads=h, **att_kw),
              "att_block[f32]": lambda: ab.att_block(*att_f32, n_heads=h, **f32_kw),
              "joint_step[int8]": lambda: js.joint_step(*joint, **jkw, **joint_kw),
-             "conv_block": lambda: cb.conv_block(*conv)}
+             "conv_block[int8]": lambda: cb.conv_block(*conv, **conv_kw["int8"]),
+             "conv_block[f32]": lambda: cb.conv_block(*conv_f32, **conv_kw["f32"])}
     if hasattr(js, "joint_step_chain"):
         calls["joint_step[int8] three launches"] = lambda: js.joint_step_chain(*joint, **jkw)
     for name, fn in calls.items():

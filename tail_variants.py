@@ -49,6 +49,17 @@ held to its plain version at ``chip_smoke.py``'s tolerance (int8 1e-4, f32
 it, the kernel, and its timeline (``att_variants.py``'s, a median over the
 blocks and the last block); with ``--f32``, the kernel at each ring stage
 count of ``--stages`` too.
+
+    python3 tail_variants.py --conv [--f32] [--against OTHER.cu] [--pairs 10]
+
+does the same for the persistent conv module (``csrc/conv_block_q8.cu``;
+with ``--f32`` ``csrc/conv_block_f32.cu``) at a steady chunk's shapes (Tq 8
+with 6 valid steps, D 1024, a 9-tap conv): the plain version and the five
+launches of ``csrc/conv_block.cu`` beside it, the kernel and its timeline.
+
+The fused tail's variants edit ``csrc/conv_ffn_ln.cu`` with
+``csrc/conv_tail.cuh`` and ``csrc/persistent.cuh`` inlined where they are
+included.
 """
 
 from __future__ import annotations
@@ -118,7 +129,7 @@ __device__ __forceinline__ void flip_wait(unsigned int old) {
 }
 
 """
-KERNEL = "__global__ void __launch_bounds__(TL_THREADS, 1) conv_ffn_ln_kernel"
+KERNEL = "template <bool FFN>\n__device__ __forceinline__ void conv_tail("
 
 
 def flip_barrier(src: str) -> str:
@@ -156,8 +167,8 @@ VARIANTS = {
     "empty_not_cooperative": (((ENTRY, ENTRY + "  if (p.M > 0) return;\n", 1),
                                ("cudaLaunchCooperativeKernel(", "cudaLaunchKernel(", 1)), False),
     "products_twice": ((product_twice,), True),
-    "weight_pieces": ((("      bulk_copy(smem + L.w + wo[i], mine + wo[i], (uint32_t)(wo[i + 1] - wo[i]),\n                bars + BAR_PW2 + i);",
-                        "      for (size_t o = wo[i]; o < wo[i + 1]; o += 4096)\n        bulk_copy(smem + L.w + o, mine + o, (uint32_t)min((size_t)4096, wo[i + 1] - o),\n                  bars + BAR_PW2 + i);", 1),), True),
+    "weight_pieces": ((("        bulk_copy(smem + L.w + wo[i], mine + wo[i], (uint32_t)(wo[i + 1] - wo[i]),\n                  bars + BAR_PW2 + i);",
+                        "        for (size_t o = wo[i]; o < wo[i + 1]; o += 4096)\n          bulk_copy(smem + L.w + o, mine + o, (uint32_t)min((size_t)4096, wo[i + 1] - o),\n                    bars + BAR_PW2 + i);", 1),), True),
     "flip_barrier": ((flip_barrier,), True),
     "timeline": ((timeline,), True),
     "kernel_again": ((), True),
@@ -165,12 +176,13 @@ VARIANTS = {
 
 
 def variant_source(edits, path=None) -> str:
-    """The source with ``csrc/persistent.cuh`` (its products, copies and
-    timeline) inlined where it is included, then each edit applied."""
+    """The source with ``csrc/conv_tail.cuh`` (the kernel's body) and
+    ``csrc/persistent.cuh`` (its products, copies and timeline) inlined
+    where they are included, then each edit applied."""
     src = (path or kb.CSRC_DIR / "conv_ffn_ln.cu").read_text()
-    src = src.replace('#include "persistent.cuh"\n',
-                      (kb.CSRC_DIR / "persistent.cuh").read_text()
-                      .replace("#pragma once\n", ""), 1)
+    for header in ("conv_tail.cuh", "persistent.cuh"):
+        src = src.replace(f'#include "{header}"\n',
+                          (kb.CSRC_DIR / header).read_text().replace("#pragma once\n", ""), 1)
     for edit in edits:
         if callable(edit):
             src = edit(src)
@@ -234,7 +246,10 @@ def main() -> int:
                                       "against the source in alternating pairs")
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--ffn", action="store_true", help="the int8 FFN, csrc/ffn_q8.cu")
-    ap.add_argument("--f32", action="store_true", help="with --ffn: csrc/ffn_f32.cu")
+    ap.add_argument("--conv", action="store_true", help="the int8 conv module, "
+                                                      "csrc/conv_block_q8.cu")
+    ap.add_argument("--f32", action="store_true", help="with --ffn: csrc/ffn_f32.cu; with "
+                                                     "--conv: csrc/conv_block_f32.cu")
     ap.add_argument("--stages", default="8,16,22", help="--ffn --f32: ring stage counts to time")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
@@ -243,6 +258,8 @@ def main() -> int:
     print(cs.smi_line())
     dev = torch.device("cuda")
     timer = cs.Timer(torch, dev)
+    if opts.conv:
+        return conv_variants(timer, dev, opts.f32, opts.against, opts.pairs)
     if opts.ffn:
         return ffn_variants(timer, dev, opts.f32, opts.against, opts.pairs,
                             [int(v) for v in opts.stages.split(",")])
@@ -394,6 +411,64 @@ def ffn_variants(timer, dev, f32: bool, against, pairs: int, stage_counts) -> in
                 kf.ffn_f32_plan = plan
     av.print_timeline(libs["timeline"][0], timer, run, packed.shape[0],
                       MARKS_FFN_F32 if f32 else MARKS_FFN_Q8)
+    kb._libs.pop(name)
+    return 0
+
+
+# the conv modules' TL_MARKs, in order: what has happened by then
+MARKS_CONV_F32 = {0: "entry", 1: "copies issued", 2: "x, norms, taps in", 3: "LN",
+                  17: "pw1 sums (warp 0's)", 4: "pw1 block synced", 5: "GLU, conv, a written",
+                  6: "after the barrier", 19: "pw2 sums (warp 0's)", 7: "pw2 block synced",
+                  8: "end"}
+MARKS_CONV_Q8 = {0: "entry", 1: "copies issued", 2: "x, norms, columns in", 3: "LN, pw1 in",
+                 17: "pw1 mma loop", 18: "pw1 block synced", 4: "pw1 product",
+                 5: "GLU, conv, a written", 6: "after the barrier", 7: "a's copies issued, pw2 in",
+                 19: "pw2 mma loop", 20: "pw2 block synced", 8: "end"}
+
+
+def conv_variants(timer, dev, f32: bool, against, pairs: int) -> int:
+    """The int8 (or f32) conv module beside its plain version and the five
+    launches it replaced, and its timeline; or against another version of
+    its source."""
+    import pathlib
+
+    import att_variants as av
+    from trt_asr_tpu_torch.ops.kernels import conv_block as cb
+
+    rng = np.random.default_rng(1234)
+    t = lambda *s, sc=1.0: torch.as_tensor(  # noqa: E731
+        (rng.standard_normal(s) * sc).astype(np.float32), device=dev)
+    d, kk, tq = 1024, 9, 8
+    weight = (lambda w: w) if f32 else quantize_tensor
+    args = (t(tq, d), 1.0 + t(d, sc=0.1), t(d, sc=0.1), weight(t(d, 2 * d, sc=d ** -0.5)),
+            t(kk, d, sc=kk ** -0.5), 1.0 + t(d, sc=0.1), t(d, sc=0.1), t(d, sc=0.1),
+            1.0 + t(d, sc=0.1).abs(), weight(t(d, d, sc=d ** -0.5)), t((kk - 1) // 2, d),
+            (torch.arange(tq, device=dev) < 6).float()[:, None])
+    name, tol = ("conv_block_f32", 2e-4) if f32 else ("conv_block_q8", 1e-4)
+    packed = cb.pack_conv_block(*args[3:10])                       # as the model packs them
+    run = lambda: cb.conv_block(*args, packed=packed)  # noqa: E731
+    want = cb.conv_block_plain(*args)
+    src = (kb.CSRC_DIR / f"{name}.cu").read_text()
+    if against:
+        return av.compare(timer, run, want, src, pathlib.Path(against).read_text(), pairs,
+                          name, tol)
+    warm = cs.Timer(torch, dev)
+    warm.scrub = torch.empty(16, dtype=torch.uint8, device=dev)      # L2 left as it is
+    libs = av.build({"kernel": src,
+                     "timeline": "#define TAIL_TIMELINE\n" + src + av.TIMELINE_READ}, name)
+    chain = lambda: cb.conv_block_chain(*args)  # noqa: E731
+    print(f"plain version {timer(lambda: cb.conv_block_plain(*args)):.4f} ms")
+    print(f"five launches (csrc/conv_block.cu): {timer(chain):.4f} ms, L2 warm "
+          f"{warm(chain):.4f} ms, max |chain - plain| {cs.max_err(chain(), want):.3g}")
+    for variant, (lib, log) in libs.items():
+        regs = [r for r in cs.ptxas_kernels(log) if f"{name}_kernel" in r[0]][0]
+        kb._libs[name] = lib                     # the wrapper launches the variant
+        err = cs.max_err(run(), want)
+        assert err <= tol, f"variant {variant} disagrees with the plain version ({err:.3g})"
+        print(f"{variant}: {timer(run):.4f} ms, L2 warm {warm(run):.4f} ms, max |variant - "
+              f"plain| {err:.3g}; {regs[1]} registers, spills {regs[2]}/{regs[3]} B", flush=True)
+    av.print_timeline(libs["timeline"][0], timer, run, packed.shape[0],
+                      MARKS_CONV_F32 if f32 else MARKS_CONV_Q8)
     kb._libs.pop(name)
     return 0
 

@@ -32,6 +32,7 @@ with p unrounded lies farther); ``ops.common.matmul`` of bf16 by bf16 (the
 tensor cores) one bf16 ulp of the f32 product, the ulp floored near zero at
 twice the f32 product's own error; session and transcript tokens exact."""
 
+import ctypes
 import math
 
 import numpy as np
@@ -50,7 +51,7 @@ from trt_asr_tpu_torch.models.parakeet.model import ParakeetTDT
 from trt_asr_tpu_torch.ops.kernels.att_block import att_block, att_block_plain, pack_att_block
 from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block, conv_block_plain,
                                                       conv_ffn_ln, conv_ffn_ln_plain,
-                                                      pack_conv_ffn_ln)
+                                                      pack_conv_block, pack_conv_ffn_ln)
 from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn, fused_ffn_plain, pack_ffn
 from trt_asr_tpu_torch.ops.kernels.flash_att import (copy_widths, flash_bias_attention,
                                                      flash_bias_attention_plain)
@@ -70,6 +71,76 @@ def as_weight(w: torch.Tensor, kind: str):
     if kind == "int8":
         return quantize_tensor(w)
     return w.to(torch.bfloat16) if kind == "bf16" else w
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of the CUDA driver API."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared_bytes", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def graph_port_kernels(graph) -> list:
+    """The port's kernels in a captured CUDA graph (``keep_graph=True``):
+    the (mangled) function name of each kernel node in namespace ``port``,
+    read through the CUDA driver API. No CUPTI: torch.profiler traces of
+    one call came back empty after the first one or two traces of a process
+    on the H100 (CUPTI torn down after each trace or not)."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        assert rc == 0, f"{what}: CUresult {rc}"
+
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int()
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        if kind.value != 0:                       # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        prm, name = _KernelNodeParams(), ctypes.c_char_p()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(prm)),
+              "cuGraphKernelNodeGetParams")
+        if prm.func:
+            check(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(prm.func)), "cuFuncGetName")
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(prm.kern)),
+                  "cuKernelGetName")
+        names.append(name.value.decode())
+    return [k for k in names if k.startswith("_ZN4port")]
+
+
+def assert_one_graph_replayable_launch(call, kernel: str) -> None:
+    """``call()`` is one launch of the port's kernel ``kernel`` and of no
+    other of the port's kernels, read from a CUDA graph that captures it;
+    each of two replays equals the direct call bit for bit (over outputs
+    filled with NaN, or -1 for integers, first)."""
+    as_tuple = lambda r: r if isinstance(r, tuple) else (r,)  # noqa: E731
+    want = as_tuple(call())
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        out = as_tuple(call())
+    kernels = graph_port_kernels(graph)
+    assert len(kernels) == 1 and kernel in kernels[0], kernels
+    graph.instantiate()
+    for _ in range(2):
+        for o in out:
+            o.fill_(float("nan") if o.is_floating_point() else -1)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, w) for o, w in zip(out, want))
 
 
 # (D, H, C, Tq) of the attention block: the card-test width; with int8 or
@@ -125,34 +196,13 @@ def test_att_block_is_one_graph_replayable_launch(kind, kernel):
     """The int8 and the f32 kernel are each one cooperative launch a call,
     which a CUDA graph captures: the replay equals the direct call bit for
     bit (the kernels add in a fixed order)."""
-    from torch.profiler import ProfilerActivity, profile
-
     dev = require_cuda()
     d, h, c, tq = 1024, 8, 256, 8
     args = att_inputs(dev, 9, d, h, c, tq, kind)
     meta = torch.tensor([100, c, 6], dtype=torch.int32, device=dev)
     packed = pack_att_block(*args[3:7])
     call = lambda: att_block(*args, meta, n_heads=h, packed=packed)  # noqa: E731
-    want = call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    kernels = [ev.key for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA and "port::" in ev.key]
-    assert len(kernels) == 1 and kernel in kernels[0], kernels
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        call()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = call()
-    graph.replay()
-    torch.cuda.synchronize()
-    for o, w in zip(out, want):
-        assert torch.equal(o, w)
+    assert_one_graph_replayable_launch(call, kernel)
 
 
 @pytest.mark.cuda
@@ -254,8 +304,6 @@ def test_joint_f32_and_logmel_are_one_graph_replayable_launch(kernel):
     (the joint's a cooperative one), which a CUDA graph captures: the
     replay equals the direct call bit for bit (both add in a fixed order;
     the log-mel tickets return to zero after every launch)."""
-    from torch.profiler import ProfilerActivity, profile
-
     dev = require_cuda()
     rng = np.random.default_rng(11)
     r = lambda *s, sc=1.0: torch.as_tensor(  # noqa: E731
@@ -271,27 +319,7 @@ def test_joint_f32_and_logmel_are_one_graph_replayable_launch(kernel):
         e, g = r(8, j), r(8, p, sc=0.5)
         call = lambda: joint_step(e, g, *wargs, ths=8193, ndur=5, blank_id=8192,  # noqa: E731
                                   blank_penalty=0.5, packed=packed)
-    want = call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    kernels = [ev.key for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA and "port::" in ev.key]
-    assert len(kernels) == 1 and kernel in kernels[0], kernels
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        call()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = call()
-    for _ in range(2):
-        graph.replay()
-        torch.cuda.synchronize()
-        for o, w in zip(out, want):
-            assert torch.equal(o, w)
+    assert_one_graph_replayable_launch(call, kernel)
 
 
 @pytest.mark.cuda
@@ -366,8 +394,6 @@ def test_ffn_is_one_graph_replayable_launch(kind, kernel):
     and no kernel of the five-launch chain (``csrc/ffn.cu``) runs; a CUDA
     graph captures it, and the replay equals the direct call bit for bit
     (the kernels add in a fixed order)."""
-    from torch.profiler import ProfilerActivity, profile
-
     dev = require_cuda()
     d, e = 1024, 4096
     r = randn(dev, 17)
@@ -375,27 +401,7 @@ def test_ffn_is_one_graph_replayable_launch(kind, kernel):
     w1, w2 = as_weight(r(d, e, sc=d ** -0.5), kind), as_weight(r(e, d, sc=e ** -0.5), kind)
     packed = pack_ffn(w1, w2)
     call = lambda: fused_ffn(x, g, b, w1, w2, 0.5, packed=packed)  # noqa: E731
-    want = call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    kernels = [ev.key for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA and "port::" in ev.key]
-    assert len(kernels) == 1 and kernel in kernels[0], kernels
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        call()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = call()
-    for _ in range(2):
-        out.fill_(float("nan"))
-        graph.replay()
-        torch.cuda.synchronize()
-        assert torch.equal(out, want)
+    assert_one_graph_replayable_launch(call, kernel)
 
 
 def conv_inputs(dev, seed, tq, valid, d, kind):
@@ -408,11 +414,21 @@ def conv_inputs(dev, seed, tq, valid, d, kind):
             (torch.arange(tq, device=dev) < valid).float()[:, None])
 
 
+# (Tq, valid steps, D) of the conv module: the card-test widths; with int8
+# or f32 weights (the persistent kernels) also one row, a steady chunk and
+# two passes of 8 rows at the full width
+CONV_SHAPES = [(8, 6, 64), (6, 6, 64), (3, 1, 64), (8, 6, 96)]
+PERSISTENT_CONV_SHAPES = CONV_SHAPES + [(1, 1, 1024), (8, 6, 1024), (13, 11, 1024)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", WEIGHTS)
 def test_conv_block_kernel_matches_plain(kind):
+    """With int8 and f32 weights (one cooperative launch a call) the
+    constants packed once beforehand (``packed``, as the model passes them)
+    give the same bits as those packed by the call."""
     dev = require_cuda()
-    for tq, valid, d in [(8, 6, 64), (6, 6, 64), (3, 1, 64), (8, 6, 96)]:
+    for tq, valid, d in CONV_SHAPES if kind == "bf16" else PERSISTENT_CONV_SHAPES:
         args = conv_inputs(dev, tq + d, tq, valid, d, kind)
         before = conv_block.launches
         got = conv_block(*args)
@@ -423,6 +439,25 @@ def test_conv_block_kernel_matches_plain(kind):
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, atol=atol, rtol=1e-4)
         assert float(got[1][valid:].abs().sum()) == 0.0
+        if kind != "bf16":
+            again = conv_block(*args, packed=pack_conv_block(*args[3:10]))
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,kernel", [("int8", "conv_block_q8_kernel"),
+                                         ("f32", "conv_block_f32_kernel")])
+def test_conv_block_is_one_graph_replayable_launch(kind, kernel):
+    """With int8 and with f32 weights a conv module call is one cooperative
+    launch and no kernel of the five-launch chain (``csrc/conv_block.cu``)
+    runs; a CUDA graph captures it, and the replay equals the direct call
+    bit for bit (the kernels add in a fixed order)."""
+    dev = require_cuda()
+    args = conv_inputs(dev, 19, 8, 6, 1024, kind)
+    packed = pack_conv_block(*args[3:10])
+    call = lambda: conv_block(*args, packed=packed)  # noqa: E731
+    assert_one_graph_replayable_launch(call, kernel)
 
 
 @pytest.mark.cuda
@@ -478,8 +513,21 @@ def test_wrappers_raise_instead_of_falling_back():
     assert fused_ffn.launches == before
     conv = list(conv_inputs(dev, 4, 8, 6, 64, "f32"))
     conv[10] = r(64, 4).t()                       # time cache, not contiguous
+    before = conv_block.launches
     with pytest.raises(ValueError, match="contiguous"):
         conv_block(*conv)
+    for kind in ("int8", "f32"):
+        with pytest.raises(ValueError, match="a multiple of 8"):     # D 60
+            conv_block(*conv_inputs(dev, 4, 8, 6, 60, kind))
+        conv = conv_inputs(dev, 4, 8, 6, 64, kind)
+        with pytest.raises(ValueError, match="do not fit the launch plan"):
+            conv_block(*conv, packed=pack_conv_block(*conv[3:10], sms=4))   # another card's
+    conv = conv_inputs(dev, 4, 8, 6, 64, "f32")
+    with pytest.raises(ValueError, match="do not fit the launch plan"):       # int8's layout
+        conv_block(*conv, packed=pack_conv_block(*conv_inputs(dev, 4, 8, 6, 64, "int8")[3:10]))
+    with pytest.raises(ValueError, match="int8 and f32 weights only"):
+        conv_block(*conv_inputs(dev, 4, 8, 6, 64, "bf16"), packed=pack_conv_block(*conv[3:10]))
+    assert conv_block.launches == before
     conv = conv_inputs(dev, 5, 8, 6, 64, "f32")
     tail = (g, b, r(64, 128), r(128, 64), g, b)
     with pytest.raises(TypeError, match="int8"):
@@ -817,6 +865,9 @@ def test_gate_r3_session_with_every_kernel_matches_cpu(flags):
     assert (counts[0][0] > 0) == ffn
     assert (counts[0][1] > 0) == (conv and not tail) and (counts[0][2] > 0) == tail
     assert all(("conv_ffn_ln_packed" in lp) == tail for lp in gpu.layers)
+    # the conv module alone, int8 or f32, runs on its constants packed once
+    assert all(("conv_block_packed" in lp) == (conv and not tail) for lp in gpu.layers)
+    assert not any("conv_block_packed" in lp for lp in cpu.layers)
     # each FFN that the FFN kernel runs is packed once (FFN2 not in the tail)
     assert all(("ff1_packed" in lp) == ffn and ("ff2_packed" in lp) == (ffn and not tail)
                for lp in gpu.layers)

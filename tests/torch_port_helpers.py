@@ -93,3 +93,31 @@ def tensor_core_qk(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     qh = q.transpose(1, 2).reshape(b * h, t_len, dh)
     kh = k.permute(0, 2, 3, 1).reshape(b * h, dh, t_len)
     return torch.bmm(qh, kh, out_dtype=torch.float32).view(b, h, t_len, t_len)
+
+
+def conv_module_inputs(seed: int, tq: int, valid: int, d: int, kk: int = 9) -> dict:
+    """numpy inputs of one conv module call (B=1 chunk of Tq rows, ``valid``
+    of them unpadded): x, the LN's g and b, pw1 [D, 2D], the taps [kk, D],
+    BN g, b, m, v, pw2 [D, D], the time cache and the mask [Tq, 1]."""
+    rng = np.random.default_rng(seed)
+    r = lambda *s, sc=0.3: (rng.standard_normal(s) * sc).astype(np.float32)  # noqa: E731
+    return dict(x=r(tq, d, sc=1.0), g=1.0 + r(d, sc=0.2), b=r(d, sc=0.1),
+                pw1=r(d, 2 * d, sc=d ** -0.5), dw=r(kk, d),
+                bn=[1.0 + r(d, sc=0.1), r(d, sc=0.1), r(d, sc=0.1), np.abs(r(d)) * 0.5 + 0.8],
+                pw2=r(d, d, sc=d ** -0.5), tc=r((kk - 1) // 2, d, sc=1.0),
+                mask=(np.arange(tq) < valid).astype(np.float32)[:, None])
+
+
+def conv_module_args(inp: dict, pw1, pw2) -> tuple:
+    """The arguments of ``conv_block`` from :func:`conv_module_inputs`, with
+    the weights given (float or int8)."""
+    c = torch.as_tensor
+    return (c(inp["x"]), c(inp["g"]), c(inp["b"]), pw1, c(inp["dw"]), *[c(v) for v in inp["bn"]],
+            pw2, c(inp["tc"]), c(inp["mask"]))
+
+
+def padded(v: torch.Tensor, width: int) -> torch.Tensor:
+    """[rows, N] -> [rows, width], zero past N."""
+    out = v.new_zeros((v.shape[0], width))
+    out[:, :v.shape[1]] = v
+    return out

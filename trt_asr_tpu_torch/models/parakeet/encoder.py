@@ -30,7 +30,7 @@ from trt_asr_tpu_torch.ops.conv import (depthwise_conv1d, dw_striding_subsample,
                                         subsampled_length)
 from trt_asr_tpu_torch.ops.kernels.att_block import att_block, pack_att_block
 from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block, conv_ffn_ln,
-                                                      pack_conv_ffn_ln)
+                                                      pack_conv_block, pack_conv_ffn_ln)
 from trt_asr_tpu_torch.ops.kernels import ffn as kernel_ffn
 from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn
 from trt_asr_tpu_torch.ops.quant import QuantTensor, bf16_copy, dequantize, keep_bf16_copy
@@ -100,7 +100,8 @@ def _append_cache(cache: torch.Tensor, block: torch.Tensor,
 
 
 def layer_params(params: Dict[str, Any], num_layers: int, pack_tail: bool = False,
-                 pack_att: bool = False, pack_ffn: bool = False) -> List[Dict[str, Any]]:
+                 pack_att: bool = False, pack_ffn: bool = False,
+                 pack_conv: bool = False) -> List[Dict[str, Any]]:
     """Per-layer views of the stacked [L, ...] layer parameters (compute
     once per model and pass to :func:`encode` as ``layers``); an int8
     weight's view carries its layer of the bf16 copy the model keeps on the
@@ -114,24 +115,29 @@ def layer_params(params: Dict[str, Any], num_layers: int, pack_tail: bool = Fals
     FFN whose weights are int8 or f32 on the card holds them packed once
     for the FFN kernel of that type (``ff1_packed``, ``ff2_packed``,
     :func:`~trt_asr_tpu_torch.ops.kernels.ffn.pack_ffn`), FFN2 only where the
-    fused tail does not take it."""
+    fused tail does not take it; with ``pack_conv``, one whose conv weights
+    are int8 or f32 on the card holds them, with their taps and BN, packed
+    once for the conv-module kernel of that type (``conv_block_packed``,
+    :func:`pack_conv_block`), except where the fused tail takes the conv."""
     stacked = params["encoder"]["layers"]
     out = []
     for li in range(num_layers):
         lp = {}
         for k, v in stacked.items():
             lp[k] = _layer_weight(v, li) if isinstance(v, QuantTensor) else v[li]
-        if pack_tail and _int8_tail(lp) and lp["conv_pw1"].q.is_cuda:
-            lp["conv_ffn_ln_packed"] = pack_conv_ffn_ln(
-                lp["conv_pw1"], lp["conv_dw"], lp["conv_bn_g"], lp["conv_bn_b"],
-                lp["conv_bn_m"], lp["conv_bn_v"], lp["conv_pw2"], lp["ff2_w1"], lp["ff2_w2"])
+        conv = [lp[k] for k in ("conv_pw1", "conv_dw", "conv_bn_g", "conv_bn_b", "conv_bn_m",
+                                "conv_bn_v", "conv_pw2")]
+        tail = pack_tail and _int8_tail(lp)
+        if tail and lp["conv_pw1"].q.is_cuda:
+            lp["conv_ffn_ln_packed"] = pack_conv_ffn_ln(*conv, lp["ff2_w1"], lp["ff2_w2"])
+        if pack_conv and not tail and _persistent_weights([conv[0], conv[6]]):
+            lp["conv_block_packed"] = pack_conv_block(*conv)
         att = [lp[k] for k in ("att_wq", "att_wk", "att_wv", "att_wo")]
         if pack_att and _persistent_weights(att):
             lp["att_block_packed"] = pack_att_block(*att)
         for f in ("ff1", "ff2"):
             ws = lp[f"{f}_w1"], lp[f"{f}_w2"]
-            tail = f == "ff2" and pack_tail and _int8_tail(lp)
-            if pack_ffn and not tail and _persistent_weights(ws):
+            if pack_ffn and not (f == "ff2" and tail) and _persistent_weights(ws):
                 lp[f"{f}_packed"] = kernel_ffn.pack_ffn(*ws)
         out.append(lp)
     return out
@@ -149,8 +155,8 @@ def _layer_weight(v: QuantTensor, li: int) -> QuantTensor:
 
 def _persistent_weights(ws) -> bool:
     """Whether a module's weights on the card take a persistent kernel (the
-    attention block's, the FFN's): all int8 or all f32 (bf16 weights take
-    the chain)."""
+    attention block's, the FFN's, the conv module's): all int8 or all f32
+    (bf16 weights take the chain)."""
     if all(isinstance(w, QuantTensor) for w in ws):
         return ws[0].q.is_cuda
     return all(isinstance(w, torch.Tensor) and w.dtype == torch.float32 and w.is_cuda
@@ -232,7 +238,7 @@ def _conformer_layer(lp, x, att_cache, time_cache, kv_cache, pos_proj, kv_mask,
             if streaming:
                 time_cache.copy_(_append_cache(time_cache, c1[None, :cache_keep], appended))
             return y2[None]
-        y2, c1 = conv_block(*conv)
+        y2, c1 = conv_block(*conv, packed=lp.get("conv_block_packed"))
         c, x = c1[None], y2[None]
     else:
         c = layer_norm(x, lp["conv_ln_g"], lp["conv_ln_b"])

@@ -73,7 +73,8 @@ class ParakeetTDT:
         self.layers = layer_params(
             params, cfg.num_layers,
             pack_tail=self.runtime.use_pallas_conv and self.runtime.use_pallas_ffn,
-            pack_att=self.runtime.use_pallas_att, pack_ffn=self.runtime.use_pallas_ffn)
+            pack_att=self.runtime.use_pallas_att, pack_ffn=self.runtime.use_pallas_ffn,
+            pack_conv=self.runtime.use_pallas_conv)
         # the persistent joint step's int8 or f32 weights packed once
         # (ops/kernels/joint_step.py; bf16 weights take the chain, unpacked)
         jp, wo = params["joint"], params["joint"]["out"]["w"]

@@ -28,8 +28,8 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("att_block", "att_block_q8", "att_block_f32", "joint_step", "joint_step_q8",
-           "joint_step_f32", "mel", "ffn", "ffn_f32", "ffn_q8", "conv_block", "conv_ffn_ln",
-           "rel_shift", "flash_att")
+           "joint_step_f32", "mel", "ffn", "ffn_f32", "ffn_q8", "conv_block", "conv_block_q8",
+           "conv_block_f32", "conv_ffn_ln", "rel_shift", "flash_att")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -70,6 +70,12 @@ _SIGNATURES = {
     "ffn_q8": {"ffn_q8_launch": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P],
                "ffn_q8_occupancy": [_I, _P]},
     "conv_block": {"conv_block_launch": _CONV + [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P]},
+    "conv_block_q8": {"conv_block_q8_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                               _P, _P, _P, _P],
+                      "conv_block_q8_occupancy": [_I, _P]},
+    "conv_block_f32": {"conv_block_f32_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                                 _P, _P, _P, _P],
+                       "conv_block_f32_occupancy": [_I, _P]},
     "conv_ffn_ln": {"conv_ffn_ln_launch": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                            _P, _I, _I, _I, _I, _P, _P, _P, _P],
                     "conv_ffn_ln_occupancy": [_I, _P]},

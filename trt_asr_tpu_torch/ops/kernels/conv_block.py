@@ -1,21 +1,30 @@
 """Fused conformer convolution module (B=1 streaming chunks), alone and with
 the second FFN and the output LayerNorm: the CUDA kernels of
-``csrc/conv_block.cu`` and ``csrc/conv_ffn_ln.cu`` and their plain PyTorch
-versions.
+``csrc/conv_block_q8.cu`` (int8 weights), ``csrc/conv_block_f32.cu`` (f32
+weights), the chain of ``csrc/conv_block.cu`` (bf16 weights,
+:func:`conv_block_chain`) and ``csrc/conv_ffn_ln.cu`` (the int8 tail), and
+their plain PyTorch versions.
 
 Replaces ``trt_asr_tpu/ops/pallas/conv_block_kernel.py:conv_block_pallas``
 and ``:conv_ffn_ln_pallas``. The bound on the H100 is memory: pw1 and pw2
 (12.6 MB f32, 3.1 MB int8 per layer at full size), plus FFN2's W1 and W2 in
 the fused tail (11.5 MB int8 in all); the kernels read each weight byte
-once for all rows (see the sources' notes). The fused tail is one
-persistent cooperative launch, laid out by :func:`conv_ffn_ln_plan`.
+once for all rows (see the sources' notes). The int8 and f32 conv modules
+and the fused tail are each one persistent cooperative launch, laid out by
+:func:`conv_block_q8_plan`, :func:`conv_block_f32_plan` and
+:func:`conv_ffn_ln_plan` on constants packed once (:func:`pack_conv_block`,
+:func:`pack_conv_ffn_ln`): block b owns ``cols_d`` columns of pw1 (with
+their GLU gates) and of pw2 over the whole K, runs the depthwise taps on
+its columns, and after one grid barrier multiplies all of a by its columns
+of pw2.
 
-Both functions return ``(y, c)``, each [Tq, D] f32: ``c`` holds the masked
+Every function returns ``(y, c)``, each [Tq, D] f32: ``c`` holds the masked
 post-GLU rows whose first ``cache_keep`` rows feed the time cache.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -26,7 +35,7 @@ from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn_plain, layer_norm_plain
 from trt_asr_tpu_torch.ops.kernels.persistent import (SMEM_PER_BLOCK, TAIL_GROUP, TAIL_KSTEP,
                                                       TAIL_ROWS, TAIL_WARPS, align16,
                                                       column_slices, pack_columns, pad_k,
-                                                      pack_tail_weight, sm_count)
+                                                      pack_tail_weight, sm_count, weight_kind)
 from trt_asr_tpu_torch.ops.quant import QuantTensor, is_low_precision, round_bf16, scaled_matmul
 
 
@@ -88,13 +97,58 @@ def _conv_args(what, x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_c
     return (pw1_t, s1), (pw2_t, s2), wtype, kk
 
 
-def conv_block(x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_cache, mask):
+def conv_block(x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_cache, mask,
+               packed=None):
     """Fused conv module; same arguments and results as
     :func:`conv_block_plain`. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (or raise)."""
+    tensors launch a kernel (or raise): with int8 or f32 weights the
+    persistent kernel of that type, one cooperative launch (raising also
+    when its blocks cannot all be resident), with bf16 weights
+    :func:`conv_block_chain`. ``packed``: the layer's int8 or f32 weights,
+    taps and BN as :func:`pack_conv_block` lays them out, made once with
+    the weights; without it they are packed anew at every call."""
     args = (x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_cache, mask)
     if x.device.type == "cpu":
         return conv_block_plain(*args)
+    kind = weight_kind("conv_block: pw1 and pw2", pw1, pw2)
+    if kind == "bf16":
+        if packed is not None:
+            raise ValueError("conv_block: packed weights are for int8 and f32 weights only")
+        return conv_block_chain(*args)
+    _conv_args("conv_block", *args)
+    tq, d = x.shape
+    kk = dw.shape[0]
+    int8 = kind == "int8"
+    sms = sm_count(x.device.index or 0)
+    plan = conv_block_q8_plan(tq, d, kk, sms) if int8 else conv_block_f32_plan(tq, d, kk, sms)
+    # bulk copies (16-byte aligned) of x's rows and the norms
+    kb.require_aligned("conv_block", 4, x, ln_g, ln_b)
+    if packed is None:
+        packed = _pack(pw1, dw, (bn_g, bn_b, bn_m, bn_v), pw2, plan, int8)
+    check_packed_conv(packed, plan, d, kk, int8)
+    kb.require_cuda("conv_block", x, packed)
+    kb.require_aligned("conv_block", 16 // packed.element_size(), packed)
+    name = "conv_block_q8" if int8 else "conv_block_f32"
+    lib = kb.load(name)
+    y, c = torch.empty_like(x), torch.empty_like(x)
+    scratch = torch.empty((plan.scratch,), dtype=torch.uint8, device=x.device)
+    rc = getattr(lib, f"{name}_launch")(
+        x.data_ptr(), tq, d, kk, ln_g.data_ptr(), ln_b.data_ptr(), time_cache.data_ptr(),
+        mask.data_ptr(), packed.data_ptr(), plan.blocks, plan.cols_d, plan.smem, y.data_ptr(),
+        c.data_ptr(), scratch.data_ptr(), kb.stream_ptr(x.device))
+    kb.check(lib, rc, "conv_block")
+    conv_block.launches += 1
+    return y, c
+
+
+def conv_block_chain(x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_cache, mask):
+    """The chain of ``csrc/conv_block.cu`` on CUDA tensors (LayerNorm, a
+    split-K pw1 product, the GLU and conv kernel, a split-K pw2 product with
+    the residual: five launches) with f32, bf16 or int8 weights:
+    :func:`conv_block`'s kernel for bf16 weights, and the predecessor of the
+    f32 and int8 kernels, kept so that ``chip_smoke.py`` times them side by
+    side in one run."""
+    args = (x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_cache, mask)
     (pw1_t, s1), (pw2_t, s2), wtype, kk = _conv_args("conv_block", *args)
     tq, d = x.shape
     # the depthwise taps run over [time cache ++ Tq rows ++ zeros] in 48 KB
@@ -121,22 +175,48 @@ conv_block.launches = 0
 
 
 class TailPlan(NamedTuple):
-    """Launch plan of the fused tail (``csrc/conv_ffn_ln.cu``)."""
+    """Launch plan of a persistent conv-module kernel: the fused tail
+    (``csrc/conv_ffn_ln.cu``), the int8 or the f32 conv module
+    (``csrc/conv_block_q8.cu``, ``csrc/conv_block_f32.cu``: ``cols_e`` 0)."""
     blocks: int          # one a column slice, all co-resident
     cols_d: int          # columns of pw1 (GLU pairs), pw2 and W2 a block
     cols_e: int          # columns of W1 a block
     smem: int            # dynamic shared bytes a block
-    scratch: int         # bytes of device scratch: a, y1, h, y2
+    scratch: int         # bytes of device scratch: a (the tail: a, y1, h, y2)
+
+
+CONV_RUN = 64            # K rows of an f32 weight piece (csrc/conv_block_f32.cu CF_RUN)
 
 
 def _tail_weight_bytes(d: int, e: int, cd: int, ce: int) -> int:
-    """A block's int8 slices of pw1, pw2, W1, W2 (K padded to 16)."""
+    """A block's int8 slices of pw1, pw2, W1, W2 (K padded to 16; E = cE =
+    0: the conv module alone, pw1 and pw2)."""
     return pad_k(d) * (3 * cd + ce) + pad_k(e) * cd
 
 
 def _tail_columns(kk: int, cd: int, ce: int) -> int:
-    """A block's f32 columns: the four scales (pw1's twice), taps, BN."""
-    return (8 + kk) * cd + ce
+    """A block's f32 columns: the scales (pw1's twice; W1's and W2's with
+    the FFN, ce > 0), taps, BN."""
+    return (7 + kk) * cd + (cd + ce if ce else 0)
+
+
+def _tail_smem(tq: int, d: int, e: int, kk: int, cd: int, ce: int) -> int:
+    """Dynamic shared bytes of the int8 body (``tail_smem`` in
+    ``csrc/conv_tail.cuh``); e = ce = 0: the conv module alone."""
+    act_d, act_e = (TAIL_ROWS * (pad_k(k) + TAIL_KSTEP) * 2 for k in (d, e))   # operand rows
+    return (_tail_weight_bytes(d, e, cd, ce)                    # weight slices, int8
+            + max(act_d + TAIL_ROWS * d * 4, act_e)             # and f32 rows to normalize
+            + (6 if e else 2) * d * 4 + _tail_columns(kk, cd, ce) * 4   # norms; scales, taps, BN
+            + align16(tq * 4) + align16((tq + kk - 1) * cd * 4)   # mask, conv rows
+            + (align16(tq * cd * 4) if e else 0)               # the block's columns of y1
+            + TAIL_WARPS * max(2 * cd, ce) * TAIL_ROWS * 4      # per-warp sums
+            + 11 * 8)                                           # mbarriers
+
+
+def _check_smem(what: str, smem: int, smem_limit: int, shape: str) -> None:
+    if smem > smem_limit:
+        raise ValueError(f"{what}: {smem} B of shared memory a block at {shape} exceeds "
+                         f"{smem_limit} B")
 
 
 def conv_ffn_ln_plan(tq: int, d: int, e: int, kk: int, sms: int,
@@ -154,40 +234,162 @@ def conv_ffn_ln_plan(tq: int, d: int, e: int, kk: int, sms: int,
     g = TAIL_GROUP
     cd, blocks = column_slices(d, sms)
     ce = g * -(-e // (g * blocks))
-    dp, ep = pad_k(d), pad_k(e)
-    act_d, act_e = (TAIL_ROWS * (k + TAIL_KSTEP) * 2 for k in (dp, ep))   # operand rows, bf16
-    smem = (_tail_weight_bytes(d, e, cd, ce)                    # weight slices, int8
-            + max(act_d + TAIL_ROWS * d * 4, act_e)             # and f32 rows to normalize
-            + 6 * d * 4 + _tail_columns(kk, cd, ce) * 4         # norms; scales, taps, BN
-            + align16(tq * 4) + align16((tq + kk - 1) * cd * 4)   # mask, conv rows
-            + align16(tq * cd * 4)                             # the block's columns of y1
-            + TAIL_WARPS * max(2 * cd, ce) * TAIL_ROWS * 4      # per-warp sums
-            + 11 * 8)                                           # mbarriers
-    if smem > smem_limit:
-        raise ValueError(f"conv_ffn_ln: {smem} B of shared memory a block at Tq={tq}, D={d}, "
-                         f"E={e} exceeds {smem_limit} B")
+    smem = _tail_smem(tq, d, e, kk, cd, ce)
+    _check_smem("conv_ffn_ln", smem, smem_limit, f"Tq={tq}, D={d}, E={e}")
     return TailPlan(blocks, cd, ce, smem, tq * (10 * d + 2 * e))
 
 
+def _conv_grid(what: str, tq: int, d: int, sms: int) -> tuple[int, int]:
+    """(cols_d, blocks) of a persistent conv module: the fewest 8-column
+    groups a block that cover D with at most ``sms`` blocks."""
+    if tq < 1 or d < TAIL_GROUP or d % TAIL_GROUP:
+        raise ValueError(f"{what}: needs Tq >= 1 and D a multiple of {TAIL_GROUP} "
+                         f"(Tq={tq}, D={d})")
+    return column_slices(d, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_block_q8_plan(tq: int, d: int, kk: int, sms: int,
+                       smem_limit: int = SMEM_PER_BLOCK) -> TailPlan:
+    """The grid and shared memory of the int8 conv module (the fused tail's
+    phases (a)-(c), ``csrc/conv_tail.cuh`` without the FFN): a block's int8
+    slices of pw1 (its GLU pairs) and pw2 with their scales, the taps and
+    BN stay whole in shared memory. Mirrors ``tail_smem`` in the source,
+    which checks it at launch. Raises ValueError for shapes the kernel does
+    not take (D not a multiple of 8) or whose staging does not fit."""
+    what = "conv_block[int8]"
+    cd, blocks = _conv_grid(what, tq, d, sms)
+    smem = _tail_smem(tq, d, 0, kk, cd, 0)
+    _check_smem(what, smem, smem_limit, f"Tq={tq}, D={d}")
+    return TailPlan(blocks, cd, 0, smem, tq * d * 2)        # a, bf16
+
+
+def _conv_f32_runs(d: int) -> int:
+    return -(-d // CONV_RUN)
+
+
+def _conv_f32_floats(d: int, kk: int, cd: int) -> int:
+    """A block's f32 slice: the pw1 pieces (GLU pairs), the pw2 pieces, the
+    taps and BN (``cf_blob`` in the source)."""
+    return _conv_f32_runs(d) * CONV_RUN * 3 * cd + (kk + 4) * cd
+
+
+@functools.lru_cache(maxsize=None)
+def conv_block_f32_plan(tq: int, d: int, kk: int, sms: int,
+                        smem_limit: int = SMEM_PER_BLOCK) -> TailPlan:
+    """The grid and shared memory of the f32 conv module
+    (``csrc/conv_block_f32.cu``): a block's f32 slices of pw1 (its GLU
+    pairs) and pw2 in pieces of CONV_RUN rows of K, its taps and BN stay
+    whole in shared memory beside x's rows and a's, K padded to the pieces.
+    Mirrors ``cf_smem`` in the source, which checks it at launch. Raises
+    ValueError for shapes the kernel does not take (D not a multiple of 8)
+    or whose slices and staging do not fit."""
+    what = "conv_block[f32]"
+    cd, blocks = _conv_grid(what, tq, d, sms)
+    runs = _conv_f32_runs(d)
+    smem = (_conv_f32_floats(d, kk, cd) * 4                    # the block's slice
+            + 2 * TAIL_ROWS * runs * CONV_RUN * 4               # x's rows (then u's), a's rows
+            + 2 * d * 4                                         # LN's g, b
+            + runs * TAIL_ROWS * 2 * cd * 4                     # the pieces' sums
+            + align16(tq * cd * 4) + align16(tq * 4)            # x on the block's columns, mask
+            + align16((tq + kk - 1) * cd * 4)                   # conv rows
+            + (3 * runs + 1) * 8)                               # mbarriers
+    _check_smem(what, smem, smem_limit, f"Tq={tq}, D={d}")
+    # a, f32, laid out [pass][run][8 rows][CONV_RUN] (``cf_a_at`` in the source)
+    return TailPlan(blocks, cd, 0, smem, -(-tq // TAIL_ROWS) * TAIL_ROWS * runs * CONV_RUN * 4)
+
+
 def pack_tail(pw1, pw2, w1, w2, s1, s2, fs1, fs2, dw, bn, plan: TailPlan) -> torch.Tensor:
-    """The layer's constants as the fused tail's blocks read them, a block's
-    slice contiguous: [blocks, bytes] uint8, block b holding its int8
-    slices of pw1 (the GLU pairs), pw2, W1 and W2 (:func:`pack_tail_weight`),
-    then its f32 columns of pw1's scales (n, then n + D), pw2's, W1's and
-    W2's, the conv taps [kk, cD] and BN g, b, m, v (``tail_blob`` in the
-    source). pw1 .. w2 are int8 [K, N]; s1 .. fs2 the scales; dw [kk, D];
-    bn (g, b, m, v)."""
+    """The layer's constants as the int8 kernels' blocks read them, a
+    block's slice contiguous: [blocks, bytes] uint8, block b holding its
+    int8 slices of pw1 (the GLU pairs), pw2, W1 and W2
+    (:func:`pack_tail_weight`), then its f32 columns of pw1's scales (n,
+    then n + D), pw2's, W1's and W2's, the conv taps [kk, cD] and BN g, b,
+    m, v (``tail_blob`` in the source). pw1 .. w2 are int8 [K, N]; s1 ..
+    fs2 the scales; dw [kk, D]; bn (g, b, m, v). For the conv module alone
+    (the int8 conv module's plan) w1, w2, fs1 and fs2 are None."""
     cd, ce, nb = plan.cols_d, plan.cols_e, plan.blocks
     d = pw2.shape[0]
-    s1, s2, fs1, fs2 = (v.reshape(-1) for v in (s1, s2, fs1, fs2))
-    weights = (pack_tail_weight(pw1, cd, nb, glu=True), pack_tail_weight(pw2, cd, nb),
-               pack_tail_weight(w1, ce, nb), pack_tail_weight(w2, cd, nb))
-    cols = torch.cat([pack_columns(s1[:d], cd, nb), pack_columns(s1[d:], cd, nb),
-                      pack_columns(s2, cd, nb), pack_columns(fs1, ce, nb),
-                      pack_columns(fs2, cd, nb), pack_columns(dw, cd, nb),
-                      *[pack_columns(v, cd, nb) for v in bn]], dim=1)
+    s1, s2 = s1.reshape(-1), s2.reshape(-1)
+    weights = [pack_tail_weight(pw1, cd, nb, glu=True), pack_tail_weight(pw2, cd, nb)]
+    cols = [pack_columns(s1[:d], cd, nb), pack_columns(s1[d:], cd, nb), pack_columns(s2, cd, nb)]
+    if w1 is not None:
+        weights += [pack_tail_weight(w1, ce, nb), pack_tail_weight(w2, cd, nb)]
+        cols += [pack_columns(fs1.reshape(-1), ce, nb), pack_columns(fs2.reshape(-1), cd, nb)]
+    cols = torch.cat(cols + [pack_columns(dw, cd, nb), *[pack_columns(v, cd, nb) for v in bn]],
+                     dim=1)
     return torch.cat([w.reshape(nb, -1).view(torch.uint8) for w in weights]
                      + [cols.contiguous().view(torch.uint8)], dim=1).contiguous()
+
+
+def pack_conv_f32(pw1, pw2, dw, bn, plan: TailPlan) -> torch.Tensor:
+    """The f32 conv module's constants as its blocks read them, a block's
+    slice contiguous: [blocks, floats] f32, block b holding for its columns
+    b * cols_d .. the pieces of CONV_RUN rows of K of pw1, each
+    [CONV_RUN / 4][2 cols_d][4] (a column's four consecutive K values
+    together; the columns n, then their gates n + D), then those of pw2,
+    each [CONV_RUN / 4][cols_d][4], then the taps [kk, cols_d] and BN g, b,
+    m, v; zero past D and K (``cf_blob`` in the source). pw1 [D, 2D], pw2
+    [D, D], dw [kk, D] f32; bn (g, b, m, v)."""
+    d = pw2.shape[0]
+    nb, cd, runs = plan.blocks, plan.cols_d, _conv_f32_runs(d)
+    kp = runs * CONV_RUN
+
+    def pieces(ws):
+        p = pw2.new_zeros((kp, nb, len(ws), cd))
+        for i, w in enumerate(ws):
+            full = w.new_zeros((kp, nb * cd))
+            full[:d, :w.shape[1]] = w
+            p[:, :, i] = full.view(kp, nb, cd)
+        return (p.view(runs, CONV_RUN // 4, 4, nb, len(ws) * cd).permute(3, 0, 1, 4, 2)
+                .reshape(nb, -1))
+
+    cols = [pack_columns(dw, cd, nb), *[pack_columns(v, cd, nb) for v in bn]]
+    return torch.cat([pieces([pw1[:, :d], pw1[:, d:]]), pieces([pw2]), *cols],
+                     dim=1).float().contiguous()
+
+
+def _pack(pw1, dw, bn, pw2, plan: TailPlan, int8: bool) -> torch.Tensor:
+    if int8:
+        return pack_tail(pw1.q, pw2.q, None, None, pw1.s, pw2.s, None, None, dw, bn, plan)
+    return pack_conv_f32(pw1, pw2, dw, bn, plan)
+
+
+def pack_conv_block(pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, sms: int | None = None) -> torch.Tensor:
+    """A layer's conv constants for :func:`conv_block`'s ``packed``, for the
+    column slices of a card with ``sms`` SMs (by default that of the
+    weights' device): int8 QuantTensors by :func:`pack_tail` without the FFN
+    (3.2 MB a layer at full width), f32 weights by :func:`pack_conv_f32`
+    (12.6 MB), each held beside the [K, N] matrices that the plain path
+    reads. Made once, where the layer's weights are made
+    (``models/parakeet/encoder.py:layer_params``): a packed copy that no
+    longer matches the weights gives wrong results. Raises TypeError for
+    other weights (bf16 weights take the chain, which reads them as they
+    are)."""
+    kind = weight_kind("conv_block: pw1 and pw2", pw1, pw2)
+    if kind == "bf16":
+        raise TypeError("pack_conv_block takes int8 QuantTensor or f32 weights")
+    int8 = kind == "int8"
+    t = pw2.q if int8 else pw2
+    sms = sm_count(t.device.index or 0) if sms is None else sms
+    d, kk = t.shape[0], dw.shape[0]
+    plan = (conv_block_q8_plan if int8 else conv_block_f32_plan)(1, d, kk, sms)
+    return _pack(pw1, dw, (bn_g, bn_b, bn_m, bn_v), pw2, plan, int8)
+
+
+def check_packed_conv(packed: torch.Tensor, plan: TailPlan, d: int, kk: int, int8: bool) -> None:
+    """Raises ValueError unless ``packed`` has the layout of ``plan``'s
+    column slices: int8 [blocks, bytes of a block's slice] uint8, f32
+    [blocks, floats of a block's slice] f32."""
+    if int8:
+        what, want = "int8", (torch.uint8, (plan.blocks, _tail_weight_bytes(d, 0, plan.cols_d, 0)
+                                            + _tail_columns(kk, plan.cols_d, 0) * 4))
+    else:
+        what, want = "f32", (torch.float32, (plan.blocks, _conv_f32_floats(d, kk, plan.cols_d)))
+    if (packed.dtype, tuple(packed.shape)) != want:
+        raise ValueError(f"conv_block[{what}]: packed constants {packed.dtype} "
+                         f"{tuple(packed.shape)} do not fit the launch plan {want[0]} {want[1]} "
+                         f"(see pack_conv_block)")
 
 
 def pack_conv_ffn_ln(pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, ff_w1, ff_w2,

@@ -28,9 +28,9 @@ from trt_asr_tpu_torch.ops.common import silu
 from trt_asr_tpu_torch.ops.kernels import build as kb
 from trt_asr_tpu_torch.ops.kernels.persistent import (SMEM_PER_BLOCK, TAIL_GROUP, TAIL_KSTEP,
                                                       TAIL_ROWS, TAIL_WARPS, pack_columns,
-                                                      pack_tail_weight, pad_k, sm_count)
-from trt_asr_tpu_torch.ops.quant import (QuantTensor, is_low_precision, round_bf16,
-                                         scaled_matmul)
+                                                      pack_tail_weight, pad_k, sm_count,
+                                                      weight_kind)
+from trt_asr_tpu_torch.ops.quant import is_low_precision, round_bf16, scaled_matmul
 
 
 def layer_norm_plain(x, g, b):
@@ -182,17 +182,6 @@ def pack_ffn_q8(w1, w2, plan: FfnPlan) -> torch.Tensor:
                       b.view(torch.uint8)], dim=1).contiguous()
 
 
-def _kind(w1, w2) -> str:
-    """``int8``, ``f32`` or ``bf16``: the storage type both weights share
-    (ValueError otherwise)."""
-    kinds = {"int8" if isinstance(w, QuantTensor) else
-             {torch.float32: "f32", torch.bfloat16: "bf16"}.get(w.dtype, str(w.dtype))
-             for w in (w1, w2)}
-    if len(kinds) != 1 or not kinds <= {"int8", "f32", "bf16"}:
-        raise ValueError("fused_ffn: W1 and W2 must share one storage type (f32, bf16 or int8)")
-    return kinds.pop()
-
-
 def pack_ffn(w1, w2, sms: int | None = None) -> torch.Tensor:
     """An FFN's weights for :func:`fused_ffn`'s ``packed``, for the plan of
     a card with ``sms`` SMs (by default that of the weights' device): int8
@@ -203,7 +192,7 @@ def pack_ffn(w1, w2, sms: int | None = None) -> torch.Tensor:
     that no longer matches the weights gives wrong results. Raises
     TypeError for other weights (bf16 weights take the chain, which reads
     them as they are)."""
-    kind = _kind(w1, w2)
+    kind = weight_kind("fused_ffn: W1 and W2", w1, w2)
     if kind == "bf16":
         raise TypeError("pack_ffn takes int8 QuantTensor or f32 weights")
     t = w1.q if kind == "int8" else w1
@@ -253,7 +242,7 @@ def fused_ffn(x, ln_g, ln_b, w1, w2, scale: float = 0.5, packed=None):
     whatever ``TRT_ASR_Q8_ACT`` says (no "split" mode)."""
     if x.device.type == "cpu":
         return fused_ffn_plain(x, ln_g, ln_b, w1, w2, scale)
-    kind = _kind(w1, w2)
+    kind = weight_kind("fused_ffn: W1 and W2", w1, w2)
     if kind == "bf16":
         if packed is not None:
             raise ValueError("fused_ffn: packed weights are for int8 and f32 weights only")

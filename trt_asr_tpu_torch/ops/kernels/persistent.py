@@ -11,6 +11,8 @@ import functools
 
 import torch
 
+from trt_asr_tpu_torch.ops.quant import QuantTensor
+
 TAIL_WARPS = 16              # csrc/persistent.cuh TL_WARPS
 TAIL_ROWS = 8                # rows of a product pass (TL_MR)
 TAIL_GROUP = 8               # columns of a weight group (TL_GW)
@@ -32,6 +34,17 @@ def column_slices(d: int, sms: int) -> tuple[int, int]:
     an SM."""
     cols = TAIL_GROUP * -(-(d // TAIL_GROUP) // sms)
     return cols, -(-d // cols)
+
+
+def weight_kind(what: str, *ws) -> str:
+    """``int8``, ``f32`` or ``bf16``: the storage type the weights ``ws`` of
+    a persistent kernel share (ValueError naming ``what`` otherwise)."""
+    kinds = {"int8" if isinstance(w, QuantTensor) else
+             {torch.float32: "f32", torch.bfloat16: "bf16"}.get(w.dtype, str(w.dtype))
+             for w in ws}
+    if len(kinds) != 1 or not kinds <= {"int8", "f32", "bf16"}:
+        raise ValueError(f"{what} must share one storage type (f32, bf16 or int8)")
+    return kinds.pop()
 
 
 @functools.lru_cache(maxsize=None)
