@@ -46,7 +46,14 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    The log-mel kernel runs at T 1,
    50 (a 0.5 s push, the kernels line's reading), 51 and 300 (a flush),
    each held at 1e-3, timed beside its plain version and replayed from a
-   captured graph.
+   captured graph. Then the bf16 weights of ``cast_params_for_compute``
+   (bf16 biases and taps, their f32 copies kept once): the four chains
+   (``csrc/att_block.cu`` over an f32 and a bf16 kv cache,
+   ``csrc/joint_step.cu``, ``csrc/ffn.cu``, ``csrc/conv_block.cu`` over an
+   f32 and a bf16 time cache) at 1e-3, a tolerance shown to fail the plain
+   version without the bf16 rounding points, and the int8 attention block and
+   joint step with bf16 biases (the fast arm) at 1e-4, each timed beside
+   its plain version and its bound and replayed from a captured graph.
 3. full-width session (``ModelConfig()``, seeded random weights from the
    port's ``init_params``): a seeded synthetic utterance of 12 words
    (~6 s) pushed in 0.5 s pieces, with a blank bias set so the plain f32
@@ -59,22 +66,24 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    and with the conv kernel and no FFN kernel (``int8_conv``: the conv
    module alone). Each arm logs its first chunk, that of the warm-up
    utterance and the time to make the model (int8: quantizing and packing
-   the tail's constants).
+   the tail's constants). The JAX package's bf16 configurations: the bf16
+   weights of ``cast_params_for_compute`` with an f32 state, the attention,
+   joint and log-mel kernels (``bf16_on``) and every kernel (``bf16_all``),
+   each through the bf16 chains; the fast arm, bf16 then ``quant="all"``,
+   attention and joint (``fast_on``); the graft entry's bf16 encoder state
+   through ``_session_step``, attention and joint (``bf16_step``). Each
+   bf16 arm logs its f32 x bf16 widenings a chunk, makes no f32 copy of a
+   bias or taps at a call, and lies within twice its plain version's own
+   noise floor (the same arm with the wrappers swapped for their plain
+   versions on the card, against that arm with its features moved by
+   1e-6); tokens side by side.
    Launch counts are reset just before each kernel arm and read just after.
    In each arm's profile every wrapper call of the fused tail is one kernel
    (``conv_ffn_ln_kernel``), and no conv module kernel runs beside it; every
-   call of the attention block is one kernel, ``att_block_q8_kernel`` with
-   int8 weights and ``att_block_f32_kernel`` with f32, and none of the
-   chain's runs; every call of the joint step is one
-   ``joint_step_q8_kernel`` with int8 weights and one
-   ``joint_step_f32_kernel`` with f32, and no ``argmax_reduce_kernel`` (the
-   three-launch route) runs; every call of the FFN is one ``ffn_q8_kernel``
-   with int8 weights and one ``ffn_f32_kernel`` with f32, and no kernel of
-   the FFN's five-launch chain runs; every call of the conv module is one
-   ``conv_block_q8_kernel`` with int8 weights and one
-   ``conv_block_f32_kernel`` with f32, and no kernel of its five-launch
-   chain runs (no ``conv_module_kernel``, ``small_m_gemm_*`` or
-   ``layernorm_kernel`` in any arm). The bytes of each arm's packed FFN,
+   call of the attention block, the joint step, the FFN and the conv module
+   is, with int8 or f32 weights, one persistent kernel of that type and no
+   chain's launch, and with bf16 weights exactly the chain's launches and
+   no persistent kernel. The bytes of each arm's packed FFN,
    attention, conv and tail copies are logged. No int8 arm widens an
    int8 weight at a call (``q8_matmul.widened`` stays 0: the model's bf16
    copies feed the tensor cores), here and in phase 4; the memory the
@@ -104,10 +113,18 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    bf16 x bf16 ``matmul`` route of the bf16 weights configuration (the
    tensor cores, at the offline FFN's shape), within one bf16 ulp of the
    f32 product rounded once, timed beside the f32 SIMT product.
+3b. the lockstep engine (``streaming/batch_engine.py``) at full width: 8
+   streams of different lengths, one attached after three steps, the
+   shortest finalized while the others stream (its flush inside a lockstep
+   step), joint kernel on at 8 rows a step; f32: each stream token-exact
+   with its own session on the card; bf16 weights: each stream's encoder
+   output within twice its session's noise floor. Step ms (median, p90)
+   and joint launches a step.
 4. the trained ``artifacts/models/gate_r3`` on the card with the kernels
    on, each token-exact against the port's CPU plain path: attention,
-   joint and log-mel kernels in f32 and int8; every kernel in f32 and in
-   int8 (the fused tail); int8 with the conv kernel and no FFN kernel.
+   joint and log-mel kernels in f32, int8 and bf16; every kernel in f32,
+   int8 (the fused tail) and bf16 (the chains); int8 with the conv kernel
+   and no FFN kernel; the fast arm; the engine at B = 4 in f32 and bf16.
    Offline: ``transcribe_batch`` on 24- and 28-word utterances (T >= 128),
    and ``offline_encode`` + ``tdt_greedy_decode_batch`` in f32 with flash,
    token-exact with the CPU path; in bf16 with the shift and flash kernels,
@@ -133,7 +150,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``transcribe_offline`` on the card.
 6. neither ``jax`` nor ``trt_asr_tpu`` was imported.
 
-The last line is ``{"ok": true, "device": {...}}``; the line before it is
+Each phase's seconds are logged. The last line is ``{"ok": true, "device":
+{...}}``; the line before it is
 the card's name and power limit; before that one JSON line lists the
 kernels with their launches, errors and times.
 """
@@ -159,35 +177,45 @@ PEAK_OPS = {"f32": 67e12,          # f32 outside the tensor cores
 # short name -> (launch counter, source, the TPU kernel it replaces, and
 # per weight type the full-width arm whose session reads its launches)
 KERNEL_SRCS = {
-    # the attention block with f32 weights: its own persistent kernel (bf16
-    # weights keep the chain of csrc/att_block.cu, on no path yet)
+    # the attention block with f32 weights: its own persistent kernel
     "att": ("att_block", "trt_asr_tpu_torch/csrc/att_block_f32.cu",
             "trt_asr_tpu/ops/pallas/att_block_kernel.py:170", {"f32": "f32_on"}),
-    # the attention block with int8 weights: its own persistent kernel
+    # the attention block with int8 weights: its own persistent kernel (the
+    # fast arm's too: bf16, then int8)
     "attq": ("att_block", "trt_asr_tpu_torch/csrc/att_block_q8.cu",
-             "trt_asr_tpu/ops/pallas/att_block_kernel.py:170", {"int8": "int8_on"}),
-    # the joint step with f32 weights: its own persistent kernel (bf16
-    # weights keep the three launches of csrc/joint_step.cu, on no path yet)
+             "trt_asr_tpu/ops/pallas/att_block_kernel.py:170",
+             {"int8": "int8_on", "fast": "fast_on"}),
+    # the attention block with bf16 weights: the chain of csrc/att_block.cu
+    "attb": ("att_block", "trt_asr_tpu_torch/csrc/att_block.cu",
+             "trt_asr_tpu/ops/pallas/att_block_kernel.py:170", {"bf16": "bf16_on"}),
+    # the joint step with f32 weights: its own persistent kernel
     "joint": ("joint_step", "trt_asr_tpu_torch/csrc/joint_step_f32.cu",
               "trt_asr_tpu/ops/pallas/joint_step_kernel.py:124", {"f32": "f32_on"}),
     # the joint step with int8 weights: its own persistent kernel
     "jointq": ("joint_step", "trt_asr_tpu_torch/csrc/joint_step_q8.cu",
-               "trt_asr_tpu/ops/pallas/joint_step_kernel.py:124", {"int8": "int8_on"}),
+               "trt_asr_tpu/ops/pallas/joint_step_kernel.py:124",
+               {"int8": "int8_on", "fast": "fast_on"}),
+    # the joint step with bf16 weights: the launches of csrc/joint_step.cu
+    "jointb": ("joint_step", "trt_asr_tpu_torch/csrc/joint_step.cu",
+               "trt_asr_tpu/ops/pallas/joint_step_kernel.py:124", {"bf16": "bf16_on"}),
     "mel": ("logmel", "trt_asr_tpu_torch/csrc/mel.cu",
             "trt_asr_tpu/ops/pallas/mel_kernel.py:65", {"f32": "f32_on"}),
-    # the FFN with f32 and with int8 weights: a persistent kernel each (bf16
-    # weights keep the five launches of csrc/ffn.cu, on no path yet)
+    # the FFN with f32 and with int8 weights: a persistent kernel each; bf16
+    # weights: the five launches of csrc/ffn.cu
     "ffn": ("ffn", "trt_asr_tpu_torch/csrc/ffn_f32.cu",
             "trt_asr_tpu/ops/pallas/ffn_kernel.py:115", {"f32": "f32_all"}),
     "ffnq": ("ffn", "trt_asr_tpu_torch/csrc/ffn_q8.cu",
              "trt_asr_tpu/ops/pallas/ffn_kernel.py:115", {"int8": "int8_all"}),
+    "ffnb": ("ffn", "trt_asr_tpu_torch/csrc/ffn.cu",
+             "trt_asr_tpu/ops/pallas/ffn_kernel.py:115", {"bf16": "bf16_all"}),
     # the conv module with f32 and with int8 weights: a persistent kernel
-    # each (bf16 weights keep the five launches of csrc/conv_block.cu, on
-    # no path yet)
+    # each; bf16 weights: the five launches of csrc/conv_block.cu
     "conv": ("conv_block", "trt_asr_tpu_torch/csrc/conv_block_f32.cu",
              "trt_asr_tpu/ops/pallas/conv_block_kernel.py:99", {"f32": "f32_all"}),
     "convq": ("conv_block", "trt_asr_tpu_torch/csrc/conv_block_q8.cu",
               "trt_asr_tpu/ops/pallas/conv_block_kernel.py:99", {"int8": "int8_conv"}),
+    "convb": ("conv_block", "trt_asr_tpu_torch/csrc/conv_block.cu",
+              "trt_asr_tpu/ops/pallas/conv_block_kernel.py:99", {"bf16": "bf16_all"}),
     "tail": ("conv_ffn_ln", "trt_asr_tpu_torch/csrc/conv_ffn_ln.cu",
              "trt_asr_tpu/ops/pallas/conv_block_kernel.py:184", {"int8": "int8_all"}),
     # offline kernels: the offline arm reads their launches (rel shift runs
@@ -718,6 +746,158 @@ def check_kernels(torch, dev, timer, cfg):
     return records
 
 
+# bf16 chains against their plain versions: both round the same operands to
+# bf16, but the chains' f32 sums run in another order than the plain
+# version's, and an f32 value one ulp apart can round to the neighbouring
+# bf16 value. Readings at the full width on the H100: attention 2.55e-4,
+# FFN 2.06e-4, joint and conv 7.2e-7; without the rounding points the
+# plain version lies 2.8e-3 to 7.1e-3 away, so the tolerance sees them.
+BF16_CHAIN_ATOL = 1e-3
+
+
+def check_bf16_kernels(torch, dev, timer, cfg):
+    """Phase 2, the bf16 weights of ``cast_params_for_compute``: the four
+    chains (attention block, joint step, FFN, conv module) at the
+    full-width steady-chunk shapes, with bf16 biases and taps (their f32
+    copies kept once, as the model keeps them) and the session's f32
+    caches; the attention chain also over a bf16 kv cache (a bf16 encoder
+    state); then the int8 attention block and joint step with bf16
+    leftovers (the fast arm: bf16, then int8). Each against its plain
+    version, timed beside it and its bound, captured into a CUDA graph and
+    replayed."""
+    from trt_asr_tpu_torch.ops.kernels.att_block import (att_block, att_block_plain,
+                                                         pack_att_block)
+    from trt_asr_tpu_torch.ops.kernels.conv_block import conv_block, conv_block_plain
+    from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn, fused_ffn_plain
+    from trt_asr_tpu_torch.ops.kernels.joint_step import (joint_step, joint_step_plain,
+                                                          pack_joint_step)
+    from trt_asr_tpu_torch.ops.quant import as_f32, keep_f32_copy, quantize_tensor
+
+    rng = np.random.default_rng(4242)
+    bf = torch.bfloat16
+    t = lambda *s, sc=1.0: torch.as_tensor(  # noqa: E731
+        (rng.standard_normal(s) * sc).astype(np.float32), device=dev)
+
+    def small(*s, sc=1.0):
+        """A bf16 bias or taps tensor with its f32 copy kept, as the model's."""
+        v = t(*s, sc=sc).to(bf)
+        keep_f32_copy(v)
+        return v
+
+    d, h, c, kk = cfg.d_model, cfg.n_heads, cfg.att_cache_size, cfg.conv_kernel_size
+    tq, valid_tq = 8, 6
+    e = d * cfg.ff_expansion_factor
+    records = {}
+    widened0 = as_f32.widened
+
+    def check(label, key, tol, kernel, plain, nbytes, ops, unrounded=None):
+        got, want = kernel(), plain()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        log(f"{label}: max |kernel - plain| = {err:.3g} (tolerance {tol:g})")
+        assert err <= tol, f"{label} disagrees with its plain version"
+        if unrounded is not None:
+            check_rounding_points(label, tol, got, got_tuple(unrounded()))
+        if key:
+            records[key] = measure(label, timer, err, kernel, plain, nbytes, ops, "bf16")
+        check_graph_capture(torch, label, lambda: got_tuple(kernel()), (), got)
+
+    def got_tuple(r):
+        return r if isinstance(r, tuple) else (r,)
+
+    # attention block: bf16 weights and biases, f32 positional table, a full
+    # ring with the cursor mid-ring; the kv cache f32 (the session's) and bf16
+    x = t(tq, d)
+    ln_g, ln_b = 1.0 + t(d, sc=0.1), t(d, sc=0.1)
+    ws = [t(d, d, sc=1 / math.sqrt(d)) for _ in range(4)]
+    wsb = [w.to(bf) for w in ws]
+    bu, bv = small(h, d // h, sc=0.3), small(h, d // h, sc=0.3)
+    pos = t(2 * tq + c - 1, d)
+    kv = t(c, 2 * d)
+    meta = torch.tensor([100, c, valid_tq], dtype=torch.int32, device=dev)
+    s_valid = c + valid_tq
+    att_ops = 2 * tq * d * d * 4 + 6 * tq * s_valid * d
+    for cache, kvc in (("f32", kv), ("bf16", kv.to(bf))):
+        args = (x, ln_g, ln_b, *wsb, bu, bv, pos, kvc, meta)
+        nbytes = (x.numel() * 4 * 5 + 2 * d * 4 + sum(wbytes(w) for w in wsb) + 2 * d * 2
+                  + pos.numel() * 4 + kvc.numel() * kvc.element_size() + 12)
+        check(f"att_block[bf16] (chain, {cache} kv cache)", "bf16_attb" if cache == "f32" else "",
+              BF16_CHAIN_ATOL, lambda: att_block(*args, n_heads=h),
+              lambda: att_block_plain(*args, n_heads=h), nbytes, att_ops,
+              lambda: att_block_plain(x, ln_g, ln_b, *[w.float() for w in wsb], bu, bv, pos,
+                                      kvc.float(), meta, n_heads=h))
+    # the fast arm's int8 attention block: bf16 biases, weights quantized after the cast
+    qws = [quantize_tensor(w.float()) for w in wsb]
+    packed = pack_att_block(*qws)
+    args = (x, ln_g, ln_b, *qws, bu, bv, pos, kv, meta)
+    nbytes = (x.numel() * 4 * 5 + 2 * d * 4 + sum(wbytes(w) for w in qws) + 2 * d * 2
+              + pos.numel() * 4 + kv.numel() * 4 + 12)
+    check("att_block[fast] (int8, bf16 biases)", "fast_attq", 1e-4,
+          lambda: att_block(*args, n_heads=h, packed=packed),
+          lambda: att_block_plain(*args, n_heads=h), nbytes, att_ops)
+
+    # joint step: 8 rows, bf16 weights and biases (the chain); int8 with bf16 biases
+    rows, j, p, v = tq, cfg.joint_hidden, cfg.pred_hidden, cfg.joint_vocab_size
+    eproj, g = t(rows, j), t(rows, p, sc=0.5)
+    wp, wo = t(p, j, sc=1 / math.sqrt(p)).to(bf), t(j, v, sc=1 / math.sqrt(j)).to(bf)
+    bp, bo = small(j, sc=0.1), small(v, sc=0.1)
+    kw = dict(ths=cfg.token_head_size, ndur=cfg.num_duration_bins, blank_id=cfg.blank_id,
+              blank_penalty=0.5)
+    joint_ops = 2 * rows * (p * j + j * v)
+    qwp, qwo = quantize_tensor(wp.float()), quantize_tensor(wo.float())
+    jpacked = pack_joint_step(qwp, bp, qwo, bo)
+    for label, key, tol, (a1, a2), jkw in (
+            ("joint_step[bf16] (chain)", "bf16_jointb", BF16_CHAIN_ATOL, (wp, wo), {}),
+            ("joint_step[fast] (int8, bf16 biases)", "fast_jointq", 1e-4, (qwp, qwo),
+             {"packed": jpacked})):
+        args = (eproj, g, a1, bp, a2, bo)
+        nbytes = ((eproj.numel() + g.numel()) * 4 + (j + v) * 2 + wbytes(a1) + wbytes(a2)
+                  + rows * v * 4 + rows * 8)
+        kernel = lambda: joint_step(*args, **kw, **jkw)  # noqa: E731
+        tok, dur, logits = kernel()
+        tok_p, dur_p, logits_p = joint_step_plain(*args, **kw)
+        torch.cuda.synchronize()
+        tl = logits_p[:, :kw["ths"]].clone()
+        tl[:, kw["blank_id"]] -= kw["blank_penalty"]
+        for name, lg, a, b in (("token", tl, tok, tok_p),
+                               ("duration", logits_p[:, kw["ths"]:kw["ths"] + kw["ndur"]], dur,
+                                dur_p)):
+            top2 = torch.topk(lg, 2, dim=1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+            assert bool(((a == b) | ~clear).all()), f"{label} {name} argmax disagrees"
+        check(label, key, tol, lambda: kernel()[2], lambda: joint_step_plain(*args, **kw)[2],
+              nbytes, joint_ops,
+              None if jkw else lambda: joint_step_plain(eproj, g, wp.float(), bp, wo.float(), bo,
+                                                        **kw)[2])
+
+    # FFN and conv module on the steady chunk's 8 rows (6 valid), bf16 weights
+    fln = (1.0 + t(d, sc=0.1), t(d, sc=0.1))
+    w1, w2 = t(d, e, sc=1 / math.sqrt(d)).to(bf), t(e, d, sc=1 / math.sqrt(e)).to(bf)
+    args = (x, *fln, w1, w2)
+    check("ffn[bf16] (chain)", "bf16_ffnb", BF16_CHAIN_ATOL, lambda: fused_ffn(*args),
+          lambda: fused_ffn_plain(*args), (2 * tq * d + 2 * d) * 4 + wbytes(w1) + wbytes(w2),
+          4 * tq * d * e, lambda: fused_ffn_plain(x, *fln, w1.float(), w2.float()))
+    cln = (1.0 + t(d, sc=0.1), t(d, sc=0.1))
+    pw1, pw2 = t(d, 2 * d, sc=1 / math.sqrt(d)).to(bf), t(d, d, sc=1 / math.sqrt(d)).to(bf)
+    dw = small(kk, d, sc=1 / math.sqrt(kk))
+    bn = (1.0 + t(d, sc=0.1), t(d, sc=0.1), t(d, sc=0.1), 1.0 + t(d, sc=0.1).abs())
+    half = (kk - 1) // 2
+    tc = t(half, d)
+    mask = (torch.arange(tq, device=dev) < valid_tq).float()[:, None]
+    args = (x, *cln, pw1, dw, *bn, pw2, tc, mask)
+    conv_bytes = (3 * tq * d + (2 + 4 + half) * d + tq) * 4 + kk * d * 2
+    check("conv_block[bf16] (chain)", "bf16_convb", BF16_CHAIN_ATOL, lambda: conv_block(*args),
+          lambda: conv_block_plain(*args), conv_bytes + wbytes(pw1) + wbytes(pw2),
+          2 * tq * d * 3 * d + 2 * tq * kk * d,
+          lambda: conv_block_plain(x, *cln, pw1.float(), dw, *bn, pw2.float(), tc, mask))
+    args = (x, *cln, pw1, dw, *bn, pw2, tc.to(bf), mask)
+    check("conv_block[bf16] (chain, bf16 time cache)", "", BF16_CHAIN_ATOL,
+          lambda: conv_block(*args), lambda: conv_block_plain(*args), 0, 0)
+    assert as_f32.widened == widened0, "a kept f32 copy was not used: a bias or taps widened"
+    return records
+
+
 def check_graph_capture(torch, label, fn, args, want) -> None:
     """Capture one call into a CUDA graph and replay it twice: a graph of
     the chunk step needs the cooperative launch to be capturable. The kernel
@@ -1050,62 +1230,86 @@ def read_counts():
     return {name: fn.launches for name, fn in wrappers().items()}
 
 
-def expected_kernels(rt) -> set:
-    """The kernels a session with these runtime flags launches (the log-mel
-    kernel is on in every kernel arm)."""
+def expected_kernels(rt, mel: bool = True) -> set:
+    """The kernels a session with these runtime flags launches, the log-mel
+    kernel with ``mel``."""
     tail = rt.use_pallas_conv and rt.use_pallas_ffn and rt.quant in ("encoder", "all")
-    names = {"att_block", "joint_step", "logmel"}
+    names = {"att_block", "joint_step"} | ({"logmel"} if mel else set())
     names |= {"ffn"} if rt.use_pallas_ffn else set()
     names |= {"conv_ffn_ln" if tail else "conv_block"} if rt.use_pallas_conv else set()
     return names
 
 
-def check_launches(label, rt, counts) -> None:
-    want = expected_kernels(rt)
+def check_launches(label, rt, counts, mel: bool = True) -> None:
+    want = expected_kernels(rt, mel)
     got = {k for k, v in counts.items() if v > 0}
     assert got == want, f"{label}: launched {sorted(got)}, expected {sorted(want)} ({counts})"
 
 
-def run_session(torch, model, rt, audio, piece: int):
+def new_session(torch, model, rt, state_dtype=None):
+    """A session on ``model``; with ``state_dtype`` its encoder state is
+    replaced by one stored in that type (bf16: the graft entry's state), so
+    that every chunk's ``_session_step`` takes it, closed loop."""
+    from trt_asr_tpu_torch.models.parakeet.encoder import init_encoder_state
     from trt_asr_tpu_torch.streaming.session import StreamingSession
 
     sess = StreamingSession(model, rt)
-    for i in range(0, len(audio), piece):
-        sess.push_audio(audio[i:i + piece])
+    if state_dtype is not None:
+        sess._enc_state = init_encoder_state(model.cfg, 1, device=model.device, dtype=state_dtype)
+    return sess
+
+
+def run_session(torch, model, rt, audio, piece: int, state_dtype=None, feats=None):
+    """One utterance through a session: ``audio`` pushed in pieces, or with
+    ``feats`` those features pushed in pieces of as many frames."""
+    sess = new_session(torch, model, rt, state_dtype)
+    if feats is not None:
+        step = piece // model.frontend.spec.hop_length
+        for i in range(0, feats.shape[0], step):
+            sess.push_features(feats[i:i + step])
+    else:
+        for i in range(0, len(audio), piece):
+            sess.push_audio(audio[i:i + piece])
     sess.finalize()
     torch.cuda.synchronize()
     return sess
 
 
-def make_model(torch, cfg, params, tok, rt, dev, mel_kernel: bool):
+def make_model(torch, cfg, params, tok, rt, dev, mel_kernel: bool, weights_dtype=None):
     from trt_asr_tpu_torch.contract import FrontendSpec
     from trt_asr_tpu_torch.frontend.logmel import LogMelFrontend
     from trt_asr_tpu_torch.models.parakeet.model import ParakeetTDT
 
     fe = LogMelFrontend(FrontendSpec(n_mels=cfg.feat_in), use_kernel=mel_kernel, device=dev)
-    return ParakeetTDT(cfg, params, tok, frontend=fe, runtime=rt, device=dev)
+    return ParakeetTDT(cfg, params, tok, frontend=fe, runtime=rt, device=dev,
+                       weights_dtype=weights_dtype)
 
 
-def profile_session(torch, label, model, rt, audio, piece: int) -> None:
+# the kernels of each route: one persistent kernel a call (int8, f32), or
+# the chain's launches a call (bf16), by the profiler's kernel names
+PERSISTENT = {"att_block": {"int8": "att_block_q8_kernel", "f32": "att_block_f32_kernel"},
+              "joint_step": {"int8": "joint_step_q8_kernel", "f32": "joint_step_f32_kernel"},
+              "ffn": {"int8": "ffn_q8_kernel", "f32": "ffn_f32_kernel"},
+              "conv_block": {"int8": "conv_block_q8_kernel", "f32": "conv_block_f32_kernel"}}
+
+
+def profile_session(torch, label, model, rt, audio, piece: int, state_dtype=None) -> None:
     """Device busy share and kernel time by name over one session
     (torch.profiler): where a steady chunk's time goes. Each wrapper call of
     the fused tail must be one kernel, with no conv module kernel beside
-    it; each call of the attention block must be one kernel of its weights'
-    type (``att_block_q8_kernel`` with int8 weights, ``att_block_f32_kernel``
-    with f32), with no kernel of the chain beside it; each call of the joint
-    step must be one kernel of its weights' type (``joint_step_q8_kernel``
-    with int8 weights, ``joint_step_f32_kernel`` with f32), with none of
-    the three launches of ``csrc/joint_step.cu`` (``argmax_reduce_kernel``)
-    beside it; each call of the FFN must be one kernel of its weights' type
-    (``ffn_q8_kernel``, ``ffn_f32_kernel``), with none of the five launches
-    of ``csrc/ffn.cu``; each call of the conv module must be one kernel of
-    its weights' type (``conv_block_q8_kernel``, ``conv_block_f32_kernel``),
-    and no kernel of the five launches of ``csrc/conv_block.cu``
-    (``conv_module_kernel``, ``small_m_gemm_*``, ``layernorm_kernel``) runs
-    in any arm."""
+    it. Each call of the attention block, the joint step, the FFN and the
+    conv module must be, with int8 or f32 weights, one persistent kernel of
+    that type (``att_block_q8_kernel`` / ``att_block_f32_kernel``,
+    ``joint_step_q8_kernel`` / ``_f32``, ``ffn_q8_kernel`` / ``_f32``,
+    ``conv_block_q8_kernel`` / ``_f32``) and no launch of a chain; with
+    bf16 weights the chain's launches and no persistent kernel: a
+    ``rel_attention_kernel`` an attention call, an ``argmax_reduce_kernel``
+    a joint call, a ``conv_module_kernel`` a conv call, a LayerNorm kernel
+    an attention, FFN or conv call, two split-K product passes a call of
+    each (the conv module's pw1 pass has its epilogue in the conv kernel)."""
     reset_counts()
-    rows = profile_run(torch, label, "chunk",
-                       lambda: len(run_session(torch, model, rt, audio, piece).chunk_latencies_ms))
+    rows = profile_run(torch, label, "chunk", lambda: len(run_session(
+        torch, model, rt, audio, piece, state_dtype).chunk_latencies_ms))
     counts = read_counts()
     launched = lambda name: sum(n for _, key, n in rows if name in key)  # noqa: E731
     calls, tail, conv = counts["conv_ffn_ln"], launched("conv_ffn_ln_kernel"), launched(
@@ -1113,44 +1317,31 @@ def profile_session(torch, label, model, rt, audio, piece: int) -> None:
     log(f"  profile[{label}]: {calls} conv_ffn_ln calls, {tail} conv_ffn_ln_kernel launches, "
         f"{conv} conv_module_kernel launches")
     assert tail == calls, f"profile[{label}]: conv_ffn_ln is not one kernel a call"
-    assert not (calls and conv), f"profile[{label}]: the tail launched the conv module kernel"
-    att, att_q8, att_f32, chain = (counts["att_block"], launched("att_block_q8_kernel"),
-                                   launched("att_block_f32_kernel"),
-                                   launched("rel_attention_kernel"))
-    log(f"  profile[{label}]: {att} att_block calls, {att_q8} att_block_q8_kernel launches, "
-        f"{att_f32} att_block_f32_kernel launches, {chain} rel_attention_kernel launches")
-    int8_att = rt.quant in ("encoder", "all")
-    assert (att_q8, att_f32) == ((att, 0) if int8_att else (0, att)), (
-        f"profile[{label}]: att_block is not one {'int8' if int8_att else 'f32'} kernel a call")
-    assert chain == 0, f"profile[{label}]: att_block ran the chain"
-    joint, joint_q8, joint_f32, joint_chain = (
-        counts["joint_step"], launched("joint_step_q8_kernel"), launched("joint_step_f32_kernel"),
-        launched("argmax_reduce_kernel"))
-    log(f"  profile[{label}]: {joint} joint_step calls, {joint_q8} joint_step_q8_kernel "
-        f"launches, {joint_f32} joint_step_f32_kernel launches, {joint_chain} "
-        f"argmax_reduce_kernel launches (csrc/joint_step.cu)")
-    int8_joint = rt.quant in ("joint", "all")
-    assert (joint_q8, joint_f32) == ((joint, 0) if int8_joint else (0, joint)), (
-        f"profile[{label}]: joint_step is not one {'int8' if int8_joint else 'f32'} kernel a call")
-    assert joint_chain == 0, f"profile[{label}]: joint_step ran the three launches"
-    ffn, ffn_q8, ffn_f32 = (counts["ffn"], launched("ffn_q8_kernel"),
-                            launched("ffn_f32_kernel"))
-    log(f"  profile[{label}]: {ffn} ffn calls, {ffn_q8} ffn_q8_kernel launches, {ffn_f32} "
-        f"ffn_f32_kernel launches")
-    int8_enc = rt.quant in ("encoder", "all")
-    assert (ffn_q8, ffn_f32) == ((ffn, 0) if int8_enc else (0, ffn)), (
-        f"profile[{label}]: the FFN is not one {'int8' if int8_enc else 'f32'} kernel a call")
-    conv, conv_q8, conv_f32 = (counts["conv_block"], launched("conv_block_q8_kernel"),
-                               launched("conv_block_f32_kernel"))
-    chain = {k: launched(k) for k in ("conv_module_kernel", "small_m_gemm",
-                                      "port::layernorm_kernel")}
-    log(f"  profile[{label}]: {conv} conv_block calls, {conv_q8} conv_block_q8_kernel "
-        f"launches, {conv_f32} conv_block_f32_kernel launches; the chains' kernels "
-        f"(csrc/conv_block.cu, csrc/ffn.cu): {chain}")
-    assert (conv_q8, conv_f32) == ((conv, 0) if int8_enc else (0, conv)), (
-        f"profile[{label}]: the conv module is not one {'int8' if int8_enc else 'f32'} kernel "
-        f"a call")
-    assert not any(chain.values()), f"profile[{label}]: a chain ran: {chain}"
+    from trt_asr_tpu_torch.ops.kernels.persistent import weight_kind
+
+    lp = model.layers[0]
+    routes = {name: weight_kind(name, w) for name, w in (
+        ("att_block", lp["att_wq"]), ("joint_step", model.params["joint"]["out"]["w"]),
+        ("ffn", lp["ff1_w1"]), ("conv_block", lp["conv_pw1"]))}
+    chain_calls = {k: 0 for k in PERSISTENT}
+    for name, kinds in PERSISTENT.items():
+        n = counts[name]
+        got = {kind: launched(kernel) for kind, kernel in kinds.items()}
+        log(f"  profile[{label}]: {n} {name} calls ({routes[name]} weights), launches {got}")
+        want = {kind: n if kind == routes[name] else 0 for kind in kinds}
+        assert got == want, f"profile[{label}]: {name} is not its route's kernel a call"
+        if routes[name] == "bf16":
+            chain_calls[name] = n
+    a, j, f, c = (chain_calls[k] for k in ("att_block", "joint_step", "ffn", "conv_block"))
+    chain = {k: launched(k) for k in ("rel_attention_kernel", "argmax_reduce_kernel",
+                                      "conv_module_kernel", "port::layernorm_kernel",
+                                      "small_m_gemm_partial", "small_m_gemm_epilogue")}
+    want = {"rel_attention_kernel": a, "argmax_reduce_kernel": j, "conv_module_kernel": c,
+            "port::layernorm_kernel": a + f + c, "small_m_gemm_partial": 2 * (a + j + f + c),
+            "small_m_gemm_epilogue": 2 * (a + j + f) + c}
+    log(f"  profile[{label}]: the chains' launches (csrc/att_block.cu, joint_step.cu, ffn.cu, "
+        f"conv_block.cu) {chain}, expected {want}")
+    assert chain == want, f"profile[{label}]: the chains' launches are not their calls'"
 
 
 def profile_run(torch, label, unit: str, fn):
@@ -1184,17 +1375,16 @@ def profile_run(torch, label, unit: str, fn):
     return rows
 
 
-def decode_and_sync_counts(torch, model, rt, audio, piece: int):
+def decode_and_sync_counts(torch, model, rt, audio, piece: int, state_dtype=None):
     """Decode-loop iterations and host syncs per chunk over one session. A
     host sync is a synchronizing CUDA call that torch's sync debug mode
     reports (copies to the host, blocking copies to the card)."""
     import warnings
 
     from trt_asr_tpu_torch.decode.greedy_loop import greedy_decode_loop as dec
-    from trt_asr_tpu_torch.streaming.session import StreamingSession
 
     it0 = dec.iterations
-    sess = StreamingSession(model, rt)
+    sess = new_session(torch, model, rt, state_dtype)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -1244,7 +1434,8 @@ def full_width_session(torch, dev, n_words: int, seed: int):
     from trt_asr_tpu_torch.config import ModelConfig, RuntimeConfig
     from trt_asr_tpu_torch.models.parakeet.params import init_params_numpy
     from trt_asr_tpu_torch.models.parakeet.quant import keep_bf16_copies, quantize_params
-    from trt_asr_tpu_torch.ops.quant import q8_matmul
+    from trt_asr_tpu_torch.ops.common import matmul
+    from trt_asr_tpu_torch.ops.quant import as_f32, q8_matmul
     from trt_asr_tpu_torch.tokenizer import Tokenizer, make_synthetic_vocab
 
     cfg = ModelConfig()
@@ -1259,24 +1450,33 @@ def full_width_session(torch, dev, n_words: int, seed: int):
     piece = 8000
     on = dict(use_pallas_att=True, use_pallas_joint=True)
     every = dict(on, use_pallas_ffn=True, use_pallas_conv=True)
-    arms = {
-        "f32_off": (RuntimeConfig(), False),
-        "f32_on": (RuntimeConfig(**on), True),
-        "int8_on": (RuntimeConfig(**on, quant="all"), True),
-        "f32_all": (RuntimeConfig(**every), True),
-        "int8_all": (RuntimeConfig(**every, quant="all"), True),
-        "int8_conv": (RuntimeConfig(**on, use_pallas_conv=True, quant="all"), True),
+    bf = torch.bfloat16
+    arms = {  # runtime flags, log-mel kernel, weights' type (None: f32), encoder state's type
+        "f32_off": (RuntimeConfig(), False, None, None),
+        "f32_on": (RuntimeConfig(**on), True, None, None),
+        "int8_on": (RuntimeConfig(**on, quant="all"), True, None, None),
+        "f32_all": (RuntimeConfig(**every), True, None, None),
+        "int8_all": (RuntimeConfig(**every, quant="all"), True, None, None),
+        "int8_conv": (RuntimeConfig(**on, use_pallas_conv=True, quant="all"), True, None, None),
+        # the JAX package's production type: the bf16 weights of
+        # cast_params_for_compute, the session's f32 state; the fast arm
+        # quantizes after the cast; bf16_step keeps the graft entry's bf16 state
+        "bf16_on": (RuntimeConfig(**on), True, bf, None),
+        "bf16_all": (RuntimeConfig(**every), True, bf, None),
+        "fast_on": (RuntimeConfig(**on, quant="all"), False, bf, None),
+        "bf16_step": (RuntimeConfig(**on), False, bf, bf),
     }
     results, previous = {}, {}      # per arm; int8 arms' tokens on the previous routes
     model_f32 = None
-    for name, (rt, mel_k) in arms.items():
+    for name, (rt, mel_k, wdt, sdt) in arms.items():
+        t_arm = time.perf_counter()
         torch.cuda.synchronize()
         mem0 = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         model = make_model(torch, cfg, params if model_f32 is None else model_f32.params,
-                           tok, rt, dev, mel_k)
+                           tok, rt, dev, mel_k, wdt)
         torch.cuda.synchronize()
-        made_ms = (time.perf_counter() - t0) * 1e3      # quantizing and packing included
+        made_ms = (time.perf_counter() - t0) * 1e3      # casting, quantizing, packing included
         packs = {k: sum(lp[k].numel() * lp[k].element_size() for lp in model.layers if k in lp)
                  for k in ("att_block_packed", "ff1_packed", "ff2_packed", "conv_block_packed",
                            "conv_ffn_ln_packed")}
@@ -1287,7 +1487,7 @@ def full_width_session(torch, dev, n_words: int, seed: int):
             log(f"session[{name}]: the joint's weights packed once for its kernel: "
                 f"{model.joint_packed.numel() * model.joint_packed.element_size()} B "
                 f"({model.joint_packed.dtype})")
-        if rt.quant != "none":
+        if rt.quant != "none" or wdt is not None:
             log(f"session[{name}]: making the model allocated "
                 f"{(torch.cuda.memory_allocated() - mem0) / 2**20:.1f} MiB on the card, of "
                 f"which the bf16 copies of its int8 weights {model.bf16_copy_bytes / 2**20:.1f} "
@@ -1298,11 +1498,13 @@ def full_width_session(torch, dev, n_words: int, seed: int):
             bias = calibrate_blank_bias(
                 model, n_words, lambda: len(run_session(torch, model, rt, audio, piece).tokens),
                 "the utterance")
-        first_ms = run_session(torch, model, rt, warm, piece).chunk_latencies_ms[0]  # warm-up
+        first_ms = run_session(torch, model, rt, warm, piece, sdt).chunk_latencies_ms[0]
         reset_counts()
-        sess = run_session(torch, model, rt, audio, piece)
+        matmul.widened = as_f32.widened = as_f32.widened_bytes = 0
+        sess = run_session(torch, model, rt, audio, piece, sdt)
         counts = read_counts()
-        if rt.quant != "none":
+        widened, small_widened = matmul.widened, (as_f32.widened, as_f32.widened_bytes)
+        if rt.quant != "none" and wdt is None:
             with previous_int8_routes(torch):
                 previous[name] = run_session(torch, model, rt, audio, piece).tokens
         lat = np.asarray(sess.chunk_latencies_ms)
@@ -1311,8 +1513,8 @@ def full_width_session(torch, dev, n_words: int, seed: int):
         results[name] = dict(tokens=sess.tokens, counts=counts, n_chunks=n_chunks,
                              median_ms=float(np.median(steady)),
                              p90_ms=float(np.percentile(steady, 90)))
-        iters, syncs = decode_and_sync_counts(torch, model, rt, audio, piece)
-        profile_session(torch, name, model, rt, audio[: len(audio) // 3], piece)
+        iters, syncs = decode_and_sync_counts(torch, model, rt, audio, piece, sdt)
+        profile_session(torch, name, model, rt, audio[: len(audio) // 3], piece, sdt)
         assert q8_matmul.widened == 0, (
             f"session[{name}] widened an int8 weight at {q8_matmul.widened} calls")
         log(f"session[{name}]: {len(audio) / 16000:.2f} s audio, {n_chunks} chunks, "
@@ -1321,7 +1523,13 @@ def full_width_session(torch, dev, n_words: int, seed: int):
             f"first chunk {lat[0]:.3f} ms (the warm-up utterance's {first_ms:.3f} ms; "
             f"model made in {made_ms:.1f} ms), "
             f"launches {counts} ({ {k: round(v / n_chunks, 2) for k, v in counts.items()} }/chunk), "
-            f"decode iterations {iters:.2f}/chunk, host syncs {syncs:.2f}/chunk")
+            f"decode iterations {iters:.2f}/chunk, host syncs {syncs:.2f}/chunk, f32 x bf16 "
+            f"widenings {widened / n_chunks:.2f}/chunk, small f32 copies made at a call "
+            f"{small_widened[0]} ({small_widened[1]} B)")
+        assert small_widened == (0, 0), f"session[{name}] made f32 copies at a call"
+        if wdt is not None:
+            hold_to_plain(torch, name, model, rt, audio, piece, sdt)
+        log(f"session[{name}]: {time.perf_counter() - t_arm:.1f} s for the arm")
         del model, sess
     # the card memory the bf16 copies of the int8 weights add, alone
     q = quantize_params(model_f32.params, "all")
@@ -1336,17 +1544,21 @@ def full_width_session(torch, dev, n_words: int, seed: int):
     a_off = results["f32_off"]
     assert not any(a_off["counts"].values()), f"f32_off launched {a_off['counts']}"
     assert len(a_off["tokens"]) >= n_words, "f32 session emitted too few tokens to compare"
-    for name in ("f32_on", "int8_on", "f32_all", "int8_all", "int8_conv"):
-        check_launches(f"session[{name}]", arms[name][0], results[name]["counts"])
+    for name, (rt, mel_k, _, _) in arms.items():
+        if name != "f32_off":
+            check_launches(f"session[{name}]", rt, results[name]["counts"], mel_k)
     for name in ("f32_on", "f32_all"):
         assert results[name]["tokens"] == a_off["tokens"], (
             f"session[{name}] is not token-exact with the kernels off")
-    for name in ("int8_on", "int8_all", "int8_conv"):
+    for name in ("int8_on", "int8_all", "int8_conv", "bf16_on", "bf16_all", "fast_on",
+                 "bf16_step"):
         b = results[name]["tokens"]
         assert len(b) > 0
         same = sum(x == y for x, y in zip(a_off["tokens"], b))
         log(f"session[{name}] agreement with f32: {same}/{max(len(a_off['tokens']), len(b))} "
             f"positions, exact={a_off['tokens'] == b}")
+        if name not in previous:
+            continue
         prev = previous[name]
         same = sum(x == y for x, y in zip(prev, b))
         log(f"session[{name}] agreement with the previous int8 routes: "
@@ -1355,6 +1567,211 @@ def full_width_session(torch, dev, n_words: int, seed: int):
     log(f"f32 kernels on and all kernels == kernels off: token-exact "
         f"({len(a_off['tokens'])} tokens)")
     return results, model_f32.params, tok, bias
+
+
+@contextlib.contextmanager
+def record_encoder(module_name: str):
+    """Record the valid encoder output rows of every ``encode`` call that
+    ``module_name`` (the session's or the engine's module) makes: a list of
+    [rows, D] f32 host tensors, one a chunk and stream row."""
+    import importlib
+
+    mod = importlib.import_module(module_name)
+    outs, real = [], mod.encode
+
+    def recorder(*args, **kwargs):
+        enc, out_len, state = real(*args, **kwargs)
+        for b, n in enumerate(out_len.tolist()):
+            outs.append((b, enc[b, :n].float().cpu()))
+        return enc, out_len, state
+
+    mod.encode = recorder
+    try:
+        yield outs
+    finally:
+        mod.encode = real
+
+
+@contextlib.contextmanager
+def plain_streaming_wrappers():
+    """The streaming path's kernel wrappers (attention block, FFN, conv
+    module, fused tail, joint step) swapped for their plain versions, which
+    run on the card."""
+    from trt_asr_tpu_torch.decode import greedy_loop
+    from trt_asr_tpu_torch.models.parakeet import encoder
+    from trt_asr_tpu_torch.ops.kernels import att_block as ab
+    from trt_asr_tpu_torch.ops.kernels import conv_block as cb
+    from trt_asr_tpu_torch.ops.kernels import ffn as kf
+    from trt_asr_tpu_torch.ops.kernels import joint_step as js
+
+    saved = (encoder.att_block, encoder.fused_ffn, encoder.conv_block, encoder.conv_ffn_ln,
+             greedy_loop.joint_step)
+    encoder.att_block = lambda *a, n_heads, packed=None: ab.att_block_plain(*a, n_heads=n_heads)
+    encoder.fused_ffn = lambda *a, scale=0.5, packed=None: kf.fused_ffn_plain(*a, scale)
+    encoder.conv_block = lambda *a, packed=None: cb.conv_block_plain(*a)
+    encoder.conv_ffn_ln = lambda *a, packed=None: cb.conv_ffn_ln_plain(*a)
+    greedy_loop.joint_step = lambda *a, packed=None, **kw: js.joint_step_plain(*a, **kw)
+    try:
+        yield
+    finally:
+        (encoder.att_block, encoder.fused_ffn, encoder.conv_block, encoder.conv_ffn_ln,
+         greedy_loop.joint_step) = saved
+
+
+def enc_distance(a, b) -> float:
+    """Max |difference| of two recorded closed-loop encoder outputs."""
+    assert [x.shape for _, x in a] == [y.shape for _, y in b], "the chunk schedules differ"
+    return max((float((x - y).abs().max()) for (_, x), (_, y) in zip(a, b) if x.numel()),
+               default=0.0)
+
+
+def stream_features(torch, model, audio) -> np.ndarray:
+    """The plain frontend's streaming log-mel frames of ``audio``."""
+    from trt_asr_tpu_torch.contract import FrontendSpec
+    from trt_asr_tpu_torch.frontend.logmel import LogMelFrontend, StreamingLogMel
+
+    fe = LogMelFrontend(FrontendSpec(n_mels=model.cfg.feat_in), device=model.device)
+    return StreamingLogMel(fe).push(audio)
+
+
+def hold_to_plain(torch, label, model, rt, audio, piece: int, state_dtype) -> None:
+    """An arm's closed-loop encoder output against the same arm with every
+    kernel wrapper swapped for its plain version on the card: within twice
+    the distance the plain arm moves when its features move by 1e-6 (phase
+    4's rule for offline bf16: bf16 rounding points turn 1e-6 into flips).
+    The plain runs push the plain frontend's features; the kernel arm
+    pushes audio through its own frontend. Tokens side by side."""
+    name = "trt_asr_tpu_torch.streaming.session"
+    with record_encoder(name) as enc_k:
+        s_k = run_session(torch, model, rt, audio, piece, state_dtype)
+    feats = stream_features(torch, model, audio)
+    nudge = np.random.default_rng(5).standard_normal(feats.shape).astype(np.float32)
+    runs = []
+    with plain_streaming_wrappers():
+        for f in (feats, feats + 1e-6 * nudge):
+            reset_counts()
+            with record_encoder(name) as enc:
+                sess = run_session(torch, model, rt, audio, piece, state_dtype, feats=f)
+            assert not launched(read_counts()), f"{label} plain run launched {read_counts()}"
+            runs.append((sess, enc))
+    (s_p, enc_p), (s_n, enc_n) = runs
+    dist, floor = enc_distance(enc_k, enc_p), enc_distance(enc_p, enc_n)
+    log(f"session[{label}] against its plain version on the card: encoder max |diff| "
+        f"{dist:.4g}, the plain arm's own move under 1e-6 of feature noise {floor:.4g} (bound "
+        f"twice that); tokens exact={s_k.tokens == s_p.tokens}: kernels {s_k.tokens} plain "
+        f"{s_p.tokens} (plain with moved features {s_n.tokens})")
+    assert dist <= 2 * floor, (
+        f"session[{label}] lies {dist:.4g} from its plain version, beyond twice the plain "
+        f"arm's own noise floor {floor:.4g}")
+
+
+def full_width_engine(torch, dev, cfg, params, tok):
+    """Phase 3b: the lockstep engine at full width, 8 streams of different
+    lengths, joint kernel on, f32 and bf16 weights. Seven streams open at
+    once, the eighth attaches after three steps; the shortest finalizes
+    while the others still stream, so its flush runs inside a lockstep step
+    beside steady rows. f32: each stream's tokens equal its own session's on
+    the card (attention kernel off, joint kernel on, the engine's chunk
+    profile). bf16: each stream's encoder output lies within twice the
+    distance its session moves when its features move by 1e-6."""
+    from trt_asr_tpu_torch.config import RuntimeConfig
+    from trt_asr_tpu_torch.ops.kernels.joint_step import joint_step
+    from trt_asr_tpu_torch.streaming import batch_engine
+    from trt_asr_tpu_torch.streaming.batch_engine import BatchStreamingEngine
+    from trt_asr_tpu_torch.streaming.schedule import ChunkScheduler
+    from trt_asr_tpu_torch.streaming.session import StreamingSession
+
+    rng = np.random.default_rng(31)
+    synth = synth_module()
+    audios = [synth.synth_utterance(list(rng.integers(0, 1120, size=w)), rng)
+              for w in (3, 10, 6, 12, 8, 5, 9, 7)]
+    b, piece = len(audios), 8000
+    rt = RuntimeConfig(use_pallas_joint=True)
+    for arm, wdt in (("f32", None), ("bf16", torch.bfloat16)):
+        t_arm = time.perf_counter()
+        model = make_model(torch, cfg, params, tok, rt, dev, False, wdt)
+        eng = BatchStreamingEngine(model, batch_size=b, runtime=rt)
+        log(f"engine[{arm}]: warm-up {eng.warmup():.2f} s")
+        steps = []
+        real_step = batch_engine._batch_step
+
+        def spy(*args, **kwargs):
+            valid, drop = args[2].tolist(), args[6].tolist()
+            steps.append(sorted({d for d, v in zip(drop, valid) if v}))
+            return real_step(*args, **kwargs)
+
+        batch_engine._batch_step = spy
+        reset_counts()
+        try:
+            with record_encoder("trt_asr_tpu_torch.streaming.batch_engine") as rows:
+                sids = [eng.open_stream() for _ in range(b - 1)]
+                offs = [0] * b
+                shortest = int(np.argmin([len(a) for a in audios[:b - 1]]))
+                n_step = 0
+                while True:
+                    if n_step == 3:
+                        sids.append(eng.open_stream())          # attach under load
+                    for k, sid in enumerate(sids):
+                        if offs[k] < len(audios[k]):
+                            eng.push_audio(sid, audios[k][offs[k]:offs[k] + piece])
+                            offs[k] += piece
+                            if offs[k] >= len(audios[k]) and k == shortest:
+                                eng.finalize_stream(sid)        # flush beside steady rows
+                    eng.step()
+                    n_step += 1
+                    if all(o >= len(a) for o, a in zip(offs, audios)) and len(sids) == b:
+                        break
+                for k, sid in enumerate(sids):
+                    if k != shortest:
+                        eng.finalize_stream(sid)
+                eng.run_until_drained()
+        finally:
+            batch_engine._batch_step = real_step
+        counts = read_counts()
+        torch.cuda.synchronize()
+        got = {k: list(eng._tokens[sid]) for k, sid in enumerate(sids)}
+        per_stream = {k: [x for r, x in rows if r == sid] for k, sid in enumerate(sids)}
+        lat = np.asarray(eng.step_latencies_ms)
+        mixed = sum(len(d) > 1 for d in steps)
+        log(f"engine[{arm}]: B {b}, {len(lat)} lockstep steps ({mixed} with a flush row beside "
+            f"steady rows), step ms median {float(np.median(lat)):.3f} p90 "
+            f"{float(np.percentile(lat, 90)):.3f} (host clock), joint_step launches "
+            f"{counts['joint_step']} ({counts['joint_step'] / len(lat):.2f}/step), launches "
+            f"{launched(counts)}, tokens per stream {[len(v) for v in got.values()]}")
+        assert mixed > 0, f"engine[{arm}]: no flush ran inside a lockstep step"
+        assert set(launched(counts)) == {"joint_step"}, f"engine[{arm}] launched {counts}"
+        srt = RuntimeConfig(use_pallas_joint=True)
+        for k, a in enumerate(audios):
+            sess = StreamingSession(model, srt)
+            sess._sched = ChunkScheduler(cfg, unified=True)      # the engine's chunk profile
+            with record_encoder("trt_asr_tpu_torch.streaming.session") as enc_s:
+                for i in range(0, len(a), piece):
+                    sess.push_audio(a[i:i + piece])
+                sess.finalize()
+            if arm == "f32":
+                assert got[k] == sess.tokens, (
+                    f"engine[f32] stream {k}: {got[k]} differs from its session's {sess.tokens}")
+                continue
+            feats = stream_features(torch, model, a)
+            nudge = np.random.default_rng(k).standard_normal(feats.shape).astype(np.float32)
+            moved = StreamingSession(model, srt)
+            moved._sched = ChunkScheduler(cfg, unified=True)
+            with record_encoder("trt_asr_tpu_torch.streaming.session") as enc_n:
+                moved.push_features(feats + 1e-6 * nudge)
+                moved.finalize()
+            eng_rows = [(0, x) for x in per_stream[k] if x.numel()]
+            dist = enc_distance(eng_rows, [(0, x) for _, x in enc_s if x.numel()])
+            floor = enc_distance([(0, x) for _, x in enc_s if x.numel()],
+                                 [(0, x) for _, x in enc_n if x.numel()])
+            log(f"engine[bf16] stream {k}: encoder max |diff| from its session {dist:.4g}, the "
+                f"session's own move under 1e-6 of feature noise {floor:.4g}; tokens "
+                f"exact={got[k] == sess.tokens}: engine {got[k]} session {sess.tokens}")
+            assert dist <= 2 * floor, f"engine[bf16] stream {k} lies beyond twice the noise floor"
+        if arm == "f32":
+            log(f"engine[f32]: every stream token-exact with its own session "
+                f"({sum(map(len, got.values()))} tokens)")
+        log(f"engine[{arm}]: {time.perf_counter() - t_arm:.1f} s for the arm")
+        del model, eng
 
 
 @contextlib.contextmanager
@@ -1388,7 +1805,10 @@ def gate_r3_session(torch, dev):
     kernel wrapper runs its plain version): the attention, joint and
     log-mel kernels in f32 and int8 (``quant="all"``); every kernel in f32
     and in int8 (conv + FFN2 + out-LN fused); int8 with the conv kernel and
-    no FFN kernel (the conv module alone)."""
+    no FFN kernel (the conv module alone); with the bf16 weights of
+    ``cast_params_for_compute`` the attention, joint and log-mel kernels,
+    and every kernel (the bf16 chains); the fast arm (bf16, then int8).
+    Then the lockstep engine (:func:`gate_r3_engine`)."""
     from trt_asr_tpu_torch.config import RuntimeConfig
     from trt_asr_tpu_torch.contract import FrontendSpec
     from trt_asr_tpu_torch.frontend.logmel import LogMelFrontend
@@ -1401,15 +1821,18 @@ def gate_r3_session(torch, dev):
     words = list(rng.integers(0, 1120, size=8))
     audio = synth.synth_utterance(words, rng)
     on = dict(use_pallas_att=True, use_pallas_joint=True)
-    configs = {"f32": dict(on), "int8": dict(on, quant="all"),
-               "f32_all": dict(on, use_pallas_ffn=True, use_pallas_conv=True),
-               "int8_all": dict(on, use_pallas_ffn=True, use_pallas_conv=True, quant="all"),
-               "int8_conv": dict(on, use_pallas_conv=True, quant="all")}
+    every = dict(on, use_pallas_ffn=True, use_pallas_conv=True)
+    configs = {"f32": dict(on), "int8": dict(on, quant="all"), "f32_all": dict(every),
+               "int8_all": dict(every, quant="all"),
+               "int8_conv": dict(on, use_pallas_conv=True, quant="all"),
+               # the bf16 weights of cast_params_for_compute; the fast arm
+               "bf16": dict(on), "bf16_all": dict(every), "fast": dict(on, quant="all")}
     for label, flags in configs.items():
         rt = RuntimeConfig(**flags)
+        wdt = torch.bfloat16 if label.startswith(("bf16", "fast")) else None
         out = {}
         for d in (dev, "cpu"):
-            model = ParakeetTDT.from_model_dir(md, runtime=rt, device=d)
+            model = ParakeetTDT.from_model_dir(md, runtime=rt, device=d, weights_dtype=wdt)
             model.frontend = LogMelFrontend(FrontendSpec(n_mels=model.cfg.feat_in),
                                             use_kernel=True, device=d)
             reset_counts()
@@ -1425,6 +1848,46 @@ def gate_r3_session(torch, dev):
             f"gate_r3[{label}] card tokens differ from the CPU plain path")
         assert len(s_gpu.tokens) == len(words), (
             f"gate_r3[{label}] emitted {len(s_gpu.tokens)} tokens for {len(words)} words")
+    gate_r3_engine(torch, dev, md, synth)
+
+
+def gate_r3_engine(torch, dev, md, synth):
+    """gate_r3 in the lockstep engine at B = 4 (three streams, one attached
+    after the first step), joint kernel on, f32 and bf16 weights: each
+    stream's tokens on the card equal the engine's on the CPU (plain path)."""
+    from trt_asr_tpu_torch.config import RuntimeConfig
+    from trt_asr_tpu_torch.models.parakeet.model import ParakeetTDT
+    from trt_asr_tpu_torch.streaming.batch_engine import BatchStreamingEngine
+
+    rng = np.random.default_rng(17)
+    words = [list(rng.integers(0, 1120, size=w)) for w in (5, 8, 3)]
+    audios = [synth.synth_utterance(w, rng) for w in words]
+    rt = RuntimeConfig(use_pallas_joint=True)
+    for label, wdt in (("f32", None), ("bf16", torch.bfloat16)):
+        out = {}
+        for d in (dev, "cpu"):
+            model = ParakeetTDT.from_model_dir(md, runtime=rt, device=d, weights_dtype=wdt)
+            eng = BatchStreamingEngine(model, batch_size=4, runtime=rt)
+            reset_counts()
+            sids = [eng.open_stream(), eng.open_stream()]
+            for k, sid in enumerate(sids):
+                eng.push_audio(sid, audios[k][:8000])
+            eng.step()
+            sids.append(eng.open_stream())
+            for k, sid in enumerate(sids):
+                eng.push_audio(sid, audios[k][8000 if k < 2 else 0:])
+                eng.finalize_stream(sid)
+            eng.run_until_drained()
+            out[str(d)] = ([list(eng._tokens[sid]) for sid in sids], read_counts())
+        (gpu, counts), (cpu, cpu_counts) = out[str(dev)], out["cpu"]
+        log(f"gate_r3 engine[{label}] B 4 on the card (launches {launched(counts)}): {gpu}; on "
+            f"the CPU: {cpu}")
+        assert launched(counts) and set(launched(counts)) == {"joint_step"}
+        assert not launched(cpu_counts), f"gate_r3 engine[{label}] CPU run launched {cpu_counts}"
+        assert gpu == cpu, f"gate_r3 engine[{label}] card tokens differ from the CPU path"
+        assert [len(t) for t in gpu] == [len(w) for w in words], (
+            f"gate_r3 engine[{label}] emitted {[len(t) for t in gpu]} tokens for "
+            f"{[len(w) for w in words]} words")
 
 
 # --- phases 4 (offline part) and 5: offline batches ---------------------------
@@ -1718,16 +2181,26 @@ def main() -> int:
 
     timer = Timer(torch, dev)
     cfg = ModelConfig()
+    phase_s = {"build": secs}
+    t0 = time.perf_counter()
     rec = check_kernels(torch, dev, timer, cfg)
+    rec.update(check_bf16_kernels(torch, dev, timer, cfg))
     audios = offline_audios(args.seed + 1)
     t_steps, sub_lens = offline_shape(audios)
     rec.update(check_offline_kernels(torch, dev, timer, cfg, t_steps, sub_lens[:-1] + [0]))
     check_bf16_matmul(torch, dev, timer, len(audios) * t_steps, cfg)
+    phase_s["2 kernels"], t0 = time.perf_counter() - t0, time.perf_counter()
     sess, params, tok, bias = full_width_session(torch, dev, args.words, args.seed)
+    phase_s["3 session"], t0 = time.perf_counter() - t0, time.perf_counter()
+    full_width_engine(torch, dev, cfg, params, tok)
+    phase_s["3b engine"], t0 = time.perf_counter() - t0, time.perf_counter()
     gate_r3_session(torch, dev)
     gate_r3_offline(torch, dev)
+    phase_s["4 gate_r3"], t0 = time.perf_counter() - t0, time.perf_counter()
     params["joint"]["out"]["b"][cfg.blank_id] -= bias        # phase 5 searches its own
     sess.update(full_width_offline(torch, dev, cfg, params, tok, audios))
+    phase_s["5 offline"] = time.perf_counter() - t0
+    log(f"phase seconds: { {k: round(v, 1) for k, v in phase_s.items()} }")
 
     bad = [m for m in ("jax", "trt_asr_tpu") if m in sys.modules]
     assert not bad, f"imported {bad}"

@@ -1,12 +1,17 @@
 """Fused attention block of the PyTorch port (``ops/kernels/att_block.py``)
 against the JAX package on a warm ring cache: its plain version against
 ``att_block_pallas`` in interpret mode and against the XLA attention
-section of ``_conformer_layer``, with f32 and int8 weights. The CUDA
-kernel is held against the plain version in ``test_torch_kernels_cuda.py``.
+section of ``_conformer_layer``, with f32 and int8 weights, and with the
+bf16 weights and biases of ``cast_params_for_compute`` over an f32 or a
+bf16 kv cache (``g_sel`` in bf16, as the JAX encoder builds it for bf16
+weights). The CUDA kernel is held against the plain version in
+``test_torch_kernels_cuda.py``.
 
 Tolerances: f32 2e-5 absolute (summation order); int8 2e-3 absolute — both
 sides round the same operands to bf16, but an f32 value that differs in its
-last bit can round to a neighbouring bf16 value."""
+last bit can round to a neighbouring bf16 value. bf16 weights 2e-5: the
+same rounding points, and no rounding flips at these seeds (observed gap
+1.9e-6)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,21 +37,26 @@ def make_inputs(seed):
                 kv=r(C, 2 * D), pos=r(2 * TQ + C - 1, D))
 
 
-def jax_kernel(inp, ws, cursor, cache_len, valid_tq):
+def jax_kernel(inp, ws, cursor, cache_len, valid_tq, dtype=jnp.float32, kv_dtype=jnp.float32):
+    """``dtype``: the biases' storage type; ``kv_dtype`` the kv cache's."""
     r_pad = s_pad = 128
     posT = jnp.zeros((D, r_pad)).at[:, :inp["pos"].shape[0]].set(inp["pos"].T)
-    g_dtype = jnp.bfloat16 if hasattr(ws[0], "q") else jnp.float32
+    g_dtype = jnp.bfloat16 if hasattr(ws[0], "q") else ws[0].dtype
     g_sel, mask = build_rel_selection(jnp.int32(cursor), jnp.int32(cache_len), C, TQ,
                                       jnp.int32(valid_tq), s_pad, r_pad, dtype=g_dtype)
     return att_block_pallas(jnp.asarray(inp["x"]), inp["ln_g"], inp["ln_b"], *ws,
-                            inp["bu"], inp["bv"], posT, jnp.asarray(inp["kv"]),
-                            g_sel, mask, n_heads=H, interpret=True)
+                            jnp.asarray(inp["bu"]).astype(dtype),
+                            jnp.asarray(inp["bv"]).astype(dtype), posT,
+                            jnp.asarray(inp["kv"]).astype(kv_dtype), g_sel, mask, n_heads=H,
+                            interpret=True)
 
 
-def port_plain(inp, ws, cursor, cache_len, valid_tq):
+def port_plain(inp, ws, cursor, cache_len, valid_tq, dtype=torch.float32,
+               kv_dtype=torch.float32):
     meta = torch.tensor([cursor, cache_len, valid_tq], dtype=torch.int32)
-    return att_block_plain(t(inp["x"]), t(inp["ln_g"]), t(inp["ln_b"]), *ws, t(inp["bu"]),
-                           t(inp["bv"]), t(inp["pos"]), t(inp["kv"]), meta, n_heads=H)
+    return att_block_plain(t(inp["x"]), t(inp["ln_g"]), t(inp["ln_b"]), *ws,
+                           t(inp["bu"]).to(dtype), t(inp["bv"]).to(dtype), t(inp["pos"]),
+                           t(inp["kv"]).to(kv_dtype), meta, n_heads=H)
 
 
 def compare(got, want, valid_tq, atol):
@@ -74,6 +84,18 @@ def test_plain_matches_pallas_interpret_int8(cursor, cache_len, valid_tq):
     want = jax_kernel(inp, jw, cursor, cache_len, valid_tq)
     got = port_plain(inp, pw, cursor, cache_len, valid_tq)
     compare(got, want, valid_tq, 2e-3)
+
+
+@pytest.mark.parametrize("kv", ["f32", "bf16"])
+@pytest.mark.parametrize("cursor,cache_len,valid_tq", CASES)
+def test_plain_matches_pallas_interpret_bf16(cursor, cache_len, valid_tq, kv):
+    inp = make_inputs(3 + cursor + 10 * valid_tq)
+    kv_j, kv_p = (jnp.float32, torch.float32) if kv == "f32" else (jnp.bfloat16, torch.bfloat16)
+    want = jax_kernel(inp, [jnp.asarray(w).astype(jnp.bfloat16) for w in inp["ws"]], cursor,
+                      cache_len, valid_tq, jnp.bfloat16, kv_j)
+    got = port_plain(inp, [t(w).to(torch.bfloat16) for w in inp["ws"]], cursor, cache_len,
+                     valid_tq, torch.bfloat16, kv_p)
+    compare(got, want, valid_tq, 2e-5)
 
 
 def test_plain_matches_xla_attention_section():

@@ -2,14 +2,17 @@
 (``ops/kernels/conv_block.py``) against the JAX package: the plain versions
 against ``conv_block_pallas`` and ``conv_ffn_ln_pallas`` in interpret mode,
 with f32 and int8 weights (the same ``QuantTensor`` values on both sides),
-padded rows and a non-zero time cache; the plain conv module against the
+padded rows and a non-zero time cache, and with the bf16 weights of
+``cast_params_for_compute`` (bf16 pw1, pw2 and taps; the time cache f32 or
+bf16, as a bf16 encoder state stores it); the plain conv module against the
 XLA conv section of ``_conformer_layer``. The CUDA kernels are held against
 the plain versions in ``test_torch_kernels_cuda.py``.
 
 Tolerances: 1e-5 absolute and relative on y and c in f32 and in int8
 (observed gaps 2.4e-7 to 7.2e-7): both sides round the same operands to
 bf16 with int8 weights, so they differ only where an f32 value one bit
-apart rounds to a neighbouring bf16 value, and none does at these seeds."""
+apart rounds to a neighbouring bf16 value, and none does at these seeds.
+bf16 weights: the same 1e-5 (the same rounding points)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -45,6 +48,9 @@ def make_inputs(seed, tq, valid):
 def weights(inp, names, kind):
     if kind == "f32":
         return [jnp.asarray(inp[k]) for k in names], [t(inp[k]) for k in names]
+    if kind.startswith("bf16"):
+        return ([jnp.asarray(inp[k]).astype(jnp.bfloat16) for k in names],
+                [t(inp[k]).to(torch.bfloat16) for k in names])
     jw = [j_quantize(jnp.asarray(inp[k])) for k in names]
     return jw, [QuantTensor(t(np.asarray(q.q)), t(np.asarray(q.s))) for q in jw]
 
@@ -60,13 +66,22 @@ def compare(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL, rtol=TOL, err_msg=name)
 
 
-@pytest.mark.parametrize("kind", ["f32", "int8"])
+@pytest.mark.parametrize("kind", ["f32", "int8", "bf16", "bf16-tc"])
 @pytest.mark.parametrize("tq,valid", CASES)
 def test_conv_block_plain_matches_pallas_interpret(kind, tq, valid):
+    """``bf16``: bf16 weights and taps (the JAX encoder passes the taps as
+    stored; the kernel widens them), an f32 time cache; ``bf16-tc``: the
+    time cache bf16 too."""
     inp = make_inputs(tq * 10 + valid, tq, valid)
     jw, pw = weights(inp, ("pw1", "pw2"), kind)
-    want = conv_block_pallas(*conv_args(inp, jw[0], jw[1], jnp.asarray), interpret=True)
-    got = conv_block_plain(*conv_args(inp, pw[0], pw[1], t))
+    jargs = list(conv_args(inp, jw[0], jw[1], jnp.asarray))
+    pargs = list(conv_args(inp, pw[0], pw[1], t))
+    if kind.startswith("bf16"):
+        jargs[4], pargs[4] = jargs[4].astype(jnp.bfloat16), pargs[4].to(torch.bfloat16)
+    if kind == "bf16-tc":
+        jargs[10], pargs[10] = jargs[10].astype(jnp.bfloat16), pargs[10].to(torch.bfloat16)
+    want = conv_block_pallas(*jargs, interpret=True)
+    got = conv_block_plain(*pargs)
     compare(got, want)
     assert float(got[1][valid:].abs().sum()) == 0.0              # padded rows: c = 0
 

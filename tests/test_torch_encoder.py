@@ -4,7 +4,10 @@ saturating on the way), with the fused attention block off and on (the CPU
 tensors take its plain version); closed-loop over a short utterance's whole
 schedule with the fused FFN and conv kernels on both sides (JAX's in
 interpret mode), in f32 and with int8 encoder weights (the fused conv +
-FFN2 + out-LN tail, and the conv module alone); the ring writes, the
+FFN2 + out-LN tail, and the conv module alone); closed-loop with the bf16
+weights of ``cast_params_for_compute``, an f32 or bf16 state, the attention
+kernel off and on (its own tolerance, below); the per-row cache_drop and
+emission-cap vectors of the lockstep batch step; the ring writes, the
 per-row reset and the contract-layout state conversion.
 
 Tolerance: 1e-4 absolute and relative on encoder outputs and caches
@@ -21,11 +24,13 @@ from torch_port_helpers import np_tree, spy_calls, t
 
 from trt_asr_tpu.config import ModelConfig as JConfig
 from trt_asr_tpu.models.parakeet import encoder as jenc
+from trt_asr_tpu.models.parakeet.params import cast_params_for_compute as j_cast
 from trt_asr_tpu.models.parakeet.params import init_params as j_init
 from trt_asr_tpu.models.parakeet.quant import quantize_params as j_quantize
 from trt_asr_tpu.streaming.schedule import build_schedule as j_build_schedule
 from trt_asr_tpu_torch.config import ModelConfig
 from trt_asr_tpu_torch.models.parakeet import encoder as penc
+from trt_asr_tpu_torch.models.parakeet.params import cast_params_for_compute as penc_cast
 from trt_asr_tpu_torch.models.parakeet.params import params_from_numpy
 from trt_asr_tpu_torch.streaming.schedule import build_schedule, extract_chunk
 
@@ -91,6 +96,82 @@ def test_closed_loop_encode_matches_jax(models, fused_att):
         saturated |= int(st_p.cache_len[0]) == cfg.att_cache_size
     assert saturated
     assert fused_chunks >= 18 if fused_att else fused_chunks == 0
+
+
+BF16_FLIP_ATOL = 1e-2      # a chunk after a bf16 rounding flip in a kernel's plain version
+BF16_FLIP_CHUNKS = 4       # chunks of 10 past 1e-4 that flips may touch
+
+
+@pytest.mark.parametrize("fused_att", [False, True, "all"])
+@pytest.mark.parametrize("state", ["f32", "bf16"])
+def test_closed_loop_bf16_encode_matches_jax(models, state, fused_att):
+    """The bf16 weights of ``cast_params_for_compute`` on both sides, an f32
+    or a bf16 encoder state (its caches stored in bf16, as the graft entry
+    keeps them), the attention block's kernel off or on (its plain version:
+    u, q + biases, k, v, the positional term, p and the context rounded to
+    bf16, as the TPU kernel rounds them), or every kernel flag on ("all":
+    the FFN and conv module too, JAX's in interpret mode, the conv over a
+    bf16 time cache with a bf16 state), closed loop over 10 chunks.
+
+    Tolerance: with the kernels off every chunk's encoder output and
+    caches within 1e-4 (readings 1.8e-6, 3.1e-5 with a bf16 state). With
+    kernels on, their plain versions round operands to bf16 as the TPU
+    kernels do, and an f32 value one ulp apart on the two sides (inputs
+    1e-6 apart) can round to the neighbouring bf16 value: at most 4 of the
+    10 chunks may lie past 1e-4, each within 1e-2. Readings: one flip of u
+    at layer 1 of the last chunk, 2.8e-3 (the attention kernel, f32
+    state; the JAX side's u lies on a bf16 rounding midpoint); with every
+    kernel one flip in chunk 0's last layer, 5.3e-3 (f32 state) and one
+    bf16 ulp of a cache value, 7.8e-3 (bf16 state), carried into the two
+    chunks its time-cache rows feed, and a second of 1.9e-4 at chunk 6.
+    The same loop with the port's kernels off, the version without the
+    rounding points, lies 1.1e-2 to 1.6e-2 from JAX's at every chunk, so
+    the tolerance sees the rounding points."""
+    cfg_j, params_j, cfg, params = models
+    params_j = j_cast(params_j, jnp.bfloat16)
+    params = penc_cast(params, torch.bfloat16)
+    total = 240                                   # the last chunk: 40 valid frames
+    feats = (0.5 * np.random.default_rng(2).standard_normal((total, cfg.feat_in))
+             ).astype(np.float32)
+    jd, pd = (jnp.float32, torch.float32) if state == "f32" else (jnp.bfloat16, torch.bfloat16)
+    st_j = jenc.init_encoder_state(cfg_j, 1, dtype=jd)
+    st_p, st_u = penc.init_encoder_state(cfg, 1, dtype=pd), penc.init_encoder_state(cfg, 1, dtype=pd)
+    tq_steady = steady_tq(cfg)
+    layers = penc.layer_params(params, cfg.num_layers)
+    errs, errs_unrounded = [], []
+    for spec in build_schedule(total, cfg):
+        x = extract_chunk(feats, spec)
+        valid = max(min(spec.slice_end, total) - max(spec.slice_start, 0), 0)
+        tq = penc.subsampled_length(spec.frames, cfg.stride_stages) - spec.drop_extra
+        att = bool(fused_att) and tq == tq_steady
+        kw = dict(drop_extra=spec.drop_extra, cache_drop=0 if spec.is_last else cfg.cache_drop_size,
+                  valid_cap=None if spec.is_last else cfg.valid_out_len)
+        fk = dict(use_pallas_att=att, pad_steps=(-tq) % 8 if att else 0,
+                  use_pallas_ffn=fused_att == "all", use_pallas_conv=fused_att == "all")
+        enc_j, len_j, st_j = jenc.encode(params_j, cfg_j, x[None], np.array([valid], np.int32),
+                                         st_j, **kw, **fk)
+        enc_p, len_p, st_p = penc.encode(params, cfg, t(x[None]), torch.tensor([valid]), st_p,
+                                         layers=layers, **kw, **fk)
+        n = int(np.asarray(len_j)[0])
+        assert int(len_p[0]) == n, f"chunk {spec.idx}"
+
+        def gap(enc, st):
+            e = np.abs(enc[0, :n].float().numpy() - np.asarray(enc_j, np.float32)[0, :n]).max()
+            return max([float(e)] + [
+                float(np.abs(getattr(st, k).float().numpy()
+                             - np.asarray(getattr(st_j, k), np.float32)).max())
+                for k in ("att_cache", "time_cache", "kv_cache")])
+
+        errs.append(gap(enc_p, st_p))
+        assert st_p.att_cache.dtype == pd
+        if fused_att:
+            enc_u, _, st_u = penc.encode(params, cfg, t(x[None]), torch.tensor([valid]), st_u,
+                                         layers=layers, **kw)
+            errs_unrounded.append(gap(enc_u, st_u))
+    past = sum(e > ATOL for e in errs)
+    assert past <= (BF16_FLIP_CHUNKS if fused_att else 0) and max(errs) <= BF16_FLIP_ATOL, errs
+    if fused_att:
+        assert sum(e > ATOL for e in errs_unrounded) > BF16_FLIP_CHUNKS, errs_unrounded
 
 
 KERNELS = dict(use_pallas_att=True, use_pallas_ffn=True, use_pallas_conv=True)

@@ -1,15 +1,17 @@
 """Fused FFN of the PyTorch port (``ops/kernels/ffn.py``) against the JAX
 package: its plain version against ``fused_ffn_pallas`` in interpret mode
 and against the XLA FFN of ``_conformer_layer``, with f32 and int8 weights
-(the same ``QuantTensor`` values on both sides), on [T, D] and [B, T, D]
-inputs. The CUDA kernel is held against the plain version in
+(the same ``QuantTensor`` values on both sides) and with the bf16 weights of
+``cast_params_for_compute`` (the LayerNorm's parameters stay f32), on [T, D]
+and [B, T, D] inputs. The CUDA kernel is held against the plain version in
 ``test_torch_kernels_cuda.py``.
 
 Tolerances: 1e-5 absolute and relative in f32 (summation order; the TPU
 kernel also sums the expansion axis in grid blocks). int8 1e-5: both sides
 round the same operands (LN output, silu(h)) to bf16 and multiply exact
 integers, so they differ only where an f32 value one bit apart rounds to a
-neighbouring bf16 value; none does at these seeds (observed gap 1.2e-7)."""
+neighbouring bf16 value; none does at these seeds (observed gap 1.2e-7).
+bf16 weights: the same rounding points, the same 1e-5."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -39,11 +41,14 @@ def weights(inp, kind):
     """(JAX weights, port weights): f32 arrays, or one quantization shared."""
     if kind == "f32":
         return [jnp.asarray(inp["w1"]), jnp.asarray(inp["w2"])], [t(inp["w1"]), t(inp["w2"])]
+    if kind == "bf16":
+        return ([jnp.asarray(inp[k]).astype(jnp.bfloat16) for k in ("w1", "w2")],
+                [t(inp[k]).to(torch.bfloat16) for k in ("w1", "w2")])
     jw = [j_quantize(jnp.asarray(inp[k])) for k in ("w1", "w2")]
     return jw, [QuantTensor(t(np.asarray(q.q)), t(np.asarray(q.s))) for q in jw]
 
 
-@pytest.mark.parametrize("kind", ["f32", "int8"])
+@pytest.mark.parametrize("kind", ["f32", "int8", "bf16"])
 @pytest.mark.parametrize("shape", [(8,), (6,), (1, 8), (2, 3)])
 def test_plain_matches_pallas_interpret(kind, shape):
     inp = make_inputs(len(shape) * 10 + shape[-1], shape)

@@ -1,6 +1,7 @@
 """Fused joint step of the PyTorch port (``ops/kernels/joint_step.py``)
 against the JAX package: the plain version against ``joint_step_pallas`` in
-interpret mode with f32 and int8 weights, with and without a blank penalty,
+interpret mode with f32 and int8 weights and with the bf16 weights and
+biases of ``cast_params_for_compute``, with and without a blank penalty,
 and on a constructed tie. The CUDA kernel is held against the plain version
 in ``test_torch_kernels_cuda.py``.
 
@@ -34,7 +35,17 @@ def make_inputs(seed):
 
 
 def run_both(inp, quant, penalty):
+    """``quant``: int8 weights (True), f32 (False), or ``"bf16"``: bf16
+    weights and biases."""
     kw = dict(ths=THS, ndur=NDUR, blank_id=BLANK, blank_penalty=penalty)
+    if quant == "bf16":
+        bf = lambda k: jnp.asarray(inp[k]).astype(jnp.bfloat16)  # noqa: E731
+        want = joint_step_pallas(jnp.asarray(inp["e"]), jnp.asarray(inp["g"]), bf("wp"),
+                                 bf("bp"), bf("wo"), bf("bo"), interpret=True, **kw)
+        pb = lambda k: t(inp[k]).to(torch.bfloat16)  # noqa: E731
+        got = joint_step_plain(t(inp["e"]), t(inp["g"]), pb("wp"), pb("bp"), pb("wo"),
+                               pb("bo"), **kw)
+        return got, want
     if quant:
         jwp, jwo = j_quantize(jnp.asarray(inp["wp"])), j_quantize(jnp.asarray(inp["wo"]))
         pwp = QuantTensor(t(np.array(jwp.q)), t(np.array(jwp.s)))
@@ -49,10 +60,10 @@ def run_both(inp, quant, penalty):
     return got, want
 
 
-@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("quant", [False, True, "bf16"])
 @pytest.mark.parametrize("penalty", [0.0, 1.5])
 def test_plain_matches_pallas_interpret(quant, penalty):
-    (tok, dur, logits), (jtok, jdur, jlogits) = run_both(make_inputs(1 + int(quant)), quant,
+    (tok, dur, logits), (jtok, jdur, jlogits) = run_both(make_inputs({False: 1, True: 2, "bf16": 5}[quant]), quant,
                                                         penalty)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), atol=1e-5, rtol=1e-5)
     np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))

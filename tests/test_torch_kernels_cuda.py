@@ -151,12 +151,14 @@ ATT_SHAPES = {"f32": PERSISTENT_ATT_SHAPES, "bf16": [(64, 4, 32, 8)],
               "int8": PERSISTENT_ATT_SHAPES}
 
 
-def att_inputs(dev, seed, d, h, c, tq, kind):
+def att_inputs(dev, seed, d, h, c, tq, kind, wsc=None):
+    """``wsc``: the weights' scale (by default min(0.3, 2.4 / sqrt(D)))."""
     rng = np.random.default_rng(seed)
     r = lambda *s, sc=0.3: torch.as_tensor(  # noqa: E731
         (rng.standard_normal(s) * sc).astype(np.float32), device=dev)
     x, ln_g, ln_b = r(tq, d, sc=1.0), 1.0 + r(d, sc=0.2), r(d, sc=0.1)
-    ws = [as_weight(r(d, d, sc=min(0.3, 2.4 / math.sqrt(d))), kind) for _ in range(4)]
+    wsc = min(0.3, 2.4 / math.sqrt(d)) if wsc is None else wsc
+    ws = [as_weight(r(d, d, sc=wsc), kind) for _ in range(4)]
     return (x, ln_g, ln_b, *ws, r(h, d // h), r(h, d // h), r(2 * tq + c - 1, d), r(c, 2 * d))
 
 
@@ -187,6 +189,103 @@ def test_att_block_kernel_matches_plain(kind):
                 torch.testing.assert_close(g, w, atol=atol, rtol=1e-4)
                 assert torch.equal(a, g)
         assert math.isfinite(float(got[0].sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("cache", ["f32", "bf16"])
+@pytest.mark.parametrize("d,h,c,tq", [(64, 4, 32, 8), (1024, 8, 256, 8)])
+def test_att_block_takes_bf16_biases_and_cache(kind, cache, d, h, c, tq):
+    """The weights of ``cast_params_for_compute`` (bf16 biases; with
+    ``kind`` int8, quantized after the cast: the fast arm) over an f32 or a
+    bf16 kv cache (a bf16 encoder state): the chain reads a bf16 cache as
+    stored, the int8 kernel an f32 copy made at the call (counted in
+    ``as_f32.widened_bytes``); the biases' f32 copies are kept once
+    (``keep_f32_copy``), so none is made at a call. The weights' scale is
+    1/sqrt(D), as phase 2 of ``chip_smoke.py`` draws them: at 2.4/sqrt(D)
+    the products amplify, and 3e-7 of noise in x moves the plain version's
+    y by 0.035 at the full width (one rounding of u flipped), past any
+    tolerance that sees the rounding points; at 1/sqrt(D) by 5e-4."""
+    dev = require_cuda()
+    args = list(att_inputs(dev, 17, d, h, c, tq, kind, wsc=1 / math.sqrt(d)))
+    args[7], args[8] = args[7].to(torch.bfloat16), args[8].to(torch.bfloat16)
+    for bias in args[7:9]:
+        quant.keep_f32_copy(bias)
+    if cache == "bf16":
+        args[10] = args[10].to(torch.bfloat16)
+    meta = torch.tensor([c - 3, c // 2, tq - 2], dtype=torch.int32, device=dev)
+    n0, b0 = quant.as_f32.widened, quant.as_f32.widened_bytes
+    got = att_block(*args, meta, n_heads=h)
+    want = att_block_plain(*args, meta, n_heads=h)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=2e-3, rtol=1e-4)
+    cast = cache == "bf16" and kind == "int8"
+    assert quant.as_f32.widened - n0 == int(cast)
+    assert quant.as_f32.widened_bytes - b0 == (c * 2 * d * 6 if cast else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_joint_step_takes_bf16_biases(kind):
+    """bf16 joint biases (with int8 weights: bf16, then int8), at 8 and 48
+    rows (the engine's B rows), through the chain (bf16) or the persistent
+    int8 kernel packed at the call and once beforehand."""
+    dev = require_cuda()
+    p, j, vocab, ndur = 32, 48, 64, 5
+    v = vocab + 1 + ndur
+    for rows in (8, 48):
+        r = randn(dev, rows)
+        wp, wo = as_weight(r(p, j, sc=0.3), kind), as_weight(r(j, v, sc=0.3), kind)
+        bp, bo = r(j, sc=0.1).to(torch.bfloat16), r(v, sc=0.1).to(torch.bfloat16)
+        args = (r(rows, j), r(rows, p, sc=0.5), wp, bp, wo, bo)
+        kw = dict(ths=vocab + 1, ndur=ndur, blank_id=vocab, blank_penalty=0.7)
+        got = joint_step(*args, **kw)
+        tok_p, dur_p, lg_p = joint_step_plain(*args, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[2], lg_p, atol=1e-4, rtol=1e-4)
+        assert torch.equal(got[0], tok_p) and torch.equal(got[1], dur_p)
+        if kind == "int8":
+            again = joint_step(*args, **kw, packed=pack_joint_step(wp, bp, wo, bo))
+            assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("cache", ["f32", "bf16"])
+def test_conv_block_takes_bf16_taps_and_time_cache(kind, cache):
+    """bf16 taps (their f32 copy kept once) and an f32 or bf16 time cache:
+    the chain reads a bf16 cache as stored, the int8 kernel an f32 copy made
+    at the call; at the card-test width and the full width."""
+    dev = require_cuda()
+    for tq, valid, d in ((8, 6, 64), (8, 6, 1024)):
+        args = list(conv_inputs(dev, 3 + d, tq, valid, d, kind))
+        args[4] = args[4].to(torch.bfloat16)
+        quant.keep_f32_copy(args[4])
+        if cache == "bf16":
+            args[10] = args[10].to(torch.bfloat16)
+        n0 = quant.as_f32.widened
+        got = conv_block(*args)
+        want = conv_block_plain(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=2e-3, rtol=1e-4)
+        assert quant.as_f32.widened - n0 == int(cache == "bf16" and kind == "int8")
+
+
+@pytest.mark.cuda
+def test_bf16_ffn_chain_at_the_full_width():
+    """The FFN's bf16 chain (``csrc/ffn.cu``) at the session's shapes: 8
+    rows of the full width, f32 LayerNorm parameters."""
+    dev = require_cuda()
+    r = randn(dev, 44)
+    d, e = 1024, 4096
+    args = (r(8, d, sc=1.0), 1.0 + r(d, sc=0.2), r(d, sc=0.1),
+            r(d, e, sc=d ** -0.5).to(torch.bfloat16), r(e, d, sc=e ** -0.5).to(torch.bfloat16))
+    before = fused_ffn.launches
+    got = fused_ffn(*args)
+    assert fused_ffn.launches == before + 1
+    torch.testing.assert_close(got, fused_ffn_plain(*args), atol=2e-3, rtol=1e-4)
 
 
 @pytest.mark.cuda

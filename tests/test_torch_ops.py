@@ -135,6 +135,41 @@ def test_bf16_copies_of_int8_weights_are_exact_and_made_once():
         p_quant.keep_bf16_copy(quants[0].q, quants[1].q.to(torch.bfloat16)[:1])
 
 
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16])
+def test_matmul_counts_widened_bf16_weights(act):
+    """An f32 activation times a bf16 weight (the weights of
+    ``cast_params_for_compute``) widens the weight at the call, as JAX
+    promotes the pair, and counts one widening; a bf16 x bf16 product
+    counts none. The product equals the f32 product of the widened pair."""
+    rng = np.random.default_rng(8)
+    a = t(rnd(rng, 4, 16)).to(act)
+    w = t(rnd(rng, 16, 8)).to(torch.bfloat16)
+    before = p_common.matmul.widened
+    got = p_common.matmul(a, w)
+    assert p_common.matmul.widened - before == (1 if act == torch.float32 else 0)
+    want = torch.matmul(a.float(), w.float())
+    assert torch.equal(got, want if act == torch.float32 else want.to(torch.bfloat16))
+    p_common.matmul(a.float(), w.float())          # f32 x f32: none
+    assert p_common.matmul.widened - before == (1 if act == torch.float32 else 0)
+
+
+def test_f32_copies_of_small_bf16_tensors():
+    """``keep_f32_copy`` keeps an exact f32 copy beside a bf16 tensor, which
+    ``as_f32`` returns without a new copy; without one ``as_f32`` widens at
+    the call and counts it and its bytes; f32 tensors pass as they are."""
+    b = t(rnd(np.random.default_rng(9), 24)).to(torch.bfloat16)
+    n0, bytes0 = p_quant.as_f32.widened, p_quant.as_f32.widened_bytes
+    fresh = p_quant.as_f32(b)
+    assert torch.equal(fresh, b.float()) and fresh.dtype == torch.float32
+    assert (p_quant.as_f32.widened - n0, p_quant.as_f32.widened_bytes - bytes0) == (1, 24 * 6)
+    p_quant.keep_f32_copy(b)
+    assert p_quant.as_f32(b) is p_quant.as_f32(b) and torch.equal(p_quant.as_f32(b), fresh)
+    f = b.float()
+    p_quant.keep_f32_copy(f)
+    assert p_quant.as_f32(f) is f
+    assert p_quant.as_f32.widened - n0 == 1
+
+
 def test_depthwise_conv1d():
     rng = np.random.default_rng(5)
     x, w, b = rnd(rng, 2, 17, 12), rnd(rng, 9, 12), rnd(rng, 12)

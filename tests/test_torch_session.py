@@ -3,14 +3,24 @@ trained ``gate_r3`` model: synthesized utterances pushed at 0.3/0.5/1.0 s
 give the same transcript, tokens and token/word stamps as the JAX
 ``StreamingSession``, with the fused attention block and joint step off and
 on (their plain versions on CPU tensors), and with every kernel flag on
-(FFN and conv module too) in f32 and int8; the env names of the flags; the
+(FFN and conv module too) in f32 and int8; the same with the bf16 weights of
+``cast_params_for_compute`` (the JAX package's production type), kernels
+off, attention + joint, every flag, and the fast arm (bf16 cast, then
+``quant="all"``, as ``bench.py`` orders them); ``_session_step`` with a
+bf16 encoder state (the graft entry's configuration) closed loop against
+JAX's; the env names of the flags; the
 event protocol, reset/reuse,
 push-after-finalize and snapshot/restore; the language and extra prompt
 tokens against the JAX model's on one synthetic vocabulary; the package imports nothing of
 JAX; without a CUDA device the entry points raise unless asked for the CPU.
 
 Tolerance: transcripts, tokens, frames and durations exact; per-token
-log-probs 1e-4 absolute."""
+log-probs 1e-4 absolute, and 5e-3 with bf16 weights and the attention
+kernel on: its plain version rounds u = LN(x) to bf16, as the TPU kernel
+does, and an f32 value one ulp apart on the two sides can round to the
+neighbouring bf16 value (one flip in u moves the encoder output by up to
+2.9e-3, ``tests/test_torch_encoder.py``); readings 8e-4 (0.5-bf16_fused)
+and 3.4e-3 (0.5-fast), 1e-4 with the kernels off."""
 
 import os
 import subprocess
@@ -54,39 +64,75 @@ def stamps(sess):
             [d["logp"] for d in sess.token_timestamps()], sess.word_timestamps())
 
 
-@pytest.mark.parametrize("fused", [False, True])
-@pytest.mark.parametrize("seconds", [0.3, 0.5, 1.0])
+def bf16_excess(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| past one bf16 ulp of the larger of the two
+    (floored at 1e-4, where one ulp is below f32 noise)."""
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(g.abs(), w.abs()).clamp_min(1e-30))) - 7)
+    return float(((g - w).abs() - ulp.clamp_min(1e-4)).max())
+
+
+def bf16_models(kw):
+    """The JAX and port gate_r3 models with bf16 weights (``quant`` in kw:
+    quantized after the cast)."""
+    import jax.numpy as jnp
+
+    from trt_asr_tpu.models.parakeet.params import cast_params_for_compute
+
+    base = JModel.from_model_dir(GATE_R3)
+    jm = JModel(base.cfg, cast_params_for_compute(base.params, jnp.bfloat16), base.tokenizer,
+                runtime=JRuntime(**kw))
+    return jm, ParakeetTDT.from_model_dir(GATE_R3, runtime=RuntimeConfig(**kw), device="cpu",
+                                          weights_dtype=torch.bfloat16)
+
+
+# fused: the attention block and joint step kernels off (False) or on (True)
+# with f32 weights; with bf16 weights off ("bf16") or on ("bf16_fused"), and
+# the fast arm ("fast": bf16, then int8, kernels on)
+@pytest.mark.parametrize("seconds,fused", [
+    (0.3, False), (0.5, False), (1.0, False), (0.3, True), (0.5, True), (1.0, True),
+    (0.3, "bf16"), (0.5, "bf16_fused"), (1.0, "bf16_fused"), (0.5, "fast")])
 def test_session_matches_jax_on_gate_r3(jax_model, port_model, seconds, fused):
-    audio = synth_audio(seed=int(seconds * 10) + 100 * fused, words=6)
+    bf16 = isinstance(fused, str)
+    on = fused is True or fused in ("bf16_fused", "fast")
+    audio = synth_audio(seed=int(seconds * 10) + 100 * on + 1000 * bf16, words=6)
     piece = int(seconds * 16000)
-    kw = dict(use_pallas_att=fused, use_pallas_joint=fused)
-    ref = run(JSession(jax_model, JRuntime(**kw)), audio, piece)
-    got = run(StreamingSession(port_model, RuntimeConfig(**kw)), audio, piece)
+    kw = dict(use_pallas_att=on, use_pallas_joint=on)
+    if fused == "fast":
+        kw["quant"] = "all"
+    jm, pm = bf16_models(kw) if bf16 else (jax_model, port_model)
+    ref = run(JSession(jm, JRuntime(**kw)), audio, piece)
+    got = run(StreamingSession(pm, RuntimeConfig(**kw)), audio, piece)
     assert len(ref._tokens) > 0
     assert got.tokens == ref._tokens
     assert got.text == ref.text
     (tok_g, lp_g, words_g), (tok_r, lp_r, words_r) = stamps(got), stamps(ref)
     assert tok_g == tok_r
-    np.testing.assert_allclose(lp_g, lp_r, atol=1e-4)
+    np.testing.assert_allclose(lp_g, lp_r, atol=5e-3 if bf16 and on else 1e-4)
     assert [{k: v for k, v in w.items() if k != "logp"} for w in words_g] == \
         [{k: v for k, v in w.items() if k != "logp"} for w in words_r]
 
 
-@pytest.mark.parametrize("quant", ["none", "all"])
+@pytest.mark.parametrize("quant", ["none", "all", "bf16", "fast"])
 def test_session_with_every_kernel_matches_jax(quant, monkeypatch):
     """Every kernel flag on (attention block, joint step, FFN, conv module;
     with int8 weights the fused conv + FFN2 + out-LN tail) on both sides,
-    f32 and int8 (quant="all"); JAX's kernels in interpret mode. The FFN and
-    conv kernels run on every chunk, the first and the flush chunk too."""
+    f32 and int8 (quant="all"), bf16 weights ("bf16") and bf16 then int8
+    ("fast": the tail with bf16 taps); JAX's kernels in interpret mode. The
+    FFN and conv kernels run on every chunk, the first and the flush chunk
+    too."""
     from trt_asr_tpu_torch.models.parakeet import encoder as penc
 
     calls = spy_calls(monkeypatch, penc, ("fused_ffn", "conv_block", "conv_ffn_ln"))
     kw = dict(use_pallas_att=True, use_pallas_joint=True, use_pallas_ffn=True,
-              use_pallas_conv=True, quant=quant)
+              use_pallas_conv=True, quant={"bf16": "none", "fast": "all"}.get(quant, quant))
     audio = synth_audio(seed=31, words=6)
-    ref = run(JSession(JModel.from_model_dir(GATE_R3, runtime=JRuntime(**kw)), JRuntime(**kw)),
-              audio, 8000)
-    model = ParakeetTDT.from_model_dir(GATE_R3, runtime=RuntimeConfig(**kw), device="cpu")
+    if quant in ("bf16", "fast"):
+        jm, model = bf16_models(kw)
+    else:
+        jm = JModel.from_model_dir(GATE_R3, runtime=JRuntime(**kw))
+        model = ParakeetTDT.from_model_dir(GATE_R3, runtime=RuntimeConfig(**kw), device="cpu")
+    ref = run(JSession(jm, JRuntime(**kw)), audio, 8000)
     got = run(StreamingSession(model, RuntimeConfig(**kw)), audio, 8000)
     assert len(ref._tokens) > 0
     assert got.tokens == ref._tokens
@@ -95,9 +141,83 @@ def test_session_with_every_kernel_matches_jax(quant, monkeypatch):
     assert tok_g == tok_r
     np.testing.assert_allclose(lp_g, lp_r, atol=1e-4)
     layer_chunks = len(got.chunk_latencies_ms) * model.cfg.num_layers
-    conv = "conv_ffn_ln" if quant == "all" else "conv_block"
-    assert calls[conv] == layer_chunks
-    assert calls["fused_ffn"] == layer_chunks * (1 if quant == "all" else 2)
+    tail = kw["quant"] == "all"
+    assert calls["conv_ffn_ln" if tail else "conv_block"] == layer_chunks
+    assert calls["fused_ffn"] == layer_chunks * (1 if tail else 2)
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+def test_session_step_with_bf16_state_matches_jax(kernels):
+    """``_session_step`` as the graft entry runs it: ``cast_params_for_compute``
+    bf16 weights and a bf16 encoder state, closed loop over a tiny model's
+    chunk schedule (the kernels' plain versions on the attention block's
+    steady chunks and the joint step with ``kernels``), against JAX's
+    ``_session_step`` on the same weights and state. Tokens exact; each
+    bf16 cache value within one bf16 ulp (or 1e-4 near zero) of JAX's: the
+    same bf16 writes of f32 values 1e-6 apart, where one can round to the
+    neighbouring bf16 value. With the kernels on, 2e-3 past that: the
+    attention block rounds u to bf16, and one flip moves the conv module's
+    rows, and so the time cache, by up to 7.3e-4 past one ulp (reading);
+    the same loop with the port's kernel off (no rounding points) lies
+    8.8e-3 past it."""
+    import jax.numpy as jnp
+
+    from torch_port_helpers import np_tree
+    from trt_asr_tpu.config import ModelConfig as JConfig
+    from trt_asr_tpu.decode import init_decode_state as j_init_dec
+    from trt_asr_tpu.models.parakeet import encoder as jenc
+    from trt_asr_tpu.models.parakeet.params import cast_params_for_compute, init_params
+    from trt_asr_tpu.streaming.session import _session_step as j_step
+    from trt_asr_tpu_torch.decode.tdt_greedy import init_decode_state
+    from trt_asr_tpu_torch.models.parakeet import encoder as penc
+    from trt_asr_tpu_torch.streaming.schedule import build_schedule, extract_chunk
+    from trt_asr_tpu_torch.streaming.session import _session_step
+    from trt_asr_tpu_torch.tokenizer import Tokenizer, make_synthetic_vocab
+
+    cfg_j, cfg = JConfig.tiny(), ModelConfig.tiny()
+    params_j = init_params(cfg_j, seed=6)
+    model = ParakeetTDT(cfg, np_tree(params_j), Tokenizer(make_synthetic_vocab(cfg.vocab_size),
+                                                          blank_id=cfg.blank_id),
+                        runtime=RuntimeConfig(), device="cpu", weights_dtype=torch.bfloat16)
+    params_j = cast_params_for_compute(params_j, jnp.bfloat16)
+    es_j, ds_j = jenc.init_encoder_state(cfg_j, 1, dtype=jnp.bfloat16), j_init_dec(cfg_j, 1)
+    es_p = penc.init_encoder_state(cfg, 1, dtype=torch.bfloat16)
+    ds_p = init_decode_state(cfg, 1)
+    total = 200
+    feats = (0.5 * np.random.default_rng(6).standard_normal((total, cfg.feat_in))
+             ).astype(np.float32)
+    frames = cfg.chunk_size_frames[1] + cfg.pre_encode_cache_size[1]
+    tq_steady = penc.subsampled_length(frames, cfg.stride_stages) - cfg.drop_extra_pre_encoded
+    pad = (-tq_steady) % 8
+    pos_kernel = penc.precompute_pos_proj(model.params, cfg, tq_steady + pad,
+                                          cfg.att_cache_size)
+    emitted, fused = 0, 0
+    for spec in build_schedule(total, cfg):
+        x = extract_chunk(feats, spec)
+        valid = max(min(spec.slice_end, total) - max(spec.slice_start, 0), 0)
+        tq = penc.subsampled_length(spec.frames, cfg.stride_stages) - spec.drop_extra
+        att = kernels and tq == tq_steady
+        fused += att
+        kw = dict(drop_extra=spec.drop_extra,
+                  cache_drop=0 if spec.is_last else cfg.cache_drop_size,
+                  valid_cap=None if spec.is_last else cfg.valid_out_len, blank_penalty=0.0,
+                  emitted_so_far=emitted, punct_mask=None, use_pallas_joint=kernels,
+                  use_pallas_att=att, pad_steps=pad if att else 0)
+        toks_j, n_j, es_j, ds_j = j_step(params_j, cfg_j, x[None], np.int32(valid), es_j, ds_j,
+                                         use_punct_mask=False, **kw)
+        toks_p, n_p, es_p, ds_p, _, _ = _session_step(
+            model, torch.as_tensor(x[None]), valid, es_p, ds_p,
+            pos_proj=pos_kernel if att else None, **kw)
+        n = int(n_j)
+        assert int(n_p) == n and toks_p[:n].tolist() == np.asarray(toks_j)[:n].tolist(), (
+            f"chunk {spec.idx}")
+        emitted += n
+        for name in ("att_cache", "time_cache", "kv_cache"):
+            got, want = getattr(es_p, name), getattr(es_j, name)
+            assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+            excess = bf16_excess(got, torch.as_tensor(np.asarray(want, np.float32)))
+            assert excess <= (2e-3 if kernels else 0.0), f"chunk {spec.idx} {name}: {excess}"
+    assert emitted > 0 and (fused >= 5 if kernels else fused == 0)
 
 
 def test_runtime_flags_read_from_env(monkeypatch):

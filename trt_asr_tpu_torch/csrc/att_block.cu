@@ -25,7 +25,9 @@
 // Rounding points follow the TPU kernel: with bf16 or int8 weights the
 // operands u, q+u_bias, q+v_bias, k, v, the positional term m, the
 // probabilities and the context are rounded to bf16; accumulation is f32 and
-// the int8 dequant scale multiplies the f32 accumulator.
+// the int8 dequant scale multiplies the f32 accumulator. The kv cache is read
+// as it is stored, f32 or bf16 (a bf16 encoder state), as the TPU kernel
+// reads it: no widened copy is made.
 #include "common.cuh"
 
 namespace port {
@@ -47,10 +49,11 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc, int bf) {
 // slot's key and positional row in 16-byte loads, summed by shuffles;
 // softmax over the block; context: thread (g, c) sums the float4 column c
 // of the value rows g, g + G, ... and the G group sums are added in a fixed
-// order.
+// order. KT is the kv cache's storage type (float or __nv_bfloat16).
+template <typename KT>
 __global__ void __launch_bounds__(ATT_THREADS)
 rel_attention_kernel(const float* __restrict__ q, const float* __restrict__ k_new,
-                     const float* __restrict__ v_new, const float* __restrict__ kv_cache,
+                     const float* __restrict__ v_new, const KT* __restrict__ kv_cache,
                      int C, const float* __restrict__ pos, const float* __restrict__ bias_u,
                      const float* __restrict__ bias_v, const int* __restrict__ meta,
                      int tq, int D, int H, float scale, int bf,
@@ -87,25 +90,26 @@ rel_attention_kernel(const float* __restrict__ q, const float* __restrict__ k_ne
     const int s = s0 + lane / ATT_TPS;
     bool ok = false;
     int r0 = 0;
-    const float* krow = nullptr;
+    const KT* crow = nullptr;         // a cache slot's key row, or
+    const float* nrow = nullptr;      // a current row's
     if (s < C) {
       const int age = ((cursor - 1 - s) % C + C) % C + 1;
       ok = age <= cache_len;
       r0 = base - age;
-      krow = kv_cache + (size_t)s * 2 * D + col;
+      crow = kv_cache + (size_t)s * 2 * D + col;
     } else if (s < S) {
       const int j = s - C;
       ok = j < valid_tq;
       r0 = base + j;
-      krow = k_new + (size_t)j * D + col;
+      nrow = k_new + (size_t)j * D + col;
     }
     float a = 0.f, m = 0.f;
     if (ok) {
-      const float4* k4 = reinterpret_cast<const float4*>(krow);
       const float4* p4 = reinterpret_cast<const float4*>(pos + (size_t)(r0 - t) * D + col);
 #pragma unroll 8
       for (int i = sub; i < per * ATT_TPS; i += ATT_TPS) {
-        a = dot4(qu4[i], k4[i], a, bf);
+        const float4 k = crow ? load4_f(crow + 4 * i) : load4_f(nrow + 4 * i);
+        a = dot4(qu4[i], k, a, bf);
         m = dot4(qv4[i], p4[i], m, 0);
       }
     }
@@ -139,9 +143,8 @@ rel_attention_kernel(const float* __restrict__ q, const float* __restrict__ k_ne
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
     for (int s = g; s < S; s += G) {
-      const float* vrow = s < C ? kv_cache + (size_t)s * 2 * D + D + col
-                                : v_new + (size_t)(s - C) * D + col;
-      const float4 v = reinterpret_cast<const float4*>(vrow)[c4];
+      const float4 v = s < C ? load4_f(kv_cache + (size_t)s * 2 * D + D + col + 4 * c4)
+                             : load4_f(v_new + (size_t)(s - C) * D + col + 4 * c4);
       const float ps = p[s];
       acc.x = fmaf(ps, round_op(v.x, bf), acc.x);
       acc.y = fmaf(ps, round_op(v.y, bf), acc.y);
@@ -163,7 +166,8 @@ rel_attention_kernel(const float* __restrict__ q, const float* __restrict__ k_ne
 using namespace port;
 
 // Enqueue the attention block. Weights: wtype 0 = f32, 1 = bf16, 2 = int8
-// (then s* are the per-output-channel scales, else null). q, ctx are [tq, D]
+// (then s* are the per-output-channel scales, else null). kv_cache [C, 2D] is
+// f32, or bf16 when kv_bf16 is set. q, ctx are [tq, D]
 // scratch buffers, part is [3, ksplit, tq, D] (split-K partial sums). Returns
 // the CUDA error code of the launches.
 extern "C" int att_block_launch(
@@ -171,7 +175,7 @@ extern "C" int att_block_launch(
     const void* wq, const void* wk, const void* wv, const void* wo,
     const float* sq, const float* sk, const float* sv, const float* so, int wtype,
     const float* bias_u, const float* bias_v, const float* pos,
-    const float* kv_cache, int C, const int* meta, float scale, int ksplit,
+    const void* kv_cache, int kv_bf16, int C, const int* meta, float scale, int ksplit,
     float* y, float* u, float* q, float* k_new, float* v_new, float* ctx, float* part,
     void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
@@ -193,8 +197,14 @@ extern "C" int att_block_launch(
 
   const size_t smem = sizeof(float) * ((size_t)2 * dh + ((C + tq + 3) & ~3) + 4 * ATT_THREADS);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  rel_attention_kernel<<<dim3(H, tq), ATT_THREADS, smem, stream>>>(
-      q, k_new, v_new, kv_cache, C, pos, bias_u, bias_v, meta, tq, D, H, scale, bf, ctx);
+  if (kv_bf16)
+    rel_attention_kernel<<<dim3(H, tq), ATT_THREADS, smem, stream>>>(
+        q, k_new, v_new, static_cast<const __nv_bfloat16*>(kv_cache), C, pos, bias_u, bias_v,
+        meta, tq, D, H, scale, bf, ctx);
+  else
+    rel_attention_kernel<<<dim3(H, tq), ATT_THREADS, smem, stream>>>(
+        q, k_new, v_new, static_cast<const float*>(kv_cache), C, pos, bias_u, bias_v, meta,
+        tq, D, H, scale, bf, ctx);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 

@@ -22,6 +22,8 @@
 //
 // Rounding points follow the TPU kernel: with bf16 or int8 weights u and
 // silu(BN(conv)) are rounded to bf16; x, c and the residual stream are not.
+// The time cache is read as it is stored, f32 or bf16 (a bf16 encoder
+// state), as the TPU kernel reads it.
 #include "common.cuh"
 
 namespace port {
@@ -30,12 +32,19 @@ constexpr int CONV_COLS = 32;
 constexpr int CONV_ROWS = 8;               // row groups of a block
 constexpr int CONV_THREADS = CONV_COLS * CONV_ROWS;
 
+// Element i of an f32 (bf16 = 0) or bf16 array, widened to f32.
+__device__ __forceinline__ float load_f(const void* p, int bf16, size_t i) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+              : static_cast<const float*>(p)[i];
+}
+
 // grid ceil(D / 32); dynamic shared memory (M + kk - 1) * 32 floats.
-// part [ksplit][M][2D] holds pw1's partial sums, s1 [2D] its scales or null.
+// part [ksplit][M][2D] holds pw1's partial sums, s1 [2D] its scales or null;
+// tc is f32, or bf16 when tc_bf16 is set.
 __global__ void __launch_bounds__(CONV_THREADS)
 conv_module_kernel(const float* __restrict__ part, int ksplit, int M, int D,
                    const float* __restrict__ s1, const float* __restrict__ mask,
-                   const float* __restrict__ tc, const float* __restrict__ dw, int kk,
+                   const void* __restrict__ tc, int tc_bf16, const float* __restrict__ dw, int kk,
                    const float* __restrict__ bn_g, const float* __restrict__ bn_b,
                    const float* __restrict__ bn_m, const float* __restrict__ bn_v,
                    int round_out, float* __restrict__ c, float* __restrict__ a) {
@@ -46,7 +55,7 @@ conv_module_kernel(const float* __restrict__ part, int ksplit, int M, int D,
   const bool ok = n < D;
   const size_t N = 2 * (size_t)D;
   for (int i = r; i < half; i += CONV_ROWS) {
-    ext[i * CONV_COLS + col] = ok ? tc[(size_t)i * D + n] : 0.f;
+    ext[i * CONV_COLS + col] = ok ? load_f(tc, tc_bf16, (size_t)i * D + n) : 0.f;
     ext[(half + M + i) * CONV_COLS + col] = 0.f;
   }
   for (int t = r; t < M; t += CONV_ROWS) {
@@ -86,7 +95,8 @@ inline cudaError_t launch_conv_block(const float* x, int M, int D, const float* 
                                      const float* dw, int kk, const float* bn_g,
                                      const float* bn_b, const float* bn_m, const float* bn_v,
                                      const void* pw2, const float* s2, int wtype,
-                                     const float* tc, const float* mask, int ksplit, float* y,
+                                     const void* tc, int tc_bf16, const float* mask,
+                                     int ksplit, float* y,
                                      float* c, float* u, float* a, float* part,
                                      cudaStream_t stream) {
   if (M < 1 || D < 1 || kk < 1 || kk % 2 == 0) return cudaErrorInvalidValue;
@@ -99,7 +109,7 @@ inline cudaError_t launch_conv_block(const float* x, int M, int D, const float* 
   err = launch_gemm_partial(wtype, u, M, D, up, 2 * D, ksplit, bf, part, stream);
   if (err != cudaSuccess) return err;
   conv_module_kernel<<<(D + CONV_COLS - 1) / CONV_COLS, CONV_THREADS, smem, stream>>>(
-      part, ksplit, M, D, s1, mask, tc, dw, kk, bn_g, bn_b, bn_m, bn_v, bf, c, a);
+      part, ksplit, M, D, s1, mask, tc, tc_bf16, dw, kk, bn_g, bn_b, bn_m, bn_v, bf, c, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ArgmaxParts none = {};
@@ -112,7 +122,7 @@ inline cudaError_t launch_conv_block(const float* x, int M, int D, const float* 
 
 using namespace port;
 
-// x, y, c [M, D] f32; dw [kk, D]; tc [(kk - 1) / 2, D]; mask [M] (1 = valid
+// x, y, c [M, D] f32; dw [kk, D]; tc [(kk - 1) / 2, D], f32 or (tc_bf16) bf16; mask [M] (1 = valid
 // step, 0 = padded). Weights: wtype 0 = f32, 1 = bf16, 2 = int8 (then s1
 // [2D] and s2 [D] are the per-column scales, else null). u and a [M, D] and
 // part [ksplit * M * 2D] are scratch. Returns the CUDA error code.
@@ -120,9 +130,9 @@ extern "C" int conv_block_launch(
     const float* x, int M, int D, const float* ln_g, const float* ln_b, const void* pw1,
     const float* s1, const float* dw, int kk, const float* bn_g, const float* bn_b,
     const float* bn_m, const float* bn_v, const void* pw2, const float* s2, int wtype,
-    const float* tc, const float* mask, int ksplit, float* y, float* c, float* u, float* a,
-    float* part, void* stream_ptr) {
+    const void* tc, int tc_bf16, const float* mask, int ksplit, float* y, float* c, float* u,
+    float* a, float* part, void* stream_ptr) {
   return (int)launch_conv_block(x, M, D, ln_g, ln_b, pw1, s1, dw, kk, bn_g, bn_b, bn_m, bn_v,
-                                pw2, s2, wtype, tc, mask, ksplit, y, c, u, a, part,
+                                pw2, s2, wtype, tc, tc_bf16, mask, ksplit, y, c, u, a, part,
                                 (cudaStream_t)stream_ptr);
 }

@@ -4,7 +4,8 @@ Same decisions as the JAX package's ``decode/batched.py``
 ``tdt_greedy_decode_batch``: blank-run batching when B*T <= 256 (the
 streaming case), one joint per row and iteration above that, and the fused
 joint-step kernel for the blank-run joint when ``use_pallas_joint`` and
-B*T <= 128. The loop itself is ``decode/greedy_loop.py``'s.
+B*T <= 128. The loop itself is ``decode/greedy_loop.py``'s. Also the
+engine's per-row decode-state reset, ``reset_decode_state_rows``.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import torch
 
 from trt_asr_tpu_torch.config import ModelConfig
 from trt_asr_tpu_torch.decode.greedy_loop import greedy_decode_loop
-from trt_asr_tpu_torch.decode.tdt_greedy import DecodeState
+from trt_asr_tpu_torch.decode.tdt_greedy import (DecodeState, init_decode_state,
+                                                 prime_decode_state)
 
 
 def tdt_greedy_decode_batch(
@@ -49,3 +51,19 @@ def tdt_greedy_decode_batch(
         use_punct_mask=use_punct_mask, with_timestamps=with_timestamps,
         blank_run=b * tq <= 256, use_kernel=use_pallas_joint and b * tq <= 128,
         joint_packed=joint_packed)
+
+
+def reset_decode_state_rows(params, cfg: ModelConfig, state: DecodeState, row_mask,
+                            prompt_ids) -> DecodeState:
+    """Re-initialize (and re-prime with ``prompt_ids``) the decode state of
+    the streams where ``row_mask`` [B] is True: a slot attaching or
+    detaching in the lockstep engine. Returns a new state."""
+    b, dev = state.g.shape[0], state.g.device
+    fresh = prime_decode_state(params, cfg, init_decode_state(cfg, b, device=dev), prompt_ids)
+    m = torch.as_tensor(row_mask, device=dev).reshape(b)
+    return DecodeState(g=torch.where(m[:, None], fresh.g, state.g),
+                       h=torch.where(m[None, :, None], fresh.h, state.h),
+                       c=torch.where(m[None, :, None], fresh.c, state.c),
+                       y_id=torch.where(m, fresh.y_id, state.y_id),
+                       time_carry=torch.where(m, torch.zeros_like(state.time_carry),
+                                              state.time_carry))

@@ -33,7 +33,8 @@ from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block, conv_ffn_ln,
                                                       pack_conv_block, pack_conv_ffn_ln)
 from trt_asr_tpu_torch.ops.kernels import ffn as kernel_ffn
 from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn
-from trt_asr_tpu_torch.ops.quant import QuantTensor, bf16_copy, dequantize, keep_bf16_copy
+from trt_asr_tpu_torch.ops.quant import (QuantTensor, bf16_copy, dequantize, keep_bf16_copy,
+                                         keep_f32_copy)
 
 
 class EncoderState(NamedTuple):
@@ -105,7 +106,9 @@ def layer_params(params: Dict[str, Any], num_layers: int, pack_tail: bool = Fals
     """Per-layer views of the stacked [L, ...] layer parameters (compute
     once per model and pass to :func:`encode` as ``layers``); an int8
     weight's view carries its layer of the bf16 copy the model keeps on the
-    card (``keep_bf16_copies``). With
+    card (``keep_bf16_copies``), and a bf16 attention bias or conv taps
+    view (the weights of ``cast_params_for_compute``) an f32 copy for the
+    kernels, which read them in f32 (``keep_f32_copy``). With
     ``pack_tail``, a layer whose conv and FFN2 weights are int8 on the card
     also holds them, with their scales, taps and BN, packed once for the
     fused tail kernel (``conv_ffn_ln_packed``, :func:`pack_conv_ffn_ln`);
@@ -125,6 +128,8 @@ def layer_params(params: Dict[str, Any], num_layers: int, pack_tail: bool = Fals
         lp = {}
         for k, v in stacked.items():
             lp[k] = _layer_weight(v, li) if isinstance(v, QuantTensor) else v[li]
+        for k in _F32_FOR_KERNELS:
+            keep_f32_copy(lp[k])
         conv = [lp[k] for k in ("conv_pw1", "conv_dw", "conv_bn_g", "conv_bn_b", "conv_bn_m",
                                 "conv_bn_v", "conv_pw2")]
         tail = pack_tail and _int8_tail(lp)
@@ -141,6 +146,10 @@ def layer_params(params: Dict[str, Any], num_layers: int, pack_tail: bool = Fals
                 lp[f"{f}_packed"] = kernel_ffn.pack_ffn(*ws)
         out.append(lp)
     return out
+
+
+# small layer parameters that the kernels read in f32, whatever their storage
+_F32_FOR_KERNELS = ("att_bias_u", "att_bias_v", "conv_dw")
 
 
 def _layer_weight(v: QuantTensor, li: int) -> QuantTensor:
@@ -267,6 +276,9 @@ def encode(
     drop_extra: int = 0,            # pre-encoded steps to drop
     cache_drop: int = 0,            # trailing lookahead steps kept out of caches
     valid_cap: Optional[int] = None,  # emission cap; None = Tq - cache_drop
+    cache_drop_vec: Optional[torch.Tensor] = None,  # [B] per-row cache_drop (overrides
+                                    # cache_drop): steady and flush rows in one step
+    valid_cap_vec: Optional[torch.Tensor] = None,   # [B] per-row emission cap
     pad_steps: int = 0,             # zero rows appended after drop_extra (masked)
     use_pallas_att: bool = False,   # fused attention-block kernel (B=1 streaming)
     use_pallas_ffn: bool = False,   # fused FFN kernel
@@ -283,7 +295,10 @@ def encode(
     offline. Returns (enc_out [B, Tq, D] in ``compute_dtype``, out_lengths
     [B], new_state); enc_out has the full Tq step axis, out_lengths the
     valid count. The caches of ``state`` are updated in place; offline the
-    new state is None."""
+    new state is None. With ``cache_drop_vec`` each row keeps its own
+    count out of the caches, and emits up to its ``valid_cap_vec`` entry
+    (by default Tq - its cache_drop), as the JAX package's lockstep batch
+    step does."""
     enc_p = params["encoder"]
     b = feats.shape[0]
     if use_pallas_conv and b != 1:
@@ -304,8 +319,17 @@ def encode(
     tq = x.shape[1]
     tq_real = tq - pad_steps
     c_size = state.att_cache.shape[2] if streaming else 0
-    cache_keep = max(tq_real - cache_drop, 0)
-    appended = torch.clamp_max(sub_len, cache_keep).to(torch.int32)
+    keep_vec = None
+    if cache_drop_vec is not None:
+        # per-row keep: the whole block is offered to the caches, each row's
+        # write count bounded by its own keep
+        cache_keep = tq_real
+        keep_vec = torch.clamp_min(tq_real - torch.as_tensor(cache_drop_vec, device=dev)
+                                   .reshape(b).to(torch.int32), 0)
+        appended = torch.minimum(sub_len, keep_vec).to(torch.int32)
+    else:
+        cache_keep = max(tq_real - cache_drop, 0)
+        appended = torch.clamp_max(sub_len, cache_keep).to(torch.int32)
     if pos_proj is None:
         pos_proj = precompute_pos_proj(params, cfg, tq, c_size, compute_dtype)
 
@@ -345,11 +369,15 @@ def encode(
     out_len = torch.clamp_max(sub_len, tq)
     if not streaming:
         return x, out_len, None
-    cap = valid_cap if valid_cap is not None else cache_keep
     new_state = EncoderState(
         state.att_cache, state.time_cache, state.kv_cache,
         torch.clamp_max(cache_len + appended, c_size).to(torch.int32),
         ((cursor + appended) % max(c_size, 1)).to(torch.int32))
+    if keep_vec is not None:
+        cap = (keep_vec if valid_cap_vec is None
+               else torch.as_tensor(valid_cap_vec, device=dev).reshape(b).to(torch.int32))
+        return x, torch.minimum(out_len, cap), new_state
+    cap = valid_cap if valid_cap is not None else cache_keep
     return x, torch.clamp_max(out_len, cap), new_state
 
 

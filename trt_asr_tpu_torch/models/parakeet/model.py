@@ -24,24 +24,29 @@ from trt_asr_tpu_torch.frontend.normalize import (apply_per_feature_norm,
                                                   compute_per_feature_stats)
 from trt_asr_tpu_torch.models.parakeet.encoder import layer_params, offline_encode
 from trt_asr_tpu_torch.models.parakeet.params import (
+    cast_params_for_compute,
     init_params_numpy,
     load_checkpoint_numpy,
     params_from_numpy,
     params_to,
 )
 from trt_asr_tpu_torch.ops.kernels.joint_step import pack_joint_step
-from trt_asr_tpu_torch.ops.quant import QuantTensor
+from trt_asr_tpu_torch.ops.quant import QuantTensor, keep_f32_copy
 from trt_asr_tpu_torch.tokenizer import Tokenizer, make_synthetic_vocab
 
 
 class ParakeetTDT:
     """``params``: a torch parameter tree (any device; moved to ``device``)
     or a numpy tree (bridged). ``device`` defaults to ``cuda`` and raises
-    without one; tests pass ``device="cpu"``."""
+    without one; tests pass ``device="cpu"``. ``weights_dtype=torch.bfloat16``
+    casts the float tree as ``cast_params_for_compute`` does (the JAX
+    package's bf16 configuration; norm parameters stay f32) before
+    ``runtime.quant`` quantizes it, as ``bench.py`` orders the two."""
 
     def __init__(self, cfg: ModelConfig, params, tokenizer: Tokenizer,
                  frontend: Optional[LogMelFrontend] = None,
-                 runtime: Optional[RuntimeConfig] = None, device=None):
+                 runtime: Optional[RuntimeConfig] = None, device=None,
+                 weights_dtype: Optional[torch.dtype] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -49,6 +54,8 @@ class ParakeetTDT:
         self.frontend = frontend or LogMelFrontend(FrontendSpec(n_mels=cfg.feat_in),
                                                    device=self.device)
         params = params_from_numpy(params, "cpu") if _is_numpy_tree(params) else params
+        if weights_dtype is not None:
+            params = cast_params_for_compute(params, weights_dtype)
         self._punct_mask = None
         if self.runtime.joint_dur_first:
             # export head order [durations, tokens] becomes the internal
@@ -76,8 +83,11 @@ class ParakeetTDT:
             pack_att=self.runtime.use_pallas_att, pack_ffn=self.runtime.use_pallas_ffn,
             pack_conv=self.runtime.use_pallas_conv)
         # the persistent joint step's int8 or f32 weights packed once
-        # (ops/kernels/joint_step.py; bf16 weights take the chain, unpacked)
+        # (ops/kernels/joint_step.py; bf16 weights take the chain, unpacked,
+        # with f32 copies of the bf16 biases made here)
         jp, wo = params["joint"], params["joint"]["out"]["w"]
+        for b in (jp["pred"]["b"], jp["out"]["b"]):
+            keep_f32_copy(b)
         wo_t = wo.q if isinstance(wo, QuantTensor) else wo
         self.joint_packed = (
             pack_joint_step(jp["pred"]["w"], jp["pred"]["b"], wo, jp["out"]["b"])
@@ -87,14 +97,15 @@ class ParakeetTDT:
 
     @classmethod
     def from_model_dir(cls, model_dir: str, runtime: Optional[RuntimeConfig] = None,
-                       device=None) -> "ParakeetTDT":
+                       device=None, weights_dtype: Optional[torch.dtype] = None
+                       ) -> "ParakeetTDT":
         with open(os.path.join(model_dir, "config.json")) as f:
             raw = json.load(f)
         raw = {k: tuple(v) if isinstance(v, list) else v for k, v in raw.items()}
         cfg = ModelConfig(**raw)
         params = load_checkpoint_numpy(model_dir)
         tok = Tokenizer.from_file(os.path.join(model_dir, "vocab.txt"), blank_id=cfg.blank_id)
-        return cls(cfg, params, tok, runtime=runtime, device=device)
+        return cls(cfg, params, tok, runtime=runtime, device=device, weights_dtype=weights_dtype)
 
     @classmethod
     def random(cls, cfg: Optional[ModelConfig] = None, seed: int = 0,

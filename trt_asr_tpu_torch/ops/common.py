@@ -9,7 +9,9 @@ the pair to f32); a bf16 activation times a bf16 weight (the weights of
 product, whose sums are f32 (split-K reductions too: ``device.py``) and are
 rounded once to bf16. On the CPU that pair takes the f32 product of the
 widened operands, the same products summed in another order.
-``matmul`` dispatches on :class:`QuantTensor` weights.
+``matmul`` dispatches on :class:`QuantTensor` weights. An f32 activation
+times a bf16 weight widens the weight to f32 at the call (JAX's promotion),
+counted in ``matmul.widened``.
 """
 
 from __future__ import annotations
@@ -25,8 +27,13 @@ def matmul(a: torch.Tensor, b) -> torch.Tensor:
         return q8_matmul(a, b)
     if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
         return torch.matmul(a, b)
+    if b.dtype == torch.bfloat16 and a.dtype == torch.float32:
+        matmul.widened += 1
     out = torch.matmul(a.float(), b.float())
     return out.to(a.dtype) if a.dtype == torch.bfloat16 else out
+
+
+matmul.widened = 0     # calls that widened a bf16 weight for an f32 activation
 
 
 def einsum(spec: str, *args: torch.Tensor) -> torch.Tensor:

@@ -29,7 +29,7 @@ from trt_asr_tpu_torch.ops.kernels.persistent import (SMEM_PER_BLOCK, TAIL_GROUP
                                                       TAIL_ROWS, TAIL_WARPS, align16,
                                                       column_slices, pack_columns, pad_k,
                                                       pack_tail_weight, sm_count)
-from trt_asr_tpu_torch.ops.quant import (QuantTensor, is_low_precision, round_bf16,
+from trt_asr_tpu_torch.ops.quant import (QuantTensor, as_f32, is_low_precision, round_bf16,
                                          scaled_matmul)
 
 
@@ -51,8 +51,9 @@ def att_block_plain(x, ln_g, ln_b, wq, wk, wv, wo, bias_u, bias_v, pos_proj,
                     kv_cache, meta, *, n_heads: int):
     """The kernel's function in plain PyTorch, with the kernel's rounding
     points. x [Tq, D] f32; weights [D, D] float or QuantTensor; bias_u/v
-    [H, dh]; pos_proj [2*Tq + C - 1, D]; kv_cache [C, 2D] ring-ordered
-    k ++ v; meta int32 [3] = (cursor, cache_len, valid_tq).
+    [H, dh] f32 or bf16; pos_proj [2*Tq + C - 1, D]; kv_cache [C, 2D]
+    ring-ordered k ++ v, f32 or bf16 (widened where read); meta int32 [3] =
+    (cursor, cache_len, valid_tq).
     Returns (y = x + attention, u = LN(x), k_new, v_new), all [Tq, D] f32."""
     tq, d = x.shape
     h = n_heads
@@ -270,7 +271,9 @@ def check_packed_att(packed: torch.Tensor, plan: AttPlan, d: int) -> None:
 
 
 def _check_inputs(x, ln_g, ln_b, bias_u, bias_v, pos_proj, kv_cache, meta):
-    """The checks both kernels need; returns the f32 inputs."""
+    """The checks both kernels need; returns x, the norms, the biases (f32:
+    bf16 biases as the f32 copies kept beside them, :func:`as_f32`), the
+    positional table and the kv cache (f32 or bf16)."""
     tq, d = x.shape
     c = kv_cache.shape[0]
     if pos_proj.shape != (2 * tq + c - 1, d):
@@ -278,10 +281,12 @@ def _check_inputs(x, ln_g, ln_b, bias_u, bias_v, pos_proj, kv_cache, meta):
                          f"Tq={tq}, C={c}")
     if meta.dtype != torch.int32 or meta.numel() != 3:
         raise ValueError("att_block: meta must be int32 (cursor, cache_len, valid_tq)")
-    floats = [x, ln_g, ln_b, bias_u, bias_v, pos_proj, kv_cache]
+    floats = [x, ln_g, ln_b, as_f32(bias_u), as_f32(bias_v), pos_proj]
     if any(t.dtype != torch.float32 for t in floats):
-        raise TypeError("att_block: activations, norms, biases and caches must be f32")
-    return floats
+        raise TypeError("att_block: activations, norms and the positional table must be f32")
+    if kv_cache.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("att_block: the kv cache must be f32 or bf16")
+    return floats + [kv_cache]
 
 
 def att_block(x, ln_g, ln_b, wq, wk, wv, wo, bias_u, bias_v, pos_proj,
@@ -293,7 +298,9 @@ def att_block(x, ln_g, ln_b, wq, wk, wv, wo, bias_u, bias_v, pos_proj,
     when its blocks cannot all be resident), with bf16 weights the chain
     (:func:`att_block_chain`). ``packed``: the int8 or f32 weights as
     :func:`pack_att_block` lays them out, made once with the weights;
-    without it they are packed anew at every call."""
+    without it they are packed anew at every call. A bf16 kv cache is read
+    as stored by the chain; the persistent kernels read an f32 copy of it,
+    made at the call (:func:`as_f32` counts its bytes)."""
     if x.device.type == "cpu":
         return att_block_plain(x, ln_g, ln_b, wq, wk, wv, wo, bias_u, bias_v,
                                pos_proj, kv_cache, meta, n_heads=n_heads)
@@ -312,9 +319,9 @@ def att_block_chain(x, ln_g, ln_b, wq, wk, wv, wo, bias_u, bias_v, pos_proj,
                     kv_cache, meta, *, n_heads: int):
     """The chain of ``csrc/att_block.cu`` on CUDA tensors (LayerNorm, split-K
     Q/K/V, the attention core, split-K Wo: six launches) with f32 or bf16
-    weights: :func:`att_block`'s kernel for bf16 weights, and the f32
-    kernel's predecessor, kept so that ``chip_smoke.py`` times the two in
-    one run."""
+    weights and an f32 or bf16 kv cache (read as stored): :func:`att_block`'s
+    kernel for bf16 weights, and the f32 kernel's predecessor, kept so that
+    ``chip_smoke.py`` times the two in one run."""
     tq, d = x.shape
     c = kv_cache.shape[0]
     parts = [kb.weight_parts(w) for w in (wq, wk, wv, wo)]
@@ -322,8 +329,9 @@ def att_block_chain(x, ln_g, ln_b, wq, wk, wv, wo, bias_u, bias_v, pos_proj,
     if any(p[2] != wtype for p in parts) or wtype == 2:
         raise ValueError("att_block: q/k/v/o weights must share one float storage type")
     floats = _check_inputs(x, ln_g, ln_b, bias_u, bias_v, pos_proj, kv_cache, meta)
-    # the kernel reads key, value and positional rows with 16-byte loads,
-    # four lanes a row
+    bias_u, bias_v = floats[3], floats[4]
+    # the kernel reads key, value and positional rows with 16-byte loads
+    # (8-byte from a bf16 cache), four lanes a row
     if (d // n_heads) % 16 or pos_proj.data_ptr() % 16 or kv_cache.data_ptr() % 16:
         raise ValueError("att_block: needs a head dim divisible by 16 and 16-byte "
                          "aligned pos_proj and kv_cache")
@@ -336,7 +344,8 @@ def att_block_chain(x, ln_g, ln_b, wq, wk, wv, wo, bias_u, bias_v, pos_proj,
         x.data_ptr(), tq, d, n_heads, ln_g.data_ptr(), ln_b.data_ptr(),
         *[p[0].data_ptr() for p in parts], *[kb.ptr(p[1]) for p in parts], wtype,
         bias_u.data_ptr(), bias_v.data_ptr(), pos_proj.data_ptr(),
-        kv_cache.data_ptr(), c, meta.data_ptr(), 1.0 / math.sqrt(d // n_heads), ksplit,
+        kv_cache.data_ptr(), int(kv_cache.dtype == torch.bfloat16), c, meta.data_ptr(),
+        1.0 / math.sqrt(d // n_heads), ksplit,
         y.data_ptr(), u.data_ptr(), q.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), ctx.data_ptr(), part.data_ptr(), kb.stream_ptr(x.device))
     kb.check(lib, rc, "att_block")
@@ -358,6 +367,8 @@ def _att_block_persistent(x, ln_g, ln_b, ws, bias_u, bias_v, pos_proj, kv_cache,
     if any(m.shape != (d, d) for m in mats):
         raise ValueError(f"att_block: weights must be [D, D] (D={d})")
     floats = _check_inputs(x, ln_g, ln_b, bias_u, bias_v, pos_proj, kv_cache, meta)
+    floats[-1] = kv_cache = as_f32(kv_cache)
+    bias_u, bias_v = floats[3], floats[4]
     plan = (att_block_q8_plan if int8 else att_block_f32_plan)(
         tq, d, n_heads, c, sm_count(x.device.index or 0))
     if packed is None:

@@ -41,7 +41,7 @@ _CONV = [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P]
 _SIGNATURES = {
     "att_block": {"att_block_launch":
                   [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                   _P, _P, _P, _P, _I, _P, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P]},
+                   _P, _P, _P, _P, _I, _I, _P, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P]},
     "att_block_q8": {"att_block_q8_launch":
                      [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P],
@@ -69,7 +69,7 @@ _SIGNATURES = {
                 "ffn_f32_occupancy": [_I, _P]},
     "ffn_q8": {"ffn_q8_launch": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P],
                "ffn_q8_occupancy": [_I, _P]},
-    "conv_block": {"conv_block_launch": _CONV + [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P]},
+    "conv_block": {"conv_block_launch": _CONV + [_I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P]},
     "conv_block_q8": {"conv_block_q8_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                                                _P, _P, _P, _P],
                       "conv_block_q8_occupancy": [_I, _P]},

@@ -36,7 +36,8 @@ from trt_asr_tpu_torch.ops.kernels.persistent import (SMEM_PER_BLOCK, TAIL_GROUP
                                                       TAIL_ROWS, TAIL_WARPS, align16,
                                                       column_slices, pack_columns, pad_k,
                                                       pack_tail_weight, sm_count, weight_kind)
-from trt_asr_tpu_torch.ops.quant import QuantTensor, is_low_precision, round_bf16, scaled_matmul
+from trt_asr_tpu_torch.ops.quant import (QuantTensor, as_f32, is_low_precision, round_bf16,
+                                         scaled_matmul)
 
 
 def conv_block_plain(x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2,
@@ -44,8 +45,9 @@ def conv_block_plain(x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2,
     """The kernel's function in plain PyTorch, with its rounding points:
     with bf16 or int8 weights the LN output and silu(BN(conv)) are rounded
     to bf16. x [Tq, D] f32; pw1 [D, 2D], pw2 [D, D] float or QuantTensor;
-    dw [K, D] (K odd); time_cache [(K-1)/2, D]; mask [Tq, 1] f32 (1 = valid
-    step). Returns (y = x + conv_module(x), c), both [Tq, D] f32."""
+    dw [K, D] (K odd) and time_cache [(K-1)/2, D], each f32 or bf16 (widened
+    where read); mask [Tq, 1] f32 (1 = valid step). Returns (y = x +
+    conv_module(x), c), both [Tq, D] f32."""
     rnd = round_bf16 if is_low_precision(pw1) else (lambda t: t)
     tq, d = x.shape
     kk = dw.shape[0]
@@ -78,7 +80,8 @@ def _require_int8(*ws) -> None:
 
 def _conv_args(what, x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_cache, mask):
     """Checks the conv module's inputs for the kernel; returns (pw1 parts,
-    pw2 parts, wtype, kk)."""
+    pw2 parts, wtype, kk, dw in f32). bf16 taps are read as the f32 copy
+    kept beside them (:func:`as_f32`); the time cache may be f32 or bf16."""
     tq, d = x.shape
     kk = dw.shape[0]
     pw1_t, s1, wtype = kb.weight_parts(pw1)
@@ -90,11 +93,16 @@ def _conv_args(what, x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_c
     if kk % 2 == 0 or time_cache.shape != ((kk - 1) // 2, d) or mask.shape != (tq, 1):
         raise ValueError(f"{what}: needs an odd kernel size, time_cache [(K-1)/2, D] "
                          f"and mask [Tq, 1]")
-    floats = [x, ln_g, ln_b, dw, bn_g, bn_b, bn_m, bn_v, time_cache, mask]
+    dw = as_f32(dw)
+    floats = [x, ln_g, ln_b, dw, bn_g, bn_b, bn_m, bn_v, mask]
     if any(t.dtype != torch.float32 for t in floats):
-        raise TypeError(f"{what}: activations, norms, conv weights, cache and mask must be f32")
-    kb.require_cuda(what, *floats, pw1_t, pw2_t, *[s for s in (s1, s2) if s is not None])
-    return (pw1_t, s1), (pw2_t, s2), wtype, kk
+        raise TypeError(f"{what}: activations, norms, BN and mask must be f32, the taps f32 "
+                        f"or bf16")
+    if time_cache.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: the time cache must be f32 or bf16")
+    kb.require_cuda(what, *floats, time_cache, pw1_t, pw2_t,
+                    *[s for s in (s1, s2) if s is not None])
+    return (pw1_t, s1), (pw2_t, s2), wtype, kk, dw
 
 
 def conv_block(x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_cache, mask,
@@ -106,7 +114,9 @@ def conv_block(x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_cache, 
     when its blocks cannot all be resident), with bf16 weights
     :func:`conv_block_chain`. ``packed``: the layer's int8 or f32 weights,
     taps and BN as :func:`pack_conv_block` lays them out, made once with
-    the weights; without it they are packed anew at every call."""
+    the weights; without it they are packed anew at every call. A bf16 time
+    cache is read as stored by the chain; the persistent kernels read an f32
+    copy of it, made at the call (:func:`as_f32` counts its bytes)."""
     args = (x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_cache, mask)
     if x.device.type == "cpu":
         return conv_block_plain(*args)
@@ -115,7 +125,8 @@ def conv_block(x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_cache, 
         if packed is not None:
             raise ValueError("conv_block: packed weights are for int8 and f32 weights only")
         return conv_block_chain(*args)
-    _conv_args("conv_block", *args)
+    dw = _conv_args("conv_block", *args)[4]
+    time_cache = as_f32(time_cache)
     tq, d = x.shape
     kk = dw.shape[0]
     int8 = kind == "int8"
@@ -147,9 +158,9 @@ def conv_block_chain(x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_c
     the residual: five launches) with f32, bf16 or int8 weights:
     :func:`conv_block`'s kernel for bf16 weights, and the predecessor of the
     f32 and int8 kernels, kept so that ``chip_smoke.py`` times them side by
-    side in one run."""
+    side in one run. An f32 or bf16 time cache is read as stored."""
     args = (x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_cache, mask)
-    (pw1_t, s1), (pw2_t, s2), wtype, kk = _conv_args("conv_block", *args)
+    (pw1_t, s1), (pw2_t, s2), wtype, kk, dw = _conv_args("conv_block", *args)
     tq, d = x.shape
     # the depthwise taps run over [time cache ++ Tq rows ++ zeros] in 48 KB
     # of shared memory, 32 columns a block
@@ -163,7 +174,8 @@ def conv_block_chain(x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_c
     rc = lib.conv_block_launch(
         x.data_ptr(), tq, d, ln_g.data_ptr(), ln_b.data_ptr(), pw1_t.data_ptr(), kb.ptr(s1),
         dw.data_ptr(), kk, bn_g.data_ptr(), bn_b.data_ptr(), bn_m.data_ptr(), bn_v.data_ptr(),
-        pw2_t.data_ptr(), kb.ptr(s2), wtype, time_cache.data_ptr(), mask.data_ptr(), ksplit,
+        pw2_t.data_ptr(), kb.ptr(s2), wtype, time_cache.data_ptr(),
+        int(time_cache.dtype == torch.bfloat16), mask.data_ptr(), ksplit,
         y.data_ptr(), c.data_ptr(), u.data_ptr(), a.data_ptr(), part.data_ptr(),
         kb.stream_ptr(x.device))
     kb.check(lib, rc, "conv_block")
@@ -435,7 +447,8 @@ def conv_ffn_ln(x, conv_ln_g, conv_ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, t
     if x.device.type == "cpu":
         return conv_ffn_ln_plain(*conv, *tail)
     _require_int8(pw1, pw2, ff_w1, ff_w2)
-    (pw1_t, s1), (pw2_t, s2), _, kk = _conv_args("conv_ffn_ln", *conv)
+    (pw1_t, s1), (pw2_t, s2), _, kk, dw = _conv_args("conv_ffn_ln", *conv)
+    time_cache = as_f32(time_cache)
     tq, d = x.shape
     e = ff_w1.q.shape[1]
     if ff_w1.q.shape != (d, e) or ff_w2.q.shape != (e, d):

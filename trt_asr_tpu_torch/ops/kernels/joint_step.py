@@ -22,7 +22,7 @@ from trt_asr_tpu_torch.ops.kernels.persistent import (SMEM_PER_BLOCK, TAIL_GROUP
                                                       TAIL_ROWS, TAIL_WARPS, align16,
                                                       pack_columns, pack_tail_weight, pad_k,
                                                       sm_count)
-from trt_asr_tpu_torch.ops.quant import (QuantTensor, is_low_precision, round_bf16,
+from trt_asr_tpu_torch.ops.quant import (QuantTensor, as_f32, is_low_precision, round_bf16,
                                          scaled_matmul)
 
 
@@ -30,7 +30,7 @@ def joint_step_plain(e, g, wp, bp, wo, bo, *, ths: int, ndur: int,
                      blank_id: int, blank_penalty: float = 0.0):
     """The kernel's function in plain PyTorch, with its rounding points.
     e [rows, J] f32 (encoder projection incl. bias), g [rows, P] f32;
-    wp [P, J], wo [J, V] float or QuantTensor; bp [J], bo [V].
+    wp [P, J], wo [J, V] float or QuantTensor; bp [J], bo [V] f32 or bf16.
     Returns (tok [rows] int32, dur_idx [rows] int32 relative to ths,
     logits [rows, V] f32 before the blank penalty)."""
     rnd = round_bf16 if is_low_precision(wo) else (lambda t: t)
@@ -249,22 +249,26 @@ def joint_step(e, g, wp, bp, wo, bo, *, ths: int, ndur: int, blank_id: int,
 
 
 def _check_args(e, g, wp_t, wo_t, bp, bo, ths, ndur):
+    """The checks every route needs; returns (rows, P, J, V, bp, bo), the
+    biases in f32 (bf16 biases as the f32 copies kept beside them,
+    :func:`as_f32`)."""
     rows, j = e.shape
     p, v = g.shape[1], wo_t.shape[1]
     if wp_t.shape != (p, j) or wo_t.shape[0] != j or g.shape[0] != rows:
         raise ValueError("joint_step: shape mismatch")
     if ths + ndur > v:
         raise ValueError(f"joint_step: ths + ndur = {ths + ndur} exceeds V = {v}")
+    bp, bo = as_f32(bp), as_f32(bo)
     if any(t.dtype != torch.float32 for t in (e, g, bp, bo)):
-        raise TypeError("joint_step: e, g and biases must be f32")
-    return rows, p, j, v
+        raise TypeError("joint_step: e and g must be f32, the biases f32 or bf16")
+    return rows, p, j, v, bp, bo
 
 
 def _joint_step_q8(e, g, wp, bp, wo, bo, ths, ndur, blank_id, blank_penalty, packed):
     """The persistent kernel of ``csrc/joint_step_q8.cu`` on CUDA tensors."""
     if not (isinstance(wp, QuantTensor) and isinstance(wo, QuantTensor)):
         raise ValueError("joint_step: pred and out weights must share one storage type")
-    rows, p, j, v = _check_args(e, g, wp.q, wo.q, bp, bo, ths, ndur)
+    rows, p, j, v, bp, bo = _check_args(e, g, wp.q, wo.q, bp, bo, ths, ndur)
     plan = joint_step_q8_plan(rows, p, j, v, sm_count(e.device.index or 0))
     if packed is None:
         packed = pack_joint(wp.q, wp.s, bp, wo.q, wo.s, bo, plan)
@@ -275,7 +279,7 @@ def _joint_step_q8(e, g, wp, bp, wo, bo, ths, ndur, blank_id, blank_penalty, pac
 
 def _joint_step_f32(e, g, wp, bp, wo, bo, ths, ndur, blank_id, blank_penalty, packed):
     """The persistent kernel of ``csrc/joint_step_f32.cu`` on CUDA tensors."""
-    rows, p, j, v = _check_args(e, g, wp, wo, bp, bo, ths, ndur)
+    rows, p, j, v, bp, bo = _check_args(e, g, wp, wo, bp, bo, ths, ndur)
     plan = joint_step_f32_plan(rows, p, j, v, sm_count(e.device.index or 0))
     if packed is None:
         packed = pack_joint_f32(wp, bp, wo, bo, plan)
@@ -316,7 +320,7 @@ def joint_step_chain(e, g, wp, bp, wo, bo, *, ths: int, ndur: int, blank_id: int
     wo_t, so, wtype_o = kb.weight_parts(wo)
     if wtype != wtype_o:
         raise ValueError("joint_step: pred and out weights must share one storage type")
-    rows, p, j, v = _check_args(e, g, wp_t, wo_t, bp, bo, ths, ndur)
+    rows, p, j, v, bp, bo = _check_args(e, g, wp_t, wo_t, bp, bo, ths, ndur)
     kb.require_cuda("joint_step", e, g, bp, bo, wp_t, wo_t,
                     *[s for s in (sp, so) if s is not None])
     lib = kb.load("joint_step")

@@ -17,6 +17,10 @@ sums. The model keeps each weight's bf16 copy beside q, made once
 (:func:`keep_bf16_copy`); a weight on the card without one is widened at the
 call and counted in ``q8_matmul.widened``. On the CPU the product is the f32
 product of the rounded activation and the widened q.
+
+The kernels read small parameters (biases, conv taps) in f32: a bf16 one
+keeps an f32 copy beside it, made once (:func:`keep_f32_copy`,
+:func:`as_f32`).
 """
 
 from __future__ import annotations
@@ -80,6 +84,38 @@ def keep_bf16_copy(q: torch.Tensor, copy: torch.Tensor | None = None) -> None:
 def bf16_copy(q: torch.Tensor) -> torch.Tensor | None:
     """The bf16 copy kept beside ``q`` by :func:`keep_bf16_copy`, if any."""
     return getattr(q, _BF16_COPY, None)
+
+
+# the attribute of a small bf16 tensor (a bias, conv taps) that holds its f32 copy
+_F32_COPY = "f32_copy"
+
+
+def keep_f32_copy(t: torch.Tensor) -> None:
+    """Keeps an f32 copy of the small non-f32 tensor ``t`` beside it (an
+    attribute of ``t``), for the kernels that read it in f32 (:func:`as_f32`).
+    Made once, where the weights are made: a copy that no longer matches t
+    gives wrong results. An f32 tensor needs none."""
+    if t.dtype != torch.float32:
+        setattr(t, _F32_COPY, t.float())
+
+
+def as_f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in f32 for a kernel: itself, the copy kept beside it
+    (:func:`keep_f32_copy`), or a copy made now, whose call
+    ``as_f32.widened`` counts and whose bytes (read and written)
+    ``as_f32.widened_bytes`` adds up."""
+    if t.dtype == torch.float32:
+        return t
+    copy = getattr(t, _F32_COPY, None)
+    if copy is not None:
+        return copy
+    as_f32.widened += 1
+    as_f32.widened_bytes += t.numel() * (t.element_size() + 4)
+    return t.float()
+
+
+as_f32.widened = 0          # copies made at a call
+as_f32.widened_bytes = 0    # their bytes, read and written
 
 
 def q8_matmul(a: torch.Tensor, t: QuantTensor) -> torch.Tensor:
