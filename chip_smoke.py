@@ -11,10 +11,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    each kernel's registers, spills and static shared memory (ptxas), and
    the dynamic shared memory and blocks an SM of the flash kernels (bf16
    and f32), of the bf16 rel-shift kernel, of the fused conv + FFN2 +
-   out-LN tail, of the int8 and f32 attention blocks, of the int8 and f32
-   joint steps, of the int8 and f32 FFNs and of the int8 and f32 conv
-   modules (each one cooperative launch: its grid at full width must be
-   resident at once), and the log-mel kernel's grid at a 0.5 s push.
+   out-LN tail, of the int8, bf16 and f32 attention blocks, of the int8
+   and f32 joint steps, of the int8, bf16 and f32 FFNs and of the int8 and
+   f32 conv modules (each one cooperative launch: its grid at full width
+   must be resident at once), and the log-mel kernel's grid at a 0.5 s
+   push.
 2. each kernel against its plain PyTorch version on the card at the
    full-size main-path shapes (a steady chunk: 8 rows, 6 valid; f32 and
    int8 weights for the attention block, the joint step, the FFN and the
@@ -30,15 +31,15 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    one's cooperative launch is captured into a CUDA graph and replayed, and
    the replay must equal the direct call bit for bit. The f32 attention
    block is timed beside the chain of ``csrc/att_block.cu`` that it
-   replaced (which bf16 weights keep). The int8 and f32 joint steps
+   replaced (as the bf16 kernel is, below). The int8 and f32 joint steps
    (``csrc/joint_step_q8.cu``, ``csrc/joint_step_f32.cu``) run on their
    weights packed once, as the model packs them, are captured and replayed,
    and are timed beside the three launches of ``csrc/joint_step.cu`` that
    they replaced (which bf16 weights keep). The int8 and f32 FFNs
    (``csrc/ffn_q8.cu``, ``csrc/ffn_f32.cu``) run on their weights packed
    once, as the model packs them, are captured and replayed, and are timed
-   beside the five launches of ``csrc/ffn.cu`` that they replaced (which
-   bf16 weights keep). The int8 and f32 conv modules
+   beside the five launches of ``csrc/ffn.cu`` that they replaced (as
+   the bf16 FFN is, below). The int8 and f32 conv modules
    (``csrc/conv_block_q8.cu``, ``csrc/conv_block_f32.cu``) run on their
    constants packed once, as the model packs them, are captured and
    replayed, and are timed beside the five launches of
@@ -47,11 +48,15 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    50 (a 0.5 s push, the kernels line's reading), 51 and 300 (a flush),
    each held at 1e-3, timed beside its plain version and replayed from a
    captured graph. Then the bf16 weights of ``cast_params_for_compute``
-   (bf16 biases and taps, their f32 copies kept once): the four chains
-   (``csrc/att_block.cu`` over an f32 and a bf16 kv cache,
-   ``csrc/joint_step.cu``, ``csrc/ffn.cu``, ``csrc/conv_block.cu`` over an
-   f32 and a bf16 time cache) at 1e-3, a tolerance shown to fail the plain
-   version without the bf16 rounding points, and the int8 attention block and
+   (bf16 biases and taps, their f32 copies kept once): the bf16 attention
+   block (``csrc/att_block_bf16.cu``, one cooperative launch, over an f32
+   and a bf16 kv cache read as stored) and FFN (``csrc/ffn_bf16.cu``, one
+   cooperative launch), each on its weights packed once, as the model packs
+   them, and timed beside the chain it replaced (``csrc/att_block.cu``,
+   ``csrc/ffn.cu``) in the same run; the two remaining chains
+   (``csrc/joint_step.cu``, ``csrc/conv_block.cu`` over an f32 and a bf16
+   time cache); all at 1e-3, a tolerance shown to fail the plain version
+   without the bf16 rounding points; and the int8 attention block and
    joint step with bf16 biases (the fast arm) at 1e-4, each timed beside
    its plain version and its bound and replayed from a captured graph.
 3. full-width session (``ModelConfig()``, seeded random weights from the
@@ -69,21 +74,28 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the tail's constants). The JAX package's bf16 configurations: the bf16
    weights of ``cast_params_for_compute`` with an f32 state, the attention,
    joint and log-mel kernels (``bf16_on``) and every kernel (``bf16_all``),
-   each through the bf16 chains; the fast arm, bf16 then ``quant="all"``,
-   attention and joint (``fast_on``); the graft entry's bf16 encoder state
-   through ``_session_step``, attention and joint (``bf16_step``). Each
-   bf16 arm logs its f32 x bf16 widenings a chunk, makes no f32 copy of a
-   bias or taps at a call, and lies within twice its plain version's own
+   (the bf16 attention block and FFN kernels, the joint and conv chains);
+   the fast arm's weights, bf16 then ``quant="all"``, attention and joint,
+   over the session's f32 state (``fast_on``) and over a bf16 state as
+   the JAX bench's fast arm runs (``fast_step``: its int8 attention kernel
+   reads an f32 copy of each layer's bf16 kv cache, made at the call; the
+   copies a chunk, their bytes and their device ms are logged); the graft
+   entry's bf16 encoder state through ``_session_step``, attention and
+   joint (``bf16_step``: the bf16 kernel reads the bf16 cache as stored,
+   no copy). Each bf16 arm logs its f32 x bf16 widenings a chunk, makes no
+   f32 copy of a bias or taps at a call (nor, but in ``fast_step``, of a
+   cache), and lies within twice its plain version's own
    noise floor (the same arm with the wrappers swapped for their plain
    versions on the card, against that arm with its features moved by
    1e-6); tokens side by side.
    Launch counts are reset just before each kernel arm and read just after.
    In each arm's profile every wrapper call of the fused tail is one kernel
    (``conv_ffn_ln_kernel``), and no conv module kernel runs beside it; every
-   call of the attention block, the joint step, the FFN and the conv module
-   is, with int8 or f32 weights, one persistent kernel of that type and no
-   chain's launch, and with bf16 weights exactly the chain's launches and
-   no persistent kernel. The bytes of each arm's packed FFN,
+   call of the attention block and the FFN is one persistent kernel of its
+   weights' type, and of the joint step and the conv module, with int8 or
+   f32 weights, one persistent kernel of that type and no chain's launch,
+   and with bf16 weights exactly the chain's launches and no persistent
+   kernel. The bytes of each arm's packed FFN,
    attention, conv and tail copies are logged. No int8 arm widens an
    int8 weight at a call (``q8_matmul.widened`` stays 0: the model's bf16
    copies feed the tensor cores), here and in phase 4; the memory the
@@ -123,8 +135,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 4. the trained ``artifacts/models/gate_r3`` on the card with the kernels
    on, each token-exact against the port's CPU plain path: attention,
    joint and log-mel kernels in f32, int8 and bf16; every kernel in f32,
-   int8 (the fused tail) and bf16 (the chains); int8 with the conv kernel
-   and no FFN kernel; the fast arm; the engine at B = 4 in f32 and bf16.
+   int8 (the fused tail) and bf16; int8 with the conv kernel and no FFN
+   kernel; the fast arm's weights over the session's f32 state and over a
+   bf16 state (``fast_step``); the engine at B = 4 in f32 and bf16.
    Offline: ``transcribe_batch`` on 24- and 28-word utterances (T >= 128),
    and ``offline_encode`` + ``tdt_greedy_decode_batch`` in f32 with flash,
    token-exact with the CPU path; in bf16 with the shift and flash kernels,
@@ -185,9 +198,10 @@ KERNEL_SRCS = {
     "attq": ("att_block", "trt_asr_tpu_torch/csrc/att_block_q8.cu",
              "trt_asr_tpu/ops/pallas/att_block_kernel.py:170",
              {"int8": "int8_on", "fast": "fast_on"}),
-    # the attention block with bf16 weights: the chain of csrc/att_block.cu
-    "attb": ("att_block", "trt_asr_tpu_torch/csrc/att_block.cu",
-             "trt_asr_tpu/ops/pallas/att_block_kernel.py:170", {"bf16": "bf16_on"}),
+    # the attention block with bf16 weights: its own persistent kernel
+    "attb": ("att_block", "trt_asr_tpu_torch/csrc/att_block_bf16.cu",
+             "trt_asr_tpu/ops/pallas/att_block_kernel.py:170",
+             {"bf16": "bf16_on", "bf16kv": "bf16_step"}),     # bf16kv: over a bf16 kv cache
     # the joint step with f32 weights: its own persistent kernel
     "joint": ("joint_step", "trt_asr_tpu_torch/csrc/joint_step_f32.cu",
               "trt_asr_tpu/ops/pallas/joint_step_kernel.py:124", {"f32": "f32_on"}),
@@ -200,13 +214,12 @@ KERNEL_SRCS = {
                "trt_asr_tpu/ops/pallas/joint_step_kernel.py:124", {"bf16": "bf16_on"}),
     "mel": ("logmel", "trt_asr_tpu_torch/csrc/mel.cu",
             "trt_asr_tpu/ops/pallas/mel_kernel.py:65", {"f32": "f32_on"}),
-    # the FFN with f32 and with int8 weights: a persistent kernel each; bf16
-    # weights: the five launches of csrc/ffn.cu
+    # the FFN with f32, int8 and bf16 weights: a persistent kernel each
     "ffn": ("ffn", "trt_asr_tpu_torch/csrc/ffn_f32.cu",
             "trt_asr_tpu/ops/pallas/ffn_kernel.py:115", {"f32": "f32_all"}),
     "ffnq": ("ffn", "trt_asr_tpu_torch/csrc/ffn_q8.cu",
              "trt_asr_tpu/ops/pallas/ffn_kernel.py:115", {"int8": "int8_all"}),
-    "ffnb": ("ffn", "trt_asr_tpu_torch/csrc/ffn.cu",
+    "ffnb": ("ffn", "trt_asr_tpu_torch/csrc/ffn_bf16.cu",
              "trt_asr_tpu/ops/pallas/ffn_kernel.py:115", {"bf16": "bf16_all"}),
     # the conv module with f32 and with int8 weights: a persistent kernel
     # each; bf16 weights: the five launches of csrc/conv_block.cu
@@ -348,16 +361,18 @@ def log_resources(torch, build, cfg) -> None:
     """Registers, spills and static shared memory of every kernel (ptxas),
     and the dynamic shared memory and the blocks an SM holds of the flash
     kernels, the bf16 rel-shift kernel (bf16 at the full-width head dim),
-    the fused tail, the int8 and f32 attention blocks and the int8 and f32
-    joint steps (a steady chunk's 8 rows at full width; the CUDA occupancy
-    API), the int8 and f32 FFNs and conv modules (the same rows), and the
-    log-mel kernel's grid at a 0.5 s push (50 frames)."""
+    the fused tail, the int8, bf16 and f32 attention blocks and the int8
+    and f32 joint steps (a steady chunk's 8 rows at full width; the CUDA
+    occupancy API), the int8, bf16 and f32 FFNs, the int8 and f32 conv
+    modules (the same rows), and the log-mel kernel's grid at a 0.5 s push
+    (50 frames)."""
     import ctypes
 
-    from trt_asr_tpu_torch.ops.kernels.att_block import att_block_f32_plan, att_block_q8_plan
+    from trt_asr_tpu_torch.ops.kernels.att_block import (att_block_bf16_plan, att_block_f32_plan,
+                                                         att_block_q8_plan)
     from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block_f32_plan,
                                                           conv_block_q8_plan, conv_ffn_ln_plan)
-    from trt_asr_tpu_torch.ops.kernels.ffn import ffn_f32_plan, ffn_q8_plan
+    from trt_asr_tpu_torch.ops.kernels.ffn import ffn_bf16_plan, ffn_f32_plan, ffn_q8_plan
     from trt_asr_tpu_torch.ops.kernels.joint_step import joint_step_f32_plan, joint_step_q8_plan
     from trt_asr_tpu_torch.ops.kernels.mel import MEL_CL, logmel_plan
 
@@ -396,6 +411,14 @@ def log_resources(torch, build, cfg) -> None:
         f"{plan.ranges} scores items a head of {plan.slots} kv positions, {plan.smem} B of "
         f"dynamic shared memory, {info[0]} blocks an SM, {sms} SMs")
     assert info[0] >= 1 and plan.blocks <= info[0] * sms, "att_block[int8]'s grid is not resident"
+    plan = att_block_bf16_plan(8, cfg.d_model, cfg.n_heads, cfg.att_cache_size, sms)
+    lib = build.load("att_block_bf16")
+    build.check(lib, lib.att_block_bf16_occupancy(plan.smem, ctypes.addressof(info)),
+                "att_block_bf16_occupancy")
+    log(f"  att_block[bf16] at Tq 8: {plan.blocks} blocks of {plan.cols} columns, "
+        f"{plan.ranges} scores items a head of {plan.slots} kv positions, {plan.smem} B of "
+        f"dynamic shared memory, {info[0]} blocks an SM, {sms} SMs")
+    assert info[0] >= 1 and plan.blocks <= info[0] * sms, "att_block[bf16]'s grid is not resident"
     plan = att_block_f32_plan(8, cfg.d_model, cfg.n_heads, cfg.att_cache_size, sms)
     lib = build.load("att_block_f32")
     build.check(lib, lib.att_block_f32_occupancy(plan.smem, ctypes.addressof(info)),
@@ -423,6 +446,7 @@ def log_resources(torch, build, cfg) -> None:
     assert info[0] >= 1 and plan.blocks <= info[0] * sms, "joint_step[f32]'s grid is not resident"
     e = cfg.d_model * cfg.ff_expansion_factor
     for arm, plan, lib_name in (("int8", ffn_q8_plan(cfg.d_model, e, sms), "ffn_q8"),
+                                ("bf16", ffn_bf16_plan(cfg.d_model, e, sms), "ffn_bf16"),
                                 ("f32", ffn_f32_plan(cfg.d_model, e, sms), "ffn_f32")):
         lib = build.load(lib_name)
         build.check(lib, getattr(lib, f"{lib_name}_occupancy")(plan.smem, ctypes.addressof(info)),
@@ -746,29 +770,33 @@ def check_kernels(torch, dev, timer, cfg):
     return records
 
 
-# bf16 chains against their plain versions: both round the same operands to
-# bf16, but the chains' f32 sums run in another order than the plain
-# version's, and an f32 value one ulp apart can round to the neighbouring
-# bf16 value. Readings at the full width on the H100: attention 2.55e-4,
-# FFN 2.06e-4, joint and conv 7.2e-7; without the rounding points the
-# plain version lies 2.8e-3 to 7.1e-3 away, so the tolerance sees them.
+# bf16 kernels and chains against their plain versions: both round the same
+# operands to bf16, but the kernels' f32 sums (the tensor cores', the
+# chains' split-K) run in another order than the plain version's, and an f32
+# value one ulp apart can round to the neighbouring bf16 value. Readings at
+# the full width on the H100: the chains' attention 2.55e-4, FFN 2.06e-4,
+# joint and conv 7.2e-7; without the rounding points the plain version lies
+# 2.8e-3 to 7.1e-3 away, so the tolerance sees them.
 BF16_CHAIN_ATOL = 1e-3
 
 
 def check_bf16_kernels(torch, dev, timer, cfg):
-    """Phase 2, the bf16 weights of ``cast_params_for_compute``: the four
-    chains (attention block, joint step, FFN, conv module) at the
+    """Phase 2, the bf16 weights of ``cast_params_for_compute`` at the
     full-width steady-chunk shapes, with bf16 biases and taps (their f32
     copies kept once, as the model keeps them) and the session's f32
-    caches; the attention chain also over a bf16 kv cache (a bf16 encoder
-    state); then the int8 attention block and joint step with bf16
+    caches: the bf16 attention block (``csrc/att_block_bf16.cu``; also over
+    a bf16 kv cache, a bf16 encoder state, read as stored) and FFN
+    (``csrc/ffn_bf16.cu``) on weights packed once, each timed beside the
+    chain it replaced in the same run; the joint step's and the conv
+    module's chains; then the int8 attention block and joint step with bf16
     leftovers (the fast arm: bf16, then int8). Each against its plain
     version, timed beside it and its bound, captured into a CUDA graph and
     replayed."""
-    from trt_asr_tpu_torch.ops.kernels.att_block import (att_block, att_block_plain,
-                                                         pack_att_block)
+    from trt_asr_tpu_torch.ops.kernels.att_block import (att_block, att_block_chain,
+                                                         att_block_plain, pack_att_block)
     from trt_asr_tpu_torch.ops.kernels.conv_block import conv_block, conv_block_plain
-    from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn, fused_ffn_plain
+    from trt_asr_tpu_torch.ops.kernels.ffn import (fused_ffn, fused_ffn_chain, fused_ffn_plain,
+                                                   pack_ffn)
     from trt_asr_tpu_torch.ops.kernels.joint_step import (joint_step, joint_step_plain,
                                                           pack_joint_step)
     from trt_asr_tpu_torch.ops.quant import as_f32, keep_f32_copy, quantize_tensor
@@ -806,6 +834,21 @@ def check_bf16_kernels(torch, dev, timer, cfg):
     def got_tuple(r):
         return r if isinstance(r, tuple) else (r,)
 
+    def packed_once(label, fn):
+        """The weights packed once, as the model packs them (host clock)."""
+        t0 = time.perf_counter()
+        packed = fn()
+        torch.cuda.synchronize()
+        log(f"  {label}: the weights packed in {1e3 * (time.perf_counter() - t0):.2f} ms "
+            f"({packed.numel() * packed.element_size()} B)")
+        return packed
+
+    def beside_chain(label, chain, plain):
+        """The chain that the kernel replaced, timed in the same run."""
+        err = max_err(got_tuple(chain()), got_tuple(plain()))
+        log(f"  {label}: {timer(chain):.4f} ms (host enqueue {timer.host_us:.1f} us/call), "
+            f"max |chain - plain| {err:.3g}")
+
     # attention block: bf16 weights and biases, f32 positional table, a full
     # ring with the cursor mid-ring; the kv cache f32 (the session's) and bf16
     x = t(tq, d)
@@ -818,15 +861,20 @@ def check_bf16_kernels(torch, dev, timer, cfg):
     meta = torch.tensor([100, c, valid_tq], dtype=torch.int32, device=dev)
     s_valid = c + valid_tq
     att_ops = 2 * tq * d * d * 4 + 6 * tq * s_valid * d
-    for cache, kvc in (("f32", kv), ("bf16", kv.to(bf))):
+    att_packed = packed_once("att_block[bf16]", lambda: pack_att_block(*wsb))
+    # the session's f32 cache (bf16_on), then a bf16 state's cache (bf16_step)
+    for cache, key, kvc in (("f32", "bf16_attb", kv), ("bf16", "bf16kv_attb", kv.to(bf))):
         args = (x, ln_g, ln_b, *wsb, bu, bv, pos, kvc, meta)
         nbytes = (x.numel() * 4 * 5 + 2 * d * 4 + sum(wbytes(w) for w in wsb) + 2 * d * 2
                   + pos.numel() * 4 + kvc.numel() * kvc.element_size() + 12)
-        check(f"att_block[bf16] (chain, {cache} kv cache)", "bf16_attb" if cache == "f32" else "",
-              BF16_CHAIN_ATOL, lambda: att_block(*args, n_heads=h),
+        check(f"att_block[bf16] ({cache} kv cache)", key, BF16_CHAIN_ATOL,
+              lambda: att_block(*args, n_heads=h, packed=att_packed),
               lambda: att_block_plain(*args, n_heads=h), nbytes, att_ops,
               lambda: att_block_plain(x, ln_g, ln_b, *[w.float() for w in wsb], bu, bv, pos,
                                       kvc.float(), meta, n_heads=h))
+        beside_chain(f"att_block[bf16] ({cache} kv cache) chain (csrc/att_block.cu)",
+                     lambda: att_block_chain(*args, n_heads=h),
+                     lambda: att_block_plain(*args, n_heads=h))
     # the fast arm's int8 attention block: bf16 biases, weights quantized after the cast
     qws = [quantize_tensor(w.float()) for w in wsb]
     packed = pack_att_block(*qws)
@@ -875,9 +923,12 @@ def check_bf16_kernels(torch, dev, timer, cfg):
     fln = (1.0 + t(d, sc=0.1), t(d, sc=0.1))
     w1, w2 = t(d, e, sc=1 / math.sqrt(d)).to(bf), t(e, d, sc=1 / math.sqrt(e)).to(bf)
     args = (x, *fln, w1, w2)
-    check("ffn[bf16] (chain)", "bf16_ffnb", BF16_CHAIN_ATOL, lambda: fused_ffn(*args),
+    ffn_packed = packed_once("ffn[bf16]", lambda: pack_ffn(w1, w2))
+    check("ffn[bf16]", "bf16_ffnb", BF16_CHAIN_ATOL, lambda: fused_ffn(*args, packed=ffn_packed),
           lambda: fused_ffn_plain(*args), (2 * tq * d + 2 * d) * 4 + wbytes(w1) + wbytes(w2),
           4 * tq * d * e, lambda: fused_ffn_plain(x, *fln, w1.float(), w2.float()))
+    beside_chain("ffn[bf16] five launches (csrc/ffn.cu)", lambda: fused_ffn_chain(*args),
+                 lambda: fused_ffn_plain(*args))
     cln = (1.0 + t(d, sc=0.1), t(d, sc=0.1))
     pw1, pw2 = t(d, 2 * d, sc=1 / math.sqrt(d)).to(bf), t(d, d, sc=1 / math.sqrt(d)).to(bf)
     dw = small(kk, d, sc=1 / math.sqrt(kk))
@@ -894,7 +945,8 @@ def check_bf16_kernels(torch, dev, timer, cfg):
     args = (x, *cln, pw1, dw, *bn, pw2, tc.to(bf), mask)
     check("conv_block[bf16] (chain, bf16 time cache)", "", BF16_CHAIN_ATOL,
           lambda: conv_block(*args), lambda: conv_block_plain(*args), 0, 0)
-    assert as_f32.widened == widened0, "a kept f32 copy was not used: a bias or taps widened"
+    assert as_f32.widened == widened0, (
+        "a kept f32 copy was not used, or a cache was widened: the bf16 kernels read it as stored")
     return records
 
 
@@ -1285,11 +1337,14 @@ def make_model(torch, cfg, params, tok, rt, dev, mel_kernel: bool, weights_dtype
                        weights_dtype=weights_dtype)
 
 
-# the kernels of each route: one persistent kernel a call (int8, f32), or
-# the chain's launches a call (bf16), by the profiler's kernel names
-PERSISTENT = {"att_block": {"int8": "att_block_q8_kernel", "f32": "att_block_f32_kernel"},
+# the kernels of each route: one persistent kernel a call (every type of the
+# attention block and the FFN; int8 and f32 of the joint step and the conv
+# module), or the chain's launches a call (bf16 of those two), by the
+# profiler's kernel names
+PERSISTENT = {"att_block": {"int8": "att_block_q8_kernel", "f32": "att_block_f32_kernel",
+                            "bf16": "att_block_bf16_kernel"},
               "joint_step": {"int8": "joint_step_q8_kernel", "f32": "joint_step_f32_kernel"},
-              "ffn": {"int8": "ffn_q8_kernel", "f32": "ffn_f32_kernel"},
+              "ffn": {"int8": "ffn_q8_kernel", "f32": "ffn_f32_kernel", "bf16": "ffn_bf16_kernel"},
               "conv_block": {"int8": "conv_block_q8_kernel", "f32": "conv_block_f32_kernel"}}
 
 
@@ -1297,16 +1352,17 @@ def profile_session(torch, label, model, rt, audio, piece: int, state_dtype=None
     """Device busy share and kernel time by name over one session
     (torch.profiler): where a steady chunk's time goes. Each wrapper call of
     the fused tail must be one kernel, with no conv module kernel beside
-    it. Each call of the attention block, the joint step, the FFN and the
-    conv module must be, with int8 or f32 weights, one persistent kernel of
-    that type (``att_block_q8_kernel`` / ``att_block_f32_kernel``,
-    ``joint_step_q8_kernel`` / ``_f32``, ``ffn_q8_kernel`` / ``_f32``,
-    ``conv_block_q8_kernel`` / ``_f32``) and no launch of a chain; with
-    bf16 weights the chain's launches and no persistent kernel: a
-    ``rel_attention_kernel`` an attention call, an ``argmax_reduce_kernel``
-    a joint call, a ``conv_module_kernel`` a conv call, a LayerNorm kernel
-    an attention, FFN or conv call, two split-K product passes a call of
-    each (the conv module's pw1 pass has its epilogue in the conv kernel)."""
+    it. Each call of the attention block and the FFN must be one persistent
+    kernel of its weights' type (``att_block_q8_kernel`` / ``_bf16`` /
+    ``_f32``, ``ffn_q8_kernel`` / ``_bf16`` / ``_f32``), and each of the
+    joint step and the conv module, with int8 or f32 weights, one of that
+    type (``joint_step_q8_kernel`` / ``_f32``, ``conv_block_q8_kernel`` /
+    ``_f32``), with no launch of a chain; with bf16 weights those two take
+    the chain's launches and no persistent kernel: an
+    ``argmax_reduce_kernel`` a joint call, a ``conv_module_kernel`` a conv
+    call, a LayerNorm kernel a conv call, two split-K product passes a call
+    of each (the conv module's pw1 pass has its epilogue in the conv
+    kernel). No launch of the attention and FFN chains runs."""
     reset_counts()
     rows = profile_run(torch, label, "chunk", lambda: len(run_session(
         torch, model, rt, audio, piece, state_dtype).chunk_latencies_ms))
@@ -1330,7 +1386,7 @@ def profile_session(torch, label, model, rt, audio, piece: int, state_dtype=None
         log(f"  profile[{label}]: {n} {name} calls ({routes[name]} weights), launches {got}")
         want = {kind: n if kind == routes[name] else 0 for kind in kinds}
         assert got == want, f"profile[{label}]: {name} is not its route's kernel a call"
-        if routes[name] == "bf16":
+        if routes[name] not in kinds:
             chain_calls[name] = n
     a, j, f, c = (chain_calls[k] for k in ("att_block", "joint_step", "ffn", "conv_block"))
     chain = {k: launched(k) for k in ("rel_attention_kernel", "argmax_reduce_kernel",
@@ -1340,7 +1396,7 @@ def profile_session(torch, label, model, rt, audio, piece: int, state_dtype=None
             "port::layernorm_kernel": a + f + c, "small_m_gemm_partial": 2 * (a + j + f + c),
             "small_m_gemm_epilogue": 2 * (a + j + f) + c}
     log(f"  profile[{label}]: the chains' launches (csrc/att_block.cu, joint_step.cu, ffn.cu, "
-        f"conv_block.cu) {chain}, expected {want}")
+        f"conv_block.cu) {chain}, expected {want} (none of the attention and FFN chains)")
     assert chain == want, f"profile[{label}]: the chains' launches are not their calls'"
 
 
@@ -1430,7 +1486,7 @@ def calibrate_blank_bias(model, n_words: int, count_tokens, what: str) -> float:
     return bias
 
 
-def full_width_session(torch, dev, n_words: int, seed: int):
+def full_width_session(torch, dev, timer, n_words: int, seed: int):
     from trt_asr_tpu_torch.config import ModelConfig, RuntimeConfig
     from trt_asr_tpu_torch.models.parakeet.params import init_params_numpy
     from trt_asr_tpu_torch.models.parakeet.quant import keep_bf16_copies, quantize_params
@@ -1459,11 +1515,14 @@ def full_width_session(torch, dev, n_words: int, seed: int):
         "int8_all": (RuntimeConfig(**every, quant="all"), True, None, None),
         "int8_conv": (RuntimeConfig(**on, use_pallas_conv=True, quant="all"), True, None, None),
         # the JAX package's production type: the bf16 weights of
-        # cast_params_for_compute, the session's f32 state; the fast arm
-        # quantizes after the cast; bf16_step keeps the graft entry's bf16 state
+        # cast_params_for_compute, the session's f32 state; the fast arm's
+        # weights quantize after the cast, over the session's f32 state
+        # (fast_on) and over a bf16 state (fast_step: the JAX bench's fast
+        # arm, bench.py:547-552); bf16_step keeps the graft entry's bf16 state
         "bf16_on": (RuntimeConfig(**on), True, bf, None),
         "bf16_all": (RuntimeConfig(**every), True, bf, None),
         "fast_on": (RuntimeConfig(**on, quant="all"), False, bf, None),
+        "fast_step": (RuntimeConfig(**on, quant="all"), False, bf, bf),
         "bf16_step": (RuntimeConfig(**on), False, bf, bf),
     }
     results, previous = {}, {}      # per arm; int8 arms' tokens on the previous routes
@@ -1526,7 +1585,22 @@ def full_width_session(torch, dev, n_words: int, seed: int):
             f"decode iterations {iters:.2f}/chunk, host syncs {syncs:.2f}/chunk, f32 x bf16 "
             f"widenings {widened / n_chunks:.2f}/chunk, small f32 copies made at a call "
             f"{small_widened[0]} ({small_widened[1]} B)")
-        assert small_widened == (0, 0), f"session[{name}] made f32 copies at a call"
+        if name == "fast_step":
+            # the int8 attention kernel reads an f32 copy of each layer's bf16
+            # kv cache, made at the call: one a launch, C x 2D values each
+            per = cfg.att_cache_size * 2 * cfg.d_model
+            assert small_widened == (counts["att_block"], counts["att_block"] * per * 6), (
+                f"session[{name}] made f32 copies other than the kv caches': {small_widened}")
+            kv = torch.zeros((cfg.att_cache_size, 2 * cfg.d_model), dtype=bf, device=dev)
+            copy_ms = timer(lambda: as_f32(kv))
+            as_f32.widened = as_f32.widened_bytes = 0
+            log(f"session[{name}]: the int8 attention kernel's f32 copies of the bf16 kv cache: "
+                f"{small_widened[0] / n_chunks:.2f} a chunk, {small_widened[1] / n_chunks:.0f} B "
+                f"a chunk (read and written), {copy_ms:.4f} ms a copy (L2 scrubbed): "
+                f"{copy_ms * small_widened[0] / n_chunks:.3f} device ms a chunk")
+            results[name]["kv_copies"] = (small_widened[0] / n_chunks, copy_ms)
+        else:
+            assert small_widened == (0, 0), f"session[{name}] made f32 copies at a call"
         if wdt is not None:
             hold_to_plain(torch, name, model, rt, audio, piece, sdt)
         log(f"session[{name}]: {time.perf_counter() - t_arm:.1f} s for the arm")
@@ -1551,7 +1625,7 @@ def full_width_session(torch, dev, n_words: int, seed: int):
         assert results[name]["tokens"] == a_off["tokens"], (
             f"session[{name}] is not token-exact with the kernels off")
     for name in ("int8_on", "int8_all", "int8_conv", "bf16_on", "bf16_all", "fast_on",
-                 "bf16_step"):
+                 "fast_step", "bf16_step"):
         b = results[name]["tokens"]
         assert len(b) > 0
         same = sum(x == y for x, y in zip(a_off["tokens"], b))
@@ -1807,8 +1881,10 @@ def gate_r3_session(torch, dev):
     and in int8 (conv + FFN2 + out-LN fused); int8 with the conv kernel and
     no FFN kernel (the conv module alone); with the bf16 weights of
     ``cast_params_for_compute`` the attention, joint and log-mel kernels,
-    and every kernel (the bf16 chains); the fast arm (bf16, then int8).
-    Then the lockstep engine (:func:`gate_r3_engine`)."""
+    and every kernel; the fast arm's weights (bf16, then int8) over the
+    session's f32 state and over a bf16 state (``fast_step``, as the JAX
+    bench's fast arm runs). Then the lockstep engine
+    (:func:`gate_r3_engine`)."""
     from trt_asr_tpu_torch.config import RuntimeConfig
     from trt_asr_tpu_torch.contract import FrontendSpec
     from trt_asr_tpu_torch.frontend.logmel import LogMelFrontend
@@ -1825,11 +1901,14 @@ def gate_r3_session(torch, dev):
     configs = {"f32": dict(on), "int8": dict(on, quant="all"), "f32_all": dict(every),
                "int8_all": dict(every, quant="all"),
                "int8_conv": dict(on, use_pallas_conv=True, quant="all"),
-               # the bf16 weights of cast_params_for_compute; the fast arm
-               "bf16": dict(on), "bf16_all": dict(every), "fast": dict(on, quant="all")}
+               # the bf16 weights of cast_params_for_compute; the fast arm's
+               # weights over an f32 and over a bf16 encoder state
+               "bf16": dict(on), "bf16_all": dict(every), "fast": dict(on, quant="all"),
+               "fast_step": dict(on, quant="all")}
     for label, flags in configs.items():
         rt = RuntimeConfig(**flags)
         wdt = torch.bfloat16 if label.startswith(("bf16", "fast")) else None
+        sdt = torch.bfloat16 if label == "fast_step" else None
         out = {}
         for d in (dev, "cpu"):
             model = ParakeetTDT.from_model_dir(md, runtime=rt, device=d, weights_dtype=wdt)
@@ -1837,7 +1916,7 @@ def gate_r3_session(torch, dev):
                                             use_kernel=True, device=d)
             reset_counts()
             q8_matmul.widened = 0
-            out[str(d)] = (run_session(torch, model, rt, audio, 8000), read_counts())
+            out[str(d)] = (run_session(torch, model, rt, audio, 8000, sdt), read_counts())
             assert q8_matmul.widened == 0, f"gate_r3[{label}] widened an int8 weight at a call"
         (s_gpu, counts), (s_cpu, cpu_counts) = out[str(dev)], out["cpu"]
         log(f"gate_r3[{label}] on the card (kernels on, launches {counts}): {s_gpu.text!r}")
@@ -2190,7 +2269,7 @@ def main() -> int:
     rec.update(check_offline_kernels(torch, dev, timer, cfg, t_steps, sub_lens[:-1] + [0]))
     check_bf16_matmul(torch, dev, timer, len(audios) * t_steps, cfg)
     phase_s["2 kernels"], t0 = time.perf_counter() - t0, time.perf_counter()
-    sess, params, tok, bias = full_width_session(torch, dev, args.words, args.seed)
+    sess, params, tok, bias = full_width_session(torch, dev, timer, args.words, args.seed)
     phase_s["3 session"], t0 = time.perf_counter() - t0, time.perf_counter()
     full_width_engine(torch, dev, cfg, params, tok)
     phase_s["3b engine"], t0 = time.perf_counter() - t0, time.perf_counter()

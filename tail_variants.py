@@ -40,15 +40,18 @@ times the source against another version of it (built as variant
 two medians (L2 scrubbed) and, at the end, the median of each side and of
 the per-pair differences.
 
-    python3 tail_variants.py --ffn [--f32] [--against OTHER.cu] [--pairs 10]
+    python3 tail_variants.py --ffn [--f32 | --bf16 [--w2-late]] [--against OTHER.cu] [--pairs 10]
 
 does the same for the persistent FFN (``csrc/ffn_q8.cu``; with ``--f32``
-``csrc/ffn_f32.cu``) at a steady chunk's shapes (8 rows, D 1024, E 4096),
-held to its plain version at ``chip_smoke.py``'s tolerance (int8 1e-4, f32
-2e-4): the plain version and the five launches of ``csrc/ffn.cu`` beside
-it, the kernel, and its timeline (``att_variants.py``'s, a median over the
-blocks and the last block); with ``--f32``, the kernel at each ring stage
-count of ``--stages`` too.
+``csrc/ffn_f32.cu``, with ``--bf16`` ``csrc/ffn_bf16.cu``) at a steady
+chunk's shapes (8 rows, D 1024, E 4096), held to its plain version at
+``chip_smoke.py``'s tolerance (int8 1e-4, f32 2e-4, bf16 1e-3): the plain
+version and the five launches of ``csrc/ffn.cu`` beside it, the kernel,
+and its timeline (``att_variants.py``'s, a median over the blocks and the
+last block); with ``--f32``, the kernel at each ring stage count of
+``--stages`` too. ``--bf16 --w2-late`` times the source against itself
+with W2's copy issued once phase (b) has read W1, the order a layout that
+copies W2 into W1's room must take, in alternating pairs.
 
     python3 tail_variants.py --conv [--f32] [--against OTHER.cu] [--pairs 10]
 
@@ -250,6 +253,10 @@ def main() -> int:
                                                       "csrc/conv_block_q8.cu")
     ap.add_argument("--f32", action="store_true", help="with --ffn: csrc/ffn_f32.cu; with "
                                                      "--conv: csrc/conv_block_f32.cu")
+    ap.add_argument("--bf16", action="store_true", help="with --ffn: csrc/ffn_bf16.cu")
+    ap.add_argument("--w2-late", action="store_true",
+                    help="with --ffn --bf16: against the source with W2's copy issued once "
+                         "W1's product is done")
     ap.add_argument("--stages", default="8,16,22", help="--ffn --f32: ring stage counts to time")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
@@ -261,8 +268,9 @@ def main() -> int:
     if opts.conv:
         return conv_variants(timer, dev, opts.f32, opts.against, opts.pairs)
     if opts.ffn:
-        return ffn_variants(timer, dev, opts.f32, opts.against, opts.pairs,
-                            [int(v) for v in opts.stages.split(",")])
+        kind = "f32" if opts.f32 else "bf16" if opts.bf16 else "int8"
+        return ffn_variants(timer, dev, kind, opts.against, opts.pairs,
+                            [int(v) for v in opts.stages.split(",")], opts.w2_late)
     if opts.against:
         return compare(timer, dev, opts.against, opts.pairs)
     warm = cs.Timer(torch, dev)
@@ -360,10 +368,27 @@ MARKS_FFN_Q8 = {0: "entry", 1: "copies issued", 2: "x, norms in", 3: "LN, W1 in"
                 7: "end"}
 
 
-def ffn_variants(timer, dev, f32: bool, against, pairs: int, stage_counts) -> int:
-    """The int8 (or f32) FFN beside its plain version and the five launches
-    it replaced, and its timeline; or against another version of its
-    source."""
+def w2_after_w1(src: str) -> str:
+    """csrc/ffn_bf16.cu with W2's bulk copy issued once phase (b)'s product
+    has read W1 (after its block barrier) rather than once W1 has landed:
+    the copy order of a layout that puts W2 in W1's room."""
+    issue = (
+        "    if (threadIdx.x == 0 && pass == 0) {\n"
+        "      mbar_expect(bars + FB_W2, (uint32_t)((B.total - B.w2) * 2));\n"
+        "      bulk_copy_hint(smem + L.w + B.w2 * 2, mine + B.w2, (uint32_t)((B.total - B.w2) * 2),\n"
+        "                     bars + FB_W2, evict_first());\n"
+        "    }\n")
+    product = "    block_product(act, pd, w1, Dp, ge, red, nullptr, 0, 17);\n"
+    if src.count(issue) != 1 or src.count(product) != 1:
+        raise ValueError("w2_after_w1 does not match csrc/ffn_bf16.cu")
+    return src.replace(issue, "").replace(product, product + issue)
+
+
+def ffn_variants(timer, dev, kind: str, against, pairs: int, stage_counts,
+                 w2_late: bool = False) -> int:
+    """The int8, f32 or bf16 FFN beside its plain version and the five
+    launches it replaced, and its timeline; or against another version of
+    its source (bf16 with ``w2_late``: :func:`w2_after_w1`)."""
     import pathlib
 
     import att_variants as av
@@ -373,17 +398,22 @@ def ffn_variants(timer, dev, f32: bool, against, pairs: int, stage_counts) -> in
     t = lambda *s, sc=1.0: torch.as_tensor(  # noqa: E731
         (rng.standard_normal(s) * sc).astype(np.float32), device=dev)
     d, e = 1024, 4096
-    weight = (lambda w: w) if f32 else quantize_tensor
+    f32 = kind == "f32"
+    weight = {"f32": lambda w: w, "bf16": lambda w: w.to(torch.bfloat16),
+              "int8": quantize_tensor}[kind]
     args = (t(8, d), 1.0 + t(d, sc=0.1), t(d, sc=0.1), weight(t(d, e, sc=d ** -0.5)),
             weight(t(e, d, sc=e ** -0.5)))
-    name, tol = ("ffn_f32", 2e-4) if f32 else ("ffn_q8", 1e-4)
+    name, tol = {"f32": ("ffn_f32", 2e-4), "int8": ("ffn_q8", 1e-4),
+                 "bf16": ("ffn_bf16", 1e-3)}[kind]
     packed = kf.pack_ffn(*args[3:])                                 # as the model packs them
     run = lambda: kf.fused_ffn(*args, packed=packed)  # noqa: E731
     want = kf.fused_ffn_plain(*args)
     src = (kb.CSRC_DIR / f"{name}.cu").read_text()
-    if against:
-        return av.compare(timer, run, (want,), src, pathlib.Path(against).read_text(), pairs,
-                          name, tol, out=lambda r: (r,))
+    if w2_late and kind != "bf16":
+        raise ValueError("--w2-late takes the bf16 FFN (--bf16)")
+    other = w2_after_w1(src) if w2_late else pathlib.Path(against).read_text() if against else None
+    if other is not None:
+        return av.compare(timer, run, (want,), src, other, pairs, name, tol, out=lambda r: (r,))
     warm = cs.Timer(torch, dev)
     warm.scrub = torch.empty(16, dtype=torch.uint8, device=dev)      # L2 left as it is
     libs = av.build({"kernel": src,

@@ -154,13 +154,18 @@ def test_check_packed_att_refuses_another_layout(change):
 
 
 def test_pack_att_block_takes_int8_weights_only():
-    """Of the quantized and low-precision weights, int8 ones only: bf16
-    weights take the chain, which packs nothing (f32 weights take their
-    own kernel: test_torch_att_block_f32.py)."""
-    with pytest.raises(TypeError, match="int8"):
-        pack_att_block(*[torch.zeros(64, 64, dtype=torch.bfloat16)] * 4, sms=H100_SMS)
+    """Of the quantized weights, int8 ones, all four: int8 beside f32, or
+    bf16 beside f32, raises. bf16 weights alone, which took the chain and
+    were packed for nothing, now take their own persistent kernel and are
+    packed in its layout (test_torch_att_block_bf16.py); f32 weights take
+    theirs (test_torch_att_block_f32.py)."""
+    bf = [torch.zeros(64, 64, dtype=torch.bfloat16)] * 4
+    packed = pack_att_block(*bf, sms=H100_SMS)
+    assert packed.dtype == torch.bfloat16 and packed.shape == (8, 4 * 64 * 8)
     with pytest.raises(TypeError, match="int8"):
         pack_att_block(quant(0, 64), *[torch.zeros(64, 64)] * 3, sms=H100_SMS)
+    with pytest.raises(TypeError, match="int8"):
+        pack_att_block(*bf[:3], torch.zeros(64, 64), sms=H100_SMS)
 
 
 def test_layer_params_pack_attention_on_the_card_only():

@@ -133,11 +133,17 @@ def test_check_packed_ffn_refuses_another_layout(change):
 
 
 def test_pack_ffn_takes_int8_or_f32_weights_only():
+    """W1 and W2 of one type: int8 beside f32 raises. bf16 weights, which
+    took the chain and were packed for nothing, now take their own
+    persistent kernel and are packed in its layout
+    (test_torch_ffn_bf16.py)."""
     w1, w2 = weights(3, 64, 128)
-    with pytest.raises(TypeError, match="int8 QuantTensor or f32"):
-        pack_ffn(w1.bfloat16(), w2.bfloat16(), sms=H100_SMS)
+    packed = pack_ffn(w1.bfloat16(), w2.bfloat16(), sms=H100_SMS)
+    assert packed.dtype == torch.bfloat16 and packed.shape == (4, 64 * 32 + 128 * 16)
     with pytest.raises(ValueError, match="one storage type"):
         pack_ffn(w1, quantize_tensor(w2), sms=H100_SMS)
+    with pytest.raises(ValueError, match="one storage type"):
+        pack_ffn(w1.bfloat16(), w2, sms=H100_SMS)
 
 
 def add_in_runs(parts):

@@ -52,7 +52,8 @@ from trt_asr_tpu_torch.ops.kernels.att_block import att_block, att_block_plain, 
 from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block, conv_block_plain,
                                                       conv_ffn_ln, conv_ffn_ln_plain,
                                                       pack_conv_block, pack_conv_ffn_ln)
-from trt_asr_tpu_torch.ops.kernels.ffn import fused_ffn, fused_ffn_plain, pack_ffn
+from trt_asr_tpu_torch.ops.kernels.ffn import (fused_ffn, fused_ffn_chain, fused_ffn_plain,
+                                               pack_ffn)
 from trt_asr_tpu_torch.ops.kernels.flash_att import (copy_widths, flash_bias_attention,
                                                      flash_bias_attention_plain)
 from trt_asr_tpu_torch.ops.kernels.joint_step import (joint_step, joint_step_plain,
@@ -143,11 +144,13 @@ def assert_one_graph_replayable_launch(call, kernel: str) -> None:
         assert all(torch.equal(o, w) for o, w in zip(out, want))
 
 
-# (D, H, C, Tq) of the attention block: the card-test width; with int8 or
-# f32 weights (the persistent kernels) also gate_r3, Tq 13 and the full width
+# (D, H, C, Tq) of the attention block: the card-test width, gate_r3 and Tq
+# 13; with int8 or f32 weights also the full width (bf16's is held at
+# 1/sqrt(D) weights in test_att_block_takes_bf16_biases_and_cache: at this
+# test's 2.4/sqrt(D) one rounding flip moves the full-width y past 2e-3)
 PERSISTENT_ATT_SHAPES = [(64, 4, 32, 8), (64, 4, 64, 8), (64, 4, 32, 13), (1024, 8, 256, 8),
                          (1024, 8, 256, 13)]
-ATT_SHAPES = {"f32": PERSISTENT_ATT_SHAPES, "bf16": [(64, 4, 32, 8)],
+ATT_SHAPES = {"f32": PERSISTENT_ATT_SHAPES, "bf16": PERSISTENT_ATT_SHAPES[:3],
               "int8": PERSISTENT_ATT_SHAPES}
 
 
@@ -165,16 +168,16 @@ def att_inputs(dev, seed, d, h, c, tq, kind, wsc=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", WEIGHTS)
 def test_att_block_kernel_matches_plain(kind):
-    """Each weight type at the card-test width; int8 and f32 (one
-    cooperative launch a call) also at gate_r3's width, Tq 13 and the full
-    width, with a partly filled ring, an empty one, the cursor at the ring's
-    wrap and valid_tq below Tq. With int8 and f32 weights the weights packed
-    once beforehand (``packed``, as the model passes them) give the same
-    bits as those packed by the call."""
+    """Each weight type (one cooperative launch a call) at the card-test
+    width, gate_r3's and Tq 13; int8 and f32 also at the full width; with a
+    partly filled ring, an empty one, the cursor at the ring's wrap and
+    valid_tq below Tq. The weights packed once beforehand (``packed``, as
+    the model passes them) give the same bits as those packed by the
+    call."""
     dev = require_cuda()
     for i, (d, h, c, tq) in enumerate(ATT_SHAPES[kind]):
         args = att_inputs(dev, 5 + i, d, h, c, tq, kind)
-        packed = pack_att_block(*args[3:7]) if kind != "bf16" else None
+        packed = pack_att_block(*args[3:7])
         for cursor, cache_len, valid_tq in [(7, 19, 6), (0, 0, 6), (5, c, min(tq, 8)),
                                             (c - 1, c, 1), (c - 3, c // 2, tq - 2)]:
             meta = torch.tensor([cursor, cache_len, valid_tq], dtype=torch.int32, device=dev)
@@ -198,10 +201,12 @@ def test_att_block_kernel_matches_plain(kind):
 def test_att_block_takes_bf16_biases_and_cache(kind, cache, d, h, c, tq):
     """The weights of ``cast_params_for_compute`` (bf16 biases; with
     ``kind`` int8, quantized after the cast: the fast arm) over an f32 or a
-    bf16 kv cache (a bf16 encoder state): the chain reads a bf16 cache as
-    stored, the int8 kernel an f32 copy made at the call (counted in
-    ``as_f32.widened_bytes``); the biases' f32 copies are kept once
-    (``keep_f32_copy``), so none is made at a call. The weights' scale is
+    bf16 kv cache (a bf16 encoder state): the bf16 kernel
+    (``csrc/att_block_bf16.cu``, its weights packed once and at the call,
+    the same bits) reads a bf16 cache as stored, the int8 kernel an f32
+    copy made at the call (counted in ``as_f32.widened_bytes``); the
+    biases' f32 copies are kept once (``keep_f32_copy``), so none is made
+    at a call. The weights' scale is
     1/sqrt(D), as phase 2 of ``chip_smoke.py`` draws them: at 2.4/sqrt(D)
     the products amplify, and 3e-7 of noise in x moves the plain version's
     y by 0.035 at the full width (one rounding of u flipped), past any
@@ -215,14 +220,18 @@ def test_att_block_takes_bf16_biases_and_cache(kind, cache, d, h, c, tq):
         args[10] = args[10].to(torch.bfloat16)
     meta = torch.tensor([c - 3, c // 2, tq - 2], dtype=torch.int32, device=dev)
     n0, b0 = quant.as_f32.widened, quant.as_f32.widened_bytes
+    before = att_block.launches
     got = att_block(*args, meta, n_heads=h)
+    assert att_block.launches == before + 1
+    widened = quant.as_f32.widened - n0, quant.as_f32.widened_bytes - b0
     want = att_block_plain(*args, meta, n_heads=h)
+    again = att_block(*args, meta, n_heads=h, packed=pack_att_block(*args[3:7]))
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
+    for g, w, a in zip(got, want, again):
         torch.testing.assert_close(g, w, atol=2e-3, rtol=1e-4)
+        assert torch.equal(a, g)
     cast = cache == "bf16" and kind == "int8"
-    assert quant.as_f32.widened - n0 == int(cast)
-    assert quant.as_f32.widened_bytes - b0 == (c * 2 * d * 6 if cast else 0)
+    assert widened == (int(cast), c * 2 * d * 6 if cast else 0)
 
 
 @pytest.mark.cuda
@@ -275,8 +284,12 @@ def test_conv_block_takes_bf16_taps_and_time_cache(kind, cache):
 
 @pytest.mark.cuda
 def test_bf16_ffn_chain_at_the_full_width():
-    """The FFN's bf16 chain (``csrc/ffn.cu``) at the session's shapes: 8
-    rows of the full width, f32 LayerNorm parameters."""
+    """The FFN with bf16 weights at the session's shapes, 8 rows of the
+    full width, f32 LayerNorm parameters: the bf16 kernel
+    (``csrc/ffn_bf16.cu``, its weights packed at the call and once, the
+    same bits) and the chain it replaced (``csrc/ffn.cu``, on no path now,
+    kept for ``chip_smoke.py`` to time), each within 2e-3 of the plain
+    version."""
     dev = require_cuda()
     r = randn(dev, 44)
     d, e = 1024, 4096
@@ -285,16 +298,23 @@ def test_bf16_ffn_chain_at_the_full_width():
     before = fused_ffn.launches
     got = fused_ffn(*args)
     assert fused_ffn.launches == before + 1
-    torch.testing.assert_close(got, fused_ffn_plain(*args), atol=2e-3, rtol=1e-4)
+    again = fused_ffn(*args, packed=pack_ffn(*args[3:]))
+    chain = fused_ffn_chain(*args)
+    want = fused_ffn_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+    for y in (got, chain):
+        torch.testing.assert_close(y, want, atol=2e-3, rtol=1e-4)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,kernel", [("int8", "att_block_q8_kernel"),
-                                         ("f32", "att_block_f32_kernel")])
+                                         ("f32", "att_block_f32_kernel"),
+                                         ("bf16", "att_block_bf16_kernel")])
 def test_att_block_is_one_graph_replayable_launch(kind, kernel):
-    """The int8 and the f32 kernel are each one cooperative launch a call,
-    which a CUDA graph captures: the replay equals the direct call bit for
-    bit (the kernels add in a fixed order)."""
+    """The int8, the f32 and the bf16 kernel are each one cooperative launch
+    a call, which a CUDA graph captures: the replay equals the direct call
+    bit for bit (the kernels add in a fixed order)."""
     dev = require_cuda()
     d, h, c, tq = 1024, 8, 256, 8
     args = att_inputs(dev, 9, d, h, c, tq, kind)
@@ -463,11 +483,12 @@ PERSISTENT_FFN_SHAPES = FFN_SHAPES + [((1,), 96, 200), ((2, 8), 64, 256), ((8,),
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", WEIGHTS)
 def test_ffn_kernel_matches_plain(kind):
-    """With int8 and f32 weights (one cooperative launch a call) the weights
-    packed once beforehand (``packed``, as the model passes them) give the
-    same bits as those packed by the call."""
+    """Each weight type (one cooperative launch a call): the weights packed
+    once beforehand (``packed``, as the model passes them) give the same
+    bits as those packed by the call. bf16 at the full width is held in
+    test_bf16_ffn_chain_at_the_full_width."""
     dev = require_cuda()
-    for shape, d, e in FFN_SHAPES if kind == "bf16" else PERSISTENT_FFN_SHAPES:
+    for shape, d, e in PERSISTENT_FFN_SHAPES[:5] if kind == "bf16" else PERSISTENT_FFN_SHAPES:
         r = randn(dev, d + len(shape))
         x, g, b = r(*shape, d, sc=1.0), 1.0 + r(d, sc=0.2), r(d, sc=0.1)
         w1, w2 = as_weight(r(d, e, sc=d ** -0.5), kind), as_weight(r(e, d, sc=e ** -0.5), kind)
@@ -480,16 +501,16 @@ def test_ffn_kernel_matches_plain(kind):
         if shape == (8,) and d == 1024:
             atol = 1e-4
         torch.testing.assert_close(got, want, atol=atol, rtol=1e-4)
-        if kind != "bf16":
-            again = fused_ffn(x, g, b, w1, w2, 0.5, packed=pack_ffn(w1, w2))
-            torch.cuda.synchronize()
-            assert torch.equal(again, got)
+        again = fused_ffn(x, g, b, w1, w2, 0.5, packed=pack_ffn(w1, w2))
+        torch.cuda.synchronize()
+        assert torch.equal(again, got)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,kernel", [("int8", "ffn_q8_kernel"), ("f32", "ffn_f32_kernel")])
+@pytest.mark.parametrize("kind,kernel", [("int8", "ffn_q8_kernel"), ("f32", "ffn_f32_kernel"),
+                                         ("bf16", "ffn_bf16_kernel")])
 def test_ffn_is_one_graph_replayable_launch(kind, kernel):
-    """With int8 and with f32 weights an FFN call is one cooperative launch
+    """With int8, f32 or bf16 weights an FFN call is one cooperative launch
     and no kernel of the five-launch chain (``csrc/ffn.cu``) runs; a CUDA
     graph captures it, and the replay equals the direct call bit for bit
     (the kernels add in a fixed order)."""
@@ -607,8 +628,10 @@ def test_wrappers_raise_instead_of_falling_back():
                   pack_ffn(*[quantize_tensor(w) for w in fw])):       # int8's layout
         with pytest.raises(ValueError, match="do not fit the launch plan"):
             fused_ffn(x, g, b, *fw, packed=wrong)
-    with pytest.raises(ValueError, match="int8 and f32 weights only"):
+    with pytest.raises(ValueError, match="do not fit the launch plan"):    # f32's layout
         fused_ffn(x, g, b, *[w.bfloat16() for w in fw], packed=pack_ffn(*fw))
+    with pytest.raises(ValueError, match="one storage type"):
+        fused_ffn(x, g, b, fw[0].bfloat16(), fw[1])
     assert fused_ffn.launches == before
     conv = list(conv_inputs(dev, 4, 8, 6, 64, "f32"))
     conv[10] = r(64, 4).t()                       # time cache, not contiguous
@@ -656,6 +679,12 @@ def test_wrappers_raise_instead_of_falling_back():
                   pack_att_block(*[quantize_tensor(w) for w in att[3:7]])):   # int8's layout
         with pytest.raises(ValueError, match="do not fit the launch plan"):
             att_block(*att, meta, n_heads=4, packed=wrong)
+    batt = att_inputs(dev, 8, 64, 4, 32, 8, "bf16")
+    for wrong in (pack_att_block(*batt[3:7], sms=4), pack_att_block(*att[3:7])):   # f32's
+        with pytest.raises(ValueError, match="do not fit the launch plan"):
+            att_block(*batt, meta, n_heads=4, packed=wrong)
+    with pytest.raises(ValueError, match="one storage type"):
+        att_block(*batt[:6], att[6], *batt[7:], meta, n_heads=4)
     assert att_block.launches == before
     before = joint_step.launches
     jargs = (r(8, 16), r(8, 6), quantize_tensor(r(6, 16)), r(16), quantize_tensor(r(16, 40)),

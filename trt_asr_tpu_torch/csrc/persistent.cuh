@@ -1,18 +1,19 @@
 // Building blocks of the persistent kernels (csrc/conv_ffn_ln.cu,
-// csrc/att_block_q8.cu, csrc/joint_step_q8.cu, csrc/ffn_q8.cu and their f32
-// counterparts): one cooperative launch of TL_THREADS-thread blocks, one an
-// SM, each owning a slice of every product.
+// csrc/att_block_q8.cu, csrc/joint_step_q8.cu, csrc/ffn_q8.cu, their f32
+// counterparts, csrc/att_block_bf16.cu and csrc/ffn_bf16.cu): one
+// cooperative launch of TL_THREADS-thread blocks, one an SM, each owning a
+// slice of every product.
 //   - bulk copies (the copy engine) into shared memory, each group of copies
 //     completing on its own mbarrier, optionally under an L2 evict-first
 //     policy for weights read once;
 //   - LayerNorm of up to TL_MR rows, one warp a row, into bf16 operand rows
 //     (or in place in f32);
-//   - products of TL_MR bf16 operand rows with int8 weight groups of TL_GW
-//     columns ([K / 16][8 columns][16 rows], as the packers in
-//     ops/kernels/conv_block.py and ops/kernels/att_block.py lay them out),
-//     widened exactly to bf16 in registers and summed on the tensor cores
-//     (mma.sync.m16n8k16, f32 sums); each warp sums its run of K and the
-//     warps' sums are added in a fixed order (no atomics).
+//   - products of TL_MR bf16 operand rows with int8 or bf16 weight groups
+//     of TL_GW columns ([K / 16][8 columns][16 rows], as the packers in
+//     ops/kernels/persistent.py lay them out; int8 widened exactly to bf16
+//     in registers) summed on the tensor cores (mma.sync.m16n8k16, f32
+//     sums); each warp sums its run of K and the warps' sums are added in a
+//     fixed order (no atomics).
 #pragma once
 
 #include "common.cuh"
@@ -247,39 +248,57 @@ __device__ unsigned long long tail_timeline[1024][TL_MARKS];
 #define TL_MARK(i)
 #endif
 
+// The mma's B fragment from a lane's share of a packed weight step (k = 4t
+// .. 4t + 3 of column g8, see product_chunk): four int8 values widened
+// exactly to two bf16 pairs, or four bf16 values as they are
+template <typename WT> struct MmaB;
+template <> struct MmaB<int8_t> {
+  using V = uint32_t;
+  __device__ static __forceinline__ void split(V v, uint32_t& b0, uint32_t& b1) {
+    i8x4_to_bf16(v, b0, b1);
+  }
+};
+template <> struct MmaB<bf16> {
+  using V = uint2;
+  __device__ static __forceinline__ void split(V v, uint32_t& b0, uint32_t& b1) {
+    b0 = v.x;
+    b1 = v.y;
+  }
+};
+
 // Sums of the steps [s0, s1) of GC weight groups (w: the first group,
-// [GC][steps][8 n][16 k] int8) into acc[parity][group]: runs of four steps
-// without branches, their loads first (A's four fragments and the 4 GC
-// weight words), then the widening and the mma; a tail of single steps.
-// Two accumulator sets (even and odd steps) halve the mma chain. Lane
-// (g8 = lane / 4, t = lane % 4) takes k = 4t .. 4t + 3 of a step for both
-// operands, as the mma's k = 2t, 2t + 1 (a0, b0) and 2t + 8, 2t + 9 (a2,
-// b1): the same permutation of K on both sides leaves the product as it
-// is; A's rows 8 .. 15 are zero.
-template <int GC>
+// [GC][steps][8 n][16 k] int8 or bf16) into acc[parity][group]: runs of
+// four steps without branches, their loads first (A's four fragments and
+// the 4 GC weight words), then the widening (int8) and the mma; a tail of
+// single steps. Two accumulator sets (even and odd steps) halve the mma
+// chain. Lane (g8 = lane / 4, t = lane % 4) takes k = 4t .. 4t + 3 of a
+// step for both operands, as the mma's k = 2t, 2t + 1 (a0, b0) and 2t + 8,
+// 2t + 9 (a2, b1): the same permutation of K on both sides leaves the
+// product as it is; A's rows 8 .. 15 are zero.
+template <int GC, typename WT>
 __device__ __forceinline__ void product_chunk(float (&acc)[2][GC][4], const bf16* arow,
-                                              const int8_t* w, int steps, int s0, int s1,
+                                              const WT* w, int steps, int s0, int s1,
                                               int lane) {
-  const int8_t* wl = w + 4 * lane;
+  using V = typename MmaB<WT>::V;
+  const WT* wl = w + 4 * lane;
   int s = s0;
   for (; s + 4 <= s1; s += 4) {
     uint2 av[4];
-    uint32_t wv[4][GC];
+    V wv[4][GC];
 #pragma unroll
     for (int u = 0; u < 4; ++u) av[u] = *reinterpret_cast<const uint2*>(arow + (s + u) * TL_KS);
 #pragma unroll
     for (int g = 0; g < GC; ++g)
 #pragma unroll
       for (int u = 0; u < 4; ++u)
-        wv[u][g] = *reinterpret_cast<const uint32_t*>(
-            wl + ((size_t)g * steps + s + u) * TL_GW * TL_KS);
+        wv[u][g] = *reinterpret_cast<const V*>(wl + ((size_t)g * steps + s + u) * TL_GW * TL_KS);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const uint32_t a[4] = {av[u].x, 0u, av[u].y, 0u};
 #pragma unroll
       for (int g = 0; g < GC; ++g) {
         uint32_t b0, b1;
-        i8x4_to_bf16(wv[u][g], b0, b1);
+        MmaB<WT>::split(wv[u][g], b0, b1);
         mma_bf16(acc[u & 1][g], a, b0, b1);
       }
     }
@@ -290,8 +309,8 @@ __device__ __forceinline__ void product_chunk(float (&acc)[2][GC][4], const bf16
 #pragma unroll
     for (int g = 0; g < GC; ++g) {
       uint32_t b0, b1;
-      i8x4_to_bf16(*reinterpret_cast<const uint32_t*>(wl + ((size_t)g * steps + s) * TL_GW * TL_KS),
-                   b0, b1);
+      MmaB<WT>::split(*reinterpret_cast<const V*>(wl + ((size_t)g * steps + s) * TL_GW * TL_KS),
+                      b0, b1);
       mma_bf16(acc[0][g], a, b0, b1);
     }
   }
@@ -299,8 +318,8 @@ __device__ __forceinline__ void product_chunk(float (&acc)[2][GC][4], const bf16
 
 // A chunk of GC groups from group g0: its sums, each lane's two (row
 // lane / 4, columns 2 (lane % 4) + {0, 1}) written to red [warp][G][64]
-template <int GC>
-__device__ __forceinline__ void product_groups(const bf16* arow, const int8_t* w, int steps,
+template <int GC, typename WT>
+__device__ __forceinline__ void product_groups(const bf16* arow, const WT* w, int steps,
                                                int s0, int s1, int G, int g0, float* red,
                                                int warp, int lane) {
   float acc[2][GC][4];
@@ -316,14 +335,16 @@ __device__ __forceinline__ void product_groups(const bf16* arow, const int8_t* w
 }
 
 // The sums of act [8][pitch] (bf16, zero in [K, Kp)) times each of the G
-// groups of 8 columns of w ([G][Kp / 16][8 n][16 k] int8, exact in bf16),
+// groups of 8 columns of w ([G][Kp / 16][8 n][16 k] int8, exact in bf16, or
+// bf16),
 // left in red as [warp][G][8 rows x 8 columns] for product_sum. Tensor
 // cores: mma.sync.m16n8k16 with f32 sums, 8 live rows of 16. Warp w sums
 // its run of the Kp / 16 steps for two groups at a time (pw1's pair: W1
 // runs the same code twice, already fetched), waiting first
 // for its K chunk of act when chunk_bars is given (bulk_chunks). Ends with
 // __syncthreads().
-__device__ __noinline__ void block_product(const bf16* act, int pitch, const int8_t* w, int Kp,
+template <typename WT>
+__device__ __noinline__ void block_product(const bf16* act, int pitch, const WT* w, int Kp,
                                           int G, float* red, uint64_t* chunk_bars, int parity,
                                           int mark) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;

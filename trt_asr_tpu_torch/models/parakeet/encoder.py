@@ -112,11 +112,11 @@ def layer_params(params: Dict[str, Any], num_layers: int, pack_tail: bool = Fals
     ``pack_tail``, a layer whose conv and FFN2 weights are int8 on the card
     also holds them, with their scales, taps and BN, packed once for the
     fused tail kernel (``conv_ffn_ln_packed``, :func:`pack_conv_ffn_ln`);
-    with ``pack_att``, one whose attention weights are int8 or f32 on the
-    card holds them packed once for the attention-block kernel of that type
-    (``att_block_packed``, :func:`pack_att_block`); with ``pack_ffn``, each
-    FFN whose weights are int8 or f32 on the card holds them packed once
-    for the FFN kernel of that type (``ff1_packed``, ``ff2_packed``,
+    with ``pack_att``, one whose attention weights are int8, bf16 or f32 on
+    the card holds them packed once for the attention-block kernel of that
+    type (``att_block_packed``, :func:`pack_att_block`); with ``pack_ffn``,
+    each FFN whose weights are int8, bf16 or f32 on the card holds them
+    packed once for the FFN kernel of that type (``ff1_packed``, ``ff2_packed``,
     :func:`~trt_asr_tpu_torch.ops.kernels.ffn.pack_ffn`), FFN2 only where the
     fused tail does not take it; with ``pack_conv``, one whose conv weights
     are int8 or f32 on the card holds them, with their taps and BN, packed
@@ -138,11 +138,12 @@ def layer_params(params: Dict[str, Any], num_layers: int, pack_tail: bool = Fals
         if pack_conv and not tail and _persistent_weights([conv[0], conv[6]]):
             lp["conv_block_packed"] = pack_conv_block(*conv)
         att = [lp[k] for k in ("att_wq", "att_wk", "att_wv", "att_wo")]
-        if pack_att and _persistent_weights(att):
+        if pack_att and (_persistent_weights(att) or _bf16_weights(att)):
             lp["att_block_packed"] = pack_att_block(*att)
         for f in ("ff1", "ff2"):
             ws = lp[f"{f}_w1"], lp[f"{f}_w2"]
-            if pack_ffn and not (f == "ff2" and tail) and _persistent_weights(ws):
+            if pack_ffn and not (f == "ff2" and tail) and (_persistent_weights(ws)
+                                                            or _bf16_weights(ws)):
                 lp[f"{f}_packed"] = kernel_ffn.pack_ffn(*ws)
         out.append(lp)
     return out
@@ -163,12 +164,20 @@ def _layer_weight(v: QuantTensor, li: int) -> QuantTensor:
 
 
 def _persistent_weights(ws) -> bool:
-    """Whether a module's weights on the card take a persistent kernel (the
-    attention block's, the FFN's, the conv module's): all int8 or all f32
-    (bf16 weights take the chain)."""
+    """Whether a module's weights on the card take a persistent kernel of
+    every module (the attention block's, the FFN's, the conv module's): all
+    int8 or all f32 (bf16 weights: :func:`_bf16_weights`)."""
     if all(isinstance(w, QuantTensor) for w in ws):
         return ws[0].q.is_cuda
     return all(isinstance(w, torch.Tensor) and w.dtype == torch.float32 and w.is_cuda
+               for w in ws)
+
+
+def _bf16_weights(ws) -> bool:
+    """Whether a module's weights are all bf16 on the card (the weights of
+    ``cast_params_for_compute``): the attention block and the FFN take a
+    persistent kernel for them too; the conv module takes its chain."""
+    return all(isinstance(w, torch.Tensor) and w.dtype == torch.bfloat16 and w.is_cuda
                for w in ws)
 
 

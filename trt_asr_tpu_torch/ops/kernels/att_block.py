@@ -1,15 +1,18 @@
 """Fused conformer attention block (B=1 streaming chunks): the CUDA kernels
-``csrc/att_block_q8.cu`` (int8 weights) and ``csrc/att_block_f32.cu`` (f32
-weights, streamed through shared memory in runs of K), each one persistent
-cooperative launch laid out by :func:`att_block_q8_plan` or
-:func:`att_block_f32_plan`, the chain of launches of ``csrc/att_block.cu``
-(bf16 weights), and their plain PyTorch version.
+``csrc/att_block_q8.cu`` (int8 weights), ``csrc/att_block_bf16.cu`` (bf16
+weights; an f32 or bf16 kv cache read as stored) and ``csrc/att_block_f32.cu``
+(f32 weights, streamed through shared memory in runs of K), each one
+persistent cooperative launch laid out by :func:`att_block_q8_plan`,
+:func:`att_block_bf16_plan` or :func:`att_block_f32_plan`, the chain of
+launches of ``csrc/att_block.cu`` that the bf16 and f32 kernels replaced
+(:func:`att_block_chain`), and their plain PyTorch version.
 
 Replaces ``trt_asr_tpu/ops/pallas/att_block_kernel.py:att_block_pallas``
 (with ``build_rel_selection``). The bound on the H100 is memory: the four
 projection matrices, the kv cache and the positional table (~20 MB f32,
-~7.4 MB with int8 weights per layer at full size); the kernels read each
-weight byte once for all rows (see the sources' notes).
+~7.4 MB with int8 weights, ~11.6 MB with bf16 per layer at full size);
+the kernels read each weight byte once for all rows (see the sources'
+notes).
 
 Instead of the TPU kernel's {0,1} selection tensor, both versions index the
 positional table directly: ``r = r0[s] - t`` with ``r0`` derived from
@@ -28,7 +31,7 @@ from trt_asr_tpu_torch.ops.kernels.ffn import layer_norm_plain
 from trt_asr_tpu_torch.ops.kernels.persistent import (SMEM_PER_BLOCK, TAIL_GROUP, TAIL_KSTEP,
                                                       TAIL_ROWS, TAIL_WARPS, align16,
                                                       column_slices, pack_columns, pad_k,
-                                                      pack_tail_weight, sm_count)
+                                                      pack_tail_weight, sm_count, weight_kind)
 from trt_asr_tpu_torch.ops.quant import (QuantTensor, as_f32, is_low_precision, round_bf16,
                                          scaled_matmul)
 
@@ -87,14 +90,15 @@ def att_block_plain(x, ln_g, ln_b, wq, wk, wv, wo, bias_u, bias_v, pos_proj,
 
 class AttPlan(NamedTuple):
     """Launch plan of a persistent attention block (``csrc/att_block_q8.cu``,
-    ``csrc/att_block_f32.cu``)."""
+    ``csrc/att_block_bf16.cu``, ``csrc/att_block_f32.cu``)."""
     blocks: int          # one a column slice, all co-resident
     cols: int            # columns of Wq, Wk, Wv and Wo a block
     ranges: int          # scores items a head, one a block
     slots: int           # kv positions a scores item
     smem: int            # dynamic shared bytes a block
     scratch: int         # bytes of device scratch: q, the scores, ctx
-    stages: int = 0      # f32 weights: slots of the weights' ring (0: the int8 kernel)
+    stages: int = 0      # f32 weights: slots of the weights' ring (0: int8, bf16)
+    kind: str = "int8"   # the weights' type: int8, bf16 or f32
 
 
 # rows of K a run of the products' sums (csrc/att_block_q8.cu AB_RUN), and of
@@ -166,6 +170,33 @@ def att_block_q8_plan(tq: int, d: int, h: int, c: int, sms: int,
                    align16(tq * d * 4 + h * tq * s4 * 4) + tq * d * 2)
 
 
+def _att_bf16_elems(d: int, cols: int) -> int:
+    """A block's bf16 slices of Wq, Wk, Wv, Wo (K padded to 16), in elements."""
+    return 4 * pad_k(d) * cols
+
+
+def att_block_bf16_plan(tq: int, d: int, h: int, c: int, sms: int,
+                        smem_limit: int = SMEM_PER_BLOCK) -> AttPlan:
+    """The grid and shared memory of the bf16 attention block: the int8
+    kernel's layout (:func:`att_block_q8_plan`) with bf16 weight slices and
+    no scales (64 KB a block at full width), a bf16 cache's key rows staged
+    as stored, and the products' sums by warp (the tensor cores). One
+    layout takes an f32 or a bf16 kv cache. Mirrors ``atb_smem`` in the
+    source, which checks it at launch. Raises ValueError for shapes the
+    kernel does not take or whose staging does not fit."""
+    what = "att_block[bf16]"
+    cols, blocks, ranges, slots, s4, core = _att_items(what, tq, d, h, c, sms)
+    smem = (_att_bf16_elems(d, cols) * 2                         # weight slices
+            + TAIL_ROWS * (pad_k(d) + TAIL_KSTEP) * 2            # operand rows, bf16
+            + TAIL_ROWS * d * 4 + 2 * d * 4                      # x's rows; LN's g, b
+            + core + slots * (d // h) * 2                        # a bf16 cache's key rows
+            + TAIL_WARPS * 3 * cols * TAIL_ROWS * 4              # products' sums
+            + 10 * 8)                                            # mbarriers
+    _check_fits(what, smem, smem_limit, tq, d, h, c)
+    return AttPlan(blocks, cols, ranges, slots, smem,
+                   align16(tq * d * 4 + h * tq * s4 * 4) + tq * d * 2, kind="bf16")
+
+
 def _f32_runs(d: int) -> int:
     return -(-d // ATT_RUN)
 
@@ -194,7 +225,7 @@ def att_block_f32_plan(tq: int, d: int, h: int, c: int, sms: int,
     smem = fixed + stages * slot
     _check_fits(what, smem, smem_limit, tq, d, h, c)
     return AttPlan(blocks, cols, ranges, slots, smem,
-                   align16(tq * d * 4 + h * tq * s4 * 4) + tq * d * 4, stages)
+                   align16(tq * d * 4 + h * tq * s4 * 4) + tq * d * 4, stages, "f32")
 
 
 def pack_att(wq, wk, wv, wo, sq, sk, sv, so, cols: int, blocks: int) -> torch.Tensor:
@@ -209,6 +240,17 @@ def pack_att(wq, wk, wv, wo, sq, sk, sv, so, cols: int, blocks: int) -> torch.Te
     scales = torch.cat([pack_columns(v.reshape(-1), cols, blocks) for v in (sq, sk, sv, so)],
                        dim=1)
     return torch.cat(weights + [scales.contiguous().view(torch.uint8)], dim=1).contiguous()
+
+
+def pack_att_bf16(wq, wk, wv, wo, cols: int, blocks: int) -> torch.Tensor:
+    """The layer's bf16 weights as the bf16 attention block's blocks read
+    them, a block's slice contiguous: [blocks, 4 * Kp * cols] bf16, block b
+    holding its ``cols`` columns b * cols .. of Wq, Wk, Wv and Wo, each as
+    :func:`~trt_asr_tpu_torch.ops.kernels.persistent.pack_tail_weight`
+    lays out an int8 matrix (``atb_slice`` in the source). wq .. wo are
+    bf16 [D, D]."""
+    return torch.cat([pack_tail_weight(w, cols, blocks).reshape(blocks, -1)
+                      for w in (wq, wk, wv, wo)], dim=1).contiguous()
 
 
 def pack_att_f32(wq, wk, wv, wo, cols: int, blocks: int) -> torch.Tensor:
@@ -235,35 +277,34 @@ def pack_att_block(wq, wk, wv, wo, sms: int | None = None) -> torch.Tensor:
     """A layer's weights for :func:`att_block`'s ``packed``, for the column
     slices of a card with ``sms`` SMs (by default that of the weights'
     device): int8 QuantTensors by :func:`pack_att`, 4.2 MB a layer at full
-    width; f32 weights by :func:`pack_att_f32`, 16.8 MB a layer (403 MB for
-    24 layers). Each is held beside the [D, D] matrices that the plain path
+    width; bf16 weights by :func:`pack_att_bf16`, 8.4 MB a layer; f32
+    weights by :func:`pack_att_f32`, 16.8 MB a layer (403 MB for 24
+    layers). Each is held beside the [D, D] matrices that the plain path
     reads. Made once, where the layer's weights are made
     (``models/parakeet/encoder.py:layer_params``): a packed copy that no
     longer matches the weights gives wrong results. Raises TypeError for
-    other weights (bf16 weights take the chain, which reads them as they
-    are)."""
+    weights of mixed or other types."""
     ws = (wq, wk, wv, wo)
     if all(isinstance(w, QuantTensor) for w in ws):
         sms = sm_count(wq.q.device.index or 0) if sms is None else sms
         return pack_att(wq.q, wk.q, wv.q, wo.q, wq.s, wk.s, wv.s, wo.s,
                         *column_slices(wq.q.shape[0], sms))
-    if all(isinstance(w, torch.Tensor) and w.dtype == torch.float32 for w in ws):
-        sms = sm_count(wq.device.index or 0) if sms is None else sms
-        return pack_att_f32(wq, wk, wv, wo, *column_slices(wq.shape[0], sms))
-    raise TypeError("pack_att_block takes int8 QuantTensor or f32 weights")
+    for dtype, pack in ((torch.float32, pack_att_f32), (torch.bfloat16, pack_att_bf16)):
+        if all(isinstance(w, torch.Tensor) and w.dtype == dtype for w in ws):
+            sms = sm_count(wq.device.index or 0) if sms is None else sms
+            return pack(wq, wk, wv, wo, *column_slices(wq.shape[0], sms))
+    raise TypeError("pack_att_block takes int8 QuantTensor, bf16 or f32 weights")
 
 
 def check_packed_att(packed: torch.Tensor, plan: AttPlan, d: int) -> None:
     """Raises ValueError unless ``packed`` has the layout of ``plan``'s
     column slices: with an int8 plan [blocks, bytes of a block's slice]
-    uint8, with an f32 plan (``stages`` > 0) [blocks, floats of a block's
-    slice] f32."""
-    if plan.stages:
-        what, dtype, want = ("att_block[f32]", torch.float32,
-                             (plan.blocks, _f32_runs(d) * ATT_RUN * 4 * plan.cols))
-    else:
-        what, dtype, want = ("att_block[int8]", torch.uint8,
-                             (plan.blocks, _att_blob_bytes(d, plan.cols)))
+    uint8, with a bf16 plan [blocks, elements of a block's slice] bf16,
+    with an f32 plan [blocks, floats of a block's slice] f32."""
+    dtype, elems = {"int8": (torch.uint8, _att_blob_bytes(d, plan.cols)),
+                    "bf16": (torch.bfloat16, _att_bf16_elems(d, plan.cols)),
+                    "f32": (torch.float32, _f32_runs(d) * ATT_RUN * 4 * plan.cols)}[plan.kind]
+    what, want = f"att_block[{plan.kind}]", (plan.blocks, elems)
     if packed.dtype != dtype or tuple(packed.shape) != want:
         raise ValueError(f"{what}: packed weights {packed.dtype} "
                          f"{tuple(packed.shape)} do not fit the launch plan {dtype} {want} "
@@ -293,35 +334,29 @@ def att_block(x, ln_g, ln_b, wq, wk, wv, wo, bias_u, bias_v, pos_proj,
               kv_cache, meta, *, n_heads: int, packed=None):
     """Fused attention block; same arguments and results as
     :func:`att_block_plain`. CPU tensors take the plain version; CUDA
-    tensors launch a kernel (or raise): with int8 or f32 weights the
-    persistent kernel of that type, one cooperative launch (raising also
-    when its blocks cannot all be resident), with bf16 weights the chain
-    (:func:`att_block_chain`). ``packed``: the int8 or f32 weights as
-    :func:`pack_att_block` lays them out, made once with the weights;
-    without it they are packed anew at every call. A bf16 kv cache is read
-    as stored by the chain; the persistent kernels read an f32 copy of it,
-    made at the call (:func:`as_f32` counts its bytes)."""
+    tensors launch the persistent kernel of the weights' type (int8, bf16
+    or f32), one cooperative launch, or raise (also when its blocks cannot
+    all be resident). ``packed``: the weights as :func:`pack_att_block`
+    lays them out, made once with the weights; without it they are packed
+    anew at every call. A bf16 kv cache is read as stored by the bf16
+    kernel; the int8 and f32 kernels read an f32 copy of it, made at the
+    call (:func:`as_f32` counts its bytes)."""
     if x.device.type == "cpu":
         return att_block_plain(x, ln_g, ln_b, wq, wk, wv, wo, bias_u, bias_v,
                                pos_proj, kv_cache, meta, n_heads=n_heads)
     ws = (wq, wk, wv, wo)
-    if any(isinstance(w, QuantTensor) for w in ws):
-        return _att_block_persistent(x, ln_g, ln_b, ws, bias_u, bias_v, pos_proj, kv_cache,
-                                     meta, n_heads, packed, "int8")
-    if all(w.dtype == torch.float32 for w in ws):
-        return _att_block_persistent(x, ln_g, ln_b, ws, bias_u, bias_v, pos_proj, kv_cache,
-                                     meta, n_heads, packed, "f32")
-    return att_block_chain(x, ln_g, ln_b, wq, wk, wv, wo, bias_u, bias_v, pos_proj,
-                           kv_cache, meta, n_heads=n_heads)
+    return _att_block_persistent(x, ln_g, ln_b, ws, bias_u, bias_v, pos_proj, kv_cache,
+                                 meta, n_heads, packed,
+                                 weight_kind("att_block: q/k/v/o weights", *ws))
 
 
 def att_block_chain(x, ln_g, ln_b, wq, wk, wv, wo, bias_u, bias_v, pos_proj,
                     kv_cache, meta, *, n_heads: int):
     """The chain of ``csrc/att_block.cu`` on CUDA tensors (LayerNorm, split-K
     Q/K/V, the attention core, split-K Wo: six launches) with f32 or bf16
-    weights and an f32 or bf16 kv cache (read as stored): :func:`att_block`'s
-    kernel for bf16 weights, and the f32 kernel's predecessor, kept so that
-    ``chip_smoke.py`` times the two in one run."""
+    weights and an f32 or bf16 kv cache (read as stored): the predecessor
+    of the f32 and bf16 persistent kernels, on no path now, kept so that
+    ``chip_smoke.py`` times it beside them in one run."""
     tq, d = x.shape
     c = kv_cache.shape[0]
     parts = [kb.weight_parts(w) for w in (wq, wk, wv, wo)]
@@ -356,38 +391,40 @@ def att_block_chain(x, ln_g, ln_b, wq, wk, wv, wo, bias_u, bias_v, pos_proj,
 def _att_block_persistent(x, ln_g, ln_b, ws, bias_u, bias_v, pos_proj, kv_cache, meta,
                           n_heads, packed, kind):
     """The persistent kernel of ``kind`` (``csrc/att_block_q8.cu`` for int8
-    QuantTensor weights, ``csrc/att_block_f32.cu`` for f32) on CUDA
-    tensors."""
+    QuantTensor weights, ``csrc/att_block_bf16.cu`` for bf16,
+    ``csrc/att_block_f32.cu`` for f32) on CUDA tensors."""
     int8 = kind == "int8"
-    if not all(isinstance(w, QuantTensor) == int8 for w in ws):
-        raise TypeError(f"att_block[{kind}]: q/k/v/o weights must all be {kind}")
     tq, d = x.shape
     c = kv_cache.shape[0]
     mats = [w.q if int8 else w for w in ws]
     if any(m.shape != (d, d) for m in mats):
         raise ValueError(f"att_block: weights must be [D, D] (D={d})")
     floats = _check_inputs(x, ln_g, ln_b, bias_u, bias_v, pos_proj, kv_cache, meta)
-    floats[-1] = kv_cache = as_f32(kv_cache)
+    if kind != "bf16":
+        floats[-1] = kv_cache = as_f32(kv_cache)
     bias_u, bias_v = floats[3], floats[4]
-    plan = (att_block_q8_plan if int8 else att_block_f32_plan)(
-        tq, d, n_heads, c, sm_count(x.device.index or 0))
+    plan = {"int8": att_block_q8_plan, "bf16": att_block_bf16_plan,
+            "f32": att_block_f32_plan}[kind](tq, d, n_heads, c, sm_count(x.device.index or 0))
     if packed is None:
-        packed = (pack_att(*mats, *[w.s for w in ws], plan.cols, plan.blocks) if int8
-                  else pack_att_f32(*mats, plan.cols, plan.blocks))
+        packed = (pack_att(*mats, *[w.s for w in ws], plan.cols, plan.blocks) if int8 else
+                  {"bf16": pack_att_bf16, "f32": pack_att_f32}[kind](*mats, plan.cols,
+                                                                     plan.blocks))
     check_packed_att(packed, plan, d)
     kb.require_cuda("att_block", *floats, meta, packed)
     # bulk copies of x's rows, the norms and the key and positional rows;
     # 16-byte reads of the biases
-    kb.require_aligned("att_block", 4, *floats)
-    kb.require_aligned("att_block", 16 if int8 else 4, packed)
-    lib = kb.load("att_block_q8" if int8 else "att_block_f32")
+    kb.require_aligned("att_block", 4, *floats[:-1])
+    kb.require_aligned("att_block", 16 // kv_cache.element_size(), kv_cache)
+    kb.require_aligned("att_block", 16 // packed.element_size(), packed)
+    name = {"int8": "att_block_q8", "bf16": "att_block_bf16", "f32": "att_block_f32"}[kind]
+    lib = kb.load(name)
     y, u, k_new, v_new = (torch.empty_like(x) for _ in range(4))
     scratch = torch.empty((plan.scratch,), dtype=torch.uint8, device=x.device)
-    stages = () if int8 else (plan.stages,)
-    launch = lib.att_block_q8_launch if int8 else lib.att_block_f32_launch
-    rc = launch(
+    stages = (plan.stages,) if kind == "f32" else ()
+    kv_type = (int(kv_cache.dtype == torch.bfloat16),) if kind == "bf16" else ()
+    rc = getattr(lib, f"{name}_launch")(
         x.data_ptr(), tq, d, n_heads, c, ln_g.data_ptr(), ln_b.data_ptr(), bias_u.data_ptr(),
-        bias_v.data_ptr(), pos_proj.data_ptr(), kv_cache.data_ptr(), meta.data_ptr(),
+        bias_v.data_ptr(), pos_proj.data_ptr(), kv_cache.data_ptr(), *kv_type, meta.data_ptr(),
         1.0 / math.sqrt(d // n_heads), packed.data_ptr(), plan.blocks, plan.cols, plan.ranges,
         plan.slots, *stages, plan.smem, y.data_ptr(), u.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), scratch.data_ptr(), kb.stream_ptr(x.device))

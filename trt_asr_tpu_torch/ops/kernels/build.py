@@ -27,9 +27,10 @@ from trt_asr_tpu_torch.ops.quant import QuantTensor
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("att_block", "att_block_q8", "att_block_f32", "joint_step", "joint_step_q8",
-           "joint_step_f32", "mel", "ffn", "ffn_f32", "ffn_q8", "conv_block", "conv_block_q8",
-           "conv_block_f32", "conv_ffn_ln", "rel_shift", "flash_att")
+SOURCES = ("att_block", "att_block_q8", "att_block_bf16", "att_block_f32", "joint_step",
+           "joint_step_q8", "joint_step_f32", "mel", "ffn", "ffn_f32", "ffn_q8", "ffn_bf16",
+           "conv_block", "conv_block_q8", "conv_block_f32", "conv_ffn_ln", "rel_shift",
+           "flash_att")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,6 +47,10 @@ _SIGNATURES = {
                      [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P],
                      "att_block_q8_occupancy": [_I, _P]},
+    "att_block_bf16": {"att_block_bf16_launch":
+                       [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _F, _P, _I, _I, _I,
+                        _I, _I, _P, _P, _P, _P, _P, _P],
+                       "att_block_bf16_occupancy": [_I, _P]},
     "att_block_f32": {"att_block_f32_launch":
                       [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I,
                        _I, _P, _P, _P, _P, _P, _P],
@@ -69,6 +74,9 @@ _SIGNATURES = {
                 "ffn_f32_occupancy": [_I, _P]},
     "ffn_q8": {"ffn_q8_launch": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P],
                "ffn_q8_occupancy": [_I, _P]},
+    "ffn_bf16": {"ffn_bf16_launch": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P,
+                                     _P],
+                 "ffn_bf16_occupancy": [_I, _P]},
     "conv_block": {"conv_block_launch": _CONV + [_I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P]},
     "conv_block_q8": {"conv_block_q8_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                                                _P, _P, _P, _P],

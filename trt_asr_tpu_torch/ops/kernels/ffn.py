@@ -1,21 +1,21 @@
 """Fused conformer feed-forward module: the CUDA kernels ``csrc/ffn_f32.cu``
-(f32 weights) and ``csrc/ffn_q8.cu`` (int8 weights), each one persistent
-cooperative launch a call laid out by :func:`ffn_f32_plan` or
-:func:`ffn_q8_plan` on weights packed once (:func:`pack_ffn`), the chain of
-``csrc/ffn.cu`` (bf16 weights, :func:`fused_ffn_chain`), and their plain
-PyTorch version.
+(f32 weights), ``csrc/ffn_q8.cu`` (int8 weights) and ``csrc/ffn_bf16.cu``
+(bf16 weights), each one persistent cooperative launch a call laid out by
+:func:`ffn_f32_plan`, :func:`ffn_q8_plan` or :func:`ffn_bf16_plan` on
+weights packed once (:func:`pack_ffn`), the chain of ``csrc/ffn.cu`` that
+they replaced (:func:`fused_ffn_chain`), and their plain PyTorch version.
 
 Replaces ``trt_asr_tpu/ops/pallas/ffn_kernel.py:fused_ffn_pallas``:
 ``x + scale * silu(LN(x) @ W1) @ W2``. The bound on the H100 is memory: one
-read of W1 and W2 (33.6 MB f32, 8.4 MB int8 at full size) per call, for all
-rows; the kernels read each weight byte once a pass of 8 rows (see the
-sources' notes). Block b of a persistent kernel owns ``cols_e`` columns of
+read of W1 and W2 (33.6 MB f32, 16.8 MB bf16, 8.4 MB int8 at full size) per
+call, for all rows; the kernels read each weight byte once a pass of 8 rows
+(see the sources' notes). Block b of a persistent kernel owns ``cols_e`` columns of
 the expansion, its columns of h = silu(LN(x) @ W1[:, slice]), and adds up
 ``cols_d`` columns of y after one grid barrier: the f32 kernel computes
 h_b @ W2[slice, :], a partial of every column of y, and adds every block's
 partial of its columns in a fixed order (runs of FFN_SUM_RUN blocks, each
-in block order, then the runs' sums in order); the int8 kernel writes its
-columns of h and multiplies all of h by its columns of W2.
+in block order, then the runs' sums in order); the int8 and bf16 kernels
+write their columns of h and multiply all of h by their columns of W2.
 """
 
 from __future__ import annotations
@@ -53,13 +53,14 @@ def fused_ffn_plain(x, ln_g, ln_b, w1, w2, scale: float = 0.5):
 
 class FfnPlan(NamedTuple):
     """Launch plan of a persistent FFN (``csrc/ffn_f32.cu``,
-    ``csrc/ffn_q8.cu``)."""
+    ``csrc/ffn_q8.cu``, ``csrc/ffn_bf16.cu``)."""
     blocks: int          # one an expansion slice, all co-resident
     cols_e: int          # expansion columns a block (W1's columns, W2's rows)
     cols_d: int          # columns of y a block adds up after the barrier
     smem: int            # dynamic shared bytes a block
-    scratch: int         # bytes of scratch, two buffers: the blocks' partials (f32), h (int8)
-    stages: int = 0      # f32 weights: slots of the weights' ring (0: the int8 kernel)
+    scratch: int         # bytes of scratch, two buffers: the blocks' partials (f32), h (int8, bf16)
+    stages: int = 0      # f32 weights: slots of the weights' ring (0: int8, bf16)
+    kind: str = "int8"   # the weights' type: int8, bf16 or f32
 
 
 FFN_SLICE = 32           # expansion columns a block takes in multiples of (csrc FF_SLICE)
@@ -114,7 +115,7 @@ def ffn_f32_plan(d: int, e: int, sms: int, smem_limit: int = SMEM_PER_BLOCK,
         raise ValueError(f"{what}: {smem} B of shared memory a block at D={d}, E={e} "
                          f"exceeds {smem_limit} B")
     # two buffers of the blocks' [8, D] partials
-    return FfnPlan(blocks, ce, cd, smem, 2 * blocks * TAIL_ROWS * d * 4, stages)
+    return FfnPlan(blocks, ce, cd, smem, 2 * blocks * TAIL_ROWS * d * 4, stages, "f32")
 
 
 def _q8_blob_bytes(d: int, e: int, ce: int, cd: int) -> int:
@@ -147,6 +148,37 @@ def ffn_q8_plan(d: int, e: int, sms: int, smem_limit: int = SMEM_PER_BLOCK) -> F
     return FfnPlan(blocks, ce, cd, smem, 2 * TAIL_ROWS * e * 2)
 
 
+def _bf16_blob_elems(d: int, e: int, ce: int, cd: int) -> int:
+    """A block's bf16 slices of W1 ([ce / 8][Dp / 16][8][16]) and W2 ([cd /
+    8][Ep / 16][8][16]), in elements (``fb_blob`` in the source)."""
+    return pad_k(d) * ce + pad_k(e) * cd
+
+
+def ffn_bf16_plan(d: int, e: int, sms: int, smem_limit: int = SMEM_PER_BLOCK) -> FfnPlan:
+    """The grid and shared memory of the bf16 FFN: the int8 kernel's split
+    (:func:`ffn_q8_plan`) with bf16 slices, whole in shared memory (64 KB
+    each at full width), and x's rows in the operand buffer of h's rows,
+    past u's (h's overwrite them after the grid barrier; the residual is
+    read from device memory). Mirrors ``fb_smem`` in the source, which
+    checks it at launch. Raises ValueError for shapes the kernel does not
+    take (E not a multiple of 8 among them) or whose staging does not fit."""
+    what = "fused_ffn[bf16]"
+    ce, blocks, cd = _ffn_grid(what, d, e, sms, TAIL_GROUP)
+    if e % TAIL_GROUP:
+        raise ValueError(f"{what}: needs E a multiple of {TAIL_GROUP} (E={e})")
+    u_rows = TAIL_ROWS * (pad_k(d) + TAIL_KSTEP) * 2
+    smem = (_bf16_blob_elems(d, e, ce, cd) * 2                  # weight slices
+            + max(u_rows + TAIL_ROWS * d * 4,                   # u's rows, x's rows,
+                  TAIL_ROWS * (pad_k(e) + TAIL_KSTEP) * 2)      # then h's over them
+            + 2 * d * 4                                         # LN's g, b
+            + TAIL_WARPS * max(ce, cd) * TAIL_ROWS * 4          # per-warp sums
+            + 7 * 8)                                            # mbarriers: x, W1, W2, h's chunks
+    if smem > smem_limit:
+        raise ValueError(f"{what}: {smem} B of shared memory a block at D={d}, E={e} "
+                         f"exceeds {smem_limit} B")
+    return FfnPlan(blocks, ce, cd, smem, 2 * TAIL_ROWS * e * 2, kind="bf16")
+
+
 def pack_ffn_f32(w1, w2, plan: FfnPlan) -> torch.Tensor:
     """The f32 weights as the f32 FFN's ring takes them, a block's slice
     contiguous: [blocks, 2 runs * FFN_RUN * cols_e] f32, block b holding for
@@ -164,6 +196,19 @@ def pack_ffn_f32(w1, w2, plan: FfnPlan) -> torch.Tensor:
     b[:e, :d] = w2
     b = b.view(blocks, ce // 4, 4, runs, FFN_RUN).permute(0, 3, 1, 4, 2)
     return torch.cat([a.reshape(blocks, -1), b.reshape(blocks, -1)], dim=1).float().contiguous()
+
+
+def pack_ffn_bf16(w1, w2, plan: FfnPlan) -> torch.Tensor:
+    """The bf16 weights as the bf16 FFN's blocks read them, a block's slice
+    contiguous: [blocks, elements] bf16, block b holding W1's columns b *
+    cols_e .. and then W2's columns b * cols_d .. over the whole expansion,
+    each as :func:`~trt_asr_tpu_torch.ops.kernels.persistent.
+    pack_tail_weight` lays out an int8 matrix; zero past D and E
+    (``fb_blob`` in the source). w1 [D, E], w2 [E, D] bf16."""
+    blocks = plan.blocks
+    return torch.cat([pack_tail_weight(w1, plan.cols_e, blocks).reshape(blocks, -1),
+                      pack_tail_weight(w2, plan.cols_d, blocks).reshape(blocks, -1)],
+                     dim=1).contiguous()
 
 
 def pack_ffn_q8(w1, w2, plan: FfnPlan) -> torch.Tensor:
@@ -185,34 +230,31 @@ def pack_ffn_q8(w1, w2, plan: FfnPlan) -> torch.Tensor:
 def pack_ffn(w1, w2, sms: int | None = None) -> torch.Tensor:
     """An FFN's weights for :func:`fused_ffn`'s ``packed``, for the plan of
     a card with ``sms`` SMs (by default that of the weights' device): int8
-    QuantTensors by :func:`pack_ffn_q8` (8.4 MB at full width), f32 weights
-    by :func:`pack_ffn_f32` (33.6 MB), each held beside the [D, E] and [E, D]
+    QuantTensors by :func:`pack_ffn_q8` (8.4 MB at full width), bf16
+    weights by :func:`pack_ffn_bf16` (16.8 MB), f32 weights by
+    :func:`pack_ffn_f32` (33.6 MB), each held beside the [D, E] and [E, D]
     matrices that the plain path reads. Made once, where the layer's weights
     are made (``models/parakeet/encoder.py:layer_params``): a packed copy
     that no longer matches the weights gives wrong results. Raises
-    TypeError for other weights (bf16 weights take the chain, which reads
-    them as they are)."""
+    ValueError for weights of mixed or other types."""
     kind = weight_kind("fused_ffn: W1 and W2", w1, w2)
-    if kind == "bf16":
-        raise TypeError("pack_ffn takes int8 QuantTensor or f32 weights")
     t = w1.q if kind == "int8" else w1
     sms = sm_count(t.device.index or 0) if sms is None else sms
     d, e = t.shape
-    if kind == "int8":
-        return pack_ffn_q8(w1, w2, ffn_q8_plan(d, e, sms))
-    return pack_ffn_f32(w1, w2, ffn_f32_plan(d, e, sms))
+    plan, pack = _plan_and_packer(kind)
+    return pack(w1, w2, plan(d, e, sms))
 
 
 def check_packed_ffn(packed: torch.Tensor, plan: FfnPlan, d: int, e: int) -> None:
     """Raises ValueError unless ``packed`` has the layout of ``plan``'s
-    slices: with an f32 plan (``stages`` > 0) [blocks, floats of a block's
-    slice] f32, with an int8 plan [blocks, bytes of a block's slice]
-    uint8."""
-    if plan.stages:
-        what, want = "f32", (torch.float32, (plan.blocks, 2 * _f32_runs(d) * FFN_RUN * plan.cols_e))
-    else:
-        what, want = "int8", (torch.uint8,
-                              (plan.blocks, _q8_blob_bytes(d, e, plan.cols_e, plan.cols_d)))
+    slices: with an f32 plan [blocks, floats of a block's slice] f32, with a
+    bf16 plan [blocks, elements of a block's slice] bf16, with an int8 plan
+    [blocks, bytes of a block's slice] uint8."""
+    ce, cd = plan.cols_e, plan.cols_d
+    dtype, elems = {"f32": (torch.float32, 2 * _f32_runs(d) * FFN_RUN * ce),
+                    "bf16": (torch.bfloat16, _bf16_blob_elems(d, e, ce, cd)),
+                    "int8": (torch.uint8, _q8_blob_bytes(d, e, ce, cd))}[plan.kind]
+    what, want = plan.kind, (dtype, (plan.blocks, elems))
     if (packed.dtype, tuple(packed.shape)) != want:
         raise ValueError(f"fused_ffn[{what}]: packed weights {packed.dtype} "
                          f"{tuple(packed.shape)} do not fit the launch plan {want[0]} "
@@ -232,39 +274,34 @@ def _check_args(x, ln_g, ln_b, w1_t, w2_t):
 
 def fused_ffn(x, ln_g, ln_b, w1, w2, scale: float = 0.5, packed=None):
     """Fused FFN; same arguments and result as :func:`fused_ffn_plain`. CPU
-    tensors take the plain version; CUDA tensors launch a kernel (or
-    raise): with int8 or f32 weights the persistent kernel of that type,
-    one cooperative launch (raising also when its blocks cannot all be
-    resident), with bf16 weights :func:`fused_ffn_chain`. ``packed``: the
-    int8 or f32 weights as :func:`pack_ffn` lays them out, made once with
-    the weights; without it they are packed anew at every call. As the TPU
-    kernel, it rounds f32 activations to bf16 before an int8 product
+    tensors take the plain version; CUDA tensors launch the persistent
+    kernel of the weights' type (int8, bf16 or f32), one cooperative
+    launch, or raise (also when its blocks cannot all be resident).
+    ``packed``: the weights as :func:`pack_ffn` lays them out, made once
+    with the weights; without it they are packed anew at every call. As
+    the TPU kernel, it rounds f32 activations to bf16 before an int8 product
     whatever ``TRT_ASR_Q8_ACT`` says (no "split" mode)."""
     if x.device.type == "cpu":
         return fused_ffn_plain(x, ln_g, ln_b, w1, w2, scale)
     kind = weight_kind("fused_ffn: W1 and W2", w1, w2)
-    if kind == "bf16":
-        if packed is not None:
-            raise ValueError("fused_ffn: packed weights are for int8 and f32 weights only")
-        return fused_ffn_chain(x, ln_g, ln_b, w1, w2, scale)
     int8 = kind == "int8"
     d, e = _check_args(x, ln_g, ln_b, w1.q if int8 else w1, w2.q if int8 else w2)
     kb.require_cuda("fused_ffn", x, ln_g, ln_b)
-    sms = sm_count(x.device.index or 0)
-    plan = ffn_q8_plan(d, e, sms) if int8 else ffn_f32_plan(d, e, sms)
+    make_plan, pack = _plan_and_packer(kind)
+    plan = make_plan(d, e, sm_count(x.device.index or 0))
     if packed is None:
-        packed = pack_ffn_q8(w1, w2, plan) if int8 else pack_ffn_f32(w1, w2, plan)
+        packed = pack(w1, w2, plan)
     check_packed_ffn(packed, plan, d, e)
     kb.require_cuda("fused_ffn", x, packed)
     # bulk copies (16-byte aligned) of x's rows, the norms and the weights
     kb.require_aligned("fused_ffn", 4, x, ln_g, ln_b)
     kb.require_aligned("fused_ffn", 16 // packed.element_size(), packed)
-    name = "ffn_q8" if int8 else "ffn_f32"
+    name = {"int8": "ffn_q8", "bf16": "ffn_bf16", "f32": "ffn_f32"}[kind]
     lib = kb.load(name)
     x2 = x.view(-1, d)
     y = torch.empty_like(x)
     scratch = torch.empty((plan.scratch,), dtype=torch.uint8, device=x.device)
-    stages = () if int8 else (plan.stages,)
+    stages = (plan.stages,) if kind == "f32" else ()
     rc = getattr(lib, f"{name}_launch")(
         x2.data_ptr(), x2.shape[0], d, e, ln_g.data_ptr(), ln_b.data_ptr(), packed.data_ptr(),
         plan.blocks, plan.cols_e, plan.cols_d, *stages, plan.smem, float(scale), y.data_ptr(),
@@ -277,10 +314,9 @@ def fused_ffn(x, ln_g, ln_b, w1, w2, scale: float = 0.5, packed=None):
 def fused_ffn_chain(x, ln_g, ln_b, w1, w2, scale: float = 0.5):
     """The chain of ``csrc/ffn.cu`` on CUDA tensors (LayerNorm, a split-K W1
     product with its SiLU epilogue, a split-K W2 product with the scaled
-    residual: five launches) with f32, bf16 or int8 weights:
-    :func:`fused_ffn`'s kernel for bf16 weights, and the predecessor of the
-    f32 and int8 kernels, kept so that ``chip_smoke.py`` times them side by
-    side in one run."""
+    residual: five launches) with f32, bf16 or int8 weights: the
+    predecessor of the persistent kernels, on no path now, kept so that
+    ``chip_smoke.py`` times it beside them in one run."""
     w1_t, s1, wtype = kb.weight_parts(w1)
     w2_t, s2, wtype2 = kb.weight_parts(w2)
     if wtype != wtype2:
@@ -307,3 +343,9 @@ def fused_ffn_chain(x, ln_g, ln_b, w1, w2, scale: float = 0.5):
 
 
 fused_ffn.launches = 0
+
+
+def _plan_and_packer(kind: str):
+    """The launch plan and the packer of the weights' type ``kind``."""
+    return {"int8": (ffn_q8_plan, pack_ffn_q8), "bf16": (ffn_bf16_plan, pack_ffn_bf16),
+            "f32": (ffn_f32_plan, pack_ffn_f32)}[kind]
