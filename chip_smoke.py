@@ -11,9 +11,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    each kernel's registers, spills and static shared memory (ptxas), and
    the dynamic shared memory and blocks an SM of the flash kernels (bf16
    and f32), of the bf16 rel-shift kernel, of the fused conv + FFN2 +
-   out-LN tail, of the int8, bf16 and f32 attention blocks, of the int8
-   and f32 joint steps, of the int8, bf16 and f32 FFNs and of the int8 and
-   f32 conv modules (each one cooperative launch: its grid at full width
+   out-LN tail, of the int8, bf16 and f32 attention blocks, joint steps,
+   FFNs and conv modules (each one cooperative launch: its grid at full width
    must be resident at once), and the log-mel kernel's grid at a 0.5 s
    push.
 2. each kernel against its plain PyTorch version on the card at the
@@ -35,7 +34,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    (``csrc/joint_step_q8.cu``, ``csrc/joint_step_f32.cu``) run on their
    weights packed once, as the model packs them, are captured and replayed,
    and are timed beside the three launches of ``csrc/joint_step.cu`` that
-   they replaced (which bf16 weights keep). The int8 and f32 FFNs
+   they replaced (as the bf16 joint step is, below). The int8 and f32 FFNs
    (``csrc/ffn_q8.cu``, ``csrc/ffn_f32.cu``) run on their weights packed
    once, as the model packs them, are captured and replayed, and are timed
    beside the five launches of ``csrc/ffn.cu`` that they replaced (as
@@ -43,20 +42,23 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    (``csrc/conv_block_q8.cu``, ``csrc/conv_block_f32.cu``) run on their
    constants packed once, as the model packs them, are captured and
    replayed, and are timed beside the five launches of
-   ``csrc/conv_block.cu`` that they replaced (which bf16 weights keep).
+   ``csrc/conv_block.cu`` that they replaced (as the bf16 conv module is).
    The log-mel kernel runs at T 1,
    50 (a 0.5 s push, the kernels line's reading), 51 and 300 (a flush),
    each held at 1e-3, timed beside its plain version and replayed from a
    captured graph. Then the bf16 weights of ``cast_params_for_compute``
    (bf16 biases and taps, their f32 copies kept once): the bf16 attention
-   block (``csrc/att_block_bf16.cu``, one cooperative launch, over an f32
-   and a bf16 kv cache read as stored) and FFN (``csrc/ffn_bf16.cu``, one
-   cooperative launch), each on its weights packed once, as the model packs
-   them, and timed beside the chain it replaced (``csrc/att_block.cu``,
-   ``csrc/ffn.cu``) in the same run; the two remaining chains
-   (``csrc/joint_step.cu``, ``csrc/conv_block.cu`` over an f32 and a bf16
-   time cache); all at 1e-3, a tolerance shown to fail the plain version
-   without the bf16 rounding points; and the int8 attention block and
+   block (``csrc/att_block_bf16.cu``, over an f32 and a bf16 kv cache read
+   as stored), joint step (``csrc/joint_step_bf16.cu``; tokens and
+   durations equal wherever the top-2 margin is clear), FFN
+   (``csrc/ffn_bf16.cu``) and conv module (``csrc/conv_block_bf16.cu``,
+   over an f32 and a bf16 time cache read as stored), each one cooperative
+   launch on its weights packed once, as the model packs them, and timed
+   beside the chain it replaced (``csrc/att_block.cu``,
+   ``csrc/joint_step.cu``, ``csrc/ffn.cu``, ``csrc/conv_block.cu``) in the
+   same run, and faster than it; all at 1e-3, a tolerance shown to fail
+   the plain version without the bf16 rounding points; and the int8
+   attention block and
    joint step with bf16 biases (the fast arm) at 1e-4, each timed beside
    its plain version and its bound and replayed from a captured graph.
 3. full-width session (``ModelConfig()``, seeded random weights from the
@@ -74,7 +76,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the tail's constants). The JAX package's bf16 configurations: the bf16
    weights of ``cast_params_for_compute`` with an f32 state, the attention,
    joint and log-mel kernels (``bf16_on``) and every kernel (``bf16_all``),
-   (the bf16 attention block and FFN kernels, the joint and conv chains);
+   (the bf16 attention block, joint, FFN and conv kernels);
    the fast arm's weights, bf16 then ``quant="all"``, attention and joint,
    over the session's f32 state (``fast_on``) and over a bf16 state as
    the JAX bench's fast arm runs (``fast_step``: its int8 attention kernel
@@ -91,11 +93,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    Launch counts are reset just before each kernel arm and read just after.
    In each arm's profile every wrapper call of the fused tail is one kernel
    (``conv_ffn_ln_kernel``), and no conv module kernel runs beside it; every
-   call of the attention block and the FFN is one persistent kernel of its
-   weights' type, and of the joint step and the conv module, with int8 or
-   f32 weights, one persistent kernel of that type and no chain's launch,
-   and with bf16 weights exactly the chain's launches and no persistent
-   kernel. The bytes of each arm's packed FFN,
+   call of the attention block, the joint step, the FFN and the conv module
+   is one persistent kernel of its weights' type, and no kernel of a chain
+   runs; each kernel's us a launch is logged. The bytes of each arm's
+   packed FFN,
    attention, conv and tail copies are logged. No int8 arm widens an
    int8 weight at a call (``q8_matmul.widened`` stays 0: the model's bf16
    copies feed the tensor cores), here and in phase 4; the memory the
@@ -128,10 +129,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 3b. the lockstep engine (``streaming/batch_engine.py``) at full width: 8
    streams of different lengths, one attached after three steps, the
    shortest finalized while the others stream (its flush inside a lockstep
-   step), joint kernel on at 8 rows a step; f32: each stream token-exact
-   with its own session on the card; bf16 weights: each stream's encoder
-   output within twice its session's noise floor. Step ms (median, p90)
-   and joint launches a step.
+   step), joint kernel on at 8 rows a step, each joint call one launch of
+   the persistent kernel of the weights' type and no chain's kernel
+   (profiler); f32: each stream token-exact with its own session on the
+   card; bf16 weights: each stream's encoder output within twice its
+   session's noise floor. Step ms (median, p90) and joint launches a step.
 4. the trained ``artifacts/models/gate_r3`` on the card with the kernels
    on, each token-exact against the port's CPU plain path: attention,
    joint and log-mel kernels in f32, int8 and bf16; every kernel in f32,
@@ -209,8 +211,8 @@ KERNEL_SRCS = {
     "jointq": ("joint_step", "trt_asr_tpu_torch/csrc/joint_step_q8.cu",
                "trt_asr_tpu/ops/pallas/joint_step_kernel.py:124",
                {"int8": "int8_on", "fast": "fast_on"}),
-    # the joint step with bf16 weights: the launches of csrc/joint_step.cu
-    "jointb": ("joint_step", "trt_asr_tpu_torch/csrc/joint_step.cu",
+    # the joint step with bf16 weights: its own persistent kernel
+    "jointb": ("joint_step", "trt_asr_tpu_torch/csrc/joint_step_bf16.cu",
                "trt_asr_tpu/ops/pallas/joint_step_kernel.py:124", {"bf16": "bf16_on"}),
     "mel": ("logmel", "trt_asr_tpu_torch/csrc/mel.cu",
             "trt_asr_tpu/ops/pallas/mel_kernel.py:65", {"f32": "f32_on"}),
@@ -221,13 +223,12 @@ KERNEL_SRCS = {
              "trt_asr_tpu/ops/pallas/ffn_kernel.py:115", {"int8": "int8_all"}),
     "ffnb": ("ffn", "trt_asr_tpu_torch/csrc/ffn_bf16.cu",
              "trt_asr_tpu/ops/pallas/ffn_kernel.py:115", {"bf16": "bf16_all"}),
-    # the conv module with f32 and with int8 weights: a persistent kernel
-    # each; bf16 weights: the five launches of csrc/conv_block.cu
+    # the conv module with f32, int8 and bf16 weights: a persistent kernel each
     "conv": ("conv_block", "trt_asr_tpu_torch/csrc/conv_block_f32.cu",
              "trt_asr_tpu/ops/pallas/conv_block_kernel.py:99", {"f32": "f32_all"}),
     "convq": ("conv_block", "trt_asr_tpu_torch/csrc/conv_block_q8.cu",
               "trt_asr_tpu/ops/pallas/conv_block_kernel.py:99", {"int8": "int8_conv"}),
-    "convb": ("conv_block", "trt_asr_tpu_torch/csrc/conv_block.cu",
+    "convb": ("conv_block", "trt_asr_tpu_torch/csrc/conv_block_bf16.cu",
               "trt_asr_tpu/ops/pallas/conv_block_kernel.py:99", {"bf16": "bf16_all"}),
     "tail": ("conv_ffn_ln", "trt_asr_tpu_torch/csrc/conv_ffn_ln.cu",
              "trt_asr_tpu/ops/pallas/conv_block_kernel.py:184", {"int8": "int8_all"}),
@@ -361,19 +362,20 @@ def log_resources(torch, build, cfg) -> None:
     """Registers, spills and static shared memory of every kernel (ptxas),
     and the dynamic shared memory and the blocks an SM holds of the flash
     kernels, the bf16 rel-shift kernel (bf16 at the full-width head dim),
-    the fused tail, the int8, bf16 and f32 attention blocks and the int8
-    and f32 joint steps (a steady chunk's 8 rows at full width; the CUDA
-    occupancy API), the int8, bf16 and f32 FFNs, the int8 and f32 conv
-    modules (the same rows), and the log-mel kernel's grid at a 0.5 s push
-    (50 frames)."""
+    the fused tail, the int8, bf16 and f32 attention blocks and joint
+    steps (a steady chunk's 8 rows at full width; the CUDA occupancy API),
+    the int8, bf16 and f32 FFNs and conv modules (the same rows), and the
+    log-mel kernel's grid at a 0.5 s push (50 frames)."""
     import ctypes
 
     from trt_asr_tpu_torch.ops.kernels.att_block import (att_block_bf16_plan, att_block_f32_plan,
                                                          att_block_q8_plan)
-    from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block_f32_plan,
+    from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block_bf16_plan,
+                                                          conv_block_f32_plan,
                                                           conv_block_q8_plan, conv_ffn_ln_plan)
     from trt_asr_tpu_torch.ops.kernels.ffn import ffn_bf16_plan, ffn_f32_plan, ffn_q8_plan
-    from trt_asr_tpu_torch.ops.kernels.joint_step import joint_step_f32_plan, joint_step_q8_plan
+    from trt_asr_tpu_torch.ops.kernels.joint_step import (joint_step_bf16_plan,
+                                                          joint_step_f32_plan, joint_step_q8_plan)
     from trt_asr_tpu_torch.ops.kernels.mel import MEL_CL, logmel_plan
 
     for src in build.SOURCES:
@@ -428,14 +430,17 @@ def log_resources(torch, build, cfg) -> None:
         f"{plan.stages} slots for the weights, {plan.smem} B of dynamic shared memory, "
         f"{info[0]} blocks an SM, {sms} SMs")
     assert info[0] >= 1 and plan.blocks <= info[0] * sms, "att_block[f32]'s grid is not resident"
-    plan = joint_step_q8_plan(8, cfg.pred_hidden, cfg.joint_hidden, cfg.joint_vocab_size, sms)
-    lib = build.load("joint_step_q8")
-    build.check(lib, lib.joint_step_q8_occupancy(plan.smem, ctypes.addressof(info)),
-                "joint_step_q8_occupancy")
-    log(f"  joint_step[int8] at 8 rows: {plan.blocks} blocks of {plan.groups} column groups "
-        f"and {plan.hcols} hidden columns, {plan.smem} B of dynamic shared memory, {info[0]} "
-        f"blocks an SM, {sms} SMs")
-    assert info[0] >= 1 and plan.blocks <= info[0] * sms, "joint_step[int8]'s grid is not resident"
+    for arm, plan_of, lib_name in (("int8", joint_step_q8_plan, "joint_step_q8"),
+                                   ("bf16", joint_step_bf16_plan, "joint_step_bf16")):
+        plan = plan_of(8, cfg.pred_hidden, cfg.joint_hidden, cfg.joint_vocab_size, sms)
+        lib = build.load(lib_name)
+        build.check(lib, getattr(lib, f"{lib_name}_occupancy")(plan.smem, ctypes.addressof(info)),
+                    f"{lib_name}_occupancy")
+        log(f"  joint_step[{arm}] at 8 rows: {plan.blocks} blocks of {plan.groups} column groups "
+            f"and {plan.hcols} hidden columns, {plan.smem} B of dynamic shared memory, {info[0]} "
+            f"blocks an SM, {sms} SMs")
+        assert info[0] >= 1 and plan.blocks <= info[0] * sms, (
+            f"joint_step[{arm}]'s grid is not resident")
     plan = joint_step_f32_plan(8, cfg.pred_hidden, cfg.joint_hidden, cfg.joint_vocab_size, sms)
     lib = build.load("joint_step_f32")
     build.check(lib, lib.joint_step_f32_occupancy(plan.smem, ctypes.addressof(info)),
@@ -459,6 +464,8 @@ def log_resources(torch, build, cfg) -> None:
     kk = cfg.conv_kernel_size
     for arm, plan, lib_name in (("int8", conv_block_q8_plan(8, cfg.d_model, kk, sms),
                                  "conv_block_q8"),
+                                ("bf16", conv_block_bf16_plan(8, cfg.d_model, kk, sms),
+                                 "conv_block_bf16"),
                                 ("f32", conv_block_f32_plan(8, cfg.d_model, kk, sms),
                                  "conv_block_f32")):
         lib = build.load(lib_name)
@@ -775,8 +782,9 @@ def check_kernels(torch, dev, timer, cfg):
 # chains' split-K) run in another order than the plain version's, and an f32
 # value one ulp apart can round to the neighbouring bf16 value. Readings at
 # the full width on the H100: the chains' attention 2.55e-4, FFN 2.06e-4,
-# joint and conv 7.2e-7; without the rounding points the plain version lies
-# 2.8e-3 to 7.1e-3 away, so the tolerance sees them.
+# joint and conv 7.2e-7, the kernels' attention 4.8e-7 and FFN 2.1e-4;
+# without the rounding points the plain version lies 2.8e-3 to 7.1e-3 away,
+# so the tolerance sees them.
 BF16_CHAIN_ATOL = 1e-3
 
 
@@ -785,20 +793,23 @@ def check_bf16_kernels(torch, dev, timer, cfg):
     full-width steady-chunk shapes, with bf16 biases and taps (their f32
     copies kept once, as the model keeps them) and the session's f32
     caches: the bf16 attention block (``csrc/att_block_bf16.cu``; also over
-    a bf16 kv cache, a bf16 encoder state, read as stored) and FFN
-    (``csrc/ffn_bf16.cu``) on weights packed once, each timed beside the
-    chain it replaced in the same run; the joint step's and the conv
-    module's chains; then the int8 attention block and joint step with bf16
-    leftovers (the fast arm: bf16, then int8). Each against its plain
-    version, timed beside it and its bound, captured into a CUDA graph and
-    replayed."""
+    a bf16 kv cache, a bf16 encoder state, read as stored), joint step
+    (``csrc/joint_step_bf16.cu``), FFN (``csrc/ffn_bf16.cu``) and conv
+    module (``csrc/conv_block_bf16.cu``; also over a bf16 time cache, read
+    as stored), each one cooperative launch on weights packed once, timed
+    beside the chain it replaced in the same run and faster than it; then
+    the int8 attention block and joint step with bf16 leftovers (the fast
+    arm: bf16, then int8). Each against its plain version (the joint's
+    tokens and durations equal wherever the top-2 margin is clear), timed
+    beside it and its bound, captured into a CUDA graph and replayed."""
     from trt_asr_tpu_torch.ops.kernels.att_block import (att_block, att_block_chain,
                                                          att_block_plain, pack_att_block)
-    from trt_asr_tpu_torch.ops.kernels.conv_block import conv_block, conv_block_plain
+    from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block, conv_block_chain,
+                                                          conv_block_plain, pack_conv_block)
     from trt_asr_tpu_torch.ops.kernels.ffn import (fused_ffn, fused_ffn_chain, fused_ffn_plain,
                                                    pack_ffn)
-    from trt_asr_tpu_torch.ops.kernels.joint_step import (joint_step, joint_step_plain,
-                                                          pack_joint_step)
+    from trt_asr_tpu_torch.ops.kernels.joint_step import (joint_step, joint_step_chain,
+                                                          joint_step_plain, pack_joint_step)
     from trt_asr_tpu_torch.ops.quant import as_f32, keep_f32_copy, quantize_tensor
 
     rng = np.random.default_rng(4242)
@@ -819,6 +830,8 @@ def check_bf16_kernels(torch, dev, timer, cfg):
     widened0 = as_f32.widened
 
     def check(label, key, tol, kernel, plain, nbytes, ops, unrounded=None):
+        """The kernel against its plain version, timed beside it (and
+        recorded under ``key``, where one is given)."""
         got, want = kernel(), plain()
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         torch.cuda.synchronize()
@@ -827,9 +840,11 @@ def check_bf16_kernels(torch, dev, timer, cfg):
         assert err <= tol, f"{label} disagrees with its plain version"
         if unrounded is not None:
             check_rounding_points(label, tol, got, got_tuple(unrounded()))
+        rec = measure(label, timer, err, kernel, plain, nbytes, ops, "bf16")
         if key:
-            records[key] = measure(label, timer, err, kernel, plain, nbytes, ops, "bf16")
+            records[key] = rec
         check_graph_capture(torch, label, lambda: got_tuple(kernel()), (), got)
+        return rec
 
     def got_tuple(r):
         return r if isinstance(r, tuple) else (r,)
@@ -843,11 +858,14 @@ def check_bf16_kernels(torch, dev, timer, cfg):
             f"({packed.numel() * packed.element_size()} B)")
         return packed
 
-    def beside_chain(label, chain, plain):
-        """The chain that the kernel replaced, timed in the same run."""
+    def beside_chain(label, rec, chain, plain):
+        """The chain that the kernel replaced, timed in the same run: the
+        kernel (``rec``) must be faster."""
         err = max_err(got_tuple(chain()), got_tuple(plain()))
-        log(f"  {label}: {timer(chain):.4f} ms (host enqueue {timer.host_us:.1f} us/call), "
+        chain_ms = timer(chain)
+        log(f"  {label}: {chain_ms:.4f} ms (host enqueue {timer.host_us:.1f} us/call), "
             f"max |chain - plain| {err:.3g}")
+        assert rec["ms"] < chain_ms, f"{label}: the kernel is not faster than the chain"
 
     # attention block: bf16 weights and biases, f32 positional table, a full
     # ring with the cursor mid-ring; the kv cache f32 (the session's) and bf16
@@ -867,12 +885,12 @@ def check_bf16_kernels(torch, dev, timer, cfg):
         args = (x, ln_g, ln_b, *wsb, bu, bv, pos, kvc, meta)
         nbytes = (x.numel() * 4 * 5 + 2 * d * 4 + sum(wbytes(w) for w in wsb) + 2 * d * 2
                   + pos.numel() * 4 + kvc.numel() * kvc.element_size() + 12)
-        check(f"att_block[bf16] ({cache} kv cache)", key, BF16_CHAIN_ATOL,
-              lambda: att_block(*args, n_heads=h, packed=att_packed),
-              lambda: att_block_plain(*args, n_heads=h), nbytes, att_ops,
-              lambda: att_block_plain(x, ln_g, ln_b, *[w.float() for w in wsb], bu, bv, pos,
-                                      kvc.float(), meta, n_heads=h))
-        beside_chain(f"att_block[bf16] ({cache} kv cache) chain (csrc/att_block.cu)",
+        rec = check(f"att_block[bf16] ({cache} kv cache)", key, BF16_CHAIN_ATOL,
+                    lambda: att_block(*args, n_heads=h, packed=att_packed),
+                    lambda: att_block_plain(*args, n_heads=h), nbytes, att_ops,
+                    lambda: att_block_plain(x, ln_g, ln_b, *[w.float() for w in wsb], bu, bv,
+                                            pos, kvc.float(), meta, n_heads=h))
+        beside_chain(f"att_block[bf16] ({cache} kv cache) chain (csrc/att_block.cu)", rec,
                      lambda: att_block_chain(*args, n_heads=h),
                      lambda: att_block_plain(*args, n_heads=h))
     # the fast arm's int8 attention block: bf16 biases, weights quantized after the cast
@@ -885,7 +903,8 @@ def check_bf16_kernels(torch, dev, timer, cfg):
           lambda: att_block(*args, n_heads=h, packed=packed),
           lambda: att_block_plain(*args, n_heads=h), nbytes, att_ops)
 
-    # joint step: 8 rows, bf16 weights and biases (the chain); int8 with bf16 biases
+    # joint step: 8 rows, bf16 weights and biases (the bf16 kernel, on weights
+    # packed once); int8 with bf16 biases
     rows, j, p, v = tq, cfg.joint_hidden, cfg.pred_hidden, cfg.joint_vocab_size
     eproj, g = t(rows, j), t(rows, p, sc=0.5)
     wp, wo = t(p, j, sc=1 / math.sqrt(p)).to(bf), t(j, v, sc=1 / math.sqrt(j)).to(bf)
@@ -895,8 +914,9 @@ def check_bf16_kernels(torch, dev, timer, cfg):
     joint_ops = 2 * rows * (p * j + j * v)
     qwp, qwo = quantize_tensor(wp.float()), quantize_tensor(wo.float())
     jpacked = pack_joint_step(qwp, bp, qwo, bo)
+    jbpacked = packed_once("joint_step[bf16]", lambda: pack_joint_step(wp, bp, wo, bo))
     for label, key, tol, (a1, a2), jkw in (
-            ("joint_step[bf16] (chain)", "bf16_jointb", BF16_CHAIN_ATOL, (wp, wo), {}),
+            ("joint_step[bf16]", "bf16_jointb", BF16_CHAIN_ATOL, (wp, wo), {"packed": jbpacked}),
             ("joint_step[fast] (int8, bf16 biases)", "fast_jointq", 1e-4, (qwp, qwo),
              {"packed": jpacked})):
         args = (eproj, g, a1, bp, a2, bo)
@@ -914,10 +934,17 @@ def check_bf16_kernels(torch, dev, timer, cfg):
             top2 = torch.topk(lg, 2, dim=1).values
             clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
             assert bool(((a == b) | ~clear).all()), f"{label} {name} argmax disagrees"
-        check(label, key, tol, lambda: kernel()[2], lambda: joint_step_plain(*args, **kw)[2],
-              nbytes, joint_ops,
-              None if jkw else lambda: joint_step_plain(eproj, g, wp.float(), bp, wo.float(), bo,
-                                                        **kw)[2])
+        log(f"  {label}: tokens equal: {bool((tok == tok_p).all())}, durations equal: "
+            f"{bool((dur == dur_p).all())}")
+        bf16 = key == "bf16_jointb"
+        rec = check(label, key, tol, lambda: kernel()[2], lambda: joint_step_plain(*args, **kw)[2],
+                    nbytes, joint_ops,
+                    (lambda: joint_step_plain(eproj, g, wp.float(), bp, wo.float(), bo,
+                                              **kw)[2]) if bf16 else None)
+        if bf16:
+            beside_chain(f"{label} three launches (csrc/joint_step.cu)", rec,
+                         lambda: joint_step_chain(*args, **kw)[2],
+                         lambda: joint_step_plain(*args, **kw)[2])
 
     # FFN and conv module on the steady chunk's 8 rows (6 valid), bf16 weights
     fln = (1.0 + t(d, sc=0.1), t(d, sc=0.1))
@@ -927,8 +954,8 @@ def check_bf16_kernels(torch, dev, timer, cfg):
     check("ffn[bf16]", "bf16_ffnb", BF16_CHAIN_ATOL, lambda: fused_ffn(*args, packed=ffn_packed),
           lambda: fused_ffn_plain(*args), (2 * tq * d + 2 * d) * 4 + wbytes(w1) + wbytes(w2),
           4 * tq * d * e, lambda: fused_ffn_plain(x, *fln, w1.float(), w2.float()))
-    beside_chain("ffn[bf16] five launches (csrc/ffn.cu)", lambda: fused_ffn_chain(*args),
-                 lambda: fused_ffn_plain(*args))
+    beside_chain("ffn[bf16] five launches (csrc/ffn.cu)", records["bf16_ffnb"],
+                 lambda: fused_ffn_chain(*args), lambda: fused_ffn_plain(*args))
     cln = (1.0 + t(d, sc=0.1), t(d, sc=0.1))
     pw1, pw2 = t(d, 2 * d, sc=1 / math.sqrt(d)).to(bf), t(d, d, sc=1 / math.sqrt(d)).to(bf)
     dw = small(kk, d, sc=1 / math.sqrt(kk))
@@ -936,15 +963,21 @@ def check_bf16_kernels(torch, dev, timer, cfg):
     half = (kk - 1) // 2
     tc = t(half, d)
     mask = (torch.arange(tq, device=dev) < valid_tq).float()[:, None]
-    args = (x, *cln, pw1, dw, *bn, pw2, tc, mask)
-    conv_bytes = (3 * tq * d + (2 + 4 + half) * d + tq) * 4 + kk * d * 2
-    check("conv_block[bf16] (chain)", "bf16_convb", BF16_CHAIN_ATOL, lambda: conv_block(*args),
-          lambda: conv_block_plain(*args), conv_bytes + wbytes(pw1) + wbytes(pw2),
-          2 * tq * d * 3 * d + 2 * tq * kk * d,
-          lambda: conv_block_plain(x, *cln, pw1.float(), dw, *bn, pw2.float(), tc, mask))
-    args = (x, *cln, pw1, dw, *bn, pw2, tc.to(bf), mask)
-    check("conv_block[bf16] (chain, bf16 time cache)", "", BF16_CHAIN_ATOL,
-          lambda: conv_block(*args), lambda: conv_block_plain(*args), 0, 0)
+    conv_packed = packed_once("conv_block[bf16]", lambda: pack_conv_block(pw1, dw, *bn, pw2))
+    conv_ops = 2 * tq * d * 3 * d + 2 * tq * kk * d
+    # the session's f32 time cache (bf16_all), then a bf16 state's, read as stored
+    for cache, key, tcc in (("f32", "bf16_convb", tc), ("bf16", "", tc.to(bf))):
+        args = (x, *cln, pw1, dw, *bn, pw2, tcc, mask)
+        conv_bytes = ((3 * tq * d + (2 + 4) * d + tq) * 4 + kk * d * 2
+                      + tcc.numel() * tcc.element_size())
+        rec = check(f"conv_block[bf16] ({cache} time cache)", key, BF16_CHAIN_ATOL,
+                    lambda: conv_block(*args, packed=conv_packed), lambda: conv_block_plain(*args),
+                    conv_bytes + wbytes(pw1) + wbytes(pw2), conv_ops,
+                    lambda: conv_block_plain(x, *cln, pw1.float(), dw, *bn, pw2.float(),
+                                             tcc.float(), mask))
+        beside_chain(f"conv_block[bf16] ({cache} time cache) five launches "
+                     f"(csrc/conv_block.cu)", rec, lambda: conv_block_chain(*args),
+                     lambda: conv_block_plain(*args))
     assert as_f32.widened == widened0, (
         "a kept f32 copy was not used, or a cache was widened: the bf16 kernels read it as stored")
     return records
@@ -1337,32 +1370,31 @@ def make_model(torch, cfg, params, tok, rt, dev, mel_kernel: bool, weights_dtype
                        weights_dtype=weights_dtype)
 
 
-# the kernels of each route: one persistent kernel a call (every type of the
-# attention block and the FFN; int8 and f32 of the joint step and the conv
-# module), or the chain's launches a call (bf16 of those two), by the
-# profiler's kernel names
+# the kernel of each route: one persistent kernel a call of every weight
+# type, by the profiler's kernel names
 PERSISTENT = {"att_block": {"int8": "att_block_q8_kernel", "f32": "att_block_f32_kernel",
                             "bf16": "att_block_bf16_kernel"},
-              "joint_step": {"int8": "joint_step_q8_kernel", "f32": "joint_step_f32_kernel"},
+              "joint_step": {"int8": "joint_step_q8_kernel", "f32": "joint_step_f32_kernel",
+                             "bf16": "joint_step_bf16_kernel"},
               "ffn": {"int8": "ffn_q8_kernel", "f32": "ffn_f32_kernel", "bf16": "ffn_bf16_kernel"},
-              "conv_block": {"int8": "conv_block_q8_kernel", "f32": "conv_block_f32_kernel"}}
+              "conv_block": {"int8": "conv_block_q8_kernel", "f32": "conv_block_f32_kernel",
+                             "bf16": "conv_block_bf16_kernel"}}
+# the kernels of the chains (csrc/att_block.cu, joint_step.cu, ffn.cu,
+# conv_block.cu), on no path: none may run in a session or the engine
+CHAIN_KERNELS = ("rel_attention_kernel", "argmax_reduce_kernel", "conv_module_kernel",
+                 "port::layernorm_kernel", "small_m_gemm_partial", "small_m_gemm_epilogue")
 
 
 def profile_session(torch, label, model, rt, audio, piece: int, state_dtype=None) -> None:
     """Device busy share and kernel time by name over one session
     (torch.profiler): where a steady chunk's time goes. Each wrapper call of
     the fused tail must be one kernel, with no conv module kernel beside
-    it. Each call of the attention block and the FFN must be one persistent
-    kernel of its weights' type (``att_block_q8_kernel`` / ``_bf16`` /
-    ``_f32``, ``ffn_q8_kernel`` / ``_bf16`` / ``_f32``), and each of the
-    joint step and the conv module, with int8 or f32 weights, one of that
-    type (``joint_step_q8_kernel`` / ``_f32``, ``conv_block_q8_kernel`` /
-    ``_f32``), with no launch of a chain; with bf16 weights those two take
-    the chain's launches and no persistent kernel: an
-    ``argmax_reduce_kernel`` a joint call, a ``conv_module_kernel`` a conv
-    call, a LayerNorm kernel a conv call, two split-K product passes a call
-    of each (the conv module's pw1 pass has its epilogue in the conv
-    kernel). No launch of the attention and FFN chains runs."""
+    it. Each call of the attention block, the joint step, the FFN and the
+    conv module must be one persistent kernel of its weights' type
+    (``att_block_q8_kernel`` / ``_bf16`` / ``_f32``, ``joint_step_q8_kernel``
+    / ``_bf16`` / ``_f32``, ``ffn_q8_kernel`` / ``_bf16`` / ``_f32``,
+    ``conv_block_q8_kernel`` / ``_bf16`` / ``_f32``), and no kernel of a
+    chain may run (``CHAIN_KERNELS``)."""
     reset_counts()
     rows = profile_run(torch, label, "chunk", lambda: len(run_session(
         torch, model, rt, audio, piece, state_dtype).chunk_latencies_ms))
@@ -1379,25 +1411,16 @@ def profile_session(torch, label, model, rt, audio, piece: int, state_dtype=None
     routes = {name: weight_kind(name, w) for name, w in (
         ("att_block", lp["att_wq"]), ("joint_step", model.params["joint"]["out"]["w"]),
         ("ffn", lp["ff1_w1"]), ("conv_block", lp["conv_pw1"]))}
-    chain_calls = {k: 0 for k in PERSISTENT}
     for name, kinds in PERSISTENT.items():
         n = counts[name]
         got = {kind: launched(kernel) for kind, kernel in kinds.items()}
         log(f"  profile[{label}]: {n} {name} calls ({routes[name]} weights), launches {got}")
         want = {kind: n if kind == routes[name] else 0 for kind in kinds}
         assert got == want, f"profile[{label}]: {name} is not its route's kernel a call"
-        if routes[name] not in kinds:
-            chain_calls[name] = n
-    a, j, f, c = (chain_calls[k] for k in ("att_block", "joint_step", "ffn", "conv_block"))
-    chain = {k: launched(k) for k in ("rel_attention_kernel", "argmax_reduce_kernel",
-                                      "conv_module_kernel", "port::layernorm_kernel",
-                                      "small_m_gemm_partial", "small_m_gemm_epilogue")}
-    want = {"rel_attention_kernel": a, "argmax_reduce_kernel": j, "conv_module_kernel": c,
-            "port::layernorm_kernel": a + f + c, "small_m_gemm_partial": 2 * (a + j + f + c),
-            "small_m_gemm_epilogue": 2 * (a + j + f) + c}
+    chain = {k: launched(k) for k in CHAIN_KERNELS}
     log(f"  profile[{label}]: the chains' launches (csrc/att_block.cu, joint_step.cu, ffn.cu, "
-        f"conv_block.cu) {chain}, expected {want} (none of the attention and FFN chains)")
-    assert chain == want, f"profile[{label}]: the chains' launches are not their calls'"
+        f"conv_block.cu) {chain}, expected none")
+    assert not any(chain.values()), f"profile[{label}]: a chain's kernel ran"
 
 
 def profile_run(torch, label, unit: str, fn):
@@ -1744,10 +1767,13 @@ def full_width_engine(torch, dev, cfg, params, tok):
     lengths, joint kernel on, f32 and bf16 weights. Seven streams open at
     once, the eighth attaches after three steps; the shortest finalizes
     while the others still stream, so its flush runs inside a lockstep step
-    beside steady rows. f32: each stream's tokens equal its own session's on
-    the card (attention kernel off, joint kernel on, the engine's chunk
-    profile). bf16: each stream's encoder output lies within twice the
-    distance its session moves when its features move by 1e-6."""
+    beside steady rows. Every joint call is one launch of the persistent
+    kernel of the weights' type, and no chain's kernel runs (profiler, over
+    a window of its own: ``profile_engine_joint``).
+    f32: each stream's tokens equal its own session's on the card
+    (attention kernel off, joint kernel on, the engine's chunk profile).
+    bf16: each stream's encoder output lies within twice the distance its
+    session moves when its features move by 1e-6."""
     from trt_asr_tpu_torch.config import RuntimeConfig
     from trt_asr_tpu_torch.ops.kernels.joint_step import joint_step
     from trt_asr_tpu_torch.streaming import batch_engine
@@ -1844,8 +1870,44 @@ def full_width_engine(torch, dev, cfg, params, tok):
         if arm == "f32":
             log(f"engine[f32]: every stream token-exact with its own session "
                 f"({sum(map(len, got.values()))} tokens)")
+        profile_engine_joint(torch, model, rt, audios, piece, arm)
         log(f"engine[{arm}]: {time.perf_counter() - t_arm:.1f} s for the arm")
         del model, eng
+
+
+def profile_engine_joint(torch, model, rt, audios, piece: int, arm: str) -> None:
+    """Each joint call of the engine is one launch of the persistent kernel
+    of the weights' type, and no kernel of a chain runs: torch.profiler over
+    a window of a fresh engine (a stream an utterance, two lockstep steps,
+    then each finalized and drained), kept apart from the timed run, whose
+    host ms the profiler would inflate."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from trt_asr_tpu_torch.streaming.batch_engine import BatchStreamingEngine
+
+    eng = BatchStreamingEngine(model, batch_size=len(audios), runtime=rt)
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sids = [eng.open_stream() for _ in audios]
+        for i in range(2):
+            for sid, a in zip(sids, audios):
+                eng.push_audio(sid, a[i * piece:(i + 1) * piece])
+            eng.step()
+        for sid in sids:
+            eng.finalize_stream(sid)
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+    calls = read_counts()["joint_step"]
+    kernels = {ev.key: ev.count for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA}
+    launched_as = lambda name: sum(n for k, n in kernels.items() if name in k)  # noqa: E731
+    joint_kernel = PERSISTENT["joint_step"][arm]
+    chain = {k: launched_as(k) for k in CHAIN_KERNELS}
+    log(f"engine[{arm}] (profiled window): {calls} joint calls, {launched_as(joint_kernel)} "
+        f"{joint_kernel} launches, the chains' launches {chain}")
+    assert calls > 0 and launched_as(joint_kernel) == calls, (
+        f"engine[{arm}]: a joint call is not one {joint_kernel} launch")
+    assert not any(chain.values()), f"engine[{arm}]: a chain's kernel ran"
 
 
 @contextlib.contextmanager

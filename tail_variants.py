@@ -132,7 +132,7 @@ __device__ __forceinline__ void flip_wait(unsigned int old) {
 }
 
 """
-KERNEL = "template <bool FFN>\n__device__ __forceinline__ void conv_tail("
+KERNEL = "template <typename WT, bool FFN>\n__device__ __forceinline__ void conv_tail("
 
 
 def flip_barrier(src: str) -> str:

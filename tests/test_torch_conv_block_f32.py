@@ -125,7 +125,7 @@ def test_packed_layout_unpacks_slice_for_slice(d, sms):
         assert torch.equal(taps, padded(dw, w)[:, cols])
         assert torch.equal(bnb, padded(torch.stack(bn), w)[:, cols])
     for tq in (1, 8, 13):                       # one copy serves every Tq
-        cb.check_packed_conv(packed, conv_block_f32_plan(tq, d, KK, sms), d, KK, False)
+        cb.check_packed_conv(packed, conv_block_f32_plan(tq, d, KK, sms), d, KK, "f32")
 
 
 @pytest.mark.parametrize("change", ["other_card", "int8_layout", "dropped_block", "other_taps",
@@ -148,7 +148,7 @@ def test_check_packed_conv_refuses_another_layout(change):
     else:
         d = 64
     with pytest.raises(ValueError, match="do not fit the launch plan"):
-        cb.check_packed_conv(packed, plan, d, kk, False)
+        cb.check_packed_conv(packed, plan, d, kk, "f32")
 
 
 def in_order(parts):

@@ -132,7 +132,7 @@ def test_packed_layout_unpacks_slice_for_slice(d, sms):
         assert torch.equal(taps, padded(dw, w)[:, cols])
         assert torch.equal(bnb, padded(torch.stack(bn), w)[:, cols])
     for tq in (1, 8, 13):                       # one copy serves every Tq
-        cb.check_packed_conv(packed, conv_block_q8_plan(tq, d, KK, sms), d, KK, True)
+        cb.check_packed_conv(packed, conv_block_q8_plan(tq, d, KK, sms), d, KK, "int8")
 
 
 @pytest.mark.parametrize("change", ["other_card", "f32_layout", "tail_layout", "dropped_block",
@@ -160,17 +160,26 @@ def test_check_packed_conv_refuses_another_layout(change):
     else:
         packed = packed.view(torch.int8)
     with pytest.raises(ValueError, match="do not fit the launch plan"):
-        cb.check_packed_conv(packed, plan, d, kk, True)
+        cb.check_packed_conv(packed, plan, d, kk, "int8")
 
 
 def test_pack_conv_block_takes_int8_or_f32_weights_only():
+    """Each storage type packs into its own layout (int8 and bf16 uint8 of
+    their own widths, f32 f32); weights of two storage types raise."""
     inp = inputs(3, 8, 6, 64)
     pw1, pw2 = torch.as_tensor(inp["pw1"]), torch.as_tensor(inp["pw2"])
     consts = (torch.as_tensor(inp["dw"]), *[torch.as_tensor(v) for v in inp["bn"]])
-    with pytest.raises(TypeError, match="int8 QuantTensor or f32"):
-        pack_conv_block(pw1.bfloat16(), *consts, pw2.bfloat16(), sms=H100_SMS)
+    q8 = pack_conv_block(quantize_tensor(pw1), *consts, quantize_tensor(pw2), sms=H100_SMS)
+    b16 = pack_conv_block(pw1.bfloat16(), *consts, pw2.bfloat16(), sms=H100_SMS)
+    assert q8.dtype == b16.dtype == torch.uint8 and q8.shape != b16.shape
+    cb.check_packed_conv(b16, cb.conv_block_bf16_plan(8, 64, KK, H100_SMS), 64, KK, "bf16")
+    with pytest.raises(ValueError, match="do not fit the launch plan"):
+        cb.check_packed_conv(b16, conv_block_q8_plan(8, 64, KK, H100_SMS), 64, KK, "int8")
+    assert pack_conv_block(pw1, *consts, pw2, sms=H100_SMS).dtype == torch.float32
     with pytest.raises(ValueError, match="one storage type"):
         pack_conv_block(pw1, *consts, quantize_tensor(pw2), sms=H100_SMS)
+    with pytest.raises(ValueError, match="one storage type"):
+        pack_conv_block(pw1.bfloat16(), *consts, pw2, sms=H100_SMS)
 
 
 def replay(x, g, b, tc, mask, packed, plan, kk=KK, rounded=True):

@@ -114,7 +114,7 @@ def test_packed_blob_reads_back_into_the_matrices(p, j, v, sms):
     plan = joint_step_f32_plan(8, p, j, v, sms)
     packed = pack_joint_step(wp, bp, wo, bo, sms=sms)
     assert packed.dtype == torch.float32 and packed.is_contiguous()
-    check_packed_joint(packed, plan, p, j, f32=True)
+    check_packed_joint(packed, plan, p, j, "f32")
     parts, pads = unpack(packed, plan, p, j, v)
     for name, want in (("wp", wp), ("bp", bp), ("wo", wo), ("bo", bo)):
         np.testing.assert_array_equal(parts[name], want.numpy())
@@ -134,7 +134,7 @@ def test_check_packed_joint_refuses_another_layout(change):
     else:
         packed = pack_joint_step(quantize_tensor(wp), bp, quantize_tensor(wo), bo, sms=H100_SMS)
     with pytest.raises(ValueError, match="do not fit the launch plan"):
-        check_packed_joint(packed, plan, 32, 48, f32=True)
+        check_packed_joint(packed, plan, 32, 48, "f32")
 
 
 def replay(e, g, wp, bp, wo, bo, ths, ndur, blank, penalty, plan):

@@ -24,8 +24,9 @@ from trt_asr_tpu_torch.models.parakeet.model import ParakeetTDT
 from trt_asr_tpu_torch.models.parakeet.quant import keep_bf16_copies
 from trt_asr_tpu_torch.ops.kernels.conv_block import SMEM_PER_BLOCK
 from trt_asr_tpu_torch.ops.kernels.joint_step import (JointPlan, check_packed_joint, joint_step,
-                                                      joint_step_plain, joint_step_q8_plan,
-                                                      pack_joint, pack_joint_step)
+                                                      joint_step_bf16_plan, joint_step_plain,
+                                                      joint_step_q8_plan, pack_joint,
+                                                      pack_joint_step)
 from trt_asr_tpu_torch.ops.quant import QuantTensor, quantize_tensor, round_bf16
 
 H100_SMS = 132
@@ -146,18 +147,24 @@ def test_check_packed_joint_refuses_another_layout(change):
 
 
 def test_pack_joint_step_takes_int8_weights_only():
-    """pack_joint_step packs int8 weights and f32 weights (each its own
-    layout), and refuses bf16 weights and a pair of two storage types."""
+    """pack_joint_step packs int8, bf16 and f32 weights, each into its own
+    layout (int8 and bf16 uint8 of their own widths, f32 f32), and refuses a
+    pair of two storage types."""
     wp, bp, wo, bo = int8_joint(32, 48, 70, seed=5)
-    assert pack_joint_step(wp, bp, wo, bo, sms=H100_SMS).dtype == torch.uint8
+    q8 = pack_joint_step(wp, bp, wo, bo, sms=H100_SMS)
     fwp, fwo = wp.q.float() * wp.s, wo.q.float() * wo.s
     assert pack_joint_step(fwp, bp, fwo, bo, sms=H100_SMS).dtype == torch.float32
-    with pytest.raises(TypeError, match="int8 QuantTensor or f32"):
-        pack_joint_step(fwp.bfloat16(), bp, fwo.bfloat16(), bo, sms=H100_SMS)
-    with pytest.raises(TypeError, match="int8 QuantTensor or f32"):
+    b16 = pack_joint_step(fwp.bfloat16(), bp, fwo.bfloat16(), bo, sms=H100_SMS)
+    assert q8.dtype == b16.dtype == torch.uint8 and q8.shape != b16.shape
+    check_packed_joint(b16, joint_step_bf16_plan(8, 32, 48, 70, H100_SMS), 32, 48, "bf16")
+    with pytest.raises(ValueError, match="do not fit the launch plan"):
+        check_packed_joint(b16, joint_step_q8_plan(8, 32, 48, 70, H100_SMS), 32, 48)
+    with pytest.raises(ValueError, match="one storage type"):
         pack_joint_step(fwp, bp, wo, bo, sms=H100_SMS)
-    with pytest.raises(TypeError, match="int8 QuantTensor or f32"):
+    with pytest.raises(ValueError, match="one storage type"):
         pack_joint_step(wp, bp, wo.q.float(), bo, sms=H100_SMS)
+    with pytest.raises(ValueError, match="one storage type"):
+        pack_joint_step(fwp.bfloat16(), bp, fwo, bo, sms=H100_SMS)
 
 
 def replay(e, g, wp, bp, wo, bo, ths, ndur, blank, penalty, plan):

@@ -49,15 +49,16 @@ from trt_asr_tpu_torch.frontend.logmel import LogMelFrontend
 from trt_asr_tpu_torch.models.parakeet.encoder import offline_encode
 from trt_asr_tpu_torch.models.parakeet.model import ParakeetTDT
 from trt_asr_tpu_torch.ops.kernels.att_block import att_block, att_block_plain, pack_att_block
-from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block, conv_block_plain,
-                                                      conv_ffn_ln, conv_ffn_ln_plain,
-                                                      pack_conv_block, pack_conv_ffn_ln)
+from trt_asr_tpu_torch.ops.kernels.conv_block import (conv_block, conv_block_chain,
+                                                      conv_block_plain, conv_ffn_ln,
+                                                      conv_ffn_ln_plain, pack_conv_block,
+                                                      pack_conv_ffn_ln)
 from trt_asr_tpu_torch.ops.kernels.ffn import (fused_ffn, fused_ffn_chain, fused_ffn_plain,
                                                pack_ffn)
 from trt_asr_tpu_torch.ops.kernels.flash_att import (copy_widths, flash_bias_attention,
                                                      flash_bias_attention_plain)
-from trt_asr_tpu_torch.ops.kernels.joint_step import (joint_step, joint_step_plain,
-                                                      pack_joint_step)
+from trt_asr_tpu_torch.ops.kernels.joint_step import (joint_step, joint_step_chain,
+                                                      joint_step_plain, pack_joint_step)
 from trt_asr_tpu_torch.ops.kernels.mel import logmel, logmel_plain, pack_logmel_basis
 from trt_asr_tpu_torch.ops.kernels.rel_shift import (rel_pos_bias_shifted,
                                                      rel_pos_bias_shifted_plain, rel_shift)
@@ -238,8 +239,8 @@ def test_att_block_takes_bf16_biases_and_cache(kind, cache, d, h, c, tq):
 @pytest.mark.parametrize("kind", ["bf16", "int8"])
 def test_joint_step_takes_bf16_biases(kind):
     """bf16 joint biases (with int8 weights: bf16, then int8), at 8 and 48
-    rows (the engine's B rows), through the chain (bf16) or the persistent
-    int8 kernel packed at the call and once beforehand."""
+    rows (the engine's B rows), through the persistent bf16 or int8 kernel,
+    its weights packed at the call and once beforehand (the same bits)."""
     dev = require_cuda()
     p, j, vocab, ndur = 32, 48, 64, 5
     v = vocab + 1 + ndur
@@ -254,9 +255,8 @@ def test_joint_step_takes_bf16_biases(kind):
         torch.cuda.synchronize()
         torch.testing.assert_close(got[2], lg_p, atol=1e-4, rtol=1e-4)
         assert torch.equal(got[0], tok_p) and torch.equal(got[1], dur_p)
-        if kind == "int8":
-            again = joint_step(*args, **kw, packed=pack_joint_step(wp, bp, wo, bo))
-            assert all(torch.equal(a, b) for a, b in zip(again, got))
+        again = joint_step(*args, **kw, packed=pack_joint_step(wp, bp, wo, bo))
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
 
 
 @pytest.mark.cuda
@@ -264,8 +264,10 @@ def test_joint_step_takes_bf16_biases(kind):
 @pytest.mark.parametrize("cache", ["f32", "bf16"])
 def test_conv_block_takes_bf16_taps_and_time_cache(kind, cache):
     """bf16 taps (their f32 copy kept once) and an f32 or bf16 time cache:
-    the chain reads a bf16 cache as stored, the int8 kernel an f32 copy made
-    at the call; at the card-test width and the full width."""
+    the bf16 kernel (``csrc/conv_block_bf16.cu``) reads a bf16 cache as
+    stored, the int8 kernel an f32 copy made at the call; at the card-test
+    width and the full width, the constants packed at the call and once
+    beforehand giving the same bits."""
     dev = require_cuda()
     for tq, valid, d in ((8, 6, 64), (8, 6, 1024)):
         args = list(conv_inputs(dev, 3 + d, tq, valid, d, kind))
@@ -276,10 +278,12 @@ def test_conv_block_takes_bf16_taps_and_time_cache(kind, cache):
         n0 = quant.as_f32.widened
         got = conv_block(*args)
         want = conv_block_plain(*args)
+        again = conv_block(*args, packed=pack_conv_block(*args[3:10]))
         torch.cuda.synchronize()
-        for g, w in zip(got, want):
+        for g, w, a in zip(got, want, again):
             torch.testing.assert_close(g, w, atol=2e-3, rtol=1e-4)
-        assert quant.as_f32.widened - n0 == int(cache == "bf16" and kind == "int8")
+            assert torch.equal(a, g)
+        assert quant.as_f32.widened - n0 == 2 * int(cache == "bf16" and kind == "int8")
 
 
 @pytest.mark.cuda
@@ -308,6 +312,86 @@ def test_bf16_ffn_chain_at_the_full_width():
 
 
 @pytest.mark.cuda
+def test_bf16_joint_and_conv_at_the_full_width():
+    """The bf16 joint step (8 and 48 rows: a chunk, the engine's B rows) and
+    conv module (a steady chunk, over an f32 and a bf16 time cache) at the
+    full width with bf16 weights at 1/sqrt(K), as ``chip_smoke.py`` phase 2
+    draws them: each persistent kernel (``csrc/joint_step_bf16.cu``,
+    ``csrc/conv_block_bf16.cu``; one launch a call, its weights packed once
+    and at the call, the same bits) and the chain it replaced
+    (``csrc/joint_step.cu``, ``csrc/conv_block.cu``, on no path now, kept
+    for ``chip_smoke.py`` to time) within 1e-3 of the plain version (the
+    tensor cores' f32 sums run in another order; one flipped bf16 rounding
+    moves an output by ~3e-4); the joint's tokens and durations equal
+    wherever the plain version's top-2 margin exceeds twice that."""
+    dev = require_cuda()
+    r = randn(dev, 45)
+    bf = torch.bfloat16
+    p, j, v, ths, ndur = 640, 640, 8198, 8193, 5
+    wp, wo = r(p, j, sc=p ** -0.5).to(bf), r(j, v, sc=j ** -0.5).to(bf)
+    bp, bo = r(j, sc=0.1).to(bf), r(v, sc=0.1).to(bf)
+    quant.keep_f32_copy(bp)
+    quant.keep_f32_copy(bo)
+    packed = pack_joint_step(wp, bp, wo, bo)
+    kw = dict(ths=ths, ndur=ndur, blank_id=ths - 1, blank_penalty=0.5)
+    for rows in (8, 48):
+        args = (r(rows, j, sc=1.0), r(rows, p, sc=0.5), wp, bp, wo, bo)
+        before = joint_step.launches
+        got = joint_step(*args, **kw, packed=packed)
+        assert joint_step.launches == before + 1
+        again = joint_step(*args, **kw)
+        want = joint_step_plain(*args, **kw)
+        chain = joint_step_chain(*args, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
+        for lg in (got[2], chain[2]):
+            torch.testing.assert_close(lg, want[2], atol=1e-3, rtol=0)
+        tl = want[2][:, :ths].clone()
+        tl[:, ths - 1] -= 0.5
+        for a, b, lg in ((got[0], want[0], tl), (got[1], want[1], want[2][:, ths:])):
+            top2 = torch.topk(lg, 2, dim=1).values
+            assert bool(((a == b) | ((top2[:, 0] - top2[:, 1]) <= 2e-3)).all())
+    d = 1024
+    for cache in (torch.float32, bf):
+        args = list(conv_inputs(dev, 46, 8, 6, d, "bf16"))
+        args[4] = args[4].to(bf)
+        quant.keep_f32_copy(args[4])
+        args[10] = args[10].to(cache)
+        packed = pack_conv_block(*args[3:10])
+        n0, before = quant.as_f32.widened, conv_block.launches
+        got = conv_block(*args, packed=packed)
+        assert conv_block.launches == before + 1
+        again = conv_block(*args)
+        want = conv_block_plain(*args)
+        chain = conv_block_chain(*args)
+        torch.cuda.synchronize()
+        assert quant.as_f32.widened == n0                 # the bf16 cache read as stored
+        for g, w, a, c in zip(got, want, again, chain):
+            assert torch.equal(a, g)
+            torch.testing.assert_close(g, w, atol=1e-3, rtol=0)
+            torch.testing.assert_close(c, w, atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_bf16_joint_is_one_graph_replayable_launch():
+    """The bf16 joint step at the full width is one cooperative launch a
+    call and no kernel of the three-launch chain (``csrc/joint_step.cu``)
+    runs; a CUDA graph captures it, and the replay equals the direct call
+    bit for bit."""
+    dev = require_cuda()
+    r = randn(dev, 47)
+    bf = torch.bfloat16
+    p, j, v = 640, 640, 8198
+    wargs = (r(p, j, sc=p ** -0.5).to(bf), r(j, sc=0.1), r(j, v, sc=j ** -0.5).to(bf),
+             r(v, sc=0.1))
+    packed = pack_joint_step(*wargs)
+    e, g = r(8, j, sc=1.0), r(8, p, sc=0.5)
+    call = lambda: joint_step(e, g, *wargs, ths=8193, ndur=5, blank_id=8192,  # noqa: E731
+                              blank_penalty=0.5, packed=packed)
+    assert_one_graph_replayable_launch(call, "joint_step_bf16_kernel")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind,kernel", [("int8", "att_block_q8_kernel"),
                                          ("f32", "att_block_f32_kernel"),
                                          ("bf16", "att_block_bf16_kernel")])
@@ -328,10 +412,10 @@ def test_att_block_is_one_graph_replayable_launch(kind, kernel):
 @pytest.mark.parametrize("kind", WEIGHTS)
 def test_joint_step_kernel_matches_plain(kind):
     """Each weight type at the card-test width, at rows 1, 8, 16, 37 and 128
-    (the gate admits B*T <= 128); int8 and f32 weights (each one cooperative
-    launch a call, ``csrc/joint_step_q8.cu`` and ``csrc/joint_step_f32.cu``)
-    also packed once beforehand (``packed``, as the model passes them),
-    giving the same bits."""
+    (the gate admits B*T <= 128), each one cooperative launch a call
+    (``csrc/joint_step_q8.cu``, ``csrc/joint_step_bf16.cu``,
+    ``csrc/joint_step_f32.cu``), also packed once beforehand (``packed``, as
+    the model passes them), giving the same bits."""
     dev = require_cuda()
     p, j, vocab, ndur = 32, 48, 64, 5
     ths = vocab + 1
@@ -350,10 +434,9 @@ def test_joint_step_kernel_matches_plain(kind):
         torch.cuda.synchronize()
         torch.testing.assert_close(lg, lg_p, atol=1e-4, rtol=1e-4)
         assert torch.equal(tok, tok_p) and torch.equal(dur, dur_p)
-        if kind != "bf16":
-            packed = pack_joint_step(wp, args[3], wo, args[5])
-            for a, b in zip(joint_step(*args, **kw, packed=packed), (tok, dur, lg)):
-                assert torch.equal(a, b)
+        packed = pack_joint_step(wp, args[3], wo, args[5])
+        for a, b in zip(joint_step(*args, **kw, packed=packed), (tok, dur, lg)):
+            assert torch.equal(a, b)
 
 
 def joint_tie_inputs(dev, rows, kind, p=8, j=16, v=24):
@@ -534,21 +617,20 @@ def conv_inputs(dev, seed, tq, valid, d, kind):
             (torch.arange(tq, device=dev) < valid).float()[:, None])
 
 
-# (Tq, valid steps, D) of the conv module: the card-test widths; with int8
-# or f32 weights (the persistent kernels) also one row, a steady chunk and
-# two passes of 8 rows at the full width
-CONV_SHAPES = [(8, 6, 64), (6, 6, 64), (3, 1, 64), (8, 6, 96)]
-PERSISTENT_CONV_SHAPES = CONV_SHAPES + [(1, 1, 1024), (8, 6, 1024), (13, 11, 1024)]
+# (Tq, valid steps, D) of the conv module: the card-test widths, one row, a
+# steady chunk and two passes of 8 rows at the full width
+CONV_SHAPES = [(8, 6, 64), (6, 6, 64), (3, 1, 64), (8, 6, 96), (1, 1, 1024), (8, 6, 1024),
+               (13, 11, 1024)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", WEIGHTS)
 def test_conv_block_kernel_matches_plain(kind):
-    """With int8 and f32 weights (one cooperative launch a call) the
-    constants packed once beforehand (``packed``, as the model passes them)
-    give the same bits as those packed by the call."""
+    """With each weight type (one cooperative launch a call) the constants
+    packed once beforehand (``packed``, as the model passes them) give the
+    same bits as those packed by the call."""
     dev = require_cuda()
-    for tq, valid, d in CONV_SHAPES if kind == "bf16" else PERSISTENT_CONV_SHAPES:
+    for tq, valid, d in CONV_SHAPES:
         args = conv_inputs(dev, tq + d, tq, valid, d, kind)
         before = conv_block.launches
         got = conv_block(*args)
@@ -559,17 +641,17 @@ def test_conv_block_kernel_matches_plain(kind):
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, atol=atol, rtol=1e-4)
         assert float(got[1][valid:].abs().sum()) == 0.0
-        if kind != "bf16":
-            again = conv_block(*args, packed=pack_conv_block(*args[3:10]))
-            torch.cuda.synchronize()
-            assert all(torch.equal(a, g) for a, g in zip(again, got))
+        again = conv_block(*args, packed=pack_conv_block(*args[3:10]))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,kernel", [("int8", "conv_block_q8_kernel"),
-                                         ("f32", "conv_block_f32_kernel")])
+                                         ("f32", "conv_block_f32_kernel"),
+                                         ("bf16", "conv_block_bf16_kernel")])
 def test_conv_block_is_one_graph_replayable_launch(kind, kernel):
-    """With int8 and with f32 weights a conv module call is one cooperative
+    """With int8, f32 and bf16 weights a conv module call is one cooperative
     launch and no kernel of the five-launch chain (``csrc/conv_block.cu``)
     runs; a CUDA graph captures it, and the replay equals the direct call
     bit for bit (the kernels add in a fixed order)."""
@@ -647,8 +729,14 @@ def test_wrappers_raise_instead_of_falling_back():
     conv = conv_inputs(dev, 4, 8, 6, 64, "f32")
     with pytest.raises(ValueError, match="do not fit the launch plan"):       # int8's layout
         conv_block(*conv, packed=pack_conv_block(*conv_inputs(dev, 4, 8, 6, 64, "int8")[3:10]))
-    with pytest.raises(ValueError, match="int8 and f32 weights only"):
-        conv_block(*conv_inputs(dev, 4, 8, 6, 64, "bf16"), packed=pack_conv_block(*conv[3:10]))
+    bconv = conv_inputs(dev, 4, 8, 6, 64, "bf16")
+    for wrong in (pack_conv_block(*conv[3:10]),                              # f32's layout
+                  pack_conv_block(*conv_inputs(dev, 4, 8, 6, 64, "int8")[3:10]),   # int8's
+                  pack_conv_block(*bconv[3:10], sms=4)):                   # another card's
+        with pytest.raises(ValueError, match="do not fit the launch plan"):
+            conv_block(*bconv, packed=wrong)
+    with pytest.raises(ValueError, match="one storage type"):
+        conv_block(*bconv[:9], conv[9], *bconv[10:])
     assert conv_block.launches == before
     conv = conv_inputs(dev, 5, 8, 6, 64, "f32")
     tail = (g, b, r(64, 128), r(128, 64), g, b)
@@ -699,9 +787,12 @@ def test_wrappers_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="do not fit the launch plan"):
         joint_step(*jargs[:2], r(8, 16), jargs[3], r(16, 40), jargs[5], ths=33, ndur=5,
                    blank_id=32, packed=pack_joint_step(*jargs[2:]))     # int8's layout
-    with pytest.raises(ValueError, match="int8 and f32 weights only"):
+    with pytest.raises(ValueError, match="do not fit the launch plan"):     # int8's layout
         joint_step(*jargs[:2], r(8, 16).bfloat16(), jargs[3], r(16, 40).bfloat16(), jargs[5],
                    ths=33, ndur=5, blank_id=32, packed=pack_joint_step(*jargs[2:]))
+    with pytest.raises(ValueError, match="one storage type"):
+        joint_step(*jargs[:2], r(8, 16).bfloat16(), jargs[3], r(16, 40), jargs[5], ths=33,
+                   ndur=5, blank_id=32)
     assert joint_step.launches == before
     fe = LogMelFrontend(FrontendSpec(n_mels=128), device=dev)
     margs = (r(8, 400), fe._wcos, fe._wsin, fe._mel, fe.spec.log_floor)
@@ -768,15 +859,19 @@ def test_int8_model_keeps_bf16_copies_and_widens_nothing():
 @pytest.mark.cuda
 def test_f32_model_packs_the_joint_once():
     """An f32 model on the card with the joint kernel on packs the joint's
-    f32 weights once (``csrc/joint_step_f32.cu``'s layout); bf16 weights
-    keep the three launches and pack nothing."""
+    f32 weights once (``csrc/joint_step_f32.cu``'s layout), a model with
+    the bf16 weights of ``cast_params_for_compute`` its bf16 weights
+    (``csrc/joint_step_bf16.cu``'s), and its layers' conv modules with the
+    conv kernel on; without the kernels nothing is packed."""
     dev = require_cuda()
-    rt = RuntimeConfig(use_pallas_joint=True)
-    model = ParakeetTDT.from_model_dir(GATE_R3, runtime=rt, device=dev)
-    jp = model.params["joint"]
-    assert torch.equal(model.joint_packed, pack_joint_step(jp["pred"]["w"], jp["pred"]["b"],
-                                                           jp["out"]["w"], jp["out"]["b"]))
-    assert model.joint_packed.dtype == torch.float32
+    rt = RuntimeConfig(use_pallas_joint=True, use_pallas_conv=True)
+    for wdt, packed_dtype in ((None, torch.float32), (torch.bfloat16, torch.uint8)):
+        model = ParakeetTDT.from_model_dir(GATE_R3, runtime=rt, device=dev, weights_dtype=wdt)
+        jp = model.params["joint"]
+        assert torch.equal(model.joint_packed, pack_joint_step(
+            jp["pred"]["w"], jp["pred"]["b"], jp["out"]["w"], jp["out"]["b"]))
+        assert model.joint_packed.dtype == packed_dtype
+        assert all("conv_block_packed" in lp for lp in model.layers)
     assert ParakeetTDT.from_model_dir(GATE_R3, device=dev).joint_packed is None
 
 

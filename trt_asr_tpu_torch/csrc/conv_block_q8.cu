@@ -3,7 +3,7 @@
 //
 // Replaces: trt_asr_tpu/ops/pallas/conv_block_kernel.py:conv_block_pallas
 // (its pallas_call at :99) with int8 weights; f32 weights take
-// csrc/conv_block_f32.cu, bf16 weights the chain of csrc/conv_block.cu.
+// csrc/conv_block_f32.cu, bf16 weights csrc/conv_block_bf16.cu.
 // For the Tq rows x of one layer:
 //   u = bf16(LN(x)); hw = (u @ pw1) * s1; c = hw[:, :D] * sigmoid(hw[:, D:]) * mask
 //   a = bf16(silu(BN(depthwise taps over [time cache ++ c ++ 0])))
@@ -14,7 +14,7 @@
 // conv) a call reads 3.15 MB of int8 weights: 0.94 us at 3.35 TB/s; the
 // products are 50 MFLOP, 0.05 us at the bf16 tensor-core rate.
 //
-// Design: the fused tail's phases (a)-(c), conv_tail<false> of
+// Design: the fused tail's phases (a)-(c), conv_tail<int8_t, false> of
 // csrc/conv_tail.cuh (its notes give the phases): 128 blocks at full width,
 // block b owning cD = 8 columns of pw1 (with their GLU gates) and of pw2
 // over the whole K, one grid barrier between the conv and pw2. A block's
@@ -31,7 +31,7 @@
 namespace port {
 
 __global__ void __launch_bounds__(TL_THREADS, 1) conv_block_q8_kernel(TailArgs p) {
-  conv_tail<false>(p);
+  conv_tail<int8_t, false>(p);
 }
 
 }  // namespace port

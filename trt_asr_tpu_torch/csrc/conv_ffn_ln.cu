@@ -2,9 +2,9 @@
 // weights (B=1 streaming chunks): one persistent cooperative launch a layer.
 //
 // Replaces: trt_asr_tpu/ops/pallas/conv_block_kernel.py:conv_ffn_ln_pallas
-// (its pallas_call at :184). The kernel is conv_tail<true> of
+// (its pallas_call at :184). The kernel is conv_tail<int8_t, true> of
 // csrc/conv_tail.cuh, whose notes give the function and the design; the
-// conv module alone with int8 weights is conv_tail<false>
+// conv module alone with int8 weights is conv_tail<int8_t, false>
 // (csrc/conv_block_q8.cu).
 //
 // Bound on the H100: memory. At full width (D 1024, E 4096, Tq 8) the four
@@ -15,7 +15,7 @@
 namespace port {
 
 __global__ void __launch_bounds__(TL_THREADS, 1) conv_ffn_ln_kernel(TailArgs p) {
-  conv_tail<true>(p);
+  conv_tail<int8_t, true>(p);
 }
 
 }  // namespace port

@@ -1,18 +1,21 @@
-// The conformer conv module with int8 weights for B=1 streaming chunks as
-// one persistent cooperative launch: the one body, conv_tail<FFN>, of the
-// conv module alone (csrc/conv_block_q8.cu, FFN false) and of the conv
-// module followed by the second FFN and the output LayerNorm
-// (csrc/conv_ffn_ln.cu, FFN true). For the Tq rows x of one layer:
+// The conformer conv module for B=1 streaming chunks as one persistent
+// cooperative launch: the one body, conv_tail<WT, FFN>, of the conv module
+// alone with int8 weights (csrc/conv_block_q8.cu) and with bf16 weights
+// (csrc/conv_block_bf16.cu), FFN false, and of the int8 conv module
+// followed by the second FFN and the output LayerNorm (csrc/conv_ffn_ln.cu,
+// FFN true). For the Tq rows x of one layer:
 //   u = LN_conv(x); hw = u @ pw1 (D -> 2D); c = hw[:, :D] * sigmoid(hw[:, D:])
 //   c = c * mask (padded steps are zero); ext = tc ((K-1)/2 rows) ++ c ++ 0
 //   cv[t] = sum_j ext[t + j] * dw[j]; a = silu((cv - m) * g * rsqrt(v + 1e-5) + b)
 //   y1 = x + a @ pw2
 // and, with FFN, h = silu(LN_ff(y1) @ W1); y2 = y1 + 0.5 * h @ W2;
 // y = LN_out(y2); without it y = y1. Returns (y, c), c being the rows that
-// feed the time cache. Each weight is an int8 matrix [K, N] with a
-// per-column f32 scale applied to the f32 sum. The product operands u, a,
-// LN_ff(y1) and h are rounded to bf16 (the TPU kernel's MXU operands); x,
-// c and the residual stream are not.
+// feed the time cache. An int8 weight (WT int8_t) is an int8 matrix [K, N]
+// with a per-column f32 scale applied to the f32 sum; a bf16 weight (WT
+// bf16) has no scale. The product operands u, a, LN_ff(y1) and h are
+// rounded to bf16 (the TPU kernel's MXU operands); x, c and the residual
+// stream are not. The int8 kernels read an f32 time cache; the bf16 one an
+// f32 or a bf16 cache as stored, widened exactly where it is read.
 //
 // Design. One cooperative launch (cudaLaunchCooperativeKernel: every block
 // co-resident, one an SM; grid-wide barriers by cooperative_groups). Block
@@ -20,17 +23,18 @@
 // split-K partial sums reach device memory: cD columns of pw1 (n and its
 // GLU gate n + D together), of pw2 and of W2, and cE columns of W1 (cD = 8,
 // cE = 32 and 128 blocks at full width; the wrapper's plans,
-// ops/kernels/conv_block.py:conv_ffn_ln_plan and conv_block_q8_plan). The
-// conv module alone is the FFN case with E = cE = 0: its blob, its shared
-// memory and its scratch hold nothing of the FFN.
+// ops/kernels/conv_block.py:conv_ffn_ln_plan, conv_block_q8_plan and
+// conv_block_bf16_plan). The conv module alone is the FFN case with E = cE
+// = 0: its blob, its shared memory and its scratch hold nothing of the FFN.
 //
 // Weights. A block's 8 columns of a [K, N] int8 matrix are 8 bytes a row,
 // too narrow for a 16-byte copy and a quarter of a 32-byte sector. So each
-// layer's constants are packed once, when its int8 weights are made
+// layer's constants are packed once, when its weights are made
 // (ops/kernels/conv_block.py:pack_tail): block b's slices of the weights
-// and its f32 columns of the scales, taps and BN lie contiguous
-// (tail_blob). Thread 0 starts bulk copies (the copy engine, each on its
-// own mbarrier): x's first rows, LN_conv's g and b, the columns and pw1 at
+// and its f32 columns of the scales (int8 only), taps and BN lie contiguous
+// (tail_blob); bf16 slices lie in the same [K/16][8][16] groups, twice the
+// bytes. Thread 0 starts bulk copies (the copy engine, each on its own
+// mbarrier): x's first rows, LN_conv's g and b, the columns and pw1 at
 // entry, the rest of the weights once x has landed; each phase waits for
 // its own bytes only.
 //
@@ -50,9 +54,9 @@
 // Products: tensor cores, mma.sync.m16n8k16 (bf16 operands, f32 sums) with
 // the 8 rows as A (rows 8 .. 15 zero) and 8 weight columns as B; the int8
 // weights widen exactly to bf16 in registers (byte permutes and one bf16
-// subtraction). Each warp sums its run of K; the warps' sums are added in a
-// fixed order, so the kernel is deterministic (no atomics). Rows are taken
-// 8 at a time, so any Tq runs.
+// subtraction), bf16 weights feed the mma as they are. Each warp sums its
+// run of K; the warps' sums are added in a fixed order, so the kernel is
+// deterministic (no atomics). Rows are taken 8 at a time, so any Tq runs.
 //
 // CUDA graphs: the cooperative launch can be captured. chip_smoke.py phase
 // 2 captures one call of each kernel into a torch.cuda.CUDAGraph, replays
@@ -60,6 +64,8 @@
 #pragma once
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "persistent.cuh"
 
@@ -77,40 +83,45 @@ enum { BAR_X, BAR_PW1, BAR_PW2, BAR_W1, BAR_W2, BAR_NORMS, BAR_ROWS, BAR_CHUNK, 
 struct TailArgs {
   const float* x;
   int M, D, E, kk, cD, cE;                // E = cE = 0: the conv module alone
-  const float *ln_g, *ln_b, *tc, *mask, *ff_g, *ff_b, *out_g, *out_b;
+  const float *ln_g, *ln_b;
+  const void* tc;                         // [(kk - 1) / 2, D]: f32, or bf16 with tc_bf16
+  const float *mask, *ff_g, *ff_b, *out_g, *out_b;
   const unsigned char* packed;            // [blocks][tail_blob bytes], see tail_blob
   float *y, *c;
   bf16* a;                                // scratch: [M, D] bf16
   float* y1;                              // [M, D]
   bf16* h;                                // [M, E] bf16
   float* y2;                              // [M, D]
+  int tc_bf16;                            // the time cache is bf16 (bf16 weights only)
 };
 
 // A block's packed slice of the layer's constants (pack_tail in
 // ops/kernels/conv_block.py), byte offsets, in the order of the weights' shared memory:
-//   pw1 [2 cD / 8][Dp / 16][8][16] int8 (the groups of columns n, then those
-//   of their gates n + D), pw2 [cD / 8][Dp / 16][8][16], W1 [cE / 8][Dp / 16]
-//   [8][16], W2 [cD / 8][Ep / 16][8][16]; then f32 columns: pw1's scales (n,
-//   then n + D), pw2's, W1's, W2's, the conv taps [kk][cD], BN g, b, m, v:
-//   each [cD] (W1's [cE]), zero past D (E) and K past its end. The conv
-//   module alone (E = cE = 0) has neither W1, W2 nor their scales.
+//   pw1 [2 cD / 8][Dp / 16][8][16] int8 or bf16 (the groups of columns n,
+//   then those of their gates n + D), pw2 [cD / 8][Dp / 16][8][16], W1 [cE /
+//   8][Dp / 16][8][16], W2 [cD / 8][Ep / 16][8][16]; then f32 columns: with
+//   int8 weights pw1's scales (n, then n + D), pw2's, W1's, W2's; the conv
+//   taps [kk][cD], BN g, b, m, v: each [cD] (W1's [cE]), zero past D (E) and
+//   K past its end. The conv module alone (E = cE = 0) has neither W1, W2
+//   nor their scales. wb: bytes a weight (1 int8, 2 bf16); sc: int8's scales.
 struct TailBlob {
   size_t pw1, pw2, w1, w2, cols, total;
 };
 
-__host__ __device__ inline int tail_cols(int kk, int cD, int cE) {
-  return (7 + kk) * cD + (cE ? cD + cE : 0);
+__host__ __device__ inline int tail_cols(int kk, int cD, int cE, bool sc = true) {
+  return (4 + kk) * cD + (sc ? 3 * cD + (cE ? cD + cE : 0) : 0);
 }
 
-__host__ __device__ inline TailBlob tail_blob(int D, int E, int kk, int cD, int cE) {
+__host__ __device__ inline TailBlob tail_blob(int D, int E, int kk, int cD, int cE, int wb = 1,
+                                              bool sc = true) {
   const size_t Dp = (D + TL_KS - 1) / TL_KS * TL_KS, Ep = (E + TL_KS - 1) / TL_KS * TL_KS;
   TailBlob b;
   b.pw1 = 0;
-  b.pw2 = b.pw1 + Dp * 2 * cD;
-  b.w1 = b.pw2 + Dp * cD;
-  b.w2 = b.w1 + Dp * cE;
-  b.cols = b.w2 + Ep * cD;
-  b.total = b.cols + (size_t)tail_cols(kk, cD, cE) * 4;
+  b.pw2 = b.pw1 + Dp * 2 * cD * wb;
+  b.w1 = b.pw2 + Dp * cD * wb;
+  b.w2 = b.w1 + Dp * cE * wb;
+  b.cols = b.w2 + Ep * cD * wb;
+  b.total = b.cols + (size_t)tail_cols(kk, cD, cE, sc) * 4;
   return b;
 }
 
@@ -119,12 +130,13 @@ struct TailSmem {
   size_t w, act, xs, norms, cols, mask, ext, y1c, red, bars, total;
 };
 
-__host__ __device__ inline TailSmem tail_smem(int M, int D, int E, int kk, int cD, int cE) {
+__host__ __device__ inline TailSmem tail_smem(int M, int D, int E, int kk, int cD, int cE,
+                                              int wb = 1, bool sc = true) {
   const int Dp = tail_pad(D), Ep = tail_pad(E);
   const size_t act_d = (size_t)TL_MR * (Dp + TL_KS) * 2;   // operand rows of K = D, bf16
   const size_t act_e = (size_t)TL_MR * (Ep + TL_KS) * 2;
   const size_t xs = (size_t)TL_MR * D * 4;                 // f32 rows to normalize
-  const TailBlob blob = tail_blob(D, E, kk, cD, cE);
+  const TailBlob blob = tail_blob(D, E, kk, cD, cE, wb, sc);
   TailSmem s;
   size_t o = 0;
   s.w = o;    o += blob.cols;                               // weight slices, as in the blob
@@ -141,16 +153,28 @@ __host__ __device__ inline TailSmem tail_smem(int M, int D, int E, int kk, int c
   return s;
 }
 
-template <bool FFN>
+// Element i of the time cache, f32 or (bf16 weights only) bf16 widened exactly
+template <typename WT>
+__device__ __forceinline__ float tc_at(const TailArgs& p, size_t i) {
+  if constexpr (!std::is_same_v<WT, int8_t>) {
+    if (p.tc_bf16) return __bfloat162float(static_cast<const bf16*>(p.tc)[i]);
+  }
+  return static_cast<const float*>(p.tc)[i];
+}
+
+template <typename WT, bool FFN>
 __device__ __forceinline__ void conv_tail(const TailArgs& p) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool SC = std::is_same_v<WT, int8_t>;          // int8: per-column scales
+  constexpr int WB = sizeof(WT);
+  static_assert(SC || !FFN, "the fused tail takes int8 weights only");
   const int M = p.M, D = p.D, E = p.E, cD = p.cD, cE = p.cE, kk = p.kk;
-  const TailSmem L = tail_smem(M, D, E, kk, cD, cE);
-  const TailBlob B = tail_blob(D, E, kk, cD, cE);
-  const int8_t* w_pw1 = reinterpret_cast<const int8_t*>(smem + L.w + B.pw1);
-  const int8_t* w_pw2 = reinterpret_cast<const int8_t*>(smem + L.w + B.pw2);
-  const int8_t* w_w1 = reinterpret_cast<const int8_t*>(smem + L.w + B.w1);
-  const int8_t* w_w2 = reinterpret_cast<const int8_t*>(smem + L.w + B.w2);
+  const TailSmem L = tail_smem(M, D, E, kk, cD, cE, WB, SC);
+  const TailBlob B = tail_blob(D, E, kk, cD, cE, WB, SC);
+  const WT* w_pw1 = reinterpret_cast<const WT*>(smem + L.w + B.pw1);
+  const WT* w_pw2 = reinterpret_cast<const WT*>(smem + L.w + B.pw2);
+  const WT* w_w1 = reinterpret_cast<const WT*>(smem + L.w + B.w1);
+  const WT* w_w2 = reinterpret_cast<const WT*>(smem + L.w + B.w2);
   bf16* act = reinterpret_cast<bf16*>(smem + L.act);
   float* xs = reinterpret_cast<float*>(smem + L.xs);
   float* norms = reinterpret_cast<float*>(smem + L.norms);    // LN_conv, LN_ff, LN_out
@@ -158,7 +182,7 @@ __device__ __forceinline__ void conv_tail(const TailArgs& p) {
   float* sc2 = sc1 + 2 * cD;                                  // [cD]
   float* fsc1 = sc2 + cD;                                     // [cE]
   float* fsc2 = fsc1 + cE;                                    // [cD]
-  float* dw = fsc2 + (FFN ? cD : 0);                          // [kk][cD]
+  float* dw = SC ? fsc2 + (FFN ? cD : 0) : sc1;               // [kk][cD]
   float* bn = dw + kk * cD;                                   // [4][cD]: g, b, m, v
   float* mask = reinterpret_cast<float*>(smem + L.mask);
   float* ext = reinterpret_cast<float*>(smem + L.ext);
@@ -196,7 +220,7 @@ __device__ __forceinline__ void conv_tail(const TailArgs& p) {
   TL_MARK(1);
   for (int i = threadIdx.x; i < half * cD; i += TL_THREADS) {
     const int r = i / cD, j = i - r * cD;
-    ext[i] = n0 + j < D ? p.tc[(size_t)r * D + n0 + j] : 0.f;
+    ext[i] = n0 + j < D ? tc_at<WT>(p, (size_t)r * D + n0 + j) : 0.f;
   }
   for (int i = threadIdx.x; i < M; i += TL_THREADS) mask[i] = p.mask[i];
   for (int i = threadIdx.x; i < half * cD; i += TL_THREADS) ext[(half + M) * cD + i] = 0.f;
@@ -247,8 +271,14 @@ __device__ __forceinline__ void conv_tail(const TailArgs& p) {
       const int r = i / cD, j = i - r * cD, n = n0 + j, t = m0 + r;
       float v = 0.f;
       if (n < D) {
-        const float hv = __fmul_rn(product_sum(red, 2 * gd, r, j), sc1[j]);
-        const float gate = __fmul_rn(product_sum(red, 2 * gd, r, cD + j), sc1[cD + j]);
+        float hv, gate;
+        if constexpr (SC) {
+          hv = __fmul_rn(product_sum(red, 2 * gd, r, j), sc1[j]);
+          gate = __fmul_rn(product_sum(red, 2 * gd, r, cD + j), sc1[cD + j]);
+        } else {
+          hv = product_sum(red, 2 * gd, r, j);
+          gate = product_sum(red, 2 * gd, r, cD + j);
+        }
         v = __fmul_rn(__fmul_rn(hv, sigmoid_f(gate)), mask[t]);
         p.c[(size_t)t * D + n] = v;
       }
@@ -284,7 +314,9 @@ __device__ __forceinline__ void conv_tail(const TailArgs& p) {
     for (int i = threadIdx.x; i < mr * cD; i += TL_THREADS) {
       const int r = i / cD, j = i - r * cD, n = n0 + j, t = m0 + r;
       const float xv = n >= D ? 0.f : M <= TL_MR ? xs[t * D + n] : p.x[(size_t)t * D + n];
-      const float v = __fadd_rn(xv, __fmul_rn(product_sum(red, gd, r, j), sc2[j]));
+      float v;
+      if constexpr (SC) v = __fadd_rn(xv, __fmul_rn(product_sum(red, gd, r, j), sc2[j]));
+      else v = __fadd_rn(xv, product_sum(red, gd, r, j));
       if constexpr (FFN) {
         y1c[t * cD + j] = v;
         if (n < D) p.y1[(size_t)t * D + n] = v;

@@ -119,9 +119,10 @@ def layer_params(params: Dict[str, Any], num_layers: int, pack_tail: bool = Fals
     packed once for the FFN kernel of that type (``ff1_packed``, ``ff2_packed``,
     :func:`~trt_asr_tpu_torch.ops.kernels.ffn.pack_ffn`), FFN2 only where the
     fused tail does not take it; with ``pack_conv``, one whose conv weights
-    are int8 or f32 on the card holds them, with their taps and BN, packed
-    once for the conv-module kernel of that type (``conv_block_packed``,
-    :func:`pack_conv_block`), except where the fused tail takes the conv."""
+    are int8, bf16 or f32 on the card holds them, with their taps and BN,
+    packed once for the conv-module kernel of that type
+    (``conv_block_packed``, :func:`pack_conv_block`), except where the fused
+    tail takes the conv."""
     stacked = params["encoder"]["layers"]
     out = []
     for li in range(num_layers):
@@ -135,7 +136,8 @@ def layer_params(params: Dict[str, Any], num_layers: int, pack_tail: bool = Fals
         tail = pack_tail and _int8_tail(lp)
         if tail and lp["conv_pw1"].q.is_cuda:
             lp["conv_ffn_ln_packed"] = pack_conv_ffn_ln(*conv, lp["ff2_w1"], lp["ff2_w2"])
-        if pack_conv and not tail and _persistent_weights([conv[0], conv[6]]):
+        if pack_conv and not tail and (_persistent_weights([conv[0], conv[6]])
+                                       or _bf16_weights([conv[0], conv[6]])):
             lp["conv_block_packed"] = pack_conv_block(*conv)
         att = [lp[k] for k in ("att_wq", "att_wk", "att_wv", "att_wo")]
         if pack_att and (_persistent_weights(att) or _bf16_weights(att)):
@@ -175,8 +177,8 @@ def _persistent_weights(ws) -> bool:
 
 def _bf16_weights(ws) -> bool:
     """Whether a module's weights are all bf16 on the card (the weights of
-    ``cast_params_for_compute``): the attention block and the FFN take a
-    persistent kernel for them too; the conv module takes its chain."""
+    ``cast_params_for_compute``): every module takes a persistent kernel for
+    them too."""
     return all(isinstance(w, torch.Tensor) and w.dtype == torch.bfloat16 and w.is_cuda
                for w in ws)
 

@@ -82,9 +82,9 @@ class ParakeetTDT:
             pack_tail=self.runtime.use_pallas_conv and self.runtime.use_pallas_ffn,
             pack_att=self.runtime.use_pallas_att, pack_ffn=self.runtime.use_pallas_ffn,
             pack_conv=self.runtime.use_pallas_conv)
-        # the persistent joint step's int8 or f32 weights packed once
-        # (ops/kernels/joint_step.py; bf16 weights take the chain, unpacked,
-        # with f32 copies of the bf16 biases made here)
+        # the persistent joint step's int8, bf16 or f32 weights packed once
+        # (ops/kernels/joint_step.py), with f32 copies of bf16 biases kept
+        # for the kernels' other reads
         jp, wo = params["joint"], params["joint"]["out"]["w"]
         for b in (jp["pred"]["b"], jp["out"]["b"]):
             keep_f32_copy(b)
@@ -92,7 +92,7 @@ class ParakeetTDT:
         self.joint_packed = (
             pack_joint_step(jp["pred"]["w"], jp["pred"]["b"], wo, jp["out"]["b"])
             if self.runtime.use_pallas_joint and wo_t.is_cuda
-            and wo_t.dtype in (torch.int8, torch.float32)
+            and wo_t.dtype in (torch.int8, torch.bfloat16, torch.float32)
             else None)
 
     @classmethod

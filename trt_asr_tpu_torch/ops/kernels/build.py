@@ -30,7 +30,7 @@ BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("att_block", "att_block_q8", "att_block_bf16", "att_block_f32", "joint_step",
            "joint_step_q8", "joint_step_f32", "mel", "ffn", "ffn_f32", "ffn_q8", "ffn_bf16",
            "conv_block", "conv_block_q8", "conv_block_f32", "conv_ffn_ln", "rel_shift",
-           "flash_att")
+           "flash_att", "conv_block_bf16", "joint_step_bf16")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -62,6 +62,10 @@ _SIGNATURES = {
                       [_P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P,
                        _P, _P],
                       "joint_step_q8_occupancy": [_I, _P]},
+    "joint_step_bf16": {"joint_step_bf16_launch":
+                        [_P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P,
+                         _P, _P],
+                        "joint_step_bf16_occupancy": [_I, _P]},
     "joint_step_f32": {"joint_step_f32_launch":
                        [_P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P,
                         _P, _P],
@@ -81,6 +85,9 @@ _SIGNATURES = {
     "conv_block_q8": {"conv_block_q8_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                                                _P, _P, _P, _P],
                       "conv_block_q8_occupancy": [_I, _P]},
+    "conv_block_bf16": {"conv_block_bf16_launch": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I,
+                                                   _I, _I, _P, _P, _P, _P],
+                        "conv_block_bf16_occupancy": [_I, _P]},
     "conv_block_f32": {"conv_block_f32_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                                                  _P, _P, _P, _P],
                        "conv_block_f32_occupancy": [_I, _P]},

@@ -1,17 +1,19 @@
 """Fused conformer convolution module (B=1 streaming chunks), alone and with
 the second FFN and the output LayerNorm: the CUDA kernels of
-``csrc/conv_block_q8.cu`` (int8 weights), ``csrc/conv_block_f32.cu`` (f32
-weights), the chain of ``csrc/conv_block.cu`` (bf16 weights,
-:func:`conv_block_chain`) and ``csrc/conv_ffn_ln.cu`` (the int8 tail), and
-their plain PyTorch versions.
+``csrc/conv_block_q8.cu`` (int8 weights), ``csrc/conv_block_bf16.cu`` (bf16
+weights), ``csrc/conv_block_f32.cu`` (f32 weights) and
+``csrc/conv_ffn_ln.cu`` (the int8 tail), and their plain PyTorch versions;
+the five launches of ``csrc/conv_block.cu`` (:func:`conv_block_chain`), on
+no path, stay for ``chip_smoke.py`` to time beside the kernels.
 
 Replaces ``trt_asr_tpu/ops/pallas/conv_block_kernel.py:conv_block_pallas``
 and ``:conv_ffn_ln_pallas``. The bound on the H100 is memory: pw1 and pw2
-(12.6 MB f32, 3.1 MB int8 per layer at full size), plus FFN2's W1 and W2 in
-the fused tail (11.5 MB int8 in all); the kernels read each weight byte
-once for all rows (see the sources' notes). The int8 and f32 conv modules
-and the fused tail are each one persistent cooperative launch, laid out by
-:func:`conv_block_q8_plan`, :func:`conv_block_f32_plan` and
+(12.6 MB f32, 6.3 MB bf16, 3.1 MB int8 per layer at full size), plus
+FFN2's W1 and W2 in the fused tail (11.5 MB int8 in all); the kernels read
+each weight byte once for all rows (see the sources' notes). The int8,
+bf16 and f32 conv modules and the fused tail are each one persistent
+cooperative launch, laid out by :func:`conv_block_q8_plan`,
+:func:`conv_block_bf16_plan`, :func:`conv_block_f32_plan` and
 :func:`conv_ffn_ln_plan` on constants packed once (:func:`pack_conv_block`,
 :func:`pack_conv_ffn_ln`): block b owns ``cols_d`` columns of pw1 (with
 their GLU gates) and of pw2 over the whole K, runs the depthwise taps on
@@ -109,42 +111,38 @@ def conv_block(x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_cache, 
                packed=None):
     """Fused conv module; same arguments and results as
     :func:`conv_block_plain`. CPU tensors take the plain version; CUDA
-    tensors launch a kernel (or raise): with int8 or f32 weights the
-    persistent kernel of that type, one cooperative launch (raising also
-    when its blocks cannot all be resident), with bf16 weights
-    :func:`conv_block_chain`. ``packed``: the layer's int8 or f32 weights,
-    taps and BN as :func:`pack_conv_block` lays them out, made once with
-    the weights; without it they are packed anew at every call. A bf16 time
-    cache is read as stored by the chain; the persistent kernels read an f32
-    copy of it, made at the call (:func:`as_f32` counts its bytes)."""
+    tensors launch the persistent kernel of the weights' type (int8, bf16
+    or f32), one cooperative launch, or raise (also when its blocks cannot
+    all be resident). ``packed``: the layer's weights, taps and BN as
+    :func:`pack_conv_block` lays them out, made once with the weights;
+    without it they are packed anew at every call. The bf16 kernel reads a
+    bf16 time cache as stored; the int8 and f32 kernels read an f32 copy of
+    it, made at the call (:func:`as_f32` counts its bytes)."""
     args = (x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_cache, mask)
     if x.device.type == "cpu":
         return conv_block_plain(*args)
     kind = weight_kind("conv_block: pw1 and pw2", pw1, pw2)
-    if kind == "bf16":
-        if packed is not None:
-            raise ValueError("conv_block: packed weights are for int8 and f32 weights only")
-        return conv_block_chain(*args)
     dw = _conv_args("conv_block", *args)[4]
-    time_cache = as_f32(time_cache)
+    if kind != "bf16":
+        time_cache = as_f32(time_cache)
     tq, d = x.shape
     kk = dw.shape[0]
-    int8 = kind == "int8"
-    sms = sm_count(x.device.index or 0)
-    plan = conv_block_q8_plan(tq, d, kk, sms) if int8 else conv_block_f32_plan(tq, d, kk, sms)
+    plan = CONV_PLANS[kind](tq, d, kk, sm_count(x.device.index or 0))
     # bulk copies (16-byte aligned) of x's rows and the norms
     kb.require_aligned("conv_block", 4, x, ln_g, ln_b)
     if packed is None:
-        packed = _pack(pw1, dw, (bn_g, bn_b, bn_m, bn_v), pw2, plan, int8)
-    check_packed_conv(packed, plan, d, kk, int8)
+        packed = _pack(pw1, dw, (bn_g, bn_b, bn_m, bn_v), pw2, plan, kind)
+    check_packed_conv(packed, plan, d, kk, kind)
     kb.require_cuda("conv_block", x, packed)
     kb.require_aligned("conv_block", 16 // packed.element_size(), packed)
-    name = "conv_block_q8" if int8 else "conv_block_f32"
+    name = CONV_LIBS[kind]
     lib = kb.load(name)
     y, c = torch.empty_like(x), torch.empty_like(x)
     scratch = torch.empty((plan.scratch,), dtype=torch.uint8, device=x.device)
+    cache = ((time_cache.data_ptr(), int(time_cache.dtype == torch.bfloat16)) if kind == "bf16"
+             else (time_cache.data_ptr(),))
     rc = getattr(lib, f"{name}_launch")(
-        x.data_ptr(), tq, d, kk, ln_g.data_ptr(), ln_b.data_ptr(), time_cache.data_ptr(),
+        x.data_ptr(), tq, d, kk, ln_g.data_ptr(), ln_b.data_ptr(), *cache,
         mask.data_ptr(), packed.data_ptr(), plan.blocks, plan.cols_d, plan.smem, y.data_ptr(),
         c.data_ptr(), scratch.data_ptr(), kb.stream_ptr(x.device))
     kb.check(lib, rc, "conv_block")
@@ -155,10 +153,10 @@ def conv_block(x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_cache, 
 def conv_block_chain(x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_cache, mask):
     """The chain of ``csrc/conv_block.cu`` on CUDA tensors (LayerNorm, a
     split-K pw1 product, the GLU and conv kernel, a split-K pw2 product with
-    the residual: five launches) with f32, bf16 or int8 weights:
-    :func:`conv_block`'s kernel for bf16 weights, and the predecessor of the
-    f32 and int8 kernels, kept so that ``chip_smoke.py`` times them side by
-    side in one run. An f32 or bf16 time cache is read as stored."""
+    the residual: five launches) with f32, bf16 or int8 weights: the
+    predecessor of the persistent kernels, on no path, kept so that
+    ``chip_smoke.py`` times them side by side in one run. An f32 or bf16
+    time cache is read as stored."""
     args = (x, ln_g, ln_b, pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, time_cache, mask)
     (pw1_t, s1), (pw2_t, s2), wtype, kk, dw = _conv_args("conv_block", *args)
     tq, d = x.shape
@@ -188,8 +186,9 @@ conv_block.launches = 0
 
 class TailPlan(NamedTuple):
     """Launch plan of a persistent conv-module kernel: the fused tail
-    (``csrc/conv_ffn_ln.cu``), the int8 or the f32 conv module
-    (``csrc/conv_block_q8.cu``, ``csrc/conv_block_f32.cu``: ``cols_e`` 0)."""
+    (``csrc/conv_ffn_ln.cu``), the int8, bf16 or f32 conv module
+    (``csrc/conv_block_q8.cu``, ``csrc/conv_block_bf16.cu``,
+    ``csrc/conv_block_f32.cu``: ``cols_e`` 0)."""
     blocks: int          # one a column slice, all co-resident
     cols_d: int          # columns of pw1 (GLU pairs), pw2 and W2 a block
     cols_e: int          # columns of W1 a block
@@ -200,25 +199,28 @@ class TailPlan(NamedTuple):
 CONV_RUN = 64            # K rows of an f32 weight piece (csrc/conv_block_f32.cu CF_RUN)
 
 
-def _tail_weight_bytes(d: int, e: int, cd: int, ce: int) -> int:
-    """A block's int8 slices of pw1, pw2, W1, W2 (K padded to 16; E = cE =
-    0: the conv module alone, pw1 and pw2)."""
-    return pad_k(d) * (3 * cd + ce) + pad_k(e) * cd
+def _tail_weight_bytes(d: int, e: int, cd: int, ce: int, wb: int = 1) -> int:
+    """A block's slices of pw1, pw2, W1, W2, ``wb`` bytes a weight (1 int8,
+    2 bf16; K padded to 16; E = cE = 0: the conv module alone, pw1 and
+    pw2)."""
+    return (pad_k(d) * (3 * cd + ce) + pad_k(e) * cd) * wb
 
 
-def _tail_columns(kk: int, cd: int, ce: int) -> int:
-    """A block's f32 columns: the scales (pw1's twice; W1's and W2's with
-    the FFN, ce > 0), taps, BN."""
-    return (7 + kk) * cd + (cd + ce if ce else 0)
+def _tail_columns(kk: int, cd: int, ce: int, scaled: bool = True) -> int:
+    """A block's f32 columns: with int8 weights (``scaled``) the scales
+    (pw1's twice; W1's and W2's with the FFN, ce > 0); the taps, BN."""
+    return (4 + kk) * cd + ((3 * cd + (cd + ce if ce else 0)) if scaled else 0)
 
 
-def _tail_smem(tq: int, d: int, e: int, kk: int, cd: int, ce: int) -> int:
-    """Dynamic shared bytes of the int8 body (``tail_smem`` in
-    ``csrc/conv_tail.cuh``); e = ce = 0: the conv module alone."""
+def _tail_smem(tq: int, d: int, e: int, kk: int, cd: int, ce: int, wb: int = 1,
+               scaled: bool = True) -> int:
+    """Dynamic shared bytes of the body of ``csrc/conv_tail.cuh``
+    (``tail_smem``): int8 weights, or bf16 (``wb`` 2, no scales); e = ce =
+    0: the conv module alone."""
     act_d, act_e = (TAIL_ROWS * (pad_k(k) + TAIL_KSTEP) * 2 for k in (d, e))   # operand rows
-    return (_tail_weight_bytes(d, e, cd, ce)                    # weight slices, int8
+    return (_tail_weight_bytes(d, e, cd, ce, wb)                # weight slices
             + max(act_d + TAIL_ROWS * d * 4, act_e)             # and f32 rows to normalize
-            + (6 if e else 2) * d * 4 + _tail_columns(kk, cd, ce) * 4   # norms; scales, taps, BN
+            + (6 if e else 2) * d * 4 + _tail_columns(kk, cd, ce, scaled) * 4   # norms; columns
             + align16(tq * 4) + align16((tq + kk - 1) * cd * 4)   # mask, conv rows
             + (align16(tq * cd * 4) if e else 0)               # the block's columns of y1
             + TAIL_WARPS * max(2 * cd, ce) * TAIL_ROWS * 4      # per-warp sums
@@ -276,6 +278,23 @@ def conv_block_q8_plan(tq: int, d: int, kk: int, sms: int,
     return TailPlan(blocks, cd, 0, smem, tq * d * 2)        # a, bf16
 
 
+@functools.lru_cache(maxsize=None)
+def conv_block_bf16_plan(tq: int, d: int, kk: int, sms: int,
+                         smem_limit: int = SMEM_PER_BLOCK) -> TailPlan:
+    """The grid and shared memory of the bf16 conv module
+    (``csrc/conv_block_bf16.cu``: the int8 module's plan,
+    ``csrc/conv_tail.cuh`` without the FFN, on bf16 slices without scales):
+    a block's bf16 slices of pw1 (its GLU pairs) and pw2, the taps and BN
+    stay whole in shared memory. Mirrors ``tail_smem`` in the source, which
+    checks it at launch. Raises ValueError for shapes the kernel does not
+    take (D not a multiple of 8) or whose staging does not fit."""
+    what = "conv_block[bf16]"
+    cd, blocks = _conv_grid(what, tq, d, sms)
+    smem = _tail_smem(tq, d, 0, kk, cd, 0, wb=2, scaled=False)
+    _check_smem(what, smem, smem_limit, f"Tq={tq}, D={d}")
+    return TailPlan(blocks, cd, 0, smem, tq * d * 2)        # a, bf16
+
+
 def _conv_f32_runs(d: int) -> int:
     return -(-d // CONV_RUN)
 
@@ -312,19 +331,23 @@ def conv_block_f32_plan(tq: int, d: int, kk: int, sms: int,
 
 
 def pack_tail(pw1, pw2, w1, w2, s1, s2, fs1, fs2, dw, bn, plan: TailPlan) -> torch.Tensor:
-    """The layer's constants as the int8 kernels' blocks read them, a
-    block's slice contiguous: [blocks, bytes] uint8, block b holding its
-    int8 slices of pw1 (the GLU pairs), pw2, W1 and W2
+    """The layer's constants as the kernels of ``csrc/conv_tail.cuh`` read
+    them, a block's slice contiguous: [blocks, bytes] uint8, block b holding
+    its int8 or bf16 slices of pw1 (the GLU pairs), pw2, W1 and W2
     (:func:`pack_tail_weight`), then its f32 columns of pw1's scales (n,
-    then n + D), pw2's, W1's and W2's, the conv taps [kk, cD] and BN g, b,
-    m, v (``tail_blob`` in the source). pw1 .. w2 are int8 [K, N]; s1 ..
-    fs2 the scales; dw [kk, D]; bn (g, b, m, v). For the conv module alone
-    (the int8 conv module's plan) w1, w2, fs1 and fs2 are None."""
+    then n + D), pw2's, W1's and W2's (int8 only), the conv taps [kk, cD]
+    and BN g, b, m, v (``tail_blob`` in the source). pw1 .. w2 are int8 or
+    bf16 [K, N]; s1 .. fs2 the int8 scales (None with bf16 weights); dw [kk,
+    D]; bn (g, b, m, v). For the conv module alone (the int8 and bf16 conv
+    modules' plans) w1, w2, fs1 and fs2 are None."""
     cd, ce, nb = plan.cols_d, plan.cols_e, plan.blocks
     d = pw2.shape[0]
-    s1, s2 = s1.reshape(-1), s2.reshape(-1)
     weights = [pack_tail_weight(pw1, cd, nb, glu=True), pack_tail_weight(pw2, cd, nb)]
-    cols = [pack_columns(s1[:d], cd, nb), pack_columns(s1[d:], cd, nb), pack_columns(s2, cd, nb)]
+    cols = []
+    if s1 is not None:
+        s1, s2 = s1.reshape(-1), s2.reshape(-1)
+        cols = [pack_columns(s1[:d], cd, nb), pack_columns(s1[d:], cd, nb),
+                pack_columns(s2, cd, nb)]
     if w1 is not None:
         weights += [pack_tail_weight(w1, ce, nb), pack_tail_weight(w2, cd, nb)]
         cols += [pack_columns(fs1.reshape(-1), ce, nb), pack_columns(fs2.reshape(-1), cd, nb)]
@@ -361,9 +384,17 @@ def pack_conv_f32(pw1, pw2, dw, bn, plan: TailPlan) -> torch.Tensor:
                      dim=1).float().contiguous()
 
 
-def _pack(pw1, dw, bn, pw2, plan: TailPlan, int8: bool) -> torch.Tensor:
-    if int8:
+# weight type -> the plan and the library of its persistent conv module
+CONV_PLANS = {"int8": conv_block_q8_plan, "bf16": conv_block_bf16_plan,
+              "f32": conv_block_f32_plan}
+CONV_LIBS = {"int8": "conv_block_q8", "bf16": "conv_block_bf16", "f32": "conv_block_f32"}
+
+
+def _pack(pw1, dw, bn, pw2, plan: TailPlan, kind: str) -> torch.Tensor:
+    if kind == "int8":
         return pack_tail(pw1.q, pw2.q, None, None, pw1.s, pw2.s, None, None, dw, bn, plan)
+    if kind == "bf16":
+        return pack_tail(pw1, pw2, None, None, None, None, None, None, dw, bn, plan)
     return pack_conv_f32(pw1, pw2, dw, bn, plan)
 
 
@@ -371,35 +402,33 @@ def pack_conv_block(pw1, dw, bn_g, bn_b, bn_m, bn_v, pw2, sms: int | None = None
     """A layer's conv constants for :func:`conv_block`'s ``packed``, for the
     column slices of a card with ``sms`` SMs (by default that of the
     weights' device): int8 QuantTensors by :func:`pack_tail` without the FFN
-    (3.2 MB a layer at full width), f32 weights by :func:`pack_conv_f32`
-    (12.6 MB), each held beside the [K, N] matrices that the plain path
-    reads. Made once, where the layer's weights are made
-    (``models/parakeet/encoder.py:layer_params``): a packed copy that no
-    longer matches the weights gives wrong results. Raises TypeError for
-    other weights (bf16 weights take the chain, which reads them as they
-    are)."""
+    (3.2 MB a layer at full width), bf16 weights likewise without scales
+    (6.3 MB), f32 weights by :func:`pack_conv_f32` (12.6 MB), each held
+    beside the [K, N] matrices that the plain path reads. Made once, where
+    the layer's weights are made (``models/parakeet/encoder.py:layer_params``):
+    a packed copy that no longer matches the weights gives wrong results.
+    Raises ValueError for weights of two storage types."""
     kind = weight_kind("conv_block: pw1 and pw2", pw1, pw2)
-    if kind == "bf16":
-        raise TypeError("pack_conv_block takes int8 QuantTensor or f32 weights")
-    int8 = kind == "int8"
-    t = pw2.q if int8 else pw2
+    t = pw2.q if kind == "int8" else pw2
     sms = sm_count(t.device.index or 0) if sms is None else sms
     d, kk = t.shape[0], dw.shape[0]
-    plan = (conv_block_q8_plan if int8 else conv_block_f32_plan)(1, d, kk, sms)
-    return _pack(pw1, dw, (bn_g, bn_b, bn_m, bn_v), pw2, plan, int8)
+    plan = CONV_PLANS[kind](1, d, kk, sms)
+    return _pack(pw1, dw, (bn_g, bn_b, bn_m, bn_v), pw2, plan, kind)
 
 
-def check_packed_conv(packed: torch.Tensor, plan: TailPlan, d: int, kk: int, int8: bool) -> None:
+def check_packed_conv(packed: torch.Tensor, plan: TailPlan, d: int, kk: int, kind: str) -> None:
     """Raises ValueError unless ``packed`` has the layout of ``plan``'s
-    column slices: int8 [blocks, bytes of a block's slice] uint8, f32
-    [blocks, floats of a block's slice] f32."""
-    if int8:
-        what, want = "int8", (torch.uint8, (plan.blocks, _tail_weight_bytes(d, 0, plan.cols_d, 0)
-                                            + _tail_columns(kk, plan.cols_d, 0) * 4))
+    column slices for weights of type ``kind``: int8 and bf16 [blocks, bytes
+    of a block's slice] uint8 (bf16's slices twice int8's bytes, without
+    scales), f32 [blocks, floats of a block's slice] f32."""
+    if kind == "f32":
+        want = (torch.float32, (plan.blocks, _conv_f32_floats(d, kk, plan.cols_d)))
     else:
-        what, want = "f32", (torch.float32, (plan.blocks, _conv_f32_floats(d, kk, plan.cols_d)))
+        bf = kind == "bf16"
+        want = (torch.uint8, (plan.blocks, _tail_weight_bytes(d, 0, plan.cols_d, 0, 2 if bf else 1)
+                              + _tail_columns(kk, plan.cols_d, 0, not bf) * 4))
     if (packed.dtype, tuple(packed.shape)) != want:
-        raise ValueError(f"conv_block[{what}]: packed constants {packed.dtype} "
+        raise ValueError(f"conv_block[{kind}]: packed constants {packed.dtype} "
                          f"{tuple(packed.shape)} do not fit the launch plan {want[0]} {want[1]} "
                          f"(see pack_conv_block)")
 

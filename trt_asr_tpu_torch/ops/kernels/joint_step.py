@@ -1,14 +1,17 @@
 """Fused TDT joint decode step: the CUDA kernels ``csrc/joint_step_q8.cu``
-(int8 weights: one persistent cooperative launch laid out by
-:func:`joint_step_q8_plan`), ``csrc/joint_step_f32.cu`` (f32 weights: one
-persistent cooperative launch laid out by :func:`joint_step_f32_plan`) and
-``csrc/joint_step.cu`` (bf16 weights: three launches,
-:func:`joint_step_chain`), and their plain PyTorch version.
+(int8 weights), ``csrc/joint_step_bf16.cu`` (bf16 weights; the two share
+the body of ``csrc/joint_core.cuh``, laid out by :func:`joint_step_q8_plan`
+and :func:`joint_step_bf16_plan`) and ``csrc/joint_step_f32.cu`` (f32
+weights, laid out by :func:`joint_step_f32_plan`), each one persistent
+cooperative launch, and their plain PyTorch version; the three launches of
+``csrc/joint_step.cu`` (:func:`joint_step_chain`), on no path, stay for
+``chip_smoke.py`` to time beside the kernels.
 
 Replaces ``trt_asr_tpu/ops/pallas/joint_step_kernel.py:
 joint_step_pallas_prepadded`` (the TPU's lane padding is not needed: only
 the real V columns are computed). The bound on the H100 is memory: one read
-of W_out [640, 8198] (21 MB f32, 5.2 MB int8) per call, for all rows.
+of W_out [640, 8198] (21 MB f32, 10.5 MB bf16, 5.2 MB int8) per call, for
+all rows.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from trt_asr_tpu_torch.ops.kernels import build as kb
 from trt_asr_tpu_torch.ops.kernels.persistent import (SMEM_PER_BLOCK, TAIL_GROUP, TAIL_KSTEP,
                                                       TAIL_ROWS, TAIL_WARPS, align16,
                                                       pack_columns, pack_tail_weight, pad_k,
-                                                      sm_count)
+                                                      sm_count, weight_kind)
 from trt_asr_tpu_torch.ops.quant import (QuantTensor, as_f32, is_low_precision, round_bf16,
                                          scaled_matmul)
 
@@ -48,7 +51,7 @@ def joint_step_plain(e, g, wp, bp, wo, bo, *, ths: int, ndur: int,
 
 class JointPlan(NamedTuple):
     """Launch plan of the persistent joint step (``csrc/joint_step_q8.cu``,
-    ``csrc/joint_step_f32.cu``)."""
+    ``csrc/joint_step_bf16.cu``, ``csrc/joint_step_f32.cu``)."""
     blocks: int          # one a run of W_out's column groups, all co-resident
     groups: int          # 8-column groups of W_out a block
     hcols: int           # columns of W_pred (of h) a block
@@ -62,13 +65,14 @@ JOINT_BARS = 3           # mbarriers: W_pred's slice, g's rows, W_out's slice (f
 JOINT_F32_GROUPS = 8     # W_out groups an f32 block takes at most, two a lane (csrc JF_GROUPS)
 
 
-def _joint_blob_bytes(p: int, j: int, hcols: int, groups: int) -> int:
-    """A block's slice: W_pred's ``hcols`` columns [hcols][Pp] int8, their
-    f32 scales and biases (16-byte aligned), W_out's groups [groups][Jp / 16]
-    [8][16] int8, their f32 scales and biases (``joint_blob`` in the
-    source)."""
-    return (hcols * pad_k(p) + align16(8 * hcols) + groups * TAIL_GROUP * pad_k(j)
-            + 2 * groups * TAIL_GROUP * 4)
+def _joint_blob_bytes(p: int, j: int, hcols: int, groups: int, bf16: bool = False) -> int:
+    """A block's slice: W_pred's ``hcols`` columns [hcols][Pp] int8 (bf16),
+    their f32 scales (int8 only) and biases (16-byte aligned), W_out's groups
+    [groups][Jp / 16][8][16] int8 (bf16), their f32 scales (int8 only) and
+    biases (``joint_blob`` in ``csrc/joint_core.cuh``)."""
+    wb, per_col = (2, 1) if bf16 else (1, 2)      # bytes a weight; f32 values a column
+    return ((hcols * pad_k(p) + groups * TAIL_GROUP * pad_k(j)) * wb
+            + align16(4 * per_col * hcols) + per_col * groups * TAIL_GROUP * 4)
 
 
 def _plan_grid(rows: int, p: int, j: int, v: int, sms: int, what: str):
@@ -85,6 +89,24 @@ def _plan_grid(rows: int, p: int, j: int, v: int, sms: int, what: str):
     return blocks, groups, -(-j // blocks)
 
 
+def _joint_core_plan(rows, p, j, v, sms, smem_limit, bf16: bool) -> JointPlan:
+    """The plan of ``csrc/joint_core.cuh``'s body, int8 or bf16 weights."""
+    what = "bf16" if bf16 else "int8"
+    blocks, groups, hcols = _plan_grid(rows, p, j, v, sms, what)
+    runs = -(-p // JOINT_RUN)
+    cols = groups * TAIL_GROUP
+    smem = (_joint_blob_bytes(p, j, hcols, groups, bf16)
+            + TAIL_ROWS * (p + 4) * 4                                  # g's rows
+            + TAIL_ROWS * (pad_k(j) + TAIL_KSTEP) * 2                  # h's rows, bf16
+            + TAIL_ROWS * cols * 4                                     # a pass's logits
+            + align16(max(TAIL_WARPS * groups * 64, TAIL_ROWS * hcols * runs) * 4)   # sums
+            + JOINT_BARS * 8)
+    if smem > smem_limit:
+        raise ValueError(f"joint_step[{what}]: {smem} B of shared memory a block at P={p}, "
+                         f"J={j}, V={v} exceeds {smem_limit} B")
+    return JointPlan(blocks, groups, hcols, smem, 16 + align16(rows * j * 2) + rows * blocks * 16)
+
+
 def joint_step_q8_plan(rows: int, p: int, j: int, v: int, sms: int,
                        smem_limit: int = SMEM_PER_BLOCK) -> JointPlan:
     """The grid and shared memory of the int8 joint step for ``rows``
@@ -95,19 +117,17 @@ def joint_step_q8_plan(rows: int, p: int, j: int, v: int, sms: int,
     in the source, which checks it at launch. Raises ValueError for shapes
     the kernel does not take (P not a multiple of 4, J not one of 8) or
     whose staging does not fit."""
-    blocks, groups, hcols = _plan_grid(rows, p, j, v, sms, "int8")
-    runs = -(-p // JOINT_RUN)
-    cols = groups * TAIL_GROUP
-    smem = (_joint_blob_bytes(p, j, hcols, groups)
-            + TAIL_ROWS * (p + 4) * 4                                  # g's rows
-            + TAIL_ROWS * (pad_k(j) + TAIL_KSTEP) * 2                  # h's rows, bf16
-            + TAIL_ROWS * cols * 4                                     # a pass's logits
-            + align16(max(TAIL_WARPS * groups * 64, TAIL_ROWS * hcols * runs) * 4)   # sums
-            + JOINT_BARS * 8)
-    if smem > smem_limit:
-        raise ValueError(f"joint_step[int8]: {smem} B of shared memory a block at P={p}, "
-                         f"J={j}, V={v} exceeds {smem_limit} B")
-    return JointPlan(blocks, groups, hcols, smem, 16 + align16(rows * j * 2) + rows * blocks * 16)
+    return _joint_core_plan(rows, p, j, v, sms, smem_limit, bf16=False)
+
+
+def joint_step_bf16_plan(rows: int, p: int, j: int, v: int, sms: int,
+                         smem_limit: int = SMEM_PER_BLOCK) -> JointPlan:
+    """The grid and shared memory of the bf16 joint step
+    (``csrc/joint_step_bf16.cu``): the int8 step's grid and staging
+    (:func:`joint_step_q8_plan`) with bf16 slices, twice int8's bytes, and
+    no scales (154,552 B a block at full width: one block an SM). Raises
+    ValueError as the int8 plan does."""
+    return _joint_core_plan(rows, p, j, v, sms, smem_limit, bf16=True)
 
 
 def _joint_f32_blob_floats(p: int, j: int, hcols: int, groups: int) -> int:
@@ -167,25 +187,29 @@ def pack_joint_f32(wp, bp, wo, bo, plan: JointPlan) -> torch.Tensor:
 
 
 def pack_joint(wp, sp, bp, wo, so, bo, plan: JointPlan) -> torch.Tensor:
-    """The joint's int8 weights as the int8 joint step's blocks read them, a
-    block's slice contiguous: [blocks, bytes] uint8, block b holding W_pred's
-    columns b * hcols .. as [hcols][Pp] (a column's K contiguous, zero past
-    P and J), their scales and biases, then W_out's ``groups`` 8-column
-    groups from b * groups (:func:`~trt_asr_tpu_torch.ops.kernels.conv_block.
-    pack_tail_weight`), their scales and biases (zero past V). wp [P, J] and
-    wo [J, V] are int8; sp, bp [J] and so, bo [V] f32."""
+    """The joint's int8 or bf16 weights as the joint step's blocks read them
+    (``csrc/joint_core.cuh``), a block's slice contiguous: [blocks, bytes]
+    uint8, block b holding W_pred's columns b * hcols .. as [hcols][Pp] (a
+    column's K contiguous, zero past P and J), their scales (int8 only) and
+    biases, then W_out's ``groups`` 8-column groups from b * groups
+    (:func:`~trt_asr_tpu_torch.ops.kernels.persistent.pack_tail_weight`),
+    their scales (int8 only) and biases (zero past V). wp [P, J] and wo [J,
+    V] are int8 or bf16; sp [J] and so [V] the int8 scales (None with bf16
+    weights); bp [J] and bo [V] f32."""
     p, j = wp.shape
     blocks, hc, cols = plan.blocks, plan.hcols, plan.groups * TAIL_GROUP
     wpp = wp.new_zeros((pad_k(p), blocks * hc))
     wpp[:p, :j] = wp
     wpp = wpp.view(pad_k(p), blocks, hc).permute(1, 2, 0).reshape(blocks, -1)
-    pred_cols = torch.cat([pack_columns(x.reshape(-1), hc, blocks) for x in (sp, bp)], dim=1)
-    pred_cols = torch.cat([pred_cols, pred_cols.new_zeros((blocks, (align16(8 * hc) - 8 * hc) // 4))],
+    pred = [x for x in (sp, bp) if x is not None]
+    pred_cols = torch.cat([pack_columns(x.reshape(-1), hc, blocks) for x in pred], dim=1)
+    n = len(pred) * hc
+    pred_cols = torch.cat([pred_cols, pred_cols.new_zeros((blocks, (align16(4 * n) - 4 * n) // 4))],
                           dim=1)
     out_w = pack_tail_weight(wo, cols, blocks).reshape(blocks, -1)
-    out_cols = torch.cat([pack_columns(x.reshape(-1), cols, blocks) for x in (so, bo)], dim=1)
-    return torch.cat([wpp.view(torch.uint8), pred_cols.contiguous().view(torch.uint8),
-                      out_w.view(torch.uint8), out_cols.contiguous().view(torch.uint8)],
+    out_cols = torch.cat([pack_columns(x.reshape(-1), cols, blocks) for x in (so, bo)
+                          if x is not None], dim=1)
+    return torch.cat([x.contiguous().view(torch.uint8) for x in (wpp, pred_cols, out_w, out_cols)],
                      dim=1).contiguous()
 
 
@@ -193,34 +217,38 @@ def pack_joint_step(wp, bp, wo, bo, sms: int | None = None) -> torch.Tensor:
     """The joint's weights for :func:`joint_step`'s ``packed``, for the
     launch plan of a card with ``sms`` SMs (by default that of the weights'
     device): int8 QuantTensors by :func:`pack_joint`, 5.6 MB at full width;
-    f32 weights by :func:`pack_joint_f32`, 22.6 MB. Each is held beside the
-    [P, J] and [J, V] matrices that the plain path reads. Made once, where
-    the model is made: a packed copy that no longer matches the weights or
-    biases gives wrong results. Raises TypeError for other weights (bf16
-    weights take :func:`joint_step_chain`, which reads them as they are)."""
-    if isinstance(wp, QuantTensor) and isinstance(wo, QuantTensor):
-        sms = sm_count(wp.q.device.index or 0) if sms is None else sms
-        p, j = wp.q.shape
-        plan = joint_step_q8_plan(1, p, j, wo.q.shape[1], sms)
+    bf16 weights likewise without scales, 11.3 MB (the biases in f32); f32
+    weights by :func:`pack_joint_f32`, 22.6 MB. Each is held beside the [P,
+    J] and [J, V] matrices that the plain path reads. Made once, where the
+    model is made: a packed copy that no longer matches the weights or
+    biases gives wrong results. Raises ValueError for weights of two storage
+    types."""
+    kind = weight_kind("pack_joint_step: pred and out weights", wp, wo)
+    w0 = wp.q if kind == "int8" else wp
+    sms = sm_count(w0.device.index or 0) if sms is None else sms
+    p, j = w0.shape
+    v = (wo.q if kind == "int8" else wo).shape[1]
+    plan = JOINT_PLANS[kind](1, p, j, v, sms)
+    if kind == "int8":
         return pack_joint(wp.q, wp.s, bp, wo.q, wo.s, bo, plan)
-    if not any(isinstance(w, QuantTensor) or w.dtype != torch.float32 for w in (wp, wo)):
-        sms = sm_count(wp.device.index or 0) if sms is None else sms
-        p, j = wp.shape
-        return pack_joint_f32(wp, bp, wo, bo, joint_step_f32_plan(1, p, j, wo.shape[1], sms))
-    raise TypeError("pack_joint_step takes int8 QuantTensor or f32 weights, both of one type")
+    if kind == "bf16":
+        return pack_joint(wp, None, bp, wo, None, bo, plan)
+    return pack_joint_f32(wp, bp, wo, bo, plan)
 
 
 def check_packed_joint(packed: torch.Tensor, plan: JointPlan, p: int, j: int,
-                       f32: bool = False) -> None:
+                       kind: str = "int8") -> None:
     """Raises ValueError unless ``packed`` has the layout of ``plan``'s
-    slices: [blocks, bytes of a block's slice] uint8 for int8 weights,
-    [blocks, floats of a block's slice] f32 for f32 weights."""
-    if f32:
+    slices for weights of type ``kind``: [blocks, bytes of a block's slice]
+    uint8 for int8 and bf16 weights (bf16's twice int8's bytes, without
+    scales), [blocks, floats of a block's slice] f32 for f32 weights."""
+    if kind == "f32":
         want = (torch.float32, (plan.blocks, _joint_f32_blob_floats(p, j, plan.hcols, plan.groups)))
     else:
-        want = (torch.uint8, (plan.blocks, _joint_blob_bytes(p, j, plan.hcols, plan.groups)))
+        want = (torch.uint8, (plan.blocks, _joint_blob_bytes(p, j, plan.hcols, plan.groups,
+                                                             kind == "bf16")))
     if (packed.dtype, tuple(packed.shape)) != want:
-        raise ValueError(f"joint_step[{'f32' if f32 else 'int8'}]: packed weights "
+        raise ValueError(f"joint_step[{kind}]: packed weights "
                          f"{packed.dtype} {tuple(packed.shape)} do not fit the launch plan "
                          f"{want[0]} {want[1]} (see pack_joint_step)")
 
@@ -229,12 +257,11 @@ def joint_step(e, g, wp, bp, wo, bo, *, ths: int, ndur: int, blank_id: int,
                blank_penalty: float = 0.0, packed=None):
     """Fused joint step; same arguments and results as
     :func:`joint_step_plain`. CPU tensors take the plain version; CUDA
-    tensors launch a kernel (or raise): with int8 or f32 weights a
-    persistent kernel, one cooperative launch (raising also when its blocks
-    cannot all be resident), with bf16 weights :func:`joint_step_chain`.
-    ``packed``: the int8 or f32 weights as :func:`pack_joint_step` lays them
-    out, made once with the model; without it they are packed anew at that
-    call."""
+    tensors launch the persistent kernel of the weights' type (int8, bf16
+    or f32), one cooperative launch, or raise (also when its blocks cannot
+    all be resident). ``packed``: the weights as :func:`pack_joint_step`
+    lays them out, made once with the model; without it they are packed
+    anew at that call."""
     if e.device.type == "cpu":
         return joint_step_plain(e, g, wp, bp, wo, bo, ths=ths, ndur=ndur,
                                 blank_id=blank_id, blank_penalty=blank_penalty)
@@ -242,10 +269,7 @@ def joint_step(e, g, wp, bp, wo, bo, *, ths: int, ndur: int, blank_id: int,
         return _joint_step_q8(e, g, wp, bp, wo, bo, ths, ndur, blank_id, blank_penalty, packed)
     if wp.dtype == torch.float32 and wo.dtype == torch.float32:
         return _joint_step_f32(e, g, wp, bp, wo, bo, ths, ndur, blank_id, blank_penalty, packed)
-    if packed is not None:
-        raise ValueError("joint_step: packed weights are for int8 and f32 weights only")
-    return joint_step_chain(e, g, wp, bp, wo, bo, ths=ths, ndur=ndur, blank_id=blank_id,
-                            blank_penalty=blank_penalty)
+    return _joint_step_bf16(e, g, wp, bp, wo, bo, ths, ndur, blank_id, blank_penalty, packed)
 
 
 def _check_args(e, g, wp_t, wo_t, bp, bo, ths, ndur):
@@ -277,13 +301,25 @@ def _joint_step_q8(e, g, wp, bp, wo, bo, ths, ndur, blank_id, blank_penalty, pac
                               blank_id, blank_penalty)
 
 
+def _joint_step_bf16(e, g, wp, bp, wo, bo, ths, ndur, blank_id, blank_penalty, packed):
+    """The persistent kernel of ``csrc/joint_step_bf16.cu`` on CUDA tensors."""
+    weight_kind("joint_step: pred and out weights", wp, wo)
+    rows, p, j, v, bp, bo = _check_args(e, g, wp, wo, bp, bo, ths, ndur)
+    plan = joint_step_bf16_plan(rows, p, j, v, sm_count(e.device.index or 0))
+    if packed is None:
+        packed = pack_joint(wp, None, bp, wo, None, bo, plan)
+    check_packed_joint(packed, plan, p, j, "bf16")
+    return _launch_persistent("joint_step_bf16", e, g, rows, p, j, v, packed, plan, ths, ndur,
+                              blank_id, blank_penalty)
+
+
 def _joint_step_f32(e, g, wp, bp, wo, bo, ths, ndur, blank_id, blank_penalty, packed):
     """The persistent kernel of ``csrc/joint_step_f32.cu`` on CUDA tensors."""
     rows, p, j, v, bp, bo = _check_args(e, g, wp, wo, bp, bo, ths, ndur)
     plan = joint_step_f32_plan(rows, p, j, v, sm_count(e.device.index or 0))
     if packed is None:
         packed = pack_joint_f32(wp, bp, wo, bo, plan)
-    check_packed_joint(packed, plan, p, j, f32=True)
+    check_packed_joint(packed, plan, p, j, "f32")
     return _launch_persistent("joint_step_f32", e, g, rows, p, j, v, packed, plan, ths, ndur,
                               blank_id, blank_penalty)
 
@@ -312,10 +348,9 @@ def joint_step_chain(e, g, wp, bp, wo, bo, *, ths: int, ndur: int, blank_id: int
                      blank_penalty: float = 0.0):
     """The three launches of ``csrc/joint_step.cu`` on CUDA tensors (split-K
     hidden product, split-K output product with 32-column argmax tiles, a
-    per-row reduction) with f32, bf16 or int8 weights: :func:`joint_step`'s
-    kernel for bf16 weights, and the predecessor of the int8 and f32
-    kernels, kept so that ``chip_smoke.py`` times them side by side in one
-    run."""
+    per-row reduction) with f32, bf16 or int8 weights: the predecessor of
+    the persistent kernels, on no path, kept so that ``chip_smoke.py`` times
+    them side by side in one run."""
     wp_t, sp, wtype = kb.weight_parts(wp)
     wo_t, so, wtype_o = kb.weight_parts(wo)
     if wtype != wtype_o:
@@ -348,3 +383,7 @@ def joint_step_chain(e, g, wp, bp, wo, bo, *, ths: int, ndur: int, blank_id: int
 
 
 joint_step.launches = 0
+
+# weight type -> the plan of its persistent joint step
+JOINT_PLANS = {"int8": joint_step_q8_plan, "bf16": joint_step_bf16_plan,
+               "f32": joint_step_f32_plan}
