@@ -134,6 +134,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    (profiler); f32: each stream token-exact with its own session on the
    card; bf16 weights: each stream's encoder output within twice its
    session's noise floor. Step ms (median, p90) and joint launches a step.
+3c. the serving daemon (``serve.AsrServer``, B = 8) at full width over
+   127.0.0.1, f32 weights, joint kernel on: eight client threads push 3b's
+   utterances as base64 f32le PCM in 0.5 s pieces without sleeping, then
+   finalize; each final's tokens and words equal the engine driven directly
+   on that audio alone. A continuous client pushes two utterances 1.0 s of
+   zeros apart and gets exactly two segment events, each token-exact with a
+   direct engine stream fed its samples; over that window (profiler) each
+   joint call is one persistent-kernel launch and no chain kernel runs.
+   Served step ms (median, p90), each client's wall seconds and the joint
+   launches a step. An error event or a ``step error`` fails it.
 4. the trained ``artifacts/models/gate_r3`` on the card with the kernels
    on, each token-exact against the port's CPU plain path: attention,
    joint and log-mel kernels in f32, int8 and bf16; every kernel in f32,
@@ -147,6 +157,13 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``cast_params_for_compute``, whose encoder output must lie within twice
    the distance the CPU's own bf16 run moves when its features move by
    1e-6 (bf16 tokens are not held exact: that move alone changes some).
+   The entry points as a user runs them, subprocesses on the card:
+   ``python -m trt_asr_tpu_torch.cli`` (attention and joint kernels from
+   the environment, ``--stream-sim 0.5 --no-sleep --timestamps``, then
+   ``--continuous``) on a wav of two utterances 1 s apart, whose Final,
+   Transcript, Word and Segment lines equal the port's CPU path in this
+   process; ``python -m trt_asr_tpu_torch.serve`` (B = 4, joint kernel),
+   whose two clients' tokens equal the CPU engine's.
 5. full-width offline batch (``ModelConfig()``, the phase-3 weights): 8
    synthetic utterances of mixed length up to 30 s (one under 10 s),
    batched and padded as ``transcribe_batch`` does, through
@@ -163,7 +180,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    and end-to-end ms, launches, a profile of one forward.
    ``transcribe_batch`` on the card equals per-utterance
    ``transcribe_offline`` on the card.
-6. neither ``jax`` nor ``trt_asr_tpu`` was imported.
+6. neither ``jax`` nor ``trt_asr_tpu`` was imported, here or (by ``-X
+   importtime``) in a subprocess, and the daemon's, the CLI's and their
+   helpers' modules were run.
 
 Each phase's seconds are logged. The last line is ``{"ok": true, "device":
 {...}}``; the line before it is
@@ -181,6 +200,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1762,6 +1782,14 @@ def hold_to_plain(torch, label, model, rt, audio, piece: int, state_dtype) -> No
         f"arm's own noise floor {floor:.4g}")
 
 
+def engine_audios():
+    """Phases 3b and 3c's eight seeded synthetic utterances of 3-12 words."""
+    rng = np.random.default_rng(31)
+    synth = synth_module()
+    return [synth.synth_utterance(list(rng.integers(0, 1120, size=w)), rng)
+            for w in (3, 10, 6, 12, 8, 5, 9, 7)]
+
+
 def full_width_engine(torch, dev, cfg, params, tok):
     """Phase 3b: the lockstep engine at full width, 8 streams of different
     lengths, joint kernel on, f32 and bf16 weights. Seven streams open at
@@ -1781,10 +1809,7 @@ def full_width_engine(torch, dev, cfg, params, tok):
     from trt_asr_tpu_torch.streaming.schedule import ChunkScheduler
     from trt_asr_tpu_torch.streaming.session import StreamingSession
 
-    rng = np.random.default_rng(31)
-    synth = synth_module()
-    audios = [synth.synth_utterance(list(rng.integers(0, 1120, size=w)), rng)
-              for w in (3, 10, 6, 12, 8, 5, 9, 7)]
+    audios = engine_audios()
     b, piece = len(audios), 8000
     rt = RuntimeConfig(use_pallas_joint=True)
     for arm, wdt in (("f32", None), ("bf16", torch.bfloat16)):
@@ -1910,6 +1935,138 @@ def profile_engine_joint(torch, model, rt, audios, piece: int, arm: str) -> None
     assert not any(chain.values()), f"engine[{arm}]: a chain's kernel ran"
 
 
+def direct_engine_stream(eng, audio, piece: int = 8000):
+    """One stream alone through an engine driven directly: (tokens, words)."""
+    sid = eng.open_stream()
+    for i in range(0, len(audio), piece):
+        eng.push_audio(sid, audio[i:i + piece])
+    eng.finalize_stream(sid)
+    eng.run_until_drained()
+    out = (list(eng._tokens[sid]), eng.word_timestamps(sid))
+    eng.close_stream(sid)
+    return out
+
+
+def served_client(serve, addr, audio, piece: int, out: dict, k: int) -> None:
+    """A daemon client on a thread of its own: ``audio`` pushed in pieces
+    without sleeping, then finalized; ``out[k]`` = (final event, wall s from
+    the first push to the final) or the exception (an error event raises)."""
+    final = []
+    try:
+        cli = serve._Client(*addr, 300.0, {"op": "open"},
+                            lambda r: final.append(r) if r.get("event") == "final" else None)
+        try:
+            t0 = time.perf_counter()
+            cli.push_all(audio, piece)
+            cli.request({"op": "finalize"})
+            while not final:
+                cli.recv_routed()
+            out[k] = (final[0], time.perf_counter() - t0)
+        finally:
+            cli.close()
+    except Exception as e:  # noqa: BLE001 — reported and failed by the phase
+        out[k] = e
+
+
+def full_width_daemon(torch, dev, cfg, params, tok):
+    """Phase 3c: the port's daemon (``serve.AsrServer``, B = 8) at full
+    width over 127.0.0.1, f32 weights, joint kernel on. Eight client
+    threads push phase 3b's utterances as base64 f32le PCM in 0.5 s pieces
+    without sleeping, then finalize: each final's tokens and words equal the
+    engine driven directly on that audio alone. Then one continuous client
+    pushes two utterances 1.0 s of zeros apart and gets exactly two segment
+    events, each token-exact with a direct engine stream fed its samples
+    [start_s, end_s], under torch.profiler: each joint call one launch of
+    the persistent f32 kernel, no chain kernel. Logs the host ms of a
+    served step (median, p90), each client's wall seconds and the joint
+    launches a step. Any error event, or a ``step error``, fails it."""
+    import io
+    import threading
+    from contextlib import redirect_stderr
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from trt_asr_tpu_torch import serve
+    from trt_asr_tpu_torch.config import RuntimeConfig
+    from trt_asr_tpu_torch.streaming.batch_engine import BatchStreamingEngine
+
+    audios = engine_audios()
+    rt = RuntimeConfig(use_pallas_joint=True)
+    model = make_model(torch, cfg, params, tok, rt, dev, False)
+    srv = serve.AsrServer(model, batch_size=len(audios), port=0, runtime=rt)
+    err = io.StringIO()
+    try:
+        with redirect_stderr(err):
+            srv.start()
+            reset_counts()
+            lat0 = len(srv.engine.step_latencies_ms)
+            out, t0 = {}, time.perf_counter()
+            threads = [threading.Thread(target=served_client,
+                                        args=(serve, srv.addr, a, 8000, out, k))
+                       for k, a in enumerate(audios)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            lat = np.asarray(srv.engine.step_latencies_ms[lat0:])
+            assert not any(t.is_alive() for t in threads), "daemon: a client did not finish"
+            bad = {k: v for k, v in out.items() if isinstance(v, Exception)}
+            assert not bad and len(out) == len(audios), f"daemon: clients failed {bad}"
+            z = np.zeros(16000, np.float32)
+            stream = np.concatenate([audios[1], z, audios[4]])
+            reset_counts()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                segs = serve.transcribe_continuous(*srv.addr, stream, chunk_samples=8000,
+                                                   timeout_s=300)
+                torch.cuda.synchronize()
+                cont_s = time.perf_counter() - t1
+            cont_counts = read_counts()
+    finally:
+        srv.stop()
+    log(err.getvalue().rstrip() or "daemon: nothing on stderr")
+    assert "step error" not in err.getvalue(), "daemon: a step failed"
+    log(f"daemon: B {len(audios)}, {len(audios)} clients in {wall:.2f} s, {len(lat)} served "
+        f"steps, step ms median {float(np.median(lat)):.3f} p90 "
+        f"{float(np.percentile(lat, 90)):.3f} (host clock), joint_step launches "
+        f"{counts['joint_step']} ({counts['joint_step'] / len(lat):.2f}/step), launches "
+        f"{launched(counts)}")
+    log("daemon: client wall s from the first push to the final "
+        f"{[round(out[k][1], 3) for k in range(len(audios))]}")
+    assert set(launched(counts)) == {"joint_step"}, f"daemon launched {counts}"
+    eng = BatchStreamingEngine(model, batch_size=len(audios), runtime=rt)
+    for k, a in enumerate(audios):
+        toks, words = direct_engine_stream(eng, a)
+        final = out[k][0]
+        assert final["tokens"] == toks and final["words"] == words, (
+            f"daemon client {k}: {final['tokens']} differs from the engine's {toks}")
+    log(f"daemon: every client token-exact with the engine driven directly "
+        f"({sum(len(out[k][0]['tokens']) for k in out)} tokens)")
+    assert len(segs) == 2, f"daemon continuous: {len(segs)} segments, expected 2"
+    for seg in segs:
+        a, b = int(round(seg["start_s"] * 16000)), int(round(seg["end_s"] * 16000))
+        toks, _ = direct_engine_stream(eng, stream[a:b])
+        log(f"daemon continuous: segment [{seg['start_s']:.2f} {seg['end_s']:.2f}] "
+            f"{len(seg['tokens'])} tokens, direct {len(toks)}")
+        assert seg["tokens"] == toks, "daemon continuous: a segment differs from the engine's"
+    kernels = {ev.key: ev.count for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA}
+    busy_ms = sum(ev.self_device_time_total for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    launched_as = lambda name: sum(n for k, n in kernels.items() if name in k)  # noqa: E731
+    chain = {k: launched_as(k) for k in CHAIN_KERNELS}
+    joint_kernel = PERSISTENT["joint_step"]["f32"]
+    log(f"daemon continuous (profiled): {cont_s:.2f} s wall, device busy {busy_ms:.1f} ms "
+        f"({100 * busy_ms / (cont_s * 1e3):.1f}%), {cont_counts['joint_step']} joint calls, "
+        f"{launched_as(joint_kernel)} {joint_kernel} launches, the chains' launches {chain}")
+    assert cont_counts["joint_step"] > 0 and launched_as(joint_kernel) == cont_counts[
+        "joint_step"], f"daemon: a joint call is not one {joint_kernel} launch"
+    assert not any(chain.values()), "daemon: a chain's kernel ran"
+    del model, srv, eng
+
+
 @contextlib.contextmanager
 def previous_int8_routes(torch):
     """The int8 routes the port took before the tensor-core products and
@@ -2029,6 +2186,144 @@ def gate_r3_engine(torch, dev, md, synth):
         assert [len(t) for t in gpu] == [len(w) for w in words], (
             f"gate_r3 engine[{label}] emitted {[len(t) for t in gpu]} tokens for "
             f"{[len(w) for w in words]} words")
+
+
+def imported_modules(importtime_log: str) -> set:
+    """Module names from ``python -X importtime`` output."""
+    return {ln.rsplit("|", 1)[1].strip() for ln in importtime_log.splitlines()
+            if ln.startswith("import time:") and ln.count("|") == 2}
+
+
+def check_no_jax_imported(label: str, importtime_log: str) -> None:
+    mods = imported_modules(importtime_log)
+    bad = sorted(m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "trt_asr_tpu"))
+    assert "trt_asr_tpu_torch.streaming.session" in mods, f"{label}: no import log"
+    assert not bad, f"{label} imported {bad}"
+
+
+def entry_lines(text: str) -> list:
+    """The CLI's lines that do not depend on the wall clock."""
+    return [ln for ln in text.splitlines()
+            if ln.startswith(("Final: ", "Transcript: ", "Word: ", "Segment: "))]
+
+
+def gate_r3_entry_points(torch, dev, md, synth, tmp: str) -> None:
+    """Phase 4, the user's entry points as subprocesses on the card:
+    ``python -m trt_asr_tpu_torch.cli`` on a wav of two gate_r3 utterances
+    1 s apart (``--stream-sim 0.5 --no-sleep --timestamps``, attention and
+    joint kernels from the environment), then with ``--continuous``: their
+    Final, Transcript, Word and Segment lines equal the port's CPU plain
+    path in this process. ``python -m trt_asr_tpu_torch.serve`` (B = 4,
+    joint kernel): two clients' tokens equal the CPU engine's. Each
+    subprocess imports nothing of JAX (``-X importtime``), exits 0 (the
+    daemon is terminated) and reports no error. ``--feature-norm none``:
+    gate_r3 was trained without per_feature normalization."""
+    import io
+    import queue
+    import threading
+    from contextlib import redirect_stdout
+
+    from trt_asr_tpu_torch import cli, serve
+    from trt_asr_tpu_torch.config import RuntimeConfig
+    from trt_asr_tpu_torch.io.wav import save_wav
+    from trt_asr_tpu_torch.models.parakeet.model import ParakeetTDT
+    from trt_asr_tpu_torch.streaming.batch_engine import BatchStreamingEngine
+
+    rng = np.random.default_rng(41)
+    words = [list(rng.integers(0, 1120, size=w)) for w in (6, 4)]
+    utts = [synth.synth_utterance(w, rng) for w in words]
+    wav = os.path.join(tmp, "gate_r3.wav")
+    save_wav(wav, np.concatenate([utts[0], np.zeros(16000, np.float32), utts[1]]))
+    flags = {"TRT_ASR_PALLAS_ATT": "1", "TRT_ASR_PALLAS_JOINT": "1"}
+    env = dict(os.environ, PYTHONPATH=ROOT, **flags)
+    base = [wav, "--model-dir", md, "--stream-sim", "0.5", "--no-sleep", "--timestamps",
+            "--feature-norm", "none"]
+    for extra in ([], ["--continuous"]):
+        label = "cli" + (" --continuous" if extra else "")
+        errf = os.path.join(tmp, "cli_err.txt")
+        t0 = time.perf_counter()
+        with open(errf, "w") as ferr:
+            res = subprocess.run([sys.executable, "-X", "importtime", "-m",
+                                  "trt_asr_tpu_torch.cli"] + base + extra,
+                                 cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=ferr,
+                                 text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        with open(errf) as f:
+            err = f.read()
+        assert res.returncode == 0, f"{label}: exit {res.returncode}\n{err[-3000:]}"
+        check_no_jax_imported(label, err)
+        assert "Error: " not in res.stdout + err, f"{label}: an error event"
+        saved = {k: os.environ.get(k) for k in flags}
+        os.environ.update(flags)
+        buf = io.StringIO()
+        try:
+            with redirect_stdout(buf):
+                assert cli.main(base + extra + ["--device", "cpu"]) == 0
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        got, want = entry_lines(res.stdout), entry_lines(buf.getvalue())
+        lat = [ln for ln in err.splitlines() if ln.startswith("ChunkLatencyMs:")]
+        log(f"gate_r3 {label} on the card ({wall:.1f} s, {lat[0] if lat else 'no latency line'}):"
+            f" {[ln for ln in got if not ln.startswith('Word: ')]}")
+        assert got == want, f"{label}: the card's lines differ from the CPU's: {want}"
+        transcript = [ln for ln in got if ln.startswith("Transcript: ")]
+        assert len(transcript) == 1 and len(transcript[0].split()) > 1, f"{label}: {got}"
+        if extra:
+            assert sum(ln.startswith("Segment: ") for ln in got) == 2, f"{label}: {got}"
+    # the daemon as a subprocess
+    rt = RuntimeConfig(use_pallas_joint=True)
+    errf = os.path.join(tmp, "serve_err.txt")
+    with open(errf, "w") as ferr:
+        proc = subprocess.Popen([sys.executable, "-X", "importtime", "-m",
+                                 "trt_asr_tpu_torch.serve", "--model-dir", md, "--port", "0",
+                                 "--batch-size", "4"],
+                                cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT,
+                                                   TRT_ASR_PALLAS_JOINT="1"),
+                                stdout=subprocess.PIPE, stderr=ferr, text=True)
+        try:
+            lines: queue.Queue = queue.Queue()
+            threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                             daemon=True).start()
+            t0, line = time.perf_counter(), ""
+            while "listening on" not in line:
+                line = lines.get(timeout=120)
+            port = int(line.split("listening on ")[1].split()[0].rsplit(":", 1)[1])
+            out = {}
+            threads = [threading.Thread(target=served_client,
+                                        args=(serve, ("127.0.0.1", port), u, 8000, out, k))
+                       for k, u in enumerate(utts)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            wall = time.perf_counter() - t0
+            assert not any(t.is_alive() for t in threads), "serve: a client did not finish"
+            bad = {k: v for k, v in out.items() if isinstance(v, Exception)}
+            assert not bad and len(out) == len(utts), f"serve: clients failed {bad}"
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+    with open(errf) as f:
+        err = f.read()
+    check_no_jax_imported("serve", err)
+    assert "step error" not in err, f"serve: a step failed\n{err[-3000:]}"
+    eng = BatchStreamingEngine(ParakeetTDT.from_model_dir(md, runtime=rt, device="cpu"),
+                               batch_size=4, runtime=rt)
+    want = [direct_engine_stream(eng, u)[0] for u in utts]
+    got = [out[k][0]["tokens"] for k in range(len(utts))]
+    log(f"gate_r3 serve subprocess on the card ({wall:.1f} s from start to the last final, "
+        f"client s {[round(out[k][1], 2) for k in range(len(utts))]}): tokens {got}; CPU "
+        f"engine {want}")
+    assert got == want, "serve: the card's tokens differ from the CPU engine's"
+    assert [len(t) for t in got] == [len(w) for w in words], "serve: one token a word expected"
 
 
 # --- phases 4 (offline part) and 5: offline batches ---------------------------
@@ -2335,8 +2630,13 @@ def main() -> int:
     phase_s["3 session"], t0 = time.perf_counter() - t0, time.perf_counter()
     full_width_engine(torch, dev, cfg, params, tok)
     phase_s["3b engine"], t0 = time.perf_counter() - t0, time.perf_counter()
+    full_width_daemon(torch, dev, cfg, params, tok)
+    phase_s["3c daemon"], t0 = time.perf_counter() - t0, time.perf_counter()
     gate_r3_session(torch, dev)
     gate_r3_offline(torch, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        gate_r3_entry_points(torch, dev, os.path.join(ROOT, "artifacts", "models", "gate_r3"),
+                             synth_module(), tmp)
     phase_s["4 gate_r3"], t0 = time.perf_counter() - t0, time.perf_counter()
     params["joint"]["out"]["b"][cfg.blank_id] -= bias        # phase 5 searches its own
     sess.update(full_width_offline(torch, dev, cfg, params, tok, audios))
@@ -2345,6 +2645,9 @@ def main() -> int:
 
     bad = [m for m in ("jax", "trt_asr_tpu") if m in sys.modules]
     assert not bad, f"imported {bad}"
+    entry = [f"trt_asr_tpu_torch.{m}" for m in ("serve", "cli", "streaming.continuous",
+                                                 "io.resample", "io.subtitles")]
+    assert all(m in sys.modules for m in entry), "the entry points' modules were not run"
 
     kernels = []
     for key, r in rec.items():

@@ -6,7 +6,8 @@ takes them; the offline rel-shift and flash-attention kernels in f32 and
 bf16; the bf16 x bf16 route of ``ops.common.matmul``; the wrappers
 raise, and do not fall back, on inputs the kernels do
 not take; the gate_r3 streaming session and offline transcription with the
-kernels on against the same runs on the CPU.
+kernels on, and two clients of the serving daemon with the joint kernel,
+against the same runs on the CPU.
 
 Every test here needs the card and skips without one. This file imports
 nothing of JAX, so it also runs where JAX is not installed:
@@ -1139,3 +1140,44 @@ def test_gate_r3_offline_with_kernels_matches_cpu():
         assert all(got)
         if dtype == torch.float32:
             assert got == offline_tokens(cpu, audios, dtype)
+
+
+@pytest.mark.cuda
+def test_gate_r3_daemon_with_joint_kernel_matches_cpu_engine():
+    """Two gate_r3 clients served at once by the port's daemon on the card,
+    joint kernel on, started without the warm-up (the stepper loads the
+    kernel at its first step): each client's tokens equal the CPU engine's
+    on the same audio, and the joint kernel launched."""
+    import threading
+
+    from trt_asr_tpu_torch.serve import AsrServer, transcribe
+    from trt_asr_tpu_torch.streaming.batch_engine import BatchStreamingEngine
+
+    dev = require_cuda()
+    rt = RuntimeConfig(use_pallas_joint=True)
+    gpu = ParakeetTDT.from_model_dir(GATE_R3, runtime=rt, device=dev)
+    cpu = ParakeetTDT.from_model_dir(GATE_R3, runtime=rt, device="cpu")
+    audios = [synth_audio(seed=24, words=5), synth_audio(seed=25, words=7)]
+    before = joint_step.launches
+    srv = AsrServer(gpu, batch_size=4, runtime=rt).start(warmup=False)
+    got = {}
+    try:
+        threads = [threading.Thread(target=lambda k=k: got.update(
+            {k: transcribe(*srv.addr, audios[k], chunk_samples=8000, timeout_s=120)}))
+            for k in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=180)
+        assert not any(t.is_alive() for t in threads), "a client did not finish"
+    finally:
+        srv.stop()
+    assert joint_step.launches > before
+    eng = BatchStreamingEngine(cpu, batch_size=4, runtime=rt)
+    for k, audio in enumerate(audios):
+        sid = eng.open_stream()
+        eng.push_audio(sid, audio)
+        eng.finalize_stream(sid)
+        eng.run_until_drained()
+        assert got[k]["tokens"] == list(eng._tokens[sid]) and got[k]["tokens"]
+        eng.close_stream(sid)

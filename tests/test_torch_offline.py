@@ -282,7 +282,7 @@ def test_transcribe_degenerate_inputs(tiny_pair):
     assert got == jm.transcribe_batch([np.zeros(0, np.float32), audio])
     assert got[0] == ("", []) and got[1] == pm.transcribe_offline(audio)
     assert pm.transcribe_offline(np.zeros(0, np.float32)) == ("", [])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         pm.transcribe_batch([audio], mesh=object())
 
 

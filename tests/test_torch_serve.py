@@ -1,0 +1,460 @@
+"""The PyTorch port's serving daemon (``serve.py``) against the JAX package's
+on ``ModelConfig.tiny()``, the same weights on both sides: concurrent TCP
+clients multiplexed through one lockstep engine transcribe exactly as the
+port's engine and the JAX engine driven directly (tokens, text, words);
+the JSON replies to malformed and over-capacity requests equal the JAX
+daemon's; continuous clients get one segment event a speech span, a
+rollover on a full server is an error reply the client survives, many
+rollovers leak no slot, and ``transcribe_continuous`` returns the ordered
+segments. These mirror ``tests/test_serve.py`` (no AOT engines, no beam).
+Also: the engine's warm-up reaches the joint kernel before any thread
+starts, ``_batch_step`` passes the FFN and conv flags to the encoder, the
+entry point refuses what is not ported and the CPU unless asked, and the
+daemon serves as a subprocess importing nothing of JAX.
+
+Every socket has a timeout, every server is stopped in a ``finally`` and
+every join is bounded. Tolerance: none; tokens, texts, words, times and
+replies are exact."""
+
+import base64
+import json
+import os
+import socket
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from torch_port_helpers import np_tree, spy_calls
+
+from trt_asr_tpu.config import ModelConfig as JConfig
+from trt_asr_tpu.config import RuntimeConfig as JRuntime
+from trt_asr_tpu.models.parakeet.model import ParakeetTDT as JModel
+from trt_asr_tpu.serve import AsrServer as JServer
+from trt_asr_tpu.streaming.batch_engine import BatchStreamingEngine as JEngine
+from trt_asr_tpu_torch import serve
+from trt_asr_tpu_torch.config import ModelConfig, RuntimeConfig
+from trt_asr_tpu_torch.decode import greedy_loop
+from trt_asr_tpu_torch.models.parakeet import encoder
+from trt_asr_tpu_torch.models.parakeet.encoder import init_encoder_state
+from trt_asr_tpu_torch.models.parakeet.model import ParakeetTDT
+from trt_asr_tpu_torch.serve import AsrServer, transcribe, transcribe_continuous
+from trt_asr_tpu_torch.streaming.batch_engine import BatchStreamingEngine, _batch_step
+from trt_asr_tpu_torch.tokenizer import Tokenizer
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RT = dict(suppress_leading_punct=False)
+
+
+@pytest.fixture(scope="module")
+def models():
+    jm = JModel.random(JConfig.tiny(), seed=5)
+    pm = ParakeetTDT(ModelConfig.tiny(), np_tree(jm.params),
+                     Tokenizer(list(jm.tokenizer.vocab), blank_id=jm.cfg.blank_id),
+                     runtime=RuntimeConfig(), device="cpu")
+    return jm, pm
+
+
+def _audio(n, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n)
+    return (0.4 * np.sin(2 * np.pi * (250 + 30 * seed) * t / 16000)
+            + 0.1 * rng.standard_normal(n)).astype(np.float32)
+
+
+def _direct(model, audio, engine_cls=BatchStreamingEngine, rt_cls=RuntimeConfig):
+    """(text, tokens, words) of ``audio`` through an engine driven directly."""
+    eng = engine_cls(model, batch_size=2, runtime=rt_cls(**RT))
+    sid = eng.open_stream()
+    eng.push_audio(sid, audio)
+    eng.finalize_stream(sid)
+    eng.run_until_drained()
+    return eng.text(sid), list(eng._tokens[sid]), eng.word_timestamps(sid)
+
+
+class _Conn:
+    """A raw protocol connection with a timeout on every read."""
+
+    def __init__(self, addr, timeout=120):
+        self.sock = socket.create_connection(addr, timeout=timeout)
+        self.f = self.sock.makefile("rwb")
+
+    def send_raw(self, data: bytes):
+        self.f.write(data)
+        self.f.flush()
+
+    def send(self, obj):
+        self.send_raw((json.dumps(obj) + "\n").encode())
+
+    def recv(self):
+        line = self.f.readline()
+        if not line:
+            raise ConnectionError("server closed")
+        return json.loads(line)
+
+    def push(self, pcm):
+        self.send({"op": "push", "pcm": base64.b64encode(pcm.tobytes()).decode()})
+
+    def close(self):
+        self.f.close()        # the makefile dup holds the fd: close both, or
+        self.sock.close()     # the server never sees EOF and the slot leaks
+
+
+def _run_threads(fn, keys, timeout=300):
+    threads = [threading.Thread(target=fn, args=(k,)) for k in keys]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+    assert not any(t.is_alive() for t in threads), "a client thread did not finish"
+
+
+def test_concurrent_clients_match_port_and_jax_engines(models):
+    jm, pm = models
+    srv = AsrServer(pm, batch_size=4, runtime=RuntimeConfig(**RT)).start()
+    audios = {k: _audio(28000 + 4000 * k, k + 1) for k in range(3)}
+    results = {}
+
+    def run(k):
+        results[k] = transcribe(*srv.addr, audios[k], chunk_samples=6000, timeout_s=120)
+
+    try:
+        _run_threads(run, audios)
+    finally:
+        srv.stop()
+    assert len(results) == len(audios)
+    for k, audio in audios.items():
+        text, toks, words = _direct(pm, audio)
+        jtext, jtoks, jwords = _direct(jm, audio, JEngine, JRuntime)
+        got = results[k]
+        assert (got["text"], got["tokens"], got["words"]) == (text, toks, words), f"stream {k}"
+        assert (text, toks, words) == (jtext, jtoks, jwords), f"stream {k}"
+        assert toks, f"stream {k}: degenerate, no tokens"
+
+
+def _error_script(srv) -> list:
+    """Malformed and over-capacity requests on a batch_size=1 daemon; the
+    replies in order."""
+    out = []
+    c1 = _Conn(srv.addr)
+    c2 = None
+    try:
+        c1.send({"op": "open"})
+        out.append(c1.recv())
+        c2 = _Conn(srv.addr)
+        for raw in (b'{"op": "open"}\n', b'{"op": "push", "pcm": ""}\n',
+                    b'not json\n{"op": "info"}\n', b'{"op": "frobnicate"}\n'):
+            c2.send_raw(raw)
+            out.append(c2.recv())
+        out.append(c2.recv())                      # the last reply of the four sends
+        for msg in ({"op": "push_features", "frames": 2,
+                     "feats": base64.b64encode(np.zeros(10, np.float32).tobytes()).decode()},
+                    {"op": "push", "pcm": "@@not base64@@"},
+                    {"op": "frobnicate"}, {"op": "finalize"}):
+            c1.send(msg)
+            out.append(c1.recv())
+    finally:
+        for c in (c1, c2):
+            if c is not None:
+                c.close()
+    # the first client's slot frees on disconnect: a new open succeeds
+    deadline = time.monotonic() + 30
+    while True:
+        c3 = _Conn(srv.addr)
+        try:
+            c3.send({"op": "open"})
+            r = c3.recv()
+        finally:
+            c3.close()
+        if r["ok"] or time.monotonic() > deadline:
+            out.append(r)
+            return out
+        time.sleep(0.1)
+
+
+def test_error_replies_match_jax_daemon(models):
+    jm, pm = models
+    replies = []
+    for server_cls, model, rt in ((JServer, jm, JRuntime(**RT)),
+                                  (AsrServer, pm, RuntimeConfig(**RT))):
+        srv = server_cls(model, batch_size=1, runtime=rt).start(warmup=False)
+        try:
+            replies.append(_error_script(srv))
+        finally:
+            srv.stop()
+    got, want = replies
+    assert got == want
+    assert got[1]["ok"] is False and "busy" in got[1]["error"]
+    assert [r["info"] for r in got if "info" in r] == [{"batch_size": 1,
+                                                        "n_mels": pm.cfg.feat_in}]
+    assert sum(not r["ok"] for r in got) == 7
+    assert got[-1] == {"ok": True, "sid": 0}
+
+
+def _read_segments(conn, want, segs, timeout=120):
+    conn.sock.settimeout(1.0)
+    t0 = time.monotonic()
+    while len(segs) < want and time.monotonic() - t0 < timeout:
+        try:
+            msg = conn.recv()
+        except (TimeoutError, socket.timeout):
+            continue
+        if msg.get("event") == "segment":
+            segs.append(msg)
+    return segs
+
+
+def _push_stream(conn, stream, segs, chunk=4000):
+    for s in range(0, len(stream), chunk):
+        conn.push(stream[s:s + chunk])
+        while True:
+            msg = conn.recv()
+            if "ok" in msg:
+                assert msg["ok"], msg
+                break
+            if msg.get("event") == "segment":
+                segs.append(msg)
+
+
+def test_continuous_client_segments(models):
+    """One segment event a speech span, with times on the stream's clock;
+    each segment equals the port's and the JAX engine driven directly on
+    its samples; a plain client on the same daemon is unaffected."""
+    jm, pm = models
+    srv = AsrServer(pm, batch_size=4, runtime=RuntimeConfig(**RT)).start()
+    z = np.zeros(16000, np.float32)
+    stream = np.concatenate([z, _audio(12800, 1), z, _audio(12800, 2), z])
+    plain = {}
+    t = threading.Thread(target=lambda: plain.update(
+        r=transcribe(*srv.addr, _audio(24000, 3), chunk_samples=6000, timeout_s=120)))
+    t.start()
+    try:
+        conn = _Conn(srv.addr)
+        try:
+            conn.send({"op": "open", "continuous": True, "silence_s": 0.6})
+            assert conn.recv()["ok"]
+            segs = []
+            _push_stream(conn, stream, segs)
+            _read_segments(conn, 2, segs)
+        finally:
+            conn.close()
+    finally:
+        t.join(timeout=300)
+        srv.stop()
+    assert not t.is_alive() and len(segs) == 2, segs
+    segs.sort(key=lambda m: m["start_s"])
+    for seg in segs:
+        a, b = int(round(seg["start_s"] * 16000)), int(round(seg["end_s"] * 16000))
+        text, toks, words = _direct(pm, stream[a:b])
+        assert (seg["text"], seg["tokens"], seg["words"]) == (text, toks, words), seg
+        assert _direct(jm, stream[a:b], JEngine, JRuntime)[:2] == (text, toks)
+    assert any(s["tokens"] for s in segs)
+    assert segs[0]["start_s"] <= 1.02 and segs[1]["start_s"] <= 2.82
+    assert plain["r"]["tokens"] == _direct(pm, _audio(24000, 3))[1]
+
+
+def test_continuous_rollover_capacity_error_is_recoverable(models):
+    """batch_size=1: an endpoint's rollover needs a second slot, so it is an
+    error reply; the detector and slot stay intact, and once the client
+    leaves the daemon serves a plain client."""
+    pm = models[1]
+    srv = AsrServer(pm, batch_size=1, runtime=RuntimeConfig(**RT)).start()
+    try:
+        conn = _Conn(srv.addr)
+        try:
+            conn.send({"op": "open", "continuous": True, "silence_s": 0.4})
+            assert conn.recv()["ok"]
+            z = np.zeros(16000, np.float32)
+            stream = np.concatenate([z, _audio(12800, 1), z])
+            errors = []
+            for s in range(0, len(stream), 4000):
+                conn.push(stream[s:s + 4000])
+                while "ok" not in (msg := conn.recv()):
+                    pass
+                if not msg["ok"]:
+                    errors.append(msg["error"])
+        finally:
+            conn.close()
+        assert errors and all("busy" in e for e in errors), errors
+        r = None
+        for _ in range(100):             # the slot frees once the server sees EOF
+            try:
+                r = transcribe(*srv.addr, _audio(24000, 3), chunk_samples=8000, timeout_s=120)
+                break
+            except RuntimeError:
+                time.sleep(0.2)
+        assert r is not None, "slot never freed after disconnect"
+        assert r["tokens"] == _direct(pm, _audio(24000, 3))[1]
+    finally:
+        srv.stop()
+
+
+def test_many_rollovers_no_slot_leak(models):
+    """Six utterances through one continuous client: each rollover retires
+    the old slot when its flush drains; at the end one slot is active, no
+    segment pending, and the per-sid maps hold only the live sid."""
+    srv = AsrServer(models[1], batch_size=3, runtime=RuntimeConfig(**RT)).start()
+    try:
+        conn = _Conn(srv.addr)
+        try:
+            conn.send({"op": "open", "continuous": True, "silence_s": 0.4})
+            assert conn.recv()["ok"]
+            gap = np.zeros(int(0.7 * 16000), np.float32)
+            parts = [gap]
+            for k in range(6):
+                parts += [_audio(int(0.45 * 16000), k + 1), gap]
+            segs = []
+            _push_stream(conn, np.concatenate(parts), segs)
+            _read_segments(conn, 6, segs)
+            assert len(segs) == 6, [s.get("text") for s in segs]
+            starts = [s["start_s"] for s in segs]
+            assert starts == sorted(starts)
+            t0 = time.monotonic()
+            while time.monotonic() - t0 < 60:
+                with srv._elock:
+                    if (sum(srv.engine._active) == 1 and not srv._seg_pending
+                            and len(srv._clients) == 1):
+                        break
+                time.sleep(0.2)
+            with srv._elock:
+                assert sum(srv.engine._active) == 1
+                assert not srv._seg_pending and len(srv._clients) == 1
+                assert len(srv._outq) == 1 and len(srv._wlocks) == 1
+        finally:
+            conn.close()
+    finally:
+        srv.stop()
+
+
+def test_transcribe_continuous_helper(models):
+    """The blocking helper returns the ordered segments, including one that
+    only the finalize flush closes (no trailing silence)."""
+    pm = models[1]
+    srv = AsrServer(pm, batch_size=3, runtime=RuntimeConfig(**RT)).start()
+    z = np.zeros(16000, np.float32)
+    stream = np.concatenate([z, _audio(12800, 1), z, _audio(12800, 2)])
+    try:
+        segs = transcribe_continuous(*srv.addr, stream, chunk_samples=4000, timeout_s=120,
+                                     silence_s=0.5)
+    finally:
+        srv.stop()
+    assert len(segs) == 2 and segs[0]["start_s"] < segs[1]["start_s"]
+    a, b = int(round(segs[1]["start_s"] * 16000)), int(round(segs[1]["end_s"] * 16000))
+    assert b <= len(stream)
+    assert segs[1]["tokens"] == _direct(pm, stream[a:b])[1]
+
+
+def test_warmup_reaches_the_joint_kernel_before_threads_start(models, monkeypatch):
+    """``start()`` warms the step up under the engine lock before the
+    stepper exists, and the warm-up decodes, so the joint kernel's wrapper
+    (its plain version on CPU tensors) is reached: on the card the kernel
+    is built and loaded there, never first inside the stepper."""
+    calls = spy_calls(monkeypatch, greedy_loop, ["joint_step"])
+    srv = AsrServer(models[1], batch_size=2,
+                    runtime=RuntimeConfig(use_pallas_joint=True, **RT))
+    try:
+        assert srv.engine.beam == 1
+        srv.start()
+        assert calls["joint_step"] > 0
+        assert srv.engine._active == [False, False]
+    finally:
+        srv.stop()
+    assert not srv._threads[1].is_alive()
+
+
+@pytest.mark.parametrize("flag", ["use_pallas_ffn", "use_pallas_conv"])
+def test_batch_step_passes_ffn_and_conv_flags(models, monkeypatch, flag):
+    """``_batch_step(use_pallas_ffn=, use_pallas_conv=)`` reaches the
+    encoder's kernels (plain versions on CPU tensors, so the tokens equal
+    the step without them); the engine's own step leaves them off."""
+    pm = models[1]
+    eng = BatchStreamingEngine(pm, batch_size=1, runtime=RuntimeConfig(**RT))
+    cfg = pm.cfg
+    feats = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (1, eng._frames, cfg.feat_in)).astype(np.float32))
+    args = (torch.full((1,), eng._frames, dtype=torch.int32),)
+    vecs = (torch.full((1,), cfg.cache_drop_size, dtype=torch.int32),
+            torch.full((1,), cfg.valid_out_len, dtype=torch.int32))
+    kw = eng._step_kwargs()
+    assert "use_pallas_ffn" not in kw and "use_pallas_conv" not in kw
+
+    def step(**flags):        # fresh states: the step updates the caches in place
+        return _batch_step(pm, feats, *args, init_encoder_state(cfg, 1),
+                           eng._fresh_decode_state(), np.zeros(1, np.int32), *vecs, **kw,
+                           **flags)
+
+    plain = step()
+    calls = spy_calls(monkeypatch, encoder, ["fused_ffn", "conv_block"])
+    fused = step(**{flag: True})
+    want = {"use_pallas_ffn": "fused_ffn", "use_pallas_conv": "conv_block"}[flag]
+    assert calls[want] > 0 and sum(calls.values()) == calls[want]
+    assert torch.equal(plain[0], fused[0]) and torch.equal(plain[1], fused[1])
+
+
+@pytest.mark.parametrize("argv,item", [(["--engines", "x"], 7), (["--beam", "2"], 5),
+                                       (["--lm", "lm.json"], 5)])
+def test_main_refuses_what_is_not_ported(capsys, argv, item):
+    with pytest.raises(SystemExit) as e:
+        serve.main(["--synthetic-model", "tiny", "--device", "cpu"] + argv)
+    assert e.value.code == 2
+    assert f"not ported yet (ROADMAP Queue 1 item {item})" in capsys.readouterr().err
+
+
+def test_main_needs_a_card_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--synthetic-model", "tiny", "--port", "0"])
+
+
+def imported_modules(importtime_log: str) -> set:
+    """Module names from ``python -X importtime`` output."""
+    return {line.rsplit("|", 1)[1].strip() for line in importtime_log.splitlines()
+            if line.startswith("import time:") and line.count("|") == 2}
+
+
+def no_jax(mods: set) -> list:
+    return sorted(m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "trt_asr_tpu"))
+
+
+@pytest.mark.parametrize("warmup", [True, False])
+def test_daemon_subprocess_serves_on_cpu_without_jax(tmp_path, warmup):
+    """``python -m trt_asr_tpu_torch.serve --device cpu`` as a user starts
+    it (with and without ``--no-warmup``): its listening line gives the
+    port, a client's tokens equal the engine driven directly, and the
+    process imported nothing of JAX."""
+    err = tmp_path / "stderr.txt"
+    cmd = [sys.executable, "-X", "importtime", "-m", "trt_asr_tpu_torch.serve",
+           "--synthetic-model", "tiny", "--device", "cpu", "--port", "0",
+           "--batch-size", "2"] + ([] if warmup else ["--no-warmup"])
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    with open(err, "w") as ferr:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=ferr,
+                                text=True)
+        try:
+            line = ""
+            deadline = time.monotonic() + 120
+            while "listening on" not in line and time.monotonic() < deadline:
+                line = proc.stdout.readline()
+                assert line or proc.poll() is None, "daemon exited before listening"
+            assert "listening on" in line, line
+            port = int(line.split("listening on ")[1].split()[0].rsplit(":", 1)[1])
+            audio = _audio(24000, 3)
+            got = transcribe("127.0.0.1", port, audio, timeout_s=120)
+        finally:
+            proc.terminate()
+            proc.wait(timeout=30)
+    log = err.read_text()
+    assert "step error" not in log
+    assert not no_jax(imported_modules(log))
+    assert "trt_asr_tpu_torch.streaming.batch_engine" in imported_modules(log)
+    model = ParakeetTDT.random(ModelConfig.tiny(), runtime=RuntimeConfig(), device="cpu")
+    eng = BatchStreamingEngine(model, batch_size=2, runtime=RuntimeConfig())
+    sid = eng.open_stream()
+    eng.push_audio(sid, audio)
+    eng.finalize_stream(sid)
+    eng.run_until_drained()
+    assert got["tokens"] == list(eng._tokens[sid]) and got["text"] == eng.text(sid)

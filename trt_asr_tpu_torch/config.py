@@ -151,6 +151,9 @@ class RuntimeConfig:
     quant: str = "none"                      # int8 weight-only quantization
                                              # scope: none|joint|encoder|all
     batched_decode: bool = True              # blank-run batched decode
+    beam_width: int = 0                      # TRT_ASR_BEAM: > 0 selects the
+                                             # beam, not ported yet (the CLI
+                                             # refuses it)
     # decode behavior
     blank_penalty: float = 0.0               # PARAKEET_BLANK_PENALTY
     suppress_leading_punct: bool = True      # PARAKEET_ALLOW_LEADING_PUNCT inverts
@@ -175,6 +178,7 @@ class RuntimeConfig:
             use_pallas_ffn=_env_bool("TRT_ASR_PALLAS_FFN", None, d.use_pallas_ffn),
             quant=_env_str("TRT_ASR_QUANT", None, d.quant),
             batched_decode=_env_bool("TRT_ASR_BATCHED_DECODE", None, d.batched_decode),
+            beam_width=_env_int("TRT_ASR_BEAM", None, d.beam_width),
             blank_penalty=_env_float("TRT_ASR_BLANK_PENALTY", "PARAKEET_BLANK_PENALTY", d.blank_penalty),
             suppress_leading_punct=not _env_bool(
                 "TRT_ASR_ALLOW_LEADING_PUNCT",

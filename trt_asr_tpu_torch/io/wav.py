@@ -1,6 +1,6 @@
 """WAV loading and saving (dependency-free), as the JAX package's
 ``io/wav.py``: 16 kHz mono; 8/16/24/32-bit PCM scaled to [-1, 1] f32,
-channels averaged."""
+channels averaged; raw f32le PCM passed through."""
 
 from __future__ import annotations
 
@@ -44,3 +44,8 @@ def save_wav(path: str, audio: np.ndarray, rate: int = 16000) -> None:
         w.setsampwidth(2)
         w.setframerate(rate)
         w.writeframes(pcm.tobytes())
+
+
+def load_raw_pcm_f32(path: str) -> np.ndarray:
+    """Headerless little-endian f32 samples (the CLI's ``--raw-pcm``)."""
+    return np.fromfile(path, dtype="<f4")

@@ -203,7 +203,7 @@ class ParakeetTDT:
         order. ``mesh`` (data/tensor-parallel batches) is not ported."""
         if mesh is not None:
             raise NotImplementedError(
-                "transcribe_batch(mesh=...) is not ported yet (ROADMAP Queue 1 item 12)")
+                "transcribe_batch(mesh=...) is not ported yet (ROADMAP Queue 1 item 9)")
         if len(audios) == 0:
             return []
         x, lens = self.batch_features(audios, norm=norm, pad_multiple=pad_multiple)

@@ -44,20 +44,24 @@ def _batch_step(model: ParakeetTDT, feats, valid, enc_state, dec_state, emitted_
                 cache_drop_vec, valid_cap_vec, *, drop_extra: int, max_tokens: int,
                 blank_penalty: float = 0.0, punct_mask=None, pos_proj=None,
                 pad_steps: int = 0, use_pallas_att: bool = False,
+                use_pallas_conv: bool = False, use_pallas_ffn: bool = False,
                 use_pallas_joint: bool = False):
     """One lockstep step for steady AND final-flush chunks: the batched
     streaming encoder (per-row cache_drop and emission cap) and the batched
     TDT greedy decode. feats [B, T, C] on the device; valid, emitted_so_far,
     cache_drop_vec, valid_cap_vec [B]. ``use_pallas_att`` (B=1, steps
-    padded by ``pad_steps``) as :func:`~trt_asr_tpu_torch.models.parakeet.
-    encoder.encode` takes it; the engine leaves it off. Returns
+    padded by ``pad_steps``), ``use_pallas_conv`` (B=1) and
+    ``use_pallas_ffn`` as :func:`~trt_asr_tpu_torch.models.parakeet.
+    encoder.encode` takes them; the engine leaves them off, as the JAX
+    engine does. Returns
     (tokens, n, enc_state, dec_state, (frames, durs, logps), out_len),
     tokens, counts and stamps as host tensors."""
     cfg = model.cfg
     enc, out_len, enc_state = encode(
         model.params, cfg, feats, valid, enc_state, drop_extra=drop_extra,
         cache_drop_vec=cache_drop_vec, valid_cap_vec=valid_cap_vec, pos_proj=pos_proj,
-        pad_steps=pad_steps, use_pallas_att=use_pallas_att, layers=model.layers)
+        pad_steps=pad_steps, use_pallas_att=use_pallas_att, use_pallas_conv=use_pallas_conv,
+        use_pallas_ffn=use_pallas_ffn, layers=model.layers)
     toks, n, dec_state, stamps = tdt_greedy_decode_batch(
         model.params, cfg, enc, out_len, dec_state, max_tokens=max_tokens,
         blank_penalty=blank_penalty, emitted_so_far=emitted_so_far, punct_mask=punct_mask,
@@ -85,6 +89,7 @@ class BatchStreamingEngine:
         self.device = model.device
         self.rt = runtime or model.runtime
         self.b = batch_size
+        self.beam = 1                 # greedy: the daemon reads it (no n-best)
         self._frames = cfg.chunk_size_frames[1] + cfg.pre_encode_cache_size[1]
         self._tq = subsampled_length(self._frames, cfg.stride_stages) - cfg.drop_extra_pre_encoded
         self._pos_proj = precompute_pos_proj(model.params, cfg, self._tq, cfg.att_cache_size)
@@ -203,8 +208,10 @@ class BatchStreamingEngine:
 
     def warmup(self) -> float:
         """Run the lockstep step and the row resets once on scratch state,
-        leaving the slots untouched (builds the kernels the step launches
-        before the first client). Returns wall seconds."""
+        leaving the slots untouched: the kernels the step launches are built
+        and loaded before the first client. Every scratch row holds a full
+        chunk, since a step of empty rows decodes nothing and so would
+        never reach the joint kernel. Returns wall seconds."""
         cfg = self.cfg
         t0 = time.perf_counter()
         mask = self._row_mask([0])
@@ -214,7 +221,7 @@ class BatchStreamingEngine:
         zeros = np.zeros((self.b,), np.int32)
         _batch_step(self.model, self._feed(np.zeros((self.b, self._frames, cfg.feat_in),
                                                     np.float32)),
-                    self._feed(zeros), enc, dec, zeros,
+                    self._feed(np.full((self.b,), self._frames, np.int32)), enc, dec, zeros,
                     self._feed(np.full((self.b,), cfg.cache_drop_size, np.int32)),
                     self._feed(np.full((self.b,), cfg.valid_out_len, np.int32)),
                     **self._step_kwargs())

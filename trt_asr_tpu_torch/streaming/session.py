@@ -80,6 +80,7 @@ class StreamingSession:
         self._lock = threading.Lock()
         self._segment = 0
         self._chunk_latencies_ms: List[float] = []
+        self._debug_ctx = ""
         cfg = self.cfg
         # steady chunk: 57 frames -> 8 steps - drop 2 = 6 (full-size regime)
         frames = cfg.chunk_size_frames[1] + cfg.pre_encode_cache_size[1]
@@ -119,6 +120,11 @@ class StreamingSession:
         self._last_partial_len = 0
         self._finalized = False
         self._segment += 1
+
+    def set_debug_context(self, ctx: str) -> None:
+        """A caller's label for this stream (a C-ABI bridge passes one),
+        kept as the JAX session keeps it."""
+        self._debug_ctx = ctx
 
     # -- snapshot / restore ----------------------------------------------
 
@@ -228,6 +234,12 @@ class StreamingSession:
     @property
     def text(self) -> str:
         return self.model.tokenizer.decode(self._tokens)
+
+    @property
+    def stable_text(self) -> str:
+        """The part of the transcript no later chunk can rewrite: greedy
+        decoding never revises an emitted token, so all of it."""
+        return self.text
 
     @property
     def tokens(self) -> List[int]:
