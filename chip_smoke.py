@@ -62,8 +62,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    joint step with bf16 biases (the fast arm) at 1e-4, each timed beside
    its plain version and its bound and replayed from a captured graph.
 3. full-width session (``ModelConfig()``, seeded random weights from the
-   port's ``init_params``): a seeded synthetic utterance of 12 words
-   (~6 s) pushed in 0.5 s pieces, with a blank bias set so the plain f32
+   port's ``init_params``): a seeded synthetic utterance of 8 words
+   (~4 s) pushed in 0.5 s pieces, with a blank bias set so the plain f32
    path emits about one token a word. Arms: f32 with the attention,
    joint and log-mel kernels on (``f32_on``) and with the FFN and conv
    kernels on too (``f32_all``), each token-exact against the same session
@@ -144,6 +144,24 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    joint call is one persistent-kernel launch and no chain kernel runs.
    Served step ms (median, p90), each client's wall seconds and the joint
    launches a step. An error event or a ``step error`` fails it.
+3d. beam search at full width (the phase-3 weights and blank bias, f32,
+   TF32 off, kernels off as on every beam path; the utterance phase 3
+   makes at 12 words, ~6 s, in 0.5 s pushes, whatever ``--words`` is;
+   every check below runs on all of it): ``BeamStreamingSession(beam=4)`` on the host and on the
+   device give the same n-best (tokens, ranking and stamps exact, scores
+   within 2e-3); device beam 1 equals the greedy session; the device beam
+   with an n-gram LM (weight 0.6, fitted from seeded token sentences) and
+   with a biasing LM (phrases from the runner-up hypotheses) equals the host beam with the same lm_fn;
+   ``token_cap=8`` raises the saturation ERROR event once;
+   ``transcribe_offline_beam`` equals the device beam over the same
+   offline encoder rows; the engine (B = 8, beam 4) on 3b's utterances, one
+   slot attached late and one finalized early, gives each slot the n-best
+   of a standalone device session, without and with the LM. Host ms a
+   steady chunk (greedy, host beam, device beam), device ms and launches a
+   chunk (a profiled window of its own, the utterance's first third: the
+   profiler's post-processing grows with its ~7,000 events a chunk), the
+   engine's beam step ms and the seconds of each of these steps. No
+   kernel wrapper launches here.
 4. the trained ``artifacts/models/gate_r3`` on the card with the kernels
    on, each token-exact against the port's CPU plain path: attention,
    joint and log-mel kernels in f32, int8 and bf16; every kernel in f32,
@@ -164,6 +182,13 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    Transcript, Word and Segment lines equal the port's CPU path in this
    process; ``python -m trt_asr_tpu_torch.serve`` (B = 4, joint kernel),
    whose two clients' tokens equal the CPU engine's.
+4b. gate_r3's beam: the host and device beam sessions (and the device beam
+   with an n-gram LM) on the card equal the CPU path, n-best token-exact;
+   then, at once as subprocesses, the CLI with ``--beam 4``, ``--beam 4
+   --beam-device``, ``--bias``, ``--lm`` and ``--continuous`` (Final,
+   Transcript, Word and Segment lines equal the CPU's; NBest texts exact,
+   scores within 2e-3) and the daemon with ``--beam 4 --lm`` (B = 4),
+   whose three finals' n-best equal the CPU engine's.
 5. full-width offline batch (``ModelConfig()``, the phase-3 weights): 8
    synthetic utterances of mixed length up to 30 s (one under 10 s),
    batched and padded as ``transcribe_batch`` does, through
@@ -206,6 +231,7 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+BEAM_WORDS = 12                    # phase 3d's utterance (about 6 s), whatever --words is
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"f32": 67e12,          # f32 outside the tensor cores
             "bf16": 989e12}        # dense bf16 tensor-core rate
@@ -1615,7 +1641,8 @@ def full_width_session(torch, dev, timer, n_words: int, seed: int):
         results[name] = dict(tokens=sess.tokens, counts=counts, n_chunks=n_chunks,
                              median_ms=float(np.median(steady)),
                              p90_ms=float(np.percentile(steady, 90)))
-        iters, syncs = decode_and_sync_counts(torch, model, rt, audio, piece, sdt)
+        iters, syncs = decode_and_sync_counts(torch, model, rt, audio[: len(audio) // 3], piece,
+                                              sdt)
         profile_session(torch, name, model, rt, audio[: len(audio) // 3], piece, sdt)
         assert q8_matmul.widened == 0, (
             f"session[{name}] widened an int8 weight at {q8_matmul.widened} calls")
@@ -2067,6 +2094,233 @@ def full_width_daemon(torch, dev, cfg, params, tok):
     del model, srv, eng
 
 
+# --- phase 3d: beam search at full width ------------------------------------
+
+
+def same_nbest(label, got, want, tol: float = 2e-3) -> None:
+    """Two n-best lists of Hypothesis objects: tokens, ranking and stamps'
+    frames and durations exact, scores within ``tol`` (the f32 search adds
+    in another order than the host's f64 sums)."""
+    assert [h.tokens for h in got] == [h.tokens for h in want], (
+        f"{label}: n-best tokens differ: {[h.tokens for h in got]} against "
+        f"{[h.tokens for h in want]}")
+    for a, b in zip(got, want):
+        assert abs(a.score - b.score) <= tol, f"{label}: score {a.score} against {b.score}"
+        assert [x[:2] for x in a.stamps] == [x[:2] for x in b.stamps], f"{label}: stamps differ"
+
+
+def beam_session_run(model, audio, piece: int, unified: bool = False, **kw):
+    """One utterance through a BeamStreamingSession; returns the session
+    (its ``_nbest_hyps`` ranked) and its events as (type, tokens, error)."""
+    from trt_asr_tpu_torch.streaming.beam_session import BeamStreamingSession
+    from trt_asr_tpu_torch.streaming.schedule import ChunkScheduler
+
+    sess = BeamStreamingSession(model, **kw)
+    if unified:
+        sess._sched = ChunkScheduler(model.cfg, unified=True)   # the engine's chunk profile
+    for i in range(0, len(audio), piece):
+        sess.push_audio(audio[i:i + piece])
+    sess.finalize()
+    events = []
+    while (ev := sess.poll_event()) is not None:
+        events.append((int(ev.type), list(ev.tokens), ev.error_message))
+    return sess, events
+
+
+def steady_ms(lat) -> tuple:
+    steady = np.asarray(lat[1:-1] if len(lat) > 2 else lat)
+    return float(np.median(steady)), float(np.percentile(steady, 90))
+
+
+def full_width_lm(transcripts, vocab: int, seed: int):
+    """An order-3 n-gram LM fitted from 200 seeded random token sentences
+    and, three times each, the given transcripts' tokens (so that its deeper
+    levels hit on the hypotheses the search builds and the fusion does not
+    merely penalize every emission)."""
+    from trt_asr_tpu_torch.decode.ngram_lm import NGramLM
+
+    rng = np.random.default_rng(seed)
+    seqs = [rng.integers(0, vocab, size=int(rng.integers(4, 16))).tolist() for _ in range(200)]
+    return NGramLM.fit(seqs + [list(t) for t in transcripts] * 3, order=3, vocab_size=vocab)
+
+
+def drive_engine_beam(eng, audios, piece: int):
+    """Phase 3b's driving: all but the last stream open at once, the last
+    attached after three steps, the shortest finalized while the others
+    stream. Returns the sids and the step count."""
+    sids = [eng.open_stream() for _ in range(len(audios) - 1)]
+    offs = [0] * len(audios)
+    shortest = int(np.argmin([len(a) for a in audios[:-1]]))
+    n_step = 0
+    while True:
+        if n_step == 3:
+            sids.append(eng.open_stream())
+        for k, sid in enumerate(sids):
+            if offs[k] < len(audios[k]):
+                eng.push_audio(sid, audios[k][offs[k]:offs[k] + piece])
+                offs[k] += piece
+                if offs[k] >= len(audios[k]) and k == shortest:
+                    eng.finalize_stream(sid)
+        eng.step()
+        n_step += 1
+        if all(o >= len(a) for o, a in zip(offs, audios)) and len(sids) == len(audios):
+            break
+    for k, sid in enumerate(sids):
+        if k != shortest:
+            eng.finalize_stream(sid)
+    eng.run_until_drained()
+    return sids, n_step
+
+
+def full_width_beam(torch, dev, cfg, params, tok, n_words: int, seed: int):
+    """Phase 3d: beam search at full width (``ModelConfig()``, the phase-3
+    weights with their blank bias, f32, TF32 off, kernels off as on every
+    beam path), phase 3's utterance in 0.5 s pushes. The host and device
+    beam sessions (beam 4) give the same n-best; device beam 1 equals the
+    greedy session; the device beam with an n-gram LM (weight 0.6) and
+    with a biasing LM equals the host beam with the same lm_fn;
+    ``token_cap=8`` raises the saturation ERROR event once;
+    ``transcribe_offline_beam`` equals the device beam over the same
+    offline encoder rows; the engine (B = 8, beam 4) on phase 3b's
+    utterances, one slot attached late and one finalized early, gives each
+    slot the n-best of a standalone device session, without and with the
+    LM. Logs host ms a steady chunk (greedy, host beam, device beam), the
+    device beam's device ms and busy share a chunk and its launches a
+    chunk (a profiled window of its own) and the engine's beam step ms."""
+    from trt_asr_tpu_torch.config import RuntimeConfig
+    from trt_asr_tpu_torch.decode.beam import BeamSearchState, beam_finish
+    from trt_asr_tpu_torch.decode.beam_device import (beam_device_to_hypotheses,
+                                                      init_beam_device_state,
+                                                      tdt_beam_chunk_device)
+    from trt_asr_tpu_torch.decode.biasing import BiasingLM
+    from trt_asr_tpu_torch.decode.tdt_greedy import init_decode_state, prime_decode_state
+    from trt_asr_tpu_torch.models.parakeet.encoder import offline_encode
+    from trt_asr_tpu_torch.streaming.batch_engine import BatchStreamingEngine
+
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 is on"
+    step_s, t0 = {}, time.perf_counter()
+    rng = np.random.default_rng(seed)
+    synth = synth_module()
+    audio = synth.synth_utterance(list(rng.integers(0, 1120, size=n_words)), rng)
+    piece = 8000
+    rt = RuntimeConfig()
+    model = make_model(torch, cfg, params, tok, rt, dev, False)
+    run_session(torch, model, rt, audio[:16000], piece)              # warm-up
+    reset_counts()
+    greedy = run_session(torch, model, rt, audio, piece)
+    g_ms = steady_ms(greedy.chunk_latencies_ms)
+    out = {}
+    for name, kw in (("host", dict(beam=4)), ("device", dict(beam=4, device=True)),
+                     ("device1", dict(beam=1, device=True))):
+        beam_session_run(model, audio[:16000], piece, **kw)         # warm-up
+        torch.cuda.synchronize()
+        out[name] = beam_session_run(model, audio, piece, **kw)
+        torch.cuda.synchronize()
+    counts = read_counts()
+    assert not launched(counts), f"beam sessions launched kernels {counts}"
+    (h_sess, _), (d_sess, _), (d1_sess, _) = out["host"], out["device"], out["device1"]
+    h_ms, d_ms = steady_ms(h_sess.chunk_latencies_ms), steady_ms(d_sess.chunk_latencies_ms)
+    log(f"beam: greedy f32_off {len(greedy.tokens)} tokens, host beam 1-best "
+        f"{len(h_sess._nbest_hyps[0].tokens)} tokens, n-best "
+        f"{[round(h.score, 4) for h in h_sess._nbest_hyps]}")
+    same_nbest("beam host == device", d_sess._nbest_hyps, h_sess._nbest_hyps)
+    log(f"beam: host beam == device beam (beam 4): {len(d_sess._nbest_hyps)} hypotheses, score "
+        f"max |diff| {max(abs(a.score - b.score) for a, b in zip(d_sess._nbest_hyps, h_sess._nbest_hyps)):.3g}")
+    assert d1_sess.tokens == greedy.tokens and greedy.tokens, (
+        f"device beam 1 {d1_sess.tokens} differs from greedy {greedy.tokens}")
+    log(f"beam: device beam 1 == greedy session ({len(greedy.tokens)} tokens)")
+    step_s["sessions"], t0 = time.perf_counter() - t0, time.perf_counter()
+    # fusion: an n-gram LM and a biasing LM, device against host
+    lm = full_width_lm([greedy.tokens], cfg.vocab_size, seed + 5)
+    # biasing phrases taken from the runner-up hypotheses' tokens, so that
+    # the trie's levels hit on candidates the search weighs
+    phrases = [tuple(h.tokens[i:i + 3]) for h in h_sess._nbest_hyps[1:] for i in (0, 4)
+               if len(h.tokens) >= i + 3]
+    cont = {}
+    for p in phrases:
+        for i in range(len(p)):
+            cont.setdefault(p[:i], set()).add(p[i])
+    bias = BiasingLM(cont, 2, 2.0, cfg.vocab_size)
+    assert cont, "no biasing phrase"
+    for label, lm_fn, w in (("ngram", lm, 0.6), ("bias", bias, 1.0)):
+        dev_s, _ = beam_session_run(model, audio, piece, beam=4, device=True, lm_fn=lm_fn,
+                                    lm_weight=w)
+        host_s, _ = beam_session_run(model, audio, piece, beam=4, lm_fn=lm_fn, lm_weight=w)
+        same_nbest(f"beam {label} host == device", dev_s._nbest_hyps, host_s._nbest_hyps)
+        moved = [h.tokens for h in dev_s._nbest_hyps] != [h.tokens for h in d_sess._nbest_hyps]
+        log(f"beam[{label}, weight {w}]: device == host, 1-best {len(dev_s.tokens)} tokens, the "
+            f"n-best {'moved' if moved else 'unmoved'} by the fusion; device steady chunk "
+            f"{steady_ms(dev_s.chunk_latencies_ms)} ms (median, p90)")
+        step_s[label], t0 = time.perf_counter() - t0, time.perf_counter()
+    # token_cap saturation: one ERROR event an utterance
+    cap_s, cap_ev = beam_session_run(model, audio, piece, beam=4, device=True, token_cap=8)
+    errors = [e for e in cap_ev if e[0] == 2]
+    assert len(errors) == 1 and "token_cap=8 saturated" in errors[0][2], (
+        f"token_cap=8: {len(errors)} error events {errors}")
+    assert max(len(h.tokens) for h in cap_s._nbest_hyps) == 8
+    log(f"beam: token_cap=8 raised the saturation ERROR once: {errors[0][2]!r}")
+    step_s["token_cap"], t0 = time.perf_counter() - t0, time.perf_counter()
+    # offline: the host beam of transcribe_offline_beam against the device
+    # beam over the same offline encoder rows
+    nb = model.transcribe_offline_beam(audio, beam=4, norm="none")
+    feats = model.features(audio, norm="none")
+    enc, enc_len = offline_encode(model.params, cfg, feats[None],
+                                  torch.tensor([feats.shape[0]]), layers=model.layers)
+    ds = prime_decode_state(model.params, cfg, init_decode_state(cfg, 1, device=dev),
+                            model.prompt_ids)
+    st = tdt_beam_chunk_device(model.params, cfg, enc[0], enc_len[0],
+                               init_beam_device_state(cfg, ds, beam=4), beam=4,
+                               max_symbols=cfg.max_symbols_per_timestep,
+                               punct_mask=torch.as_tensor(model.punct_mask, device=dev),
+                               use_punct_mask=rt.suppress_leading_punct)
+    off_dev = beam_finish(BeamSearchState(active=beam_device_to_hypotheses(st)), beam=4)
+    assert [n[1] for n in nb] == [h.tokens for h in off_dev], "offline beam != device beam"
+    assert all(abs(n[2] - h.score) <= 2e-3 for n, h in zip(nb, off_dev))
+    log(f"beam: transcribe_offline_beam == the device beam over its {int(enc_len[0])} encoder "
+        f"rows ({len(nb[0][1])} tokens 1-best)")
+    step_s["offline"], t0 = time.perf_counter() - t0, time.perf_counter()
+    # the device beam in a profiled window of its own: device ms and
+    # launches a chunk
+    n = []
+    rows = profile_run(torch, "beam device", "chunk", lambda: n.append(len(beam_session_run(
+        model, audio[: len(audio) // 3], piece, beam=4, device=True)[0].chunk_latencies_ms))
+        or n[0])
+    kernels = sum(c for _, key, c in rows if "memcpy" not in key.lower()
+                  and "memset" not in key.lower())
+    prof = (sum(r[0] for r in rows) / 1e3 / n[0], kernels / n[0])
+    step_s["profile"], t0 = time.perf_counter() - t0, time.perf_counter()
+    log(f"beam device (profiled window): {prof[1]:.0f} kernel launches a chunk, "
+        f"{prof[0]:.3f} device ms a chunk")
+    # the engine: B = 8, beam 4, without and with the LM
+    audios = engine_audios()
+    step_ms, plain_best = {}, []
+    for label in ("plain", "ngram"):
+        # the LM is fitted on the plain run's 1-best transcripts
+        kw = (dict(lm_fn=full_width_lm(plain_best, cfg.vocab_size, seed + 6), lm_weight=0.6)
+              if label == "ngram" else {})
+        eng = BatchStreamingEngine(model, batch_size=len(audios), runtime=rt, beam=4, **kw)
+        log(f"engine beam[{label}]: warm-up {eng.warmup():.2f} s")
+        sids, n_step = drive_engine_beam(eng, audios, piece)
+        lat = eng.step_latencies_ms
+        step_ms[label] = (float(np.median(lat)), float(np.percentile(lat, 90)))
+        for k, (sid, a) in enumerate(zip(sids, audios)):
+            sess, _ = beam_session_run(model, a, piece, unified=True, beam=4, device=True, **kw)
+            same_nbest(f"engine beam[{label}] stream {k}", eng._nbest[sid], sess._nbest_hyps)
+        plain_best = plain_best or [eng._nbest[sid][0].tokens for sid in sids]
+        log(f"engine beam[{label}]: B {len(audios)}, {len(lat)} steps, beam step ms median "
+            f"{step_ms[label][0]:.3f} p90 {step_ms[label][1]:.3f} (host clock); every slot's "
+            f"n-best == its standalone device session's "
+            f"({[len(eng._nbest[s][0].tokens) for s in sids]} tokens 1-best)")
+        del eng
+        step_s[f"engine {label}"], t0 = time.perf_counter() - t0, time.perf_counter()
+    assert not launched(read_counts()), "phase 3d launched a kernel"
+    log(f"beam: host ms a steady chunk (median, p90): greedy f32_off {g_ms}, host beam {h_ms}, "
+        f"device beam {d_ms}; device beam device ms a chunk {prof[0]:.3f}, launches a chunk "
+        f"{prof[1]:.0f}; engine beam step ms {step_ms}")
+    log(f"beam: seconds by step { {k: round(v, 1) for k, v in step_s.items()} }")
+    del model
+
+
 @contextlib.contextmanager
 def previous_int8_routes(torch):
     """The int8 routes the port took before the tensor-core products and
@@ -2324,6 +2578,178 @@ def gate_r3_entry_points(torch, dev, md, synth, tmp: str) -> None:
         f"engine {want}")
     assert got == want, "serve: the card's tokens differ from the CPU engine's"
     assert [len(t) for t in got] == [len(w) for w in words], "serve: one token a word expected"
+
+
+def nbest_of(lines) -> list:
+    """The CLI's ``NBest: <score> <text>`` lines as (score, text)."""
+    return [(float(ln.split(" ", 2)[1]), ln.split(" ", 2)[2] if ln.count(" ") > 1 else "")
+            for ln in lines if ln.startswith("NBest: ")]
+
+
+def same_cli_nbest(label, got, want, tol: float = 2e-3) -> None:
+    """NBest lines: texts and ranking exact, the printed scores within
+    ``tol`` (the card's f32 sums round otherwise than the CPU's)."""
+    assert [t for _, t in got] == [t for _, t in want] and got, (
+        f"{label}: NBest texts differ: {got} against {want}")
+    assert all(abs(a - b) <= tol for (a, _), (b, _) in zip(got, want)), (
+        f"{label}: NBest scores differ: {got} against {want}")
+
+
+def gate_r3_beam(torch, dev, md, synth, tmp: str) -> None:
+    """Phase 4's beam part on gate_r3 (f32, kernels off as on every beam
+    path): the host and device beam sessions (beam 4) on the card equal the
+    port's CPU path, n-best token-exact. Then, all at once as subprocesses
+    on the card, ``python -m trt_asr_tpu_torch.cli`` with ``--beam 4``,
+    ``--beam 4 --beam-device``, ``--beam 4 --bias <three vocab words>``,
+    ``--beam 4 --lm <an LM fitted here>`` and ``--beam 4 --continuous`` on a
+    wav of two utterances 1 s apart (their Final, Transcript, Word and
+    Segment lines equal the CPU's in this process; NBest texts exact,
+    scores within 2e-3), and ``python -m trt_asr_tpu_torch.serve --beam 4
+    --lm <file>`` (B = 4), whose three clients' final ``nbest`` equal the
+    CPU engine's. Each subprocess imports nothing of JAX and reports no
+    error."""
+    import io
+    import queue
+    import threading
+    from contextlib import redirect_stdout
+
+    from trt_asr_tpu_torch import cli, serve
+    from trt_asr_tpu_torch.config import RuntimeConfig
+    from trt_asr_tpu_torch.decode.ngram_lm import NGramLM, fit_from_text
+    from trt_asr_tpu_torch.io.wav import save_wav
+    from trt_asr_tpu_torch.models.parakeet.model import ParakeetTDT
+    from trt_asr_tpu_torch.streaming.batch_engine import BatchStreamingEngine
+
+    rng = np.random.default_rng(43)
+    words = [list(rng.integers(0, 1120, size=w)) for w in (6, 4, 5)]
+    utts = [synth.synth_utterance(w, rng) for w in words]
+    rt = RuntimeConfig()
+    models = {str(d): ParakeetTDT.from_model_dir(md, runtime=rt, device=d) for d in (dev, "cpu")}
+    vocab = models["cpu"].tokenizer.vocab
+    text = lambda ws: " ".join(vocab[w].lstrip("▁") for w in ws)   # noqa: E731
+    lm_path = os.path.join(tmp, "gate_r3_lm.json")
+    lm_rng = np.random.default_rng(44)
+    sentences = [text(ws) for ws in words] + [
+        text(lm_rng.integers(0, 1120, size=6)) for _ in range(50)]
+    fit_from_text(sentences, models["cpu"].tokenizer).save(lm_path)
+    for kw in (dict(beam=4), dict(beam=4, device=True),
+               dict(beam=4, device=True, lm_fn=NGramLM.load(lm_path), lm_weight=0.6)):
+        got = {d: beam_session_run(m, utts[0], 8000, **kw)[0]._nbest_hyps
+               for d, m in models.items()}
+        same_nbest(f"gate_r3 beam {kw} card == CPU", got[str(dev)], got["cpu"])
+        log(f"gate_r3 beam session {({k: v for k, v in kw.items() if k != 'lm_fn'})} on the card"
+            f" == CPU: 1-best {got['cpu'][0].tokens}")
+    wav = os.path.join(tmp, "gate_r3_beam.wav")
+    save_wav(wav, np.concatenate([utts[0], np.zeros(16000, np.float32), utts[1]]))
+    base = [wav, "--model-dir", md, "--stream-sim", "0.5", "--no-sleep", "--timestamps",
+            "--feature-norm", "none"]
+    variants = {"beam": ["--beam", "4"], "beam-device": ["--beam", "4", "--beam-device"],
+                "bias": ["--beam", "4", "--bias", text(words[1][:3])],
+                "lm": ["--beam", "4", "--lm", lm_path],
+                "continuous": ["--beam", "4", "--continuous"]}
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs, t0 = {}, time.perf_counter()
+    for name, extra in variants.items():
+        out_f = open(os.path.join(tmp, f"cli_{name}.out"), "w")
+        err_f = open(os.path.join(tmp, f"cli_{name}.err"), "w")
+        procs[name] = (subprocess.Popen([sys.executable, "-X", "importtime", "-m",
+                                         "trt_asr_tpu_torch.cli"] + base + extra,
+                                        cwd=ROOT, env=env, stdout=out_f, stderr=err_f), out_f,
+                       err_f)
+    serr = open(os.path.join(tmp, "serve_beam.err"), "w")
+    daemon = subprocess.Popen([sys.executable, "-X", "importtime", "-m", "trt_asr_tpu_torch.serve",
+                               "--model-dir", md, "--port", "0", "--batch-size", "4",
+                               "--beam", "4", "--lm", lm_path],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=serr, text=True)
+    try:
+        # the CPU references, in this process, while the card runs
+        want = {}
+        for name, extra in variants.items():
+            buf = io.StringIO()
+            with redirect_stdout(buf):
+                assert cli.main(base + extra + ["--device", "cpu"]) == 0
+            want[name] = buf.getvalue()
+        cpu_eng = BatchStreamingEngine(models["cpu"], batch_size=4, runtime=rt, beam=4,
+                                       lm_fn=NGramLM.load(lm_path), lm_weight=0.6)
+        want_nbest = []
+        for u in utts:
+            sid = cpu_eng.open_stream()
+            cpu_eng.push_audio(sid, u)
+            cpu_eng.finalize_stream(sid)
+            cpu_eng.run_until_drained()
+            want_nbest.append(cpu_eng.nbest(sid))
+            cpu_eng.close_stream(sid)
+        lines: queue.Queue = queue.Queue()
+        threading.Thread(target=lambda: [lines.put(ln) for ln in daemon.stdout],
+                         daemon=True).start()
+        line, deadline = "", time.monotonic() + 300
+        while "listening on" not in line:
+            assert daemon.poll() is None, f"serve --beam exited {daemon.returncode}"
+            assert time.monotonic() < deadline, "serve --beam: no listening line"
+            try:
+                line = lines.get(timeout=1)
+            except queue.Empty:
+                pass
+        port = int(line.split("listening on ")[1].split()[0].rsplit(":", 1)[1])
+        served = {}
+        threads = [threading.Thread(target=served_client,
+                                    args=(serve, ("127.0.0.1", port), u, 8000, served, k))
+                   for k, u in enumerate(utts)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads), "serve --beam: a client did not finish"
+        bad = {k: v for k, v in served.items() if isinstance(v, Exception)}
+        assert not bad and len(served) == len(utts), f"serve --beam: clients failed {bad}"
+        for name, (proc, out_f, err_f) in procs.items():
+            assert proc.wait(timeout=600) == 0, f"cli {name}: exit {proc.returncode}"
+    finally:
+        for proc, out_f, err_f in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            out_f.close()
+            err_f.close()
+        daemon.terminate()
+        try:
+            daemon.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            daemon.kill()
+            daemon.wait(timeout=30)
+        serr.close()
+    wall = time.perf_counter() - t0
+    for name in variants:
+        with open(os.path.join(tmp, f"cli_{name}.out")) as f:
+            got = f.read()
+        with open(os.path.join(tmp, f"cli_{name}.err")) as f:
+            err = f.read()
+        check_no_jax_imported(f"cli {name}", err)
+        assert "Error: " not in got + err, f"cli {name}: an error event"
+        g_lines, w_lines = entry_lines(got), entry_lines(want[name])
+        assert g_lines == w_lines, f"cli {name}: the card's lines differ from the CPU's: {w_lines}"
+        if name == "continuous":
+            assert sum(ln.startswith("Segment: ") for ln in g_lines) == 2, g_lines
+        else:
+            same_cli_nbest(f"cli {name}", nbest_of(got.splitlines()),
+                           nbest_of(want[name].splitlines()))
+        log(f"gate_r3 cli --beam [{name}] on the card == CPU: "
+            f"{[ln for ln in g_lines if ln.startswith(('Transcript', 'Segment'))]}, "
+            f"{len(nbest_of(got.splitlines()))} NBest lines")
+    with open(os.path.join(tmp, "serve_beam.err")) as f:
+        err = f.read()
+    check_no_jax_imported("serve --beam", err)
+    assert "step error" not in err, f"serve --beam: a step failed\n{err[-3000:]}"
+    for k in range(len(utts)):
+        got = served[k][0]["nbest"]
+        want_k = want_nbest[k]
+        assert [n["tokens"] for n in got] == [n[1] for n in want_k], (
+            f"serve --beam client {k}: {got} against the CPU engine's {want_k}")
+        assert all(abs(n["score"] - w[2]) <= 2e-3 for n, w in zip(got, want_k))
+        assert served[k][0]["tokens"] == want_k[0][1]
+    log(f"gate_r3 cli --beam (5 runs) and serve --beam 4 --lm on the card in {wall:.1f} s: "
+        f"the daemon's three finals' n-best == the CPU engine's "
+        f"({[len(served[k][0]['nbest']) for k in range(len(utts))]} hypotheses)")
 
 
 # --- phases 4 (offline part) and 5: offline batches ---------------------------
@@ -2589,8 +3015,9 @@ def full_width_offline(torch, dev, cfg, params, tok, audios):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--words", type=int, default=12,
-                    help="words in the full-width session's utterance (12: about 6 s)")
+    ap.add_argument("--words", type=int, default=8,
+                    help="words in phase 3's utterance (8: about 4 s); phase 3d's beam "
+                         f"utterance has {BEAM_WORDS}")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -2632,12 +3059,16 @@ def main() -> int:
     phase_s["3b engine"], t0 = time.perf_counter() - t0, time.perf_counter()
     full_width_daemon(torch, dev, cfg, params, tok)
     phase_s["3c daemon"], t0 = time.perf_counter() - t0, time.perf_counter()
+    full_width_beam(torch, dev, cfg, params, tok, BEAM_WORDS, args.seed)
+    phase_s["3d beam"], t0 = time.perf_counter() - t0, time.perf_counter()
+    md = os.path.join(ROOT, "artifacts", "models", "gate_r3")
     gate_r3_session(torch, dev)
     gate_r3_offline(torch, dev)
     with tempfile.TemporaryDirectory() as tmp:
-        gate_r3_entry_points(torch, dev, os.path.join(ROOT, "artifacts", "models", "gate_r3"),
-                             synth_module(), tmp)
-    phase_s["4 gate_r3"], t0 = time.perf_counter() - t0, time.perf_counter()
+        gate_r3_entry_points(torch, dev, md, synth_module(), tmp)
+        phase_s["4 gate_r3"], t0 = time.perf_counter() - t0, time.perf_counter()
+        gate_r3_beam(torch, dev, md, synth_module(), tmp)
+        phase_s["4b gate_r3 beam"], t0 = time.perf_counter() - t0, time.perf_counter()
     params["joint"]["out"]["b"][cfg.blank_id] -= bias        # phase 5 searches its own
     sess.update(full_width_offline(torch, dev, cfg, params, tok, audios))
     phase_s["5 offline"] = time.perf_counter() - t0
@@ -2646,7 +3077,9 @@ def main() -> int:
     bad = [m for m in ("jax", "trt_asr_tpu") if m in sys.modules]
     assert not bad, f"imported {bad}"
     entry = [f"trt_asr_tpu_torch.{m}" for m in ("serve", "cli", "streaming.continuous",
-                                                 "io.resample", "io.subtitles")]
+                                                 "io.resample", "io.subtitles",
+                                                 "streaming.beam_session", "decode.beam_device",
+                                                 "decode.lm_device", "decode.biasing")]
     assert all(m in sys.modules for m in entry), "the entry points' modules were not run"
 
     kernels = []

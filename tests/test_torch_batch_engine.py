@@ -345,10 +345,12 @@ def test_warmup_leaves_slots_and_serving_unchanged(models):
 
 
 def test_not_ported_options_raise(models):
-    for kw in (dict(mesh=object()), dict(engines=object()), dict(beam=4)):
+    for kw in (dict(mesh=object()), dict(engines=object())):
         with pytest.raises(NotImplementedError):
             BatchStreamingEngine(models[1], batch_size=2, **kw)
-    with pytest.raises(NotImplementedError):
+    # the beam is ported (tests/test_torch_batch_beam.py): a greedy engine
+    # has no n-best, as JAX's has none
+    with pytest.raises(ValueError, match="nbest requires a beam>1 engine"):
         BatchStreamingEngine(models[1], batch_size=2).nbest(0)
 
 

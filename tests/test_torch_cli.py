@@ -8,8 +8,10 @@ SRT and VTT files, byte for byte; in stream-sim, one-shot, continuous,
 ``--dump-features`` writes the same sidecar, byte for byte, and features
 within the frontend's tolerance (2e-5 absolute plus 5e-5 relative without
 normalization, 2e-5 absolute after per_feature normalization: 6.4e-6
-read). The beam and
-compile-cache flags exit "not ported yet"; without a card the CLI raises
+read). The beam flags (``--beam``, ``--beam-device``, ``--bias``, ``--lm``,
+``--lm-weight``, ``TRT_ASR_BEAM``, also under ``--continuous``) print the
+JAX CLI's lines and NBest lines, and their rules exit as JAX's; the
+compile-cache flag exits "not ported yet"; without a card the CLI raises
 unless ``--device cpu`` is given; as a subprocess it imports nothing of
 JAX."""
 
@@ -24,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import GATE_R3, synth_audio
+from torch_port_helpers import GATE_R3, synth_audio, one_torch_thread  # noqa: F401
 
 from trt_asr_tpu.cli import main as jax_main
 from trt_asr_tpu_torch.cli import main as port_main
@@ -165,19 +167,89 @@ def test_synthetic_model_continuous_and_subhop_stream_sim(tmp_path, monkeypatch)
         assert any(ln.startswith("Transcript: ") for ln in lines)
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--beam", "2"], 5), (["--beam", "1"], 5), (["--beam-device"], 5),
-    (["--bias", "a,b"], 5), (["--lm", "lm.json"], 5),
-    (["--lm-weight", "0.5"], 5), (["--compile-cache", "cache"], 7), ([], 5)])
+@pytest.mark.parametrize("argv,item", [(["--compile-cache", "cache"], 7)])
 def test_not_ported_flags_exit(monkeypatch, capsys, argv, item):
-    """The beam, fusion and compile-cache flags (and ``TRT_ASR_BEAM``, the
-    empty argv case) exit before any model is made."""
-    if not argv:
-        monkeypatch.setenv("TRT_ASR_BEAM", "4")
+    """``--compile-cache`` exits before any model is made."""
     with pytest.raises(SystemExit) as e:
         port_main(["x.wav", "--model-dir", GATE_R3, "--device", "cpu"] + argv)
     assert e.value.code == 2
     assert f"not ported yet (ROADMAP Queue 1 item {item})" in capsys.readouterr().err
+
+
+@pytest.fixture(scope="module")
+def lm_file(inputs):
+    """An n-gram LM fitted from gate_r3's words by the port, saved as the v1
+    JSON both CLIs read."""
+    from trt_asr_tpu_torch.decode.ngram_lm import fit_from_text
+    from trt_asr_tpu_torch.tokenizer import Tokenizer
+
+    tok = Tokenizer.from_file(os.path.join(GATE_R3, "vocab.txt"), blank_id=1120)
+    path = os.path.join(inputs["dir"], "lm.json")
+    fit_from_text(["baba daba faba", "gaba haba faba baba", "jaba kaba laba"], tok).save(path)
+    return path
+
+
+def nbest_lines(err_out_lines):
+    return [ln for ln in err_out_lines if ln.startswith("NBest: ")]
+
+
+def run_nbest(main, argv, monkeypatch):
+    """run() with the NBest lines kept: (other lines, [(score, text)])."""
+    monkeypatch.setenv("TRT_ASR_PARTIAL_MIN_INTERVAL_MS", "0")
+    out = io.StringIO()
+    with redirect_stdout(out), redirect_stderr(io.StringIO()):
+        assert main(argv) == 0
+    lines = out.getvalue().splitlines()
+    nb = [(float(ln.split()[1]), ln.split(" ", 2)[2] if ln.count(" ") > 1 else "")
+          for ln in nbest_lines(lines)]
+    return [ln for ln in lines if ln.startswith(PREFIXES)], nb
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("extra", [
+    ["--beam", "4"], ["--beam", "4", "--beam-device"], ["--beam", "4", "--bias", "gaba haba"],
+    ["--beam", "4", "--beam-device", "--lm", "LM"],
+    ["--beam", "2", "--lm", "LM", "--lm-weight", "0.3"], ["--beam", "1"], ["TRT_ASR_BEAM=3"]])
+def test_beam_flags_match_jax(inputs, lm_file, monkeypatch, extra):
+    """The beam session behind the CLI: its Partial, Final, Transcript and
+    Word lines equal the JAX CLI's, and so do its NBest lines (texts and
+    ranking exact, the printed scores within 2e-4: f32 sums in another
+    order, printed to 4 decimals)."""
+    if extra == ["TRT_ASR_BEAM=3"]:
+        monkeypatch.setenv("TRT_ASR_BEAM", "3")
+        extra = []
+    extra = [lm_file if a == "LM" else a for a in extra]
+    argv = [inputs["speech"], "--model-dir", GATE_R3, "--stream-sim", "0.5", "--no-sleep",
+            "--timestamps", "--feature-norm", "none"] + extra
+    got, got_nb = run_nbest(port_main, argv + ["--device", "cpu"], monkeypatch)
+    want, want_nb = run_nbest(jax_main, argv, monkeypatch)
+    assert got == want and transcript(got)
+    assert [t for _, t in got_nb] == [t for _, t in want_nb] and got_nb
+    np.testing.assert_allclose([s for s, _ in got_nb], [s for s, _ in want_nb], atol=2e-4)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_beam_continuous_matches_jax(inputs, monkeypatch, tmp_path):
+    """``--continuous`` over a beam session (each segment the 1-best)."""
+    argv = [inputs["gapped"], "--model-dir", GATE_R3, "--stream-sim", "0.5", "--no-sleep",
+            "--continuous", "--beam", "4"]
+    got, want, _, _ = both(argv, monkeypatch, tmp_path)
+    assert got == want and len([ln for ln in got if ln.startswith("Segment: ")]) == 2
+
+
+@pytest.mark.parametrize("argv", [["--bias", "gaba"], ["--lm", "x.json"],
+                                  ["--beam", "2", "--lm", "x.json", "--bias", "gaba"],
+                                  ["--beam-device"]])
+def test_beam_flag_rules_match_jax(monkeypatch, capsys, argv):
+    """Fusion needs a beam of 2 or more, one lm_fn at a time, and
+    ``--beam-device`` a beam: both CLIs exit 2 with the same message."""
+    msgs = []
+    for main, extra in ((port_main, ["--device", "cpu"]), (jax_main, [])):
+        with pytest.raises(SystemExit) as e:
+            main(["x.wav", "--model-dir", GATE_R3] + argv + extra)
+        assert e.value.code == 2
+        msgs.append(capsys.readouterr().err.strip().splitlines()[-1].split(": error: ")[1])
+    assert msgs[0] == msgs[1]
 
 
 def test_needs_a_card_unless_cpu_is_asked(inputs, monkeypatch):

@@ -6,7 +6,10 @@ the JSON replies to malformed and over-capacity requests equal the JAX
 daemon's; continuous clients get one segment event a speech span, a
 rollover on a full server is an error reply the client survives, many
 rollovers leak no slot, and ``transcribe_continuous`` returns the ordered
-segments. These mirror ``tests/test_serve.py`` (no AOT engines, no beam).
+segments. These mirror ``tests/test_serve.py`` (no AOT engines). A beam
+daemon (``beam=4``, with and without an n-gram LM) sends JAX's ranked
+``nbest`` on its finals, in process and as a subprocess with ``--beam
+--lm --lm-weight --token-cap``.
 Also: the engine's warm-up reaches the joint kernel before any thread
 starts, ``_batch_step`` passes the FFN and conv flags to the encoder, the
 entry point refuses what is not ported and the CPU unless asked, and the
@@ -29,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import np_tree, spy_calls
+from torch_port_helpers import np_tree, spy_calls, one_torch_thread  # noqa: F401
 
 from trt_asr_tpu.config import ModelConfig as JConfig
 from trt_asr_tpu.config import RuntimeConfig as JRuntime
@@ -395,13 +398,61 @@ def test_batch_step_passes_ffn_and_conv_flags(models, monkeypatch, flag):
     assert torch.equal(plain[0], fused[0]) and torch.equal(plain[1], fused[1])
 
 
-@pytest.mark.parametrize("argv,item", [(["--engines", "x"], 7), (["--beam", "2"], 5),
-                                       (["--lm", "lm.json"], 5)])
+@pytest.mark.parametrize("argv,item", [(["--engines", "x"], 7)])
 def test_main_refuses_what_is_not_ported(capsys, argv, item):
     with pytest.raises(SystemExit) as e:
         serve.main(["--synthetic-model", "tiny", "--device", "cpu"] + argv)
     assert e.value.code == 2
     assert f"not ported yet (ROADMAP Queue 1 item {item})" in capsys.readouterr().err
+
+
+def _beam_lm(model, jax_side: bool):
+    """An n-gram LM fitted from seeded token sequences, in either package."""
+    if jax_side:
+        from trt_asr_tpu.decode.ngram_lm import NGramLM as LM
+    else:
+        from trt_asr_tpu_torch.decode.ngram_lm import NGramLM as LM
+    r = np.random.default_rng(11)
+    return LM.fit([r.integers(0, 64, size=9).tolist() for _ in range(40)], vocab_size=65)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("fusion", [False, True])
+def test_beam_daemon_nbest_matches_jax_daemon(models, fusion):
+    """``AsrServer(beam=4)``, with and without an n-gram LM: two concurrent
+    clients' finals carry the JAX daemon's text, tokens, words and ranked
+    ``nbest`` (scores within 1e-4)."""
+    jm, pm = models
+    audios = {k: _audio(24000 + 8000 * k, k + 4) for k in range(2)}
+    out = {}
+    for name, server, model, rt_cls in (("port", AsrServer, pm, RuntimeConfig),
+                                        ("jax", JServer, jm, JRuntime)):
+        lm = dict(lm_fn=_beam_lm(model, name == "jax"), lm_weight=0.6) if fusion else {}
+        srv = server(model, batch_size=2, runtime=rt_cls(**RT), beam=4, **lm).start()
+        res = {}
+        try:
+            _run_threads(lambda k: res.__setitem__(k, transcribe(
+                *srv.addr, audios[k], chunk_samples=6000, timeout_s=120)), audios)
+        finally:
+            srv.stop()
+        out[name] = res
+    for k in audios:
+        got, want = out["port"][k], out["jax"][k]
+        assert (got["text"], got["words"]) == (want["text"], want["words"])
+        assert [(n["text"], n["tokens"]) for n in got["nbest"]] == \
+            [(n["text"], n["tokens"]) for n in want["nbest"]]
+        np.testing.assert_allclose([n["score"] for n in got["nbest"]],
+                                   [n["score"] for n in want["nbest"]], atol=1e-4)
+        assert got["tokens"] == got["nbest"][0]["tokens"] and got["tokens"]
+
+
+def test_main_lm_needs_a_beam(tmp_path):
+    """``--lm`` on a greedy daemon: the engine refuses it, as JAX's does."""
+    path = str(tmp_path / "lm.json")
+    _beam_lm(None, False).save(path)
+    with pytest.raises(ValueError, match="lm_fn requires beam > 1"):
+        serve.main(["--synthetic-model", "tiny", "--device", "cpu", "--port", "0",
+                    "--lm", path])
 
 
 def test_main_needs_a_card_unless_cpu_is_asked(monkeypatch):
@@ -458,3 +509,45 @@ def test_daemon_subprocess_serves_on_cpu_without_jax(tmp_path, warmup):
     eng.finalize_stream(sid)
     eng.run_until_drained()
     assert got["tokens"] == list(eng._tokens[sid]) and got["text"] == eng.text(sid)
+
+
+def test_beam_daemon_subprocess_with_lm(tmp_path):
+    """``python -m trt_asr_tpu_torch.serve --beam 4 --lm F --lm-weight 0.5
+    --token-cap 64 --device cpu``: a client's final carries the n-best of
+    the engine driven directly with the same LM, and the process imported
+    nothing of JAX."""
+    lm_path = str(tmp_path / "lm.json")
+    lm = _beam_lm(None, False)
+    lm.save(lm_path)
+    err = tmp_path / "stderr.txt"
+    cmd = [sys.executable, "-X", "importtime", "-m", "trt_asr_tpu_torch.serve",
+           "--synthetic-model", "tiny", "--device", "cpu", "--port", "0", "--batch-size", "2",
+           "--beam", "4", "--lm", lm_path, "--lm-weight", "0.5", "--token-cap", "64"]
+    with open(err, "w") as ferr:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                                stdout=subprocess.PIPE, stderr=ferr, text=True)
+        try:
+            line = ""
+            deadline = time.monotonic() + 120
+            while "listening on" not in line and time.monotonic() < deadline:
+                line = proc.stdout.readline()
+                assert line or proc.poll() is None, "daemon exited before listening"
+            assert "listening on" in line and "beam=4" in line, line
+            port = int(line.split("listening on ")[1].split()[0].rsplit(":", 1)[1])
+            audio = _audio(24000, 6)
+            got = transcribe("127.0.0.1", port, audio, timeout_s=120)
+        finally:
+            proc.terminate()
+            proc.wait(timeout=30)
+    log = err.read_text()
+    assert "step error" not in log and not no_jax(imported_modules(log))
+    model = ParakeetTDT.random(ModelConfig.tiny(), runtime=RuntimeConfig(), device="cpu")
+    eng = BatchStreamingEngine(model, batch_size=2, runtime=RuntimeConfig(), beam=4,
+                               lm_fn=lm, lm_weight=0.5, token_cap=64)
+    sid = eng.open_stream()
+    eng.push_audio(sid, audio)
+    eng.finalize_stream(sid)
+    eng.run_until_drained()
+    assert [(n["text"], n["tokens"], n["score"]) for n in got["nbest"]] == \
+        [tuple(n) for n in eng.nbest(sid)]
+    assert got["tokens"] == eng.nbest(sid)[0][1]

@@ -121,3 +121,16 @@ def padded(v: torch.Tensor, width: int) -> torch.Tensor:
     out = v.new_zeros((v.shape[0], width))
     out[:, :v.shape[1]] = v
     return out
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch on one intra-op thread for a module of many small ops (the beam
+    searches): under the suite's parallel workers a pool of threads per op
+    costs far more than the op. A module takes it with
+    ``pytestmark = pytest.mark.usefixtures("one_torch_thread")``; the count
+    is restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

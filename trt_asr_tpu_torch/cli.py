@@ -4,15 +4,16 @@
         [--raw-pcm] [--features-input] [--feature-norm none|per_feature]
         [--dump-features PATH] [--no-sleep] [--synthetic-model tiny|full]
         [--timestamps] [--continuous] [--srt PATH] [--vtt PATH]
-        [--device cuda|cpu]
+        [--beam N [--beam-device] [--bias P1,P2 [--bias-bonus B] | --lm F
+        [--lm-weight W]]] [--device cuda|cpu]
 
 Prints ``Partial:`` / ``Final:`` / ``Transcript:`` lines (``Word:`` with
---timestamps, ``Segment:`` with --continuous) and ``ChunkLatencyMs:`` on
-stderr. Runs on the CUDA device unless ``--device`` names another; without
-a card it raises. Kernel flags come from the environment
-(``TRT_ASR_PALLAS_ATT=1`` and the like, ``RuntimeConfig.from_env``).
-``--beam``, ``--beam-device``, ``--bias``, ``--lm``, ``--lm-weight`` (and
-``TRT_ASR_BEAM``) and ``--compile-cache`` exit "not ported yet".
+--timestamps, ``Segment:`` with --continuous, ``NBest: <score> <text>``
+after the transcript with --beam) and ``ChunkLatencyMs:`` on stderr. Runs
+on the CUDA device unless ``--device`` names another; without a card it
+raises. Kernel flags come from the environment (``TRT_ASR_PALLAS_ATT=1``
+and the like, ``RuntimeConfig.from_env``); the beam width also from
+``TRT_ASR_BEAM``. ``--compile-cache`` exits "not ported yet".
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from trt_asr_tpu_torch.io.subtitles import (cues_from_segments, format_srt, form
 from trt_asr_tpu_torch.io.wav import load_raw_pcm_f32, load_wav
 from trt_asr_tpu_torch.models.parakeet.model import ParakeetTDT
 from trt_asr_tpu_torch.streaming.continuous import ContinuousTranscriber
+from trt_asr_tpu_torch.streaming.beam_session import BeamStreamingSession
 from trt_asr_tpu_torch.streaming.session import EventType, StreamingSession
 
 
@@ -102,12 +104,21 @@ def main(argv=None) -> int:
                          "text' line per utterance (forces --feature-norm none)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
-    # the JAX CLI's beam and compile-cache flags, refused until ported
-    ap.add_argument("--beam", type=int, default=0, help="not ported yet")
-    ap.add_argument("--beam-device", action="store_true", help="not ported yet")
-    ap.add_argument("--bias", default="", help="not ported yet")
-    ap.add_argument("--lm", default="", help="not ported yet")
-    ap.add_argument("--lm-weight", type=float, default=None, help="not ported yet")
+    ap.add_argument("--beam", type=int, default=0,
+                    help="beam width; 0 (default) decodes greedy, > 0 with the streaming "
+                         "beam session and prints NBest lines")
+    ap.add_argument("--beam-device", action="store_true",
+                    help="run the beam search on the device (decode/beam_device.py); "
+                         "--lm/--bias compile to device tables")
+    ap.add_argument("--bias", default="",
+                    help="comma-separated hotword phrases boosted during beam decoding "
+                         "(requires --beam N)")
+    ap.add_argument("--bias-bonus", type=float, default=3.0,
+                    help="log-prob reward per matched token for --bias")
+    ap.add_argument("--lm", default="",
+                    help="n-gram LM file (ngram-lm/v1 JSON) for shallow fusion; "
+                         "requires --beam N")
+    ap.add_argument("--lm-weight", type=float, default=0.6, help="fusion weight for --lm")
     ap.add_argument("--compile-cache", default="", help="not ported yet")
     args = ap.parse_args(argv)
 
@@ -116,14 +127,22 @@ def main(argv=None) -> int:
         # taken from the environment
         ap.error(f"invalid feature norm {args.feature_norm!r} "
                  f"(TRT_ASR_FEATURE_NORM/PARAKEET_FEATURE_NORM env?)")
+    if args.compile_cache:
+        ap.error("--compile-cache is not ported yet (ROADMAP Queue 1 item 7)")
     rt = RuntimeConfig.from_env()
-    for flag, given, item in (
-            ("--beam", args.beam > 0, 5), ("TRT_ASR_BEAM", rt.beam_width > 0, 5),
-            ("--beam-device", args.beam_device, 5), ("--bias", args.bias, 5), ("--lm", args.lm, 5),
-            ("--lm-weight", args.lm_weight is not None, 5),
-            ("--compile-cache", args.compile_cache, 7)):
-        if given:
-            ap.error(f"{flag} is not ported yet (ROADMAP Queue 1 item {item})")
+    beam = args.beam if args.beam > 0 else rt.beam_width   # the flag over the environment
+    # beam 1 is exact greedy (one argmax successor a step): an LM or bias
+    # score could never change a token there
+    if args.bias and beam <= 1:
+        ap.error("--bias requires beam decoding with --beam >= 2 "
+                 "(beam 1 is exact greedy; fusion cannot apply)")
+    if args.lm and beam <= 1:
+        ap.error("--lm requires beam decoding with --beam >= 2 "
+                 "(beam 1 is exact greedy; fusion cannot apply)")
+    if args.lm and args.bias:
+        ap.error("--lm and --bias both supply the fusion lm_fn; pick one")
+    if args.beam_device and beam <= 0:
+        ap.error("--beam-device requires --beam N")
     device = resolve_device(args.device)
     if args.model_dir:
         model = ParakeetTDT.from_model_dir(args.model_dir, runtime=rt, device=device)
@@ -132,6 +151,21 @@ def main(argv=None) -> int:
         model = ParakeetTDT.random(cfg, runtime=rt, device=device)
     else:
         ap.error("provide --model-dir or --synthetic-model")
+
+    def make_session(**kw) -> StreamingSession:
+        if beam <= 0:
+            return StreamingSession(model, **kw)
+        lm_kw = {}
+        if args.bias:
+            from trt_asr_tpu_torch.decode.biasing import make_biasing_lm
+
+            lm_kw = dict(lm_fn=make_biasing_lm(args.bias.split(","), model.tokenizer,
+                                               bonus=args.bias_bonus), lm_weight=1.0)
+        elif args.lm:
+            from trt_asr_tpu_torch.decode.ngram_lm import NGramLM
+
+            lm_kw = dict(lm_fn=NGramLM.load(args.lm), lm_weight=args.lm_weight)
+        return BeamStreamingSession(model, beam=beam, device=args.beam_device, **lm_kw, **kw)
 
     def write_subs(cues) -> None:
         if args.srt:
@@ -143,6 +177,9 @@ def main(argv=None) -> int:
 
     def finish(sess: StreamingSession) -> None:
         print(f"Transcript: {sess.text}", flush=True)
+        if beam > 0:
+            for text, _ids, score in sess.nbest():
+                print(f"NBest: {score:.4f} {text}", flush=True)
         _print_timestamps(sess, args)
         if args.srt or args.vtt:
             write_subs(pack_cues(sess.word_timestamps()))
@@ -150,7 +187,7 @@ def main(argv=None) -> int:
     # ---- feature replay ----
     if args.features_input:
         feats = _load_features_replay(args.input, model.cfg.feat_in)
-        sess = StreamingSession(model, runtime=rt, feature_norm="none")
+        sess = make_session(runtime=rt, feature_norm="none")
         for start in range(0, feats.shape[0], 256):
             sess.push_features(feats[start:start + 256])
             _drain(sess)
@@ -172,7 +209,7 @@ def main(argv=None) -> int:
             audio = load_wav(args.input)
 
     if args.continuous:
-        ct = ContinuousTranscriber(StreamingSession(model, runtime=rt, feature_norm="none"))
+        ct = ContinuousTranscriber(make_session(runtime=rt, feature_norm="none"))
         hop = (max(int(args.stream_sim * 16000), 1) if args.stream_sim > 0
                else max(len(audio), 1))
         for start in range(0, len(audio), hop):
@@ -202,7 +239,7 @@ def main(argv=None) -> int:
         if full.shape[0] > 1:
             norm_stats = tuple(s.cpu().numpy() for s in compute_per_feature_stats(full))
     feature_norm = args.feature_norm if norm_stats is not None else "none"
-    sess = StreamingSession(model, runtime=rt, feature_norm=feature_norm, norm_stats=norm_stats)
+    sess = make_session(runtime=rt, feature_norm=feature_norm, norm_stats=norm_stats)
 
     if args.stream_sim > 0:
         hop = int(args.stream_sim * 16000)

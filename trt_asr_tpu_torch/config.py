@@ -152,8 +152,7 @@ class RuntimeConfig:
                                              # scope: none|joint|encoder|all
     batched_decode: bool = True              # blank-run batched decode
     beam_width: int = 0                      # TRT_ASR_BEAM: > 0 selects the
-                                             # beam, not ported yet (the CLI
-                                             # refuses it)
+                                             # CLI's beam session (--beam wins)
     # decode behavior
     blank_penalty: float = 0.0               # PARAKEET_BLANK_PENALTY
     suppress_leading_punct: bool = True      # PARAKEET_ALLOW_LEADING_PUNCT inverts

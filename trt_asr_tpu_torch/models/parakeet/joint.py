@@ -17,6 +17,13 @@ def _proj(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def joint_single_step(params: Dict[str, Any], enc_t: torch.Tensor,
+                      g_u: torch.Tensor) -> torch.Tensor:
+    """enc_t [B, D], g_u [B, P] -> logits [B, V]: one joint step, the beam's."""
+    h = torch.relu(_proj(params["enc"], enc_t) + _proj(params["pred"], g_u))
+    return _proj(params["out"], h)
+
+
 def joint_project_enc(params: Dict[str, Any], enc: torch.Tensor) -> torch.Tensor:
     """Encoder projection of a whole chunk [B, T, D] -> [B, T, J]."""
     return _proj(params["enc"], enc)

@@ -2,7 +2,8 @@
 JAX package's model-dir format (config.json, params.npz, manifest.json,
 vocab.txt), and offline transcription: wav -> log-mel -> per-feature norm
 -> offline encoder -> TDT greedy decode -> text, one utterance
-(``transcribe_offline``) or a padded batch (``transcribe_batch``)."""
+(``transcribe_offline``) or a padded batch (``transcribe_batch``), and the
+n-best of the host beam (``transcribe_offline_beam``)."""
 
 from __future__ import annotations
 
@@ -225,6 +226,43 @@ class ParakeetTDT:
             for i in range(b):
                 ids[i].extend(toks[i, :int(n[i])].tolist())
         return [(self.tokenizer.decode(r), r) for r in ids]
+
+
+    def transcribe_offline_beam(self, audio: np.ndarray, beam: int = 4,
+                                norm: str = "per_feature", length_norm: float = 0.0,
+                                expansion_k: int = 4, lm_fn=None, lm_weight: float = 0.0
+                                ) -> List[Tuple[str, List[int], float]]:
+        """n-best offline transcription by the host TDT beam
+        (``decode/beam.py``): the encoder runs once on the device, the search
+        on the host over the joint and predictor on the device. Returns
+        [(text, token_ids, score)], best first. ``lm_fn``/``lm_weight``
+        enable shallow fusion. The kernels stay off, as on every beam path."""
+        from trt_asr_tpu_torch.decode.beam import make_host_fns, tdt_beam_decode_host
+
+        feats = self.features(audio, norm=norm)
+        if feats.shape[0] == 0:
+            return [("", [], 0.0)]
+        enc, enc_len = offline_encode(self.params, self.cfg, feats[None],
+                                      torch.tensor([feats.shape[0]]), layers=self.layers)
+        t = int(enc_len[0])
+        j_fn, p_fn, j_batch = make_host_fns(
+            self.params, self.device, joint_rows=beam,
+            pred_rows=beam * (expansion_k if beam > 1 else 1))
+        ds = prime_decode_state(self.params, self.cfg,
+                                init_decode_state(self.cfg, 1, device=self.device),
+                                self.prompt_ids)
+        rt = self.runtime
+        punct_ids = (set(np.flatnonzero(self.punct_mask).tolist())
+                     if rt.suppress_leading_punct else None)
+        hyps = tdt_beam_decode_host(
+            enc[0, :t].cpu().numpy(), j_fn, p_fn, (ds.h, ds.c), ds.g[0].cpu().numpy(),
+            int(ds.y_id[0]), blank_id=self.cfg.blank_id,
+            token_head_size=self.cfg.token_head_size,
+            duration_values=self.cfg.duration_values, beam=beam, expansion_k=expansion_k,
+            max_symbols=self.cfg.max_symbols_per_timestep, length_norm=length_norm,
+            blank_penalty=rt.blank_penalty, punct_token_ids=punct_ids,
+            lm_fn=lm_fn, lm_weight=lm_weight, joint_batch_fn=j_batch)
+        return [(self.tokenizer.decode(h.tokens), list(h.tokens), h.score) for h in hyps]
 
 
 def _is_numpy_tree(tree) -> bool:

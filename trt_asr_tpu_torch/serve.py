@@ -5,10 +5,12 @@ batched chunk step on the card.
 
     python -m trt_asr_tpu_torch.serve --model-dir DIR [--port 8057]
         [--batch-size 8] [--device cuda|cpu] [--no-warmup]
+        [--beam N [--lm LM.json] [--lm-weight W] [--token-cap L]]
 
 Runs on the CUDA device unless ``--device`` names another; without a card
-it raises. ``--engines``, ``--beam`` above 1 and ``--lm`` exit "not
-ported yet".
+it raises. ``--beam`` above 1 serves every slot with the engine's batched
+device beam (``--lm``: an n-gram LM fused into it), and finals carry the
+ranked ``nbest``. ``--engines`` exits "not ported yet".
 
 Wire protocol: newline-delimited JSON, one connection per client stream.
 
@@ -24,7 +26,8 @@ Wire protocol: newline-delimited JSON, one connection per client stream.
      {"event": "partial"|"final"|"error", "segment": N, "text": ...,
       "tokens": [...]}
      finals also carry "words": [{word, start_s, end_s}], the TDT
-     timestamps anchored at decode frames (decode/timestamps.py).
+     timestamps anchored at decode frames (decode/timestamps.py), and on
+     a beam server "nbest": [{text, tokens, score}], best first.
 
 Continuous clients run an ``EndpointDetector`` (streaming/continuous.py)
 in their handler thread, on the host. Audio from a speech onset (with
@@ -80,8 +83,14 @@ PROG = "trt-asr-tpu-torch-serve"
 class AsrServer:
     def __init__(self, model: ParakeetTDT, batch_size: int = 8,
                  host: str = "127.0.0.1", port: int = 0,
-                 runtime: Optional[RuntimeConfig] = None):
-        self.engine = BatchStreamingEngine(model, batch_size=batch_size, runtime=runtime)
+                 runtime: Optional[RuntimeConfig] = None, beam: int = 1, lm_fn=None,
+                 lm_weight: float = 0.0, token_cap: int = 512):
+        """``beam`` > 1: every slot runs the engine's batched device beam
+        (with ``lm_fn`` an NGramLM or BiasingLM fused into it); FINAL events
+        then carry the ranked ``nbest`` beside the 1-best."""
+        self.engine = BatchStreamingEngine(model, batch_size=batch_size, runtime=runtime,
+                                           beam=beam, lm_fn=lm_fn, lm_weight=lm_weight,
+                                           token_cap=token_cap)
         self._elock = threading.Lock()      # serializes ALL engine access
         self._clients: Dict[int, socket.socket] = {}   # sid -> conn
         self._wlocks: Dict[int, threading.Lock] = {}   # per-conn write lock
@@ -475,7 +484,8 @@ class _Client:
 def transcribe(host: str, port: int, audio: np.ndarray, chunk_samples: int = 8000,
                timeout_s: float = 300.0) -> dict:
     """Blocking client: stream ``audio`` (16 kHz f32) and return {"text",
-    "tokens", "words", "partials"} from the stream's final event."""
+    "tokens", "words", "partials"} from the stream's final event, and its
+    "nbest" on a beam server."""
     partials = []
     final: List[dict] = []
 
@@ -496,8 +506,11 @@ def transcribe(host: str, port: int, audio: np.ndarray, chunk_samples: int = 800
         cli.close()
     if not final:
         raise TimeoutError("no final event")
-    return {"text": final[0]["text"], "tokens": final[0]["tokens"],
-            "words": final[0].get("words", []), "partials": partials}
+    out = {"text": final[0]["text"], "tokens": final[0]["tokens"],
+           "words": final[0].get("words", []), "partials": partials}
+    if "nbest" in final[0]:          # a beam server: the ranked hypotheses
+        out["nbest"] = final[0]["nbest"]
+    return out
 
 
 def transcribe_continuous(host: str, port: int, audio: np.ndarray, chunk_samples: int = 8000,
@@ -540,14 +553,19 @@ def main(argv=None) -> int:
     ap.add_argument("--no-warmup", action="store_true",
                     help="skip building and loading the step's kernels at startup")
     ap.add_argument("--engines", default="", help="AOT engine dir: not ported yet")
-    ap.add_argument("--beam", type=int, default=1, help="beam width > 1: not ported yet")
-    ap.add_argument("--lm", default="", help="n-gram LM for the beam: not ported yet")
+    ap.add_argument("--beam", type=int, default=1,
+                    help="beam width > 1 serves every slot with the batched device beam "
+                         "(n-best on FINAL events)")
+    ap.add_argument("--lm", default="",
+                    help="n-gram LM json (ngram-lm/v1) fused into the device beam; "
+                         "requires --beam > 1")
+    ap.add_argument("--lm-weight", type=float, default=0.6, help="fusion weight for --lm")
+    ap.add_argument("--token-cap", type=int, default=512,
+                    help="device beam's token buffer per hypothesis")
     args = ap.parse_args(argv)
 
-    for flag, given, item in (("--engines", args.engines, 7), ("--beam > 1", args.beam > 1, 5),
-                              ("--lm", args.lm, 5)):
-        if given:
-            ap.error(f"{flag} is not ported yet (ROADMAP Queue 1 item {item})")
+    if args.engines:
+        ap.error("--engines is not ported yet (ROADMAP Queue 1 item 7)")
     device = resolve_device(args.device)
     rt = RuntimeConfig.from_env()
     if args.model_dir:
@@ -557,10 +575,17 @@ def main(argv=None) -> int:
         model = ParakeetTDT.random(cfg, runtime=rt, device=device)
     else:
         ap.error("provide --model-dir or --synthetic-model")
+    lm_fn = None
+    if args.lm:
+        from trt_asr_tpu_torch.decode.ngram_lm import NGramLM
+
+        lm_fn = NGramLM.load(args.lm)
     srv = AsrServer(model, batch_size=args.batch_size, host=args.host, port=args.port,
-                    runtime=rt)
+                    runtime=rt, beam=args.beam, lm_fn=lm_fn, lm_weight=args.lm_weight,
+                    token_cap=args.token_cap)
     print(f"{PROG} listening on {srv.addr[0]}:{srv.addr[1]} "
-          f"(batch_size={args.batch_size}, device={device})", flush=True)
+          f"(batch_size={args.batch_size}, device={device}"
+          + (f", beam={args.beam}" if args.beam > 1 else "") + ")", flush=True)
     srv.serve_forever(warmup=not args.no_warmup)
     return 0
 

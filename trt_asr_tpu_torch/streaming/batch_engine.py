@@ -13,9 +13,15 @@ detach by row resets of the encoder caches and the decode state. The joint
 step's kernel (``RuntimeConfig.use_pallas_joint``) takes the decode's
 blank-run joints while B * Tq <= 128, as in the JAX package.
 
-Not ported yet: ``mesh=`` (sharded serving), ``engines=`` (AOT artifacts),
-``beam > 1`` with ``nbest`` (the batched device beam); each raises
-``NotImplementedError``.
+``beam > 1`` serves every slot with the batched device beam
+(``decode/beam_device.py``, a [S, K, ...] frontier) in the same lockstep
+step (:func:`_batch_beam_step`), with optional shallow fusion: ``lm_fn``
+an ``NGramLM`` or ``BiasingLM`` compiled to device tables. Each slot's
+n-best equals a standalone device beam session's; ``nbest(sid)`` ranks it.
+The beam step runs with the kernels off, as the JAX beam step does.
+
+Not ported yet: ``mesh=`` (sharded serving) and ``engines=`` (AOT
+artifacts); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -70,26 +76,81 @@ def _batch_step(model: ParakeetTDT, feats, valid, enc_state, dec_state, emitted_
     return toks, n, enc_state, dec_state, stamps, out_len
 
 
+def _batch_beam_step(model: ParakeetTDT, feats, valid, enc_state, beam_state, cache_drop_vec,
+                     valid_cap_vec, *, drop_extra: int, beam: int, expansion_k: int,
+                     max_symbols: int, blank_penalty: float = 0.0, punct_mask=None,
+                     pos_proj=None, lm_spec=None, lm_tables=None, lm_weight: float = 0.0,
+                     rows: Optional[int] = None):
+    """The beam's lockstep step: the batched streaming encoder and S
+    lockstep device beams (``tdt_beam_chunk_device_batch``) over the first
+    ``rows`` encoder rows (the largest emission cap in ``valid_cap_vec``, a
+    host-side bound: no row past it is valid; all rows when None). Returns
+    (enc_state, beam_state, out_len, n_best, toks_best, sat_live), the last
+    three as host arrays: each slot's 1-best length and tokens [S, L] and
+    whether a live hypothesis saturated its token buffer, so that the host
+    reads O(S * L) values, never the [S, K, L] pool."""
+    from trt_asr_tpu_torch.decode.beam_device import tdt_beam_chunk_device_batch
+
+    cfg = model.cfg
+    enc, out_len, enc_state = encode(
+        model.params, cfg, feats, valid, enc_state, drop_extra=drop_extra,
+        cache_drop_vec=cache_drop_vec, valid_cap_vec=valid_cap_vec, pos_proj=pos_proj,
+        layers=model.layers)
+    beam_state = tdt_beam_chunk_device_batch(
+        model.params, cfg, enc[:, :rows], out_len, beam_state, beam=beam, expansion_k=expansion_k,
+        max_symbols=max_symbols, blank_penalty=blank_penalty, punct_mask=punct_mask,
+        use_punct_mask=punct_mask is not None, lm_spec=lm_spec, lm_tables=lm_tables,
+        lm_weight=lm_weight)
+    best = torch.argmax(beam_state.score, dim=1)                        # [S]
+    rows = torch.arange(best.shape[0], device=best.device)
+    n_best = beam_state.n_tok[rows, best]
+    toks_best = beam_state.tokens[rows, best]
+    sat_live = (beam_state.sat & torch.isfinite(beam_state.score)).any(dim=1)
+    return (enc_state, beam_state, out_len.cpu().numpy(), n_best.cpu().numpy(),
+            toks_best.cpu().numpy(), sat_live.cpu().numpy())
+
+
 class BatchStreamingEngine:
     def __init__(self, model: ParakeetTDT, batch_size: int = 8,
                  runtime: Optional[RuntimeConfig] = None, mesh=None, engines=None,
-                 beam: int = 1, lm_fn=None):
+                 beam: int = 1, expansion_k: int = 4, lm_fn=None, lm_weight: float = 0.0,
+                 token_cap: int = 512, length_norm: float = 0.0):
+        """``beam`` > 1 switches every slot to the batched device beam, with
+        shallow fusion when ``lm_fn`` is an ``NGramLM`` or ``BiasingLM``
+        (compiled to device tables as ``BeamStreamingSession(device=True)``
+        compiles it); ``nbest(sid)`` ranks a slot's hypotheses."""
         if mesh is not None:
             raise NotImplementedError(
                 "BatchStreamingEngine(mesh=...) is not ported yet (ROADMAP Queue 1 item 9)")
         if engines is not None:
             raise NotImplementedError(
                 "BatchStreamingEngine(engines=...) is not ported yet (ROADMAP Queue 1 item 7)")
-        if int(beam) > 1 or lm_fn is not None:
-            raise NotImplementedError(
-                "the batched beam (beam > 1, lm_fn, nbest) is not ported yet "
-                "(ROADMAP Queue 1 item 5)")
         self.model = model
         self.cfg = cfg = model.cfg
         self.device = model.device
         self.rt = runtime or model.runtime
         self.b = batch_size
-        self.beam = 1                 # greedy: the daemon reads it (no n-best)
+        self.beam = int(beam)
+        self.expansion_k = int(expansion_k)
+        self.lm_fn = lm_fn
+        self.lm_weight = float(lm_weight)
+        self.token_cap = int(token_cap)
+        self.length_norm = float(length_norm)
+        self._lm_spec = self._lm_tables = None
+        if self.beam > 1:
+            if lm_fn is not None:
+                from trt_asr_tpu_torch.decode.lm_device import to_device
+
+                compiled = to_device(lm_fn, self.device)
+                if compiled is None:
+                    raise ValueError(
+                        "batched beam supports lm_fn only for NGramLM / BiasingLM (compiled "
+                        "to device tables); use a per-stream host BeamStreamingSession for "
+                        "an arbitrary callable")
+                self._lm_spec, self._lm_tables = compiled
+        elif lm_fn is not None:
+            raise ValueError("lm_fn requires beam > 1 (greedy decode cannot apply shallow "
+                             "fusion)")
         self._frames = cfg.chunk_size_frames[1] + cfg.pre_encode_cache_size[1]
         self._tq = subsampled_length(self._frames, cfg.stride_stages) - cfg.drop_extra_pre_encoded
         self._pos_proj = precompute_pos_proj(model.params, cfg, self._tq, cfg.att_cache_size)
@@ -97,6 +158,11 @@ class BatchStreamingEngine:
                             if self.rt.suppress_leading_punct else None)
         self._enc_state = init_encoder_state(cfg, batch_size, device=self.device)
         self._dec_state = self._fresh_decode_state()
+        if self.beam > 1:
+            self._beam_state = self._fresh_beam_state(self._dec_state)
+            self._nbest: List[list] = [[] for _ in range(batch_size)]
+            self._last_partial_toks: List[tuple] = [()] * batch_size
+            self._sat_reported = [False] * batch_size
         self._active = [False] * batch_size
         self._mel = [StreamingLogMel(model.frontend) for _ in range(batch_size)]
         self._bufs = [np.zeros((0, cfg.feat_in), np.float32) for _ in range(batch_size)]
@@ -121,6 +187,12 @@ class BatchStreamingEngine:
                                   init_decode_state(self.cfg, self.b, device=self.device),
                                   self.model.prompt_ids)
 
+    def _fresh_beam_state(self, dec_state):
+        from trt_asr_tpu_torch.decode.beam_device import init_beam_device_state_batch
+
+        return init_beam_device_state_batch(self.cfg, dec_state, beam=self.beam,
+                                            token_cap=self.token_cap)
+
     def _row_mask(self, rows) -> torch.Tensor:
         mask = torch.zeros(self.b, dtype=torch.bool)
         mask[list(rows)] = True
@@ -144,6 +216,15 @@ class BatchStreamingEngine:
         self._enc_state = reset_encoder_state_rows(self._enc_state, mask)
         self._dec_state = reset_decode_state_rows(self.model.params, self.cfg, self._dec_state,
                                                   mask, self.model.prompt_ids)
+        if self.beam > 1:
+            from trt_asr_tpu_torch.decode.beam_device import reset_beam_device_state_rows
+
+            self._beam_state = reset_beam_device_state_rows(
+                self._beam_state, mask, self.cfg, self._dec_state, beam=self.beam,
+                token_cap=self.token_cap)
+            self._nbest[sid] = []
+            self._last_partial_toks[sid] = ()
+            self._sat_reported[sid] = False
         self._mel[sid].reset()
         self._bufs[sid] = np.zeros((0, self.cfg.feat_in), np.float32)
         self._scheds[sid].reset()
@@ -203,6 +284,16 @@ class BatchStreamingEngine:
                     blank_penalty=self.rt.blank_penalty, punct_mask=self._punct_mask,
                     pos_proj=self._pos_proj, use_pallas_joint=self.rt.use_pallas_joint)
 
+    def _beam_step_kwargs(self) -> dict:
+        """The beam step's keywords: one source for step() and warmup(). The
+        kernels stay off, as on every beam path."""
+        cfg = self.cfg
+        return dict(drop_extra=cfg.drop_extra_pre_encoded, beam=self.beam,
+                    expansion_k=self.expansion_k, max_symbols=cfg.max_symbols_per_timestep,
+                    blank_penalty=self.rt.blank_penalty, punct_mask=self._punct_mask,
+                    pos_proj=self._pos_proj, lm_spec=self._lm_spec, lm_tables=self._lm_tables,
+                    lm_weight=self.lm_weight)
+
     def _feed(self, arr: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(arr, device=self.device)
 
@@ -218,13 +309,16 @@ class BatchStreamingEngine:
         enc = reset_encoder_state_rows(init_encoder_state(cfg, self.b, device=self.device), mask)
         dec = reset_decode_state_rows(self.model.params, cfg, self._fresh_decode_state(), mask,
                                       self.model.prompt_ids)
-        zeros = np.zeros((self.b,), np.int32)
-        _batch_step(self.model, self._feed(np.zeros((self.b, self._frames, cfg.feat_in),
-                                                    np.float32)),
-                    self._feed(np.full((self.b,), self._frames, np.int32)), enc, dec, zeros,
-                    self._feed(np.full((self.b,), cfg.cache_drop_size, np.int32)),
-                    self._feed(np.full((self.b,), cfg.valid_out_len, np.int32)),
-                    **self._step_kwargs())
+        feats = self._feed(np.zeros((self.b, self._frames, cfg.feat_in), np.float32))
+        valid = self._feed(np.full((self.b,), self._frames, np.int32))
+        vecs = (self._feed(np.full((self.b,), cfg.cache_drop_size, np.int32)),
+                self._feed(np.full((self.b,), cfg.valid_out_len, np.int32)))
+        if self.beam > 1:
+            _batch_beam_step(self.model, feats, valid, enc, self._fresh_beam_state(dec), *vecs,
+                             **self._beam_step_kwargs())
+        else:
+            _batch_step(self.model, feats, valid, enc, dec, np.zeros((self.b,), np.int32),
+                        *vecs, **self._step_kwargs())
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
@@ -272,6 +366,27 @@ class BatchStreamingEngine:
             self._enc_state = reset_encoder_state_rows(self._enc_state,
                                                        self._row_mask(range(self.b)))
         t0 = time.perf_counter()
+        if self.beam > 1:
+            (self._enc_state, self._beam_state, out_len, n_best, toks_best,
+             sat_live) = _batch_beam_step(
+                self.model, self._feed(feats), self._feed(valid), self._enc_state,
+                self._beam_state, self._feed(cache_drop), self._feed(valid_cap),
+                rows=int(valid_cap[progressed].max()), **self._beam_step_kwargs())
+            self.step_latencies_ms.append((time.perf_counter() - t0) * 1e3)
+            for sid in progressed:
+                # the ranked beam can rewrite earlier text: the transcript is
+                # replaced by the 1-best, not appended to
+                self._tokens[sid] = [int(x) for x in toks_best[sid, :n_best[sid]]]
+                self._frames_base[sid] += int(out_len[sid])
+                if sat_live[sid] and not self._sat_reported[sid]:
+                    self._sat_reported[sid] = True
+                    self._error(sid, f"device beam token_cap={self.token_cap} saturated: "
+                                     "transcript truncated (head preserved); raise token_cap")
+                if sid not in flushing:
+                    self._maybe_partial(sid)
+            for sid in flushing:
+                self._emit_final(sid)
+            return len(progressed)
         emitted = np.asarray([len(t) for t in self._tokens], np.int32)
         toks, n, self._enc_state, self._dec_state, stamps, out_len = _batch_step(
             self.model, self._feed(feats), self._feed(valid), self._enc_state, self._dec_state,
@@ -300,6 +415,19 @@ class BatchStreamingEngine:
         """The session's partial pacing: at most one PARTIAL a
         ``partial_min_interval_ms`` per stream, only when its tokens grew."""
         now = time.monotonic()
+        if self.beam > 1:
+            # content, not length: a re-ranked beam can rewrite the
+            # transcript at constant length
+            cur = tuple(self._tokens[sid])
+            if (cur != self._last_partial_toks[sid]
+                    and (now - self._last_partial_t[sid]) * 1e3 >= self.rt.partial_min_interval_ms):
+                self._last_partial_t[sid] = now
+                self._last_partial_toks[sid] = cur
+                self._events[sid].append(Event(
+                    EventType.PARTIAL_TEXT, self._segment[sid],
+                    self.model.tokenizer.decode(self._tokens[sid]),
+                    tokens=list(self._tokens[sid])))
+            return
         if (len(self._tokens[sid]) != self._last_partial_len[sid]
                 and (now - self._last_partial_t[sid]) * 1e3 >= self.rt.partial_min_interval_ms):
             self._last_partial_t[sid] = now
@@ -311,6 +439,17 @@ class BatchStreamingEngine:
     def _emit_final(self, sid: int) -> None:
         if not self._finalizing[sid]:
             return
+        if self.beam > 1:
+            # rank the slot's pool; the 1-best gives the transcript and the
+            # emission stamps (the device state's frames are global)
+            hyps = self._slot_finish(sid)
+            self._nbest[sid] = hyps
+            if hyps:
+                best = hyps[0]
+                self._tokens[sid] = list(best.tokens)
+                self._token_frames[sid] = [f for f, _, _ in best.stamps]
+                self._token_durs[sid] = [d for _, d, _ in best.stamps]
+                self._token_logps[sid] = [lp for _, _, lp in best.stamps]
         self._finalizing[sid] = False
         self._finalized[sid] = True
         self._events[sid].append(Event(
@@ -330,9 +469,20 @@ class BatchStreamingEngine:
     def text(self, sid: int) -> str:
         return self.model.tokenizer.decode(self._tokens[sid])
 
-    def nbest(self, sid: int):
-        raise NotImplementedError("nbest needs the batched beam, not ported yet "
-                                  "(ROADMAP Queue 1 item 5)")
+    def _slot_finish(self, sid: int):
+        from trt_asr_tpu_torch.decode.beam import BeamSearchState, beam_finish
+        from trt_asr_tpu_torch.decode.beam_device import beam_device_row_to_hypotheses
+
+        return beam_finish(BeamSearchState(active=beam_device_row_to_hypotheses(
+            self._beam_state, sid)), beam=self.beam, length_norm=self.length_norm)
+
+    def nbest(self, sid: int) -> List[tuple]:
+        """Ranked (text, token_ids, score) of a beam stream: after finalize
+        the finished n-best, mid-stream the current pool's order."""
+        if self.beam <= 1:
+            raise ValueError("nbest requires a beam>1 engine")
+        hyps = self._nbest[sid] or self._slot_finish(sid)
+        return [(self.model.tokenizer.decode(h.tokens), list(h.tokens), h.score) for h in hyps]
 
     def token_timestamps(self, sid: int) -> List[dict]:
         """Per-token [start_s, end_s] of a stream, as the session's."""

@@ -276,9 +276,14 @@ class StreamingSession:
             return apply_per_feature_norm(feats, mean, std).numpy()
         return feats
 
-    def _run_chunk(self, spec, is_last: bool) -> None:
+    def _chunk_inputs(self, spec, kernels: bool = True):
+        """The chunk prologue, shared with the beam session: the chunk's
+        features on the device, its valid frame count, the encoder-state
+        overrides of ``disable_cache`` and ``cache_len_override``, and the
+        position projection (with ``kernels``, the attention kernel's padded
+        one on a steady chunk). Returns (x [1, T, C], valid, pos_proj,
+        kernel_att)."""
         cfg, rt = self.cfg, self.rt
-        t0 = time.perf_counter()
         x = extract_chunk(self._feat_buf, spec)
         buflen = self._feat_buf.shape[0]
         # valid = implicit left zeros (unified first chunk) + real frames
@@ -291,16 +296,22 @@ class StreamingSession:
             self._enc_state = self._enc_state._replace(
                 cache_len=torch.full_like(self._enc_state.cache_len, forced))
         tq_chunk = subsampled_length(spec.frames, cfg.stride_stages) - spec.drop_extra
-        kernel_att = self._pos_proj_kernel is not None and tq_chunk == self._tq_steady
+        kernel_att = (kernels and self._pos_proj_kernel is not None
+                      and tq_chunk == self._tq_steady)
         if kernel_att:
             pos_proj = self._pos_proj_kernel
         elif tq_chunk == self._tq_steady:
             pos_proj = self._pos_proj
         else:
             pos_proj = None
+        return torch.as_tensor(x[None], device=self.device), valid, pos_proj, kernel_att
+
+    def _run_chunk(self, spec, is_last: bool) -> None:
+        cfg, rt = self.cfg, self.rt
+        t0 = time.perf_counter()
+        x, valid, pos_proj, kernel_att = self._chunk_inputs(spec)
         toks, n, self._enc_state, self._dec_state, stamps, t_out = _session_step(
-            self.model, torch.as_tensor(x[None], device=self.device), valid,
-            self._enc_state, self._dec_state,
+            self.model, x, valid, self._enc_state, self._dec_state,
             drop_extra=spec.drop_extra,
             cache_drop=0 if is_last else cfg.cache_drop_size,
             valid_cap=None if is_last else cfg.valid_out_len,
