@@ -205,9 +205,29 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    and end-to-end ms, launches, a profile of one forward.
    ``transcribe_batch`` on the card equals per-utterance
    ``transcribe_offline`` on the card.
+5b. training at full width (``ModelConfig()``, phase 3's weights with the
+   blank bias at 0; B = 2 utterances of ~4 s and ~3 s, 10 and 7 seeded
+   labels; f32, TF32 off, kernels off, as the JAX package trains): the
+   card's step-0 loss, gradient norm and gradients against the port's CPU
+   path (offline; 1e-4 and 1e-3 relative, each leaf within 1e-4 of its
+   largest value); remat against no remat on the card, offline and
+   streaming (the same loss, each leaf's gradients within 1e-4 of its
+   largest value, streaming's peak memory lower, offline's logged); 5 AdamW
+   steps at a constant lr (``TRAIN_LR``), offline and streaming (finite,
+   the 5th loss under the 1st; median step ms, peak memory; launches,
+   device ms and busy share of a profiled step). gate_r3 fine-tunes 3 steps
+   offline and streaming on a batch from ``batches_from_manifest`` with
+   SpecAugment masks drawn once on the CPU (step-0 gradients leaf by leaf
+   within 1e-4 of the leaf's largest value, losses within 1e-4 relative of
+   the CPU path's, parameters within 1e-5 but for Adam's moves on rounding
+   noise), and resumes from ``save_train_state``/``load_train_state`` (2
+   more steps equal 5 straight within 1e-6). ``python -m
+   trt_asr_tpu_torch.train.toy`` runs as a subprocess on the card (exit 0,
+   the loss halves, at least 1 of 4 utterances recovered). No kernel
+   wrapper launches; the seconds of each step are logged.
 6. neither ``jax`` nor ``trt_asr_tpu`` was imported, here or (by ``-X
-   importtime``) in a subprocess, and the daemon's, the CLI's and their
-   helpers' modules were run.
+   importtime``) in a subprocess (the toy's too), and the daemon's, the
+   CLI's, their helpers' and training's modules were run.
 
 Each phase's seconds are logged. The last line is ``{"ok": true, "device":
 {...}}``; the line before it is
@@ -1469,6 +1489,23 @@ def profile_session(torch, label, model, rt, audio, piece: int, state_dtype=None
     assert not any(chain.values()), f"profile[{label}]: a chain's kernel ran"
 
 
+def device_rows(torch, prof) -> list:
+    """(device us, name, count) of each kernel, copy and fill the profiler
+    traced on the card, summed by name, longest first: read from its raw
+    events (``key_averages`` builds every event's tree first, ~40 s for the
+    200,000 launches of a streaming train step), each name demangled as
+    ``key_averages`` names it."""
+    from torch.autograd.profiler_util import _rewrite_name
+
+    by_name = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            name = _rewrite_name(name=ev.name(), with_wildcard=True)
+            us, n = by_name.get(name, (0.0, 0))
+            by_name[name] = (us + ev.duration_ns() / 1e3, n + 1)
+    return sorted(((us, k, n) for k, (us, n) in by_name.items() if us > 0), reverse=True)
+
+
 def profile_run(torch, label, unit: str, fn):
     """Device busy share and kernel time by name over ``fn()``, which
     returns how many units of work it did, with torch.profiler. Returns the
@@ -1482,9 +1519,7 @@ def profile_run(torch, label, unit: str, fn):
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies): the CPU ops that launched
     # them carry the same device time again
-    rows = sorted(((ev.self_device_time_total, ev.key, ev.count) for ev in prof.key_averages()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA
-                   and ev.self_device_time_total > 0), reverse=True)
+    rows = device_rows(torch, prof)
     busy_ms = sum(r[0] for r in rows) / 1e3
     copy_ms = sum(r[0] for r in rows if "copy" in r[1].lower()) / 1e3
     log(f"profile[{label}]: {n} {unit}s, wall {wall_ms:.1f} ms, "
@@ -1950,8 +1985,7 @@ def profile_engine_joint(torch, model, rt, audios, piece: int, arm: str) -> None
         eng.run_until_drained()
         torch.cuda.synchronize()
     calls = read_counts()["joint_step"]
-    kernels = {ev.key: ev.count for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA}
+    kernels = {k: n for _, k, n in device_rows(torch, prof)}
     launched_as = lambda name: sum(n for k, n in kernels.items() if name in k)  # noqa: E731
     joint_kernel = PERSISTENT["joint_step"][arm]
     chain = {k: launched_as(k) for k in CHAIN_KERNELS}
@@ -1993,6 +2027,21 @@ def served_client(serve, addr, audio, piece: int, out: dict, k: int) -> None:
             cli.close()
     except Exception as e:  # noqa: BLE001 — reported and failed by the phase
         out[k] = e
+
+
+def wait_idle(srv, quiet_s: float = 0.3, timeout_s: float = 30.0) -> None:
+    """Return once the daemon's engine has nothing pending and has taken no
+    step for ``quiet_s``."""
+    t_end = time.perf_counter() + timeout_s
+    n, since = -1, time.perf_counter()
+    while time.perf_counter() < t_end:
+        m = len(srv.engine.step_latencies_ms)
+        if m != n or srv.engine.pending():
+            n, since = m, time.perf_counter()
+        elif time.perf_counter() - since >= quiet_s:
+            return
+        time.sleep(0.02)
+    raise AssertionError("daemon: the engine did not go idle")
 
 
 def full_width_daemon(torch, dev, cfg, params, tok):
@@ -2048,9 +2097,14 @@ def full_width_daemon(torch, dev, cfg, params, tok):
                 t1 = time.perf_counter()
                 segs = serve.transcribe_continuous(*srv.addr, stream, chunk_samples=8000,
                                                    timeout_s=300)
-                torch.cuda.synchronize()
                 cont_s = time.perf_counter() - t1
-            cont_counts = read_counts()
+                # the stepper may still be stepping (the retired slot's
+                # flush): the calls counted and the kernels traced must
+                # cover the same steps, so both are read once it is idle
+                wait_idle(srv)
+                torch.cuda.synchronize()
+                cont_counts = read_counts()
+                win_s = time.perf_counter() - t1
     finally:
         srv.stop()
     log(err.getvalue().rstrip() or "daemon: nothing on stderr")
@@ -2078,15 +2132,15 @@ def full_width_daemon(torch, dev, cfg, params, tok):
         log(f"daemon continuous: segment [{seg['start_s']:.2f} {seg['end_s']:.2f}] "
             f"{len(seg['tokens'])} tokens, direct {len(toks)}")
         assert seg["tokens"] == toks, "daemon continuous: a segment differs from the engine's"
-    kernels = {ev.key: ev.count for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA}
-    busy_ms = sum(ev.self_device_time_total for ev in prof.key_averages()
-                  if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    rows = device_rows(torch, prof)
+    kernels = {k: n for _, k, n in rows}
+    busy_ms = sum(us for us, _, _ in rows) / 1e3
     launched_as = lambda name: sum(n for k, n in kernels.items() if name in k)  # noqa: E731
     chain = {k: launched_as(k) for k in CHAIN_KERNELS}
     joint_kernel = PERSISTENT["joint_step"]["f32"]
     log(f"daemon continuous (profiled): {cont_s:.2f} s wall, device busy {busy_ms:.1f} ms "
-        f"({100 * busy_ms / (cont_s * 1e3):.1f}%), {cont_counts['joint_step']} joint calls, "
+        f"({100 * busy_ms / (win_s * 1e3):.1f}% of the {win_s:.2f} s window), "
+        f"{cont_counts['joint_step']} joint calls, "
         f"{launched_as(joint_kernel)} {joint_kernel} launches, the chains' launches {chain}")
     assert cont_counts["joint_step"] > 0 and launched_as(joint_kernel) == cont_counts[
         "joint_step"], f"daemon: a joint call is not one {joint_kernel} launch"
@@ -2448,10 +2502,13 @@ def imported_modules(importtime_log: str) -> set:
             if ln.startswith("import time:") and ln.count("|") == 2}
 
 
-def check_no_jax_imported(label: str, importtime_log: str) -> None:
+def check_no_jax_imported(label: str, importtime_log: str,
+                          must: str = "trt_asr_tpu_torch.streaming.session") -> None:
+    """No module of JAX or of the JAX package in the log, which names
+    ``must`` (so that it is the process's log)."""
     mods = imported_modules(importtime_log)
     bad = sorted(m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "trt_asr_tpu"))
-    assert "trt_asr_tpu_torch.streaming.session" in mods, f"{label}: no import log"
+    assert must in mods, f"{label}: no import log"
     assert not bad, f"{label} imported {bad}"
 
 
@@ -3013,6 +3070,356 @@ def full_width_offline(torch, dev, cfg, params, tok, audios):
     return results
 
 
+# --- phase 5b: training on the card -------------------------------------------
+
+TRAIN_LR = 1e-4          # phase 5b's constant AdamW learning rate (full width)
+GATE_LR = 3e-4           # and gate_r3's fine-tuning one
+
+
+def lap(step_s: dict, name: str, t0: float) -> float:
+    """Record and log the seconds since ``t0`` as phase 5b's step ``name``;
+    return the time now."""
+    now = time.perf_counter()
+    step_s[name] = now - t0
+    log(f"phase 5b step {name}: {now - t0:.1f} s")
+    return now
+
+
+def grads_of(torch, params, cfg, batch, **kw):
+    """(mean NLL, gradients in ``optim.tree_leaves`` order) of one forward
+    and backward of ``training_forward`` (no update)."""
+    from trt_asr_tpu_torch.train import optim, training_forward
+
+    live = [x.detach().requires_grad_(True) for x in optim.tree_leaves(params)]
+    loss = training_forward(optim.tree_unflatten(params, live), cfg, batch, **kw).mean()
+    return loss.detach(), list(torch.autograd.grad(loss, live))
+
+
+def tree_max_diff(torch, a, b) -> float:
+    from trt_asr_tpu_torch.train import optim
+
+    return max(float((x.float().cpu() - y.float().cpu()).abs().max())
+               for x, y in zip(optim.tree_leaves(a), optim.tree_leaves(b)))
+
+
+def leaf_paths(tree, prefix: str = "") -> list:
+    """Key paths of a parameter tree in ``optim.tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in leaf_paths(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def check_leaf_grads(label, paths, g_card, g_cpu, rel_tol: float = 1e-4) -> float:
+    """Step-0 gradients, card against CPU, leaf by leaf: each leaf's max
+    |card - CPU| within ``rel_tol`` of its largest |g| on the CPU (the
+    measure of the remat check). A wrong gradient on a few values of a leaf
+    (a gather's backward on some token ids, one bias entry) shows here,
+    before Adam rescales rounding noise into steps of about lr. Logs and
+    returns the worst leaf's ratio."""
+    worst, at = 0.0, ""
+    for path, a, b in zip(paths, g_card, g_cpu):
+        d = float((a.cpu() - b).abs().max())
+        r = d / max(float(b.abs().max()), 1e-30)
+        if r > worst:
+            worst, at = r, path
+    log(f"{label} step-0 gradients card against CPU: worst leaf max|dg| / max|g| {worst:.3g} "
+        f"({at or 'all equal'}) over {len(paths)} leaves")
+    assert worst <= rel_tol, f"{label}: the card's gradients differ from the CPU's at {at}"
+    return worst
+
+
+# gate_r3's parameters after 3 AdamW steps on the card against the CPU's:
+# within PARAM_TOL, but for at most NOISE_SHARE of a leaf's values, which
+# Adam moved on rounding noise. The positional weights on the low-frequency
+# sinusoid columns, which add nearly the same score to every key (the
+# softmax cancels it), get gradients down to 1e-6 of their leaf's largest
+# (a CPU reading), whose rounding differs between the devices; Adam turns
+# such differences into steps of up to about lr. A fault on a few values
+# of a leaf is the step-0 gradient check's to find (``check_leaf_grads``).
+PARAM_TOL, NOISE_SHARE = 1e-5, 0.1
+
+
+def profile_step(torch, label, fn):
+    """Kernel launches, device ms and busy share of ``fn()`` (one train
+    step) in a profiled window of its own, device activity only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(torch, prof)
+    busy_ms = sum(us for us, _, _ in rows) / 1e3
+    launches = sum(n for _, k, n in rows if not k.startswith(("Memcpy", "Memset")))
+    log(f"train[{label}] profiled step: {launches} kernel launches, device {busy_ms:.1f} ms "
+        f"of {wall_ms:.1f} ms wall ({100 * busy_ms / wall_ms:.1f}% busy); top: "
+        f"{[(round(us / 1e3, 2), k[:40], n) for us, k, n in rows[:5]]}")
+    return dict(launches=launches, device_ms=busy_ms, busy=busy_ms / wall_ms, wall_ms=wall_ms)
+
+
+def full_width_train_batch(torch, cfg, seed: int):
+    """Phase 5b's batch: 2 synthetic utterances (7 and 5 words, ~4 s and
+    ~3 s), per-feature normalized log-mel (plain frontend, on the CPU),
+    with 10 and 7 seeded token ids, as numpy arrays."""
+    from trt_asr_tpu_torch.contract import FrontendSpec
+    from trt_asr_tpu_torch.frontend.logmel import LogMelFrontend
+    from trt_asr_tpu_torch.frontend.normalize import (apply_per_feature_norm,
+                                                      compute_per_feature_stats)
+    from trt_asr_tpu_torch.train.train_step import Batch
+
+    rng = np.random.default_rng(seed + 50)
+    synth = synth_module()
+    fe = LogMelFrontend(FrontendSpec(n_mels=cfg.feat_in), device="cpu")
+    feats, labels = [], []
+    for n_words in (7, 5):
+        f = fe(synth.synth_utterance(list(rng.integers(0, 1120, size=n_words)), rng))
+        feats.append(apply_per_feature_norm(f, *compute_per_feature_stats(f)).numpy())
+        labels.append(rng.integers(0, cfg.vocab_size, size=n_words + n_words // 2))
+    t_max, u_max = max(len(f) for f in feats), max(len(lb) for lb in labels)
+    x = np.zeros((2, t_max, cfg.feat_in), np.float32)
+    y = np.zeros((2, u_max), np.int32)
+    for k, (f, lb) in enumerate(zip(feats, labels)):
+        x[k, :len(f)] = f
+        y[k, :len(lb)] = lb
+    return Batch(x, np.array([len(f) for f in feats], np.int32), y,
+                 np.array([len(lb) for lb in labels], np.int32))
+
+
+def full_width_training(torch, dev, cfg, params, seed: int, step_s: dict) -> dict:
+    """Phase 5b (a): training at full width (``ModelConfig()``, phase 3's
+    weights with the blank bias at its initial 0), f32, TF32 off, kernels
+    off. The card's step-0 loss, gradient norm and each leaf's gradients
+    against the port's CPU path (offline); remat against no remat on the
+    card (offline and streaming: the same loss, each leaf's gradients
+    within 1e-4 of its largest; streaming's peak memory lower, offline's
+    logged); 5 AdamW steps at a constant lr (offline
+    and streaming: finite, the 5th loss under the 1st), their median step
+    ms and peak memory, and a profiled step."""
+    from trt_asr_tpu_torch.models.parakeet.params import params_to
+    from trt_asr_tpu_torch.train import make_optimizer, make_train_step, optim
+
+    t0 = time.perf_counter()
+    params = optim.tree_map(lambda x: x.detach().clone(), params)
+    params["joint"]["out"]["b"][cfg.blank_id] = 0.0            # phase 3's initial bias
+    batch = full_width_train_batch(torch, cfg, seed)
+    log(f"train batch: features {list(batch.feats.shape)}, lengths {batch.feat_len.tolist()}, "
+        f"{batch.label_len.tolist()} labels; lr {TRAIN_LR} (constant, AdamW, clip 1.0)")
+    out = {}
+
+    # the card against the port's CPU path, offline
+    loss_gpu, g_gpu = grads_of(torch, params, cfg, batch)
+    norm_gpu = float(optim.global_norm(g_gpu))
+    t1 = time.perf_counter()
+    loss_cpu, g_cpu = grads_of(torch, params_to(params, "cpu"), cfg, batch)
+    norm_cpu = float(optim.global_norm(g_cpu))
+    step_s["card"] = t1 - t0
+    t0 = lap(step_s, "cpu", t1)
+    rel_l = abs(float(loss_gpu) - float(loss_cpu)) / abs(float(loss_cpu))
+    rel_n = abs(norm_gpu - norm_cpu) / norm_cpu
+    log(f"train[offline] step-0 loss card {float(loss_gpu):.6f} CPU {float(loss_cpu):.6f} "
+        f"(rel {rel_l:.3g}); gradient norm card {norm_gpu:.6f} CPU {norm_cpu:.6f} "
+        f"(rel {rel_n:.3g})")
+    assert rel_l <= 1e-4, "the card's step-0 loss differs from the CPU's"
+    assert rel_n <= 1e-3, "the card's gradient norm differs from the CPU's"
+    out["grad_vs_cpu"] = check_leaf_grads("train[offline]", leaf_paths(params), g_gpu, g_cpu)
+    del g_gpu, g_cpu
+
+    for mode in ("offline", "streaming"):
+        streaming = mode == "streaming"
+        runs = {}
+        for remat in (False, True):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loss, g = grads_of(torch, params, cfg, batch, streaming=streaming, remat=remat)
+            torch.cuda.synchronize()
+            runs[remat] = (loss, g, torch.cuda.max_memory_allocated() - base)
+        (l0, g0, m0), (l1, g1, m1) = runs[False], runs[True]
+        worst = max(float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+                    for a, b in zip(g0, g1))
+        log(f"train[{mode}] remat: loss {float(l1):.6f} against {float(l0):.6f} "
+            f"(equal: {bool(l0 == l1)}), worst leaf max|dg| / max|g| {worst:.3g}; peak memory "
+            f"above the weights {m1 / 2**30:.3f} GiB with remat, {m0 / 2**30:.3f} GiB without")
+        assert bool(l0 == l1), f"train[{mode}]: remat changed the loss"
+        assert worst <= 1e-4, f"train[{mode}]: remat changed the gradients"
+        # offline the peak is the gradients' (T is 51 encoder steps), which
+        # remat leaves as they are: logged; streaming keeps every chunk's
+        # activations without it
+        if streaming:
+            assert m1 < m0, f"train[{mode}]: remat did not lower the peak memory"
+        out[f"{mode}_peak_gib"] = (m0 / 2**30, m1 / 2**30)
+        del runs, g0, g1
+        t0 = lap(step_s, f"{mode} remat", t0)
+
+        tx, _ = make_optimizer(TRAIN_LR, schedule="constant")
+        init_opt, step = make_train_step(cfg, tx, streaming=streaming)
+        p, o = params, init_opt(params)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            p, o, m = step(p, o, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(m["loss"]))
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        prof = profile_step(torch, mode, lambda: step(p, o, batch))
+        log(f"train[{mode}] 5 steps: losses {[round(x, 4) for x in losses]}, step ms "
+            f"{[round(x, 1) for x in ms]} (median {np.median(ms):.1f}), peak memory above the "
+            f"weights {peak:.3f} GiB")
+        assert all(np.isfinite(losses)), f"train[{mode}]: a loss is not finite"
+        assert losses[4] < losses[0], f"train[{mode}]: the 5th loss is not under the 1st"
+        out[mode] = dict(losses=losses, step_ms=float(np.median(ms)), peak_gib=peak, **prof)
+        del p, o, m
+        t0 = lap(step_s, f"{mode} steps", t0)
+    return out
+
+
+def gate_r3_training(torch, dev, md, synth, tmp: str, step_s: dict) -> None:
+    """Phase 5b (b): gate_r3 fine-tunes 3 steps, offline and streaming, on
+    two of its synthetic utterances read back through a manifest by
+    ``batches_from_manifest`` (labels from its tokenizer), with SpecAugment
+    masks drawn once on the CPU: the step-0 gradients on the card, leaf by
+    leaf, within 1e-4 of the leaf's largest on the CPU; each step's loss on
+    the card within 1e-4 (relative) of the CPU path's, and every parameter
+    after the 3rd step within 1e-5 but for at most a tenth of a leaf's
+    values, which Adam moved on rounding noise (see ``PARAM_TOL``). Then
+    ``save_train_state`` -> ``load_train_state`` -> 2 more steps equal 5
+    straight within 1e-6, the 2 + 2 steps under
+    ``torch.use_deterministic_algorithms`` (the backward of a gather adds
+    with atomics on the card, and Adam turns a noise-level gradient's
+    rounding into a step of about lr)."""
+    from trt_asr_tpu_torch.eval.manifest import ManifestEntry, write_manifest
+    from trt_asr_tpu_torch.io.wav import save_wav
+    from trt_asr_tpu_torch.models.parakeet.model import ParakeetTDT
+    from trt_asr_tpu_torch.models.parakeet.params import load_checkpoint
+    from trt_asr_tpu_torch.train import make_optimizer, make_train_step, optim
+    from trt_asr_tpu_torch.train.augment import apply_masks, draw_masks
+    from trt_asr_tpu_torch.train.checkpoint import load_train_state, save_train_state
+    from trt_asr_tpu_torch.train.data import batches_from_manifest
+
+    t0 = time.perf_counter()
+    model = ParakeetTDT.from_model_dir(md, device="cpu")
+    cfg, tok = model.cfg, model.tokenizer
+    rng = np.random.default_rng(23)
+    words = [list(rng.integers(0, 1120, size=w)) for w in (6, 5)]
+    entries = []
+    for k, w in enumerate(words):
+        path = os.path.join(tmp, f"train{k}.wav")
+        save_wav(path, synth.synth_utterance(w, rng))
+        entries.append(ManifestEntry(path, tok.decode(w)))
+    man = os.path.join(tmp, "train.tsv")
+    write_manifest(man, entries)
+    batch = next(batches_from_manifest(man, model, batch_size=2, feature_norm="none"))
+    got = sorted(tuple(batch.labels[k, :batch.label_len[k]].tolist()) for k in range(2))
+    assert got == sorted(tuple(int(x) for x in w) for w in words), "labels lost their words"
+    masks = draw_masks(torch.Generator().manual_seed(5), torch.as_tensor(batch.feat_len),
+                       cfg.feat_in, freq_masks=2, freq_width=6, time_masks=4, time_width=0.05)
+    feats = apply_masks(torch.as_tensor(batch.feats), torch.as_tensor(batch.feat_len), masks)
+    batch = batch._replace(feats=feats.numpy())
+    tx, _ = make_optimizer(GATE_LR, schedule="constant")
+    for mode in ("offline", "streaming"):
+        init_opt, step = make_train_step(cfg, tx, streaming=mode == "streaming")
+        runs, g0 = {}, {}
+        for d in (dev, "cpu"):
+            p0 = load_checkpoint(md, device=d)
+            g0[str(d)] = grads_of(torch, p0, cfg, batch, streaming=mode == "streaming")[1]
+            p, o, losses = p0, init_opt(p0), []
+            for _ in range(3):
+                p, o, m = step(p, o, batch)
+                losses.append(float(m["loss"]))
+            runs[str(d)] = (p, o, losses, p0, init_opt)
+        (pg, og, lg, p0g, _), (pc, _, lc, _, _) = runs[str(dev)], runs["cpu"]
+        check_leaf_grads(f"gate_r3 train[{mode}]", leaf_paths(pc), g0[str(dev)], g0["cpu"])
+        del g0
+        rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+        diffs = [(x.cpu() - y).abs() for x, y in zip(optim.tree_leaves(pg), optim.tree_leaves(pc))]
+        far = {path: int((d > PARAM_TOL).sum()) for path, d in zip(leaf_paths(pc), diffs)
+               if bool((d > PARAM_TOL).any())}
+        n_all = sum(d.numel() for d in diffs)
+        worst = max(float(d.max()) for d in diffs)
+        share = max(int((d > PARAM_TOL).sum()) / d.numel() for d in diffs)
+        log(f"gate_r3 train[{mode}] losses card {[round(x, 5) for x in lg]} CPU "
+            f"{[round(x, 5) for x in lc]} (worst rel {rel:.3g}); parameters after 3 steps max "
+            f"|diff| {worst:.3g}, {sum(far.values())} of {n_all} values beyond {PARAM_TOL} "
+            f"({far}; at most {100 * share:.2f}% of a leaf)")
+        assert rel <= 1e-4, f"gate_r3 train[{mode}]: the card's losses differ from the CPU's"
+        assert share <= NOISE_SHARE, (
+            f"gate_r3 train[{mode}]: the card's parameters differ from the CPU's")
+        if mode == "offline":
+            ts = os.path.join(tmp, "train_state")
+            save_train_state(ts, pg, og, step=3, meta={"model": "gate_r3"})
+            pr, orr, at = load_train_state(ts, init_opt(p0g))
+            assert at == 3
+            pa, oa = pg, og
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                for _ in range(2):
+                    pa, oa, ma = step(pa, oa, batch)
+                    pr, orr, mr = step(pr, orr, batch)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            d_p = tree_max_diff(torch, pa, pr)
+            d_o = tree_max_diff(torch, oa, orr)
+            bitwise = d_p == 0.0 and d_o == 0.0 and float(ma["loss"]) == float(mr["loss"])
+            log(f"gate_r3 resume: 3 steps + save + load + 2 steps against 5 straight: parameters "
+                f"max |diff| {d_p:.3g}, optimizer state {d_o:.3g}, loss {float(mr['loss']):.6f} "
+                f"against {float(ma['loss']):.6f}; bitwise: {bitwise}")
+            assert d_p <= 1e-6 and d_o <= 1e-6, "gate_r3: the resumed run left the straight one"
+        t0 = lap(step_s, f"gate_r3 {mode}", t0)
+
+
+def toy_entry_point(tmp: str, step_s: dict) -> None:
+    """Phase 5b (c): ``python -m trt_asr_tpu_torch.train.toy --steps 100``
+    as a subprocess on the card: exit 0, no JAX imported, its last loss under
+    half its first, at least 1 of its 4 utterances recovered."""
+    t0 = time.perf_counter()
+    errf = os.path.join(tmp, "toy_err.txt")
+    with open(errf, "w") as ferr:
+        res = subprocess.run([sys.executable, "-X", "importtime", "-m",
+                              "trt_asr_tpu_torch.train.toy", "--steps", "100", "--out",
+                              os.path.join(tmp, "toy_ckpt")],
+                             cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                             stdout=subprocess.PIPE, stderr=ferr, text=True, timeout=300)
+    with open(errf) as f:
+        err = f.read()
+    assert res.returncode == 0, f"toy: exit {res.returncode}\n{err[-3000:]}"
+    check_no_jax_imported("toy", err, "trt_asr_tpu_torch.train.train_step")
+    lines = res.stdout.splitlines()
+    losses = [float(ln.split("loss")[1].split()[0]) for ln in lines if ln.startswith("step")]
+    recovered = int(lines[-1].split()[1].split("/")[0])
+    trained = next(ln for ln in lines if ln.startswith("trained"))
+    log(f"toy on the card ({time.perf_counter() - t0:.1f} s): {lines[0]}; losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; {trained}; {lines[-1]}")
+    assert lines[0] == "device: cuda", f"toy ran on {lines[0]}"
+    assert losses[-1] < 0.5 * losses[0], "toy: the loss did not halve"
+    assert recovered >= 1, "toy recovered no utterance"
+    lap(step_s, "toy", t0)
+
+
+def training_phase(torch, dev, cfg, params, seed: int) -> dict:
+    """Phase 5b: (a) full width, (b) gate_r3, (c) the toy entry point; no
+    kernel wrapper launches (training runs with the kernels off). Logs its
+    seconds by step."""
+    step_s = {}
+    reset_counts()
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 is on"
+    out = full_width_training(torch, dev, cfg, params, seed, step_s)
+    md = os.path.join(ROOT, "artifacts", "models", "gate_r3")
+    with tempfile.TemporaryDirectory() as tmp:
+        gate_r3_training(torch, dev, md, synth_module(), tmp, step_s)
+        toy_entry_point(tmp, step_s)
+    assert not launched(read_counts()), "phase 5b launched a kernel"
+    log(f"phase 5b seconds by step: { {k: round(v, 1) for k, v in step_s.items()} }")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--words", type=int, default=8,
@@ -3071,7 +3478,9 @@ def main() -> int:
         phase_s["4b gate_r3 beam"], t0 = time.perf_counter() - t0, time.perf_counter()
     params["joint"]["out"]["b"][cfg.blank_id] -= bias        # phase 5 searches its own
     sess.update(full_width_offline(torch, dev, cfg, params, tok, audios))
-    phase_s["5 offline"] = time.perf_counter() - t0
+    phase_s["5 offline"], t0 = time.perf_counter() - t0, time.perf_counter()
+    training_phase(torch, dev, cfg, params, args.seed)
+    phase_s["5b training"] = time.perf_counter() - t0
     log(f"phase seconds: { {k: round(v, 1) for k, v in phase_s.items()} }")
 
     bad = [m for m in ("jax", "trt_asr_tpu") if m in sys.modules]
@@ -3079,7 +3488,11 @@ def main() -> int:
     entry = [f"trt_asr_tpu_torch.{m}" for m in ("serve", "cli", "streaming.continuous",
                                                  "io.resample", "io.subtitles",
                                                  "streaming.beam_session", "decode.beam_device",
-                                                 "decode.lm_device", "decode.biasing")]
+                                                 "decode.lm_device", "decode.biasing",
+                                                 "train.train_step", "train.tdt_loss",
+                                                 "train.optim", "train.augment",
+                                                 "train.checkpoint", "train.data",
+                                                 "eval.manifest")]
     assert all(m in sys.modules for m in entry), "the entry points' modules were not run"
 
     kernels = []

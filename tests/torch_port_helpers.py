@@ -134,3 +134,38 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def start_jax_subprocess(code: str, out_path: str, timeout: int = 600):
+    """Start ``code`` in a fresh Python process with JAX on the CPU and
+    return a function that waits for it and returns the arrays it saved
+    with ``np.savez(OUT, ...)`` (``OUT`` is bound to ``out_path``), and
+    whose ``kill`` ends it. A module starts it in an autouse fixture, so
+    that its other tests run meanwhile. JAX gradients of scans run there: XLA-CPU has crashed
+    compiling them late in a long suite process (tests/test_tdt_loss.py,
+    tests/test_training.py)."""
+    import os
+    import subprocess
+    import sys
+    import tempfile
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    prog = ("import jax; jax.config.update('jax_platforms', 'cpu')\n"
+            f"OUT = {out_path!r}\n" + code)
+    logs = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-c", prog], stdout=logs[0], stderr=logs[1],
+                            text=True, env={**os.environ, "JAX_PLATFORMS": "cpu",
+                                            "PYTHONPATH": repo})
+
+    def result() -> dict:
+        try:
+            rc = proc.wait(timeout=timeout)
+        finally:
+            proc.kill()
+        for f in logs:
+            f.seek(0)
+        assert rc == 0, (logs[0].read()[-500:], logs[1].read()[-2000:])
+        with np.load(out_path) as z:
+            return {k: z[k] for k in z.files}
+    result.kill = proc.kill
+    return result

@@ -10,17 +10,25 @@ Python loop over layers takes the place of ``lax.scan``.
 
 State: ring-buffered caches ``[L, B, C, D]`` (``att_cache``: raw attention
 inputs, ``kv_cache``: projected k ++ v), ``time_cache [L, B, K, D]``,
-``cache_len``/``cursor [B]`` int32. ``encode`` updates the three caches IN
-PLACE and returns a state holding the same cache tensors; callers that need
-the old state keep a copy (the session's ``snapshot`` copies).
+``cache_len``/``cursor [B]`` int32. Serving (no tensor that requires grad,
+no ``remat``): ``encode`` updates the three caches IN PLACE and returns a
+state holding the same cache tensors; callers that need the old state keep
+a copy (the session's ``snapshot`` copies), and the persistent kernels and
+their captured graphs rely on the tensors staying put. Training (autograd
+recording a parameter or the input, or ``remat``): the caches are built
+out of place and returned in a fresh state, as the JAX package returns
+them, so that backward (and a layer recomputed under ``remat``) reads the
+caches a chunk was given; the state passed in is left as it was.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from trt_asr_tpu_torch.config import ModelConfig
 from trt_asr_tpu_torch.ops.attention import rel_pos_attention_kv, sinusoidal_pos_table
@@ -72,11 +80,12 @@ def reset_encoder_state_rows(state: EncoderState, row_mask: torch.Tensor) -> Enc
 
 
 def _ring_write(cache: torch.Tensor, block: torch.Tensor, cursor: torch.Tensor,
-                appended: torch.Tensor) -> torch.Tensor:
+                appended: torch.Tensor, inplace: bool = True) -> torch.Tensor:
     """Write block[b, :appended[b]] into ring slots (cursor[b] + i) mod C, in
-    place. cache [B, C, D], block [B, S, D] with S <= C. Rows past
-    ``appended`` rewrite the slot's old value (the JAX version drops them
-    with an out-of-range index, which torch indexing rejects)."""
+    place, or into a new tensor that is returned (``inplace=False``).
+    cache [B, C, D], block [B, S, D] with S <= C. Rows past ``appended``
+    rewrite the slot's old value (the JAX version drops them with an
+    out-of-range index, which torch indexing rejects)."""
     b, c, _ = cache.shape
     s = block.shape[1]
     if s == 0:
@@ -86,7 +95,10 @@ def _ring_write(cache: torch.Tensor, block: torch.Tensor, cursor: torch.Tensor,
     pos = (cursor.long()[:, None] + ar[None, :]) % c                   # [B, S]
     keep = ar[None, :] < appended[:, None]                             # [B, S]
     bidx = torch.arange(b, device=cache.device)[:, None].expand(b, s)
-    cache[bidx, pos] = torch.where(keep[..., None], block.to(cache.dtype), cache[bidx, pos])
+    vals = torch.where(keep[..., None], block.to(cache.dtype), cache[bidx, pos])
+    if not inplace:
+        return cache.index_put((bidx, pos), vals)
+    cache[bidx, pos] = vals
     return cache
 
 
@@ -124,11 +136,15 @@ def layer_params(params: Dict[str, Any], num_layers: int, pack_tail: bool = Fals
     (``conv_block_packed``, :func:`pack_conv_block`), except where the fused
     tail takes the conv."""
     stacked = params["encoder"]["layers"]
+    # float leaves split with one unbind each: under autograd its backward
+    # stacks the layers' gradients into one tensor, where a view per layer
+    # would add a zero-filled [L, ...] tensor per layer and leaf
+    unbound = {k: v.unbind(0) for k, v in stacked.items() if not isinstance(v, QuantTensor)}
     out = []
     for li in range(num_layers):
         lp = {}
         for k, v in stacked.items():
-            lp[k] = _layer_weight(v, li) if isinstance(v, QuantTensor) else v[li]
+            lp[k] = _layer_weight(v, li) if isinstance(v, QuantTensor) else unbound[k][li]
         for k in _F32_FOR_KERNELS:
             keep_f32_copy(lp[k])
         conv = [lp[k] for k in ("conv_pw1", "conv_dw", "conv_bn_g", "conv_bn_b", "conv_bn_m",
@@ -192,16 +208,19 @@ def _conformer_layer(lp, x, att_cache, time_cache, kv_cache, pos_proj, kv_mask,
                      rel_idx, time_mask, cursor, n_heads: int, cache_keep: int,
                      appended, att_meta: Optional[torch.Tensor] = None,
                      use_pallas_ffn: bool = False, use_pallas_conv: bool = False,
-                     use_flash_att: bool = False):
-    """One conformer layer over a streaming chunk; updates the layer's cache
-    views in place. ``att_meta`` (int32 [3] = cursor, cache_len, valid_tq)
-    selects the fused attention-block kernel (B=1); ``use_pallas_ffn`` the
+                     use_flash_att: bool = False, fresh: bool = False):
+    """One conformer layer over a streaming chunk. Returns (y, att_cache,
+    time_cache, kv_cache): the layer's cache views updated in place, or with
+    ``fresh`` new cache tensors built out of place (training). ``att_meta``
+    (int32 [3] = cursor, cache_len, valid_tq) selects the fused
+    attention-block kernel (B=1); ``use_pallas_ffn`` the
     fused FFN kernel for both FFNs; ``use_pallas_conv`` the fused conv
     module (B=1), which with int8 ``conv_pw1`` and ``ff2_w1`` and
     ``use_pallas_ffn`` also runs FFN2 and the output LayerNorm. Offline,
     ``att_cache`` and ``kv_cache`` are None: nothing is cached, the layer
     attends over its own steps (``use_flash_att``: the flash kernel) and
-    ``time_cache`` is the zero conv context, left as it is."""
+    ``time_cache`` is the zero conv context, left as it is (and returned
+    with None for the other two)."""
     b, tq, d = x.shape
     k = time_cache.shape[1]
     dh = d // n_heads
@@ -240,9 +259,14 @@ def _conformer_layer(lp, x, att_cache, time_cache, kv_cache, pos_proj, kv_mask,
             kv_mask=kv_mask, rel_idx=rel_idx, use_flash=use_flash_att)
         x = x + y
     if streaming:
-        _ring_write(att_cache, u[:, :cache_keep], cursor, appended)
-        _ring_write(kv_cache, torch.cat([k_new, v_new], dim=-1)[:, :cache_keep], cursor,
-                    appended)
+        inplace = not fresh
+        att_cache = _ring_write(att_cache, u[:, :cache_keep], cursor, appended, inplace)
+        kv_cache = _ring_write(kv_cache, torch.cat([k_new, v_new], dim=-1)[:, :cache_keep],
+                               cursor, appended, inplace)
+
+    def time_write(block):
+        new = _append_cache(time_cache, block, appended)
+        return new if fresh else time_cache.copy_(new)
 
     # convolution module; with int8 weights and both flags, conv + FFN2 +
     # out-LN in one kernel
@@ -256,8 +280,8 @@ def _conformer_layer(lp, x, att_cache, time_cache, kv_cache, pos_proj, kv_mask,
                                  lp["ff2_w2"], lp["out_ln_g"], lp["out_ln_b"],
                                  packed=lp.get("conv_ffn_ln_packed"))
             if streaming:
-                time_cache.copy_(_append_cache(time_cache, c1[None, :cache_keep], appended))
-            return y2[None]
+                time_cache = time_write(c1[None, :cache_keep])
+            return y2[None], att_cache, time_cache, kv_cache
         y2, c1 = conv_block(*conv, packed=lp.get("conv_block_packed"))
         c, x = c1[None], y2[None]
     else:
@@ -271,10 +295,10 @@ def _conformer_layer(lp, x, att_cache, time_cache, kv_cache, pos_proj, kv_mask,
                                   lp["conv_bn_m"], lp["conv_bn_v"])
         x = x + matmul(silu(cv), lp["conv_pw2"])
     if streaming:
-        time_cache.copy_(_append_cache(time_cache, c[:, :cache_keep], appended))
+        time_cache = time_write(c[:, :cache_keep])
 
     x = ffn(x, "ff2")
-    return layer_norm(x, lp["out_ln_g"], lp["out_ln_b"])
+    return layer_norm(x, lp["out_ln_g"], lp["out_ln_b"]), att_cache, time_cache, kv_cache
 
 
 def encode(
@@ -301,15 +325,22 @@ def encode(
                                     # its exact-length run)
     pos_proj: Optional[torch.Tensor] = None,  # [L, R, D] for this chunk's Tq
     layers: Optional[List[Dict[str, Any]]] = None,  # layer_params(params, L)
+    remat: bool = False,            # recompute each layer's activations in backward
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[EncoderState]]:
     """One streaming chunk, or with ``state=None`` a whole utterance
     offline. Returns (enc_out [B, Tq, D] in ``compute_dtype``, out_lengths
     [B], new_state); enc_out has the full Tq step axis, out_lengths the
-    valid count. The caches of ``state`` are updated in place; offline the
-    new state is None. With ``cache_drop_vec`` each row keeps its own
-    count out of the caches, and emits up to its ``valid_cap_vec`` entry
-    (by default Tq - its cache_drop), as the JAX package's lockstep batch
-    step does."""
+    valid count. Serving, the caches of ``state`` are updated in place and
+    the new state holds the same tensors; when autograd records the input
+    or a parameter, or with ``remat``, the new caches are built out of
+    place and returned in a fresh state (``state`` is left as it was), and
+    the kernel flags raise (the kernels have no backward). Offline the new
+    state is None. ``remat`` checkpoints each layer
+    (``torch.utils.checkpoint``, non-reentrant): backward recomputes its
+    activations, the JAX package's ``jax.checkpoint``. With
+    ``cache_drop_vec`` each row keeps its own count out of the caches, and
+    emits up to its ``valid_cap_vec`` entry (by default Tq - its
+    cache_drop), as the JAX package's lockstep batch step does."""
     enc_p = params["encoder"]
     b = feats.shape[0]
     if use_pallas_conv and b != 1:
@@ -367,23 +398,39 @@ def encode(
         kv_mask = torch.cat([cache_mask, time_mask], dim=1)
 
     x = torch.where(time_mask[:, :, None], x, torch.zeros((), dtype=x.dtype, device=dev))
+    # training (autograd recording, or remat) builds the caches out of place
+    fresh = remat or (torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, pos_proj, *enc_p["layers"].values())
+        if isinstance(t, torch.Tensor)))
+    if fresh and (use_pallas_att or use_pallas_ffn or use_pallas_conv or use_flash_att):
+        raise ValueError("the encoder kernels have no backward: train with their flags off")
     if layers is None:
         layers = layer_params(params, cfg.num_layers)
+    new_caches = []
     for li, lp in enumerate(layers):
         caches = ((state.att_cache[li], state.time_cache[li], state.kv_cache[li])
                   if streaming else (None, zero_context, None))
-        x = _conformer_layer(lp, x, *caches, pos_proj[li], kv_mask, rel_idx,
-                             time_mask, cursor, cfg.n_heads, cache_keep, appended,
-                             att_meta=att_meta, use_pallas_ffn=use_pallas_ffn,
-                             use_pallas_conv=use_pallas_conv, use_flash_att=use_flash_att)
+        layer = functools.partial(
+            _conformer_layer, lp, pos_proj=pos_proj[li], kv_mask=kv_mask, rel_idx=rel_idx,
+            time_mask=time_mask, cursor=cursor, n_heads=cfg.n_heads, cache_keep=cache_keep,
+            appended=appended, att_meta=att_meta, use_pallas_ffn=use_pallas_ffn,
+            use_pallas_conv=use_pallas_conv, use_flash_att=use_flash_att, fresh=fresh)
+        if remat:
+            x, *caches = checkpoint(layer, x, *caches, use_reentrant=False)
+        else:
+            x, *caches = layer(x, *caches)
+        new_caches.append(caches)
 
     out_len = torch.clamp_max(sub_len, tq)
     if not streaming:
         return x, out_len, None
-    new_state = EncoderState(
-        state.att_cache, state.time_cache, state.kv_cache,
-        torch.clamp_max(cache_len + appended, c_size).to(torch.int32),
-        ((cursor + appended) % max(c_size, 1)).to(torch.int32))
+    cache_len = torch.clamp_max(cache_len + appended, c_size).to(torch.int32)
+    cursor = ((cursor + appended) % max(c_size, 1)).to(torch.int32)
+    if fresh:
+        new_state = EncoderState(*(torch.stack(c) for c in zip(*new_caches)), cache_len, cursor)
+    else:
+        new_state = EncoderState(state.att_cache, state.time_cache, state.kv_cache,
+                                 cache_len, cursor)
     if keep_vec is not None:
         cap = (keep_vec if valid_cap_vec is None
                else torch.as_tensor(valid_cap_vec, device=dev).reshape(b).to(torch.int32))

@@ -1,5 +1,5 @@
 """RNNT-TDT joint network: raw logits [..., V] = token head (vocab + blank)
-++ duration bins."""
+++ duration bins; the decode's single steps and training's full lattice."""
 
 from __future__ import annotations
 
@@ -7,7 +7,7 @@ from typing import Any, Dict
 
 import torch
 
-from trt_asr_tpu_torch.ops.common import matmul
+from trt_asr_tpu_torch.ops.common import matmul, relu
 
 
 def _proj(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
@@ -15,6 +15,14 @@ def _proj(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     if p.get("b") is not None:
         out = out + p["b"].to(out.dtype)
     return out
+
+
+def joint_apply(params: Dict[str, Any], enc: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    """enc [B, T, D], pred [B, U, P] -> logits [B, T, U, V]: every (t, u)
+    pair of the training lattice."""
+    e = _proj(params["enc"], enc)[:, :, None, :]      # [B, T, 1, J]
+    g = _proj(params["pred"], pred)[:, None, :, :]    # [B, 1, U, J]
+    return _proj(params["out"], relu(e + g))
 
 
 def joint_single_step(params: Dict[str, Any], enc_t: torch.Tensor,

@@ -1,4 +1,5 @@
-"""Parameter tree: init, checkpoint loading and the weight bridge.
+"""Parameter tree: init, checkpoints (saving and loading) and the weight
+bridge.
 
 The tree has the JAX package's structure and layouts: linear weights
 [in, out], conformer layers stacked [L, ...], conv weights HWIO, the
@@ -182,6 +183,53 @@ def cast_params_for_compute(params, dtype: torch.dtype):
         return node if keep else node.to(dtype)
 
     return cast(params, False)
+
+
+def num_params(params: Dict[str, Any]) -> int:
+    """Number of values in a float tree (an int8 leaf counts its ``q`` and
+    its scales)."""
+    def count(node) -> int:
+        if isinstance(node, dict):
+            return sum(count(v) for v in node.values())
+        if isinstance(node, (list, tuple)):
+            return sum(count(v) for v in node)
+        return node.numel()
+    return count(params)
+
+
+def save_checkpoint(path: str, params: Dict[str, Any], meta: Dict[str, Any] | None = None) -> None:
+    """Write a torch or numpy tree as the JAX package's ``save_checkpoint``
+    does: flat-key ``params.npz`` (keys joined with "/", list items by
+    index) and ``manifest.json`` with every tensor's shape, dtype and
+    sha256, so that its ``load_checkpoint`` (and :func:`load_checkpoint`)
+    read it."""
+    os.makedirs(path, exist_ok=True)
+    flat = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for kk, vv in node.items():
+                walk(f"{prefix}/{kk}" if prefix else kk, vv)
+        elif isinstance(node, (list, tuple)):
+            for i, vv in enumerate(node):
+                walk(f"{prefix}/{i}", vv)
+        else:
+            flat[prefix] = (node.detach().cpu().numpy() if isinstance(node, torch.Tensor)
+                            else np.asarray(node))
+
+    walk("", params)
+    np.savez(os.path.join(path, "params.npz"), **flat)
+    manifest = {
+        "format": "trt-asr-tpu/npz/v1",
+        "num_tensors": len(flat),
+        "num_params": int(sum(int(np.prod(v.shape)) for v in flat.values())),
+        "tensors": {kk: {"shape": list(v.shape), "dtype": str(v.dtype),
+                         "sha256": hashlib.sha256(v.tobytes()).hexdigest()}
+                    for kk, v in flat.items()},
+        "meta": meta or {},
+    }
+    with open(os.path.join(path, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
 
 
 def load_checkpoint_numpy(path: str, verify: bool = True) -> Dict[str, Any]:

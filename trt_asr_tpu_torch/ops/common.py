@@ -63,6 +63,19 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
+# a 0-d CPU tensor: a binary op on a card tensor takes it as a scalar, so
+# it costs no allocation and no fill launch there
+_ZERO = torch.zeros(())
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """max(x, 0), the values of ``torch.relu`` in x's dtype; its gradient at
+    x == 0 is half the incoming one, as JAX's ``jnp.maximum(x, 0)``
+    differentiates (a zero-padded window with zero biases sits exactly at
+    0)."""
+    return torch.maximum(x, _ZERO)
+
+
 def glu(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     a, b = torch.chunk(x, 2, dim=dim)
     return a * torch.sigmoid(b)

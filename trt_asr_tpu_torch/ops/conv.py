@@ -13,7 +13,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from trt_asr_tpu_torch.ops.common import matmul
+from trt_asr_tpu_torch.ops.common import matmul, relu
 
 Padding = Union[str, Sequence[Tuple[int, int]]]
 
@@ -100,15 +100,15 @@ def dw_striding_subsample(params: Dict, x: torch.Tensor,
     h = x[:, None]                                            # [B, 1, T, F]
     if lengths is not None:
         h = mask_tail(h, lengths)
-    h = torch.relu(_conv2d_nchw(h, params["conv_in"]["w"], params["conv_in"].get("b"),
-                                (2, 2), pad, 1))
+    h = relu(_conv2d_nchw(h, params["conv_in"]["w"], params["conv_in"].get("b"),
+                          (2, 2), pad, 1))
     if lengths is not None:
         lengths = (lengths - 1) // 2 + 1
         h = mask_tail(h, lengths)
     for st in params["stages"]:
         c = st["dw_w"].shape[-1]
         h = _conv2d_nchw(h, st["dw_w"], st.get("dw_b"), (2, 2), pad, c)
-        h = torch.relu(_conv2d_nchw(h, st["pw_w"], st.get("pw_b"), (1, 1), "VALID", 1))
+        h = relu(_conv2d_nchw(h, st["pw_w"], st.get("pw_b"), (1, 1), "VALID", 1))
         if lengths is not None:
             lengths = (lengths - 1) // 2 + 1
             h = mask_tail(h, lengths)

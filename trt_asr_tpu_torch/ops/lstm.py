@@ -1,5 +1,6 @@
-"""Multi-layer LSTM step with torch-compatible semantics: gate order
-(i, f, g, o), separate input/hidden biases, weights stored [in, 4*hidden]."""
+"""Multi-layer LSTM with torch-compatible semantics: gate order (i, f, g,
+o), separate input/hidden biases, weights stored [in, 4*hidden]. One step
+(the decode's) and a sequence (training's: a loop over the step)."""
 
 from __future__ import annotations
 
@@ -33,3 +34,17 @@ def lstm_step(layers: List[Dict[str, torch.Tensor]], x: torch.Tensor,
         cs.append(c_new)
         inp = h_new
     return inp, torch.stack(hs), torch.stack(cs)
+
+
+def lstm_sequence(layers: List[Dict[str, torch.Tensor]], xs: torch.Tensor,
+                  h: torch.Tensor, c: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """xs [B, U, In] -> (outputs [B, U, P], h', c'): :func:`lstm_step` over
+    U, the JAX package's ``lax.scan``."""
+    outs = []
+    for u in range(xs.shape[1]):
+        out, h, c = lstm_step(layers, xs[:, u], h, c)
+        outs.append(out)
+    if not outs:
+        return xs.new_zeros((xs.shape[0], 0, h.shape[-1])), h, c
+    return torch.stack(outs, dim=1), h, c
