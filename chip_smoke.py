@@ -162,6 +162,31 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    profiler's post-processing grows with its ~7,000 events a chunk), the
    engine's beam step ms and the seconds of each of these steps. No
    kernel wrapper launches here.
+3e. the contract, the goldens and the debug surface. (a) before phase 3:
+   ``ModelConfig.from_contract(load_contract())`` validates and equals
+   ``ModelConfig()``, and phase 3's model is built from it. (b) phase 3's
+   weights, blank bias and utterance with ``batched_decode=False`` and
+   ``debug_tdt_steps`` on (JAX's per-step route; the same blank-run loop
+   in the port, here with its trace): ``step_f32_off``, ``step_f32_on``
+   (attention, joint, log-mel kernels), ``step_int8_on``; tokens and
+   stamps equal phase 3's arm of the same weights, non-blank trace
+   records equal the tokens, ``step_f32_on``'s trace equals
+   ``step_f32_off``'s, the kernels launch; host ms a steady chunk and
+   joint launches a chunk beside phase 3's arm. (c) the committed goldens through ``trt_asr_tpu_torch.parity``
+   (tiny, seed 1, f32, TF32 off): the closed loop over all 50 chunks with
+   the kernels off (``ort_f32``) and with the attention, FFN and conv
+   kernels (at least ``trt_fp32``), the functional mode (``ort_f32``), and
+   ``python -m trt_asr_tpu_torch.parity --mode trace`` as a subprocess,
+   IDENTICAL to ``tdt_trace.jsonl``. (d) one gate_r3 utterance with taps,
+   snapshots, the halting NaN guard, stage markers, emitted-token lines
+   and the trace on, joint and attention kernels: tokens equal the
+   toggles-off session's; snapshots within 1e-4 and the trace IDENTICAL to
+   the port's CPU run; ``save_model_dir`` -> ``from_model_dir`` gives the
+   same tokens. (e) ``python -m trt_asr_tpu_torch.cli`` on gate_r3 as a
+   subprocess with ``TRT_ASR_PROFILE_DIR``, ``TRT_ASR_DEBUG_TDT_STEPS``,
+   ``TRT_ASR_TDT_TRACE_PATH``, ``TRT_ASR_TAP_ENABLE`` and ``TRT_ASR_TAP_DIR``:
+   its transcript equals the plain CLI's, the trace and taps parse, the
+   profiler's Chrome trace holds joint-step kernel events. Seconds by part.
 4. the trained ``artifacts/models/gate_r3`` on the card with the kernels
    on, each token-exact against the port's CPU plain path: attention,
    joint and log-mel kernels in f32, int8 and bf16; every kernel in f32,
@@ -226,8 +251,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the loss halves, at least 1 of 4 utterances recovered). No kernel
    wrapper launches; the seconds of each step are logged.
 6. neither ``jax`` nor ``trt_asr_tpu`` was imported, here or (by ``-X
-   importtime``) in a subprocess (the toy's too), and the daemon's, the
-   CLI's, their helpers' and training's modules were run.
+   importtime``) in a subprocess (the toy's, the parity runner's and the
+   debug-env CLI's too), and the daemon's, the CLI's, their helpers',
+   training's, the contract's, the golden runner's and the debug
+   surface's modules were run.
 
 Each phase's seconds are logged. The last line is ``{"ok": true, "device":
 {...}}``; the line before it is
@@ -1598,7 +1625,7 @@ def full_width_session(torch, dev, timer, n_words: int, seed: int):
     from trt_asr_tpu_torch.ops.quant import as_f32, q8_matmul
     from trt_asr_tpu_torch.tokenizer import Tokenizer, make_synthetic_vocab
 
-    cfg = ModelConfig()
+    cfg = contract_config()            # phase 3e (a): the contract's architecture
     t0 = time.perf_counter()
     params = init_params_numpy(cfg, seed=seed)
     tok = Tokenizer(make_synthetic_vocab(cfg.vocab_size), blank_id=cfg.blank_id)
@@ -1673,7 +1700,8 @@ def full_width_session(torch, dev, timer, n_words: int, seed: int):
         lat = np.asarray(sess.chunk_latencies_ms)
         steady = lat[1:-1]
         n_chunks = len(lat)
-        results[name] = dict(tokens=sess.tokens, counts=counts, n_chunks=n_chunks,
+        results[name] = dict(tokens=sess.tokens, stamps=sess.token_timestamps(), counts=counts,
+                             n_chunks=n_chunks,
                              median_ms=float(np.median(steady)),
                              p90_ms=float(np.percentile(steady, 90)))
         iters, syncs = decode_and_sync_counts(torch, model, rt, audio[: len(audio) // 3], piece,
@@ -2373,6 +2401,291 @@ def full_width_beam(torch, dev, cfg, params, tok, n_words: int, seed: int):
         f"{prof[1]:.0f}; engine beam step ms {step_ms}")
     log(f"beam: seconds by step { {k: round(v, 1) for k, v in step_s.items()} }")
     del model
+
+
+# --- phase 3e: the per-step route, the goldens and the debug surface ---------
+
+
+def contract_config():
+    """Phase 3e (a): the architecture the shipped contract fixes, which
+    phase 3's full-width model is built from: it validates and equals
+    ``ModelConfig()``."""
+    from trt_asr_tpu_torch.config import ModelConfig
+    from trt_asr_tpu_torch.contract import load_contract
+
+    c = load_contract()
+    cfg = ModelConfig.from_contract(c)
+    assert c.validate() == [], c.validate()
+    assert cfg == ModelConfig(), "ModelConfig.from_contract(load_contract()) != ModelConfig()"
+    log(f"contract {c.model_id}: validate() == [], from_contract == ModelConfig() "
+        f"(d {cfg.d_model}, {cfg.num_layers} layers, vocab {cfg.vocab_size})")
+    return cfg
+
+
+def per_step_route(torch, dev, cfg, params, tok, n_words: int, seed: int, batched) -> dict:
+    """Phase 3e (b): phase 3's weights, blank bias and utterance in 0.5 s
+    pushes with ``batched_decode=False`` and ``debug_tdt_steps`` on (JAX's
+    per-step route, the same blank-run loop in the port, here with its
+    trace): ``step_f32_off`` (kernels off), ``step_f32_on`` (attention,
+    joint and log-mel kernels), ``step_int8_on`` (the int8 weights of
+    ``int8_on``). Each equals phase 3's arm of the same weights in tokens
+    and stamps, has as many non-blank trace records as tokens and launches
+    its kernels; ``step_f32_on`` equals ``step_f32_off`` trace record for
+    trace record. Logs host ms a steady chunk and joint launches a chunk
+    beside phase 3's arm."""
+    from trt_asr_tpu_torch.config import RuntimeConfig
+
+    rng = np.random.default_rng(seed)
+    audio = synth_module().synth_utterance(list(rng.integers(0, 1120, size=n_words)), rng)
+    on = dict(use_pallas_att=True, use_pallas_joint=True)
+    arms = {"f32_off": ({}, False), "f32_on": (on, True), "int8_on": (dict(on, quant="all"), True)}
+    out = {}
+    for name, (flags, mel_k) in arms.items():
+        model = make_model(torch, cfg, params, tok, RuntimeConfig(**flags), dev, mel_k)
+        rt = RuntimeConfig(**flags, batched_decode=False, debug_tdt_steps=True)
+        run_session(torch, model, rt, audio[:16000], 8000)          # warm-up
+        reset_counts()
+        s = run_session(torch, model, rt, audio, 8000)
+        counts = read_counts()
+        if name != "f32_off":
+            check_launches(f"per-step[step_{name}]", rt, counts, mel_k)
+        else:
+            assert not launched(counts), f"per-step[step_{name}] launched {counts}"
+        b, n = batched[name], len(s.chunk_latencies_ms)
+        assert s.tokens == b["tokens"], f"step_{name}: tokens differ from phase 3's {name}"
+        assert s.token_timestamps() == b["stamps"], f"step_{name}: stamps differ"
+        blank_free = sum(not r["is_blank"] for r in s.tdt_steps)
+        assert blank_free == len(s.tokens) > 0, (
+            f"step_{name}: {blank_free} non-blank records for {len(s.tokens)} tokens")
+        ms = steady_ms(s.chunk_latencies_ms)
+        log(f"per-step[step_{name}]: {n} chunks, {len(s.tokens)} tokens == phase 3's {name}, "
+            f"stamps equal, {len(s.tdt_steps)} trace records ({blank_free} non-blank); host ms "
+            f"a steady chunk (median, p90) step {ms[0]:.3f}, {ms[1]:.3f} / phase 3 "
+            f"{b['median_ms']:.3f}, {b['p90_ms']:.3f}; joint launches a chunk step "
+            f"{counts['joint_step'] / n:.2f} / phase 3 "
+            f"{b['counts']['joint_step'] / b['n_chunks']:.2f}; launches {launched(counts)}")
+        out[name] = s
+        del model
+    assert out["f32_on"].tdt_steps == out["f32_off"].tdt_steps, (
+        "step_f32_on's trace differs from step_f32_off's")
+    log(f"per-step: step_f32_on == step_f32_off, {len(out['f32_on'].tdt_steps)} trace records")
+    return out
+
+
+def golden_checks(torch, dev, tmp: str) -> dict:
+    """Phase 3e (c): the committed goldens on the card through
+    ``trt_asr_tpu_torch.parity`` (tiny, seed 1, f32, TF32 off): the
+    encoder's closed loop over all 50 chunks with the kernels off (the
+    contract's ``ort_f32`` rung: max abs <= 1e-4 on every chunk) and with
+    ``--kernels`` (the attention, FFN and conv kernels, at least
+    ``trt_fp32``), the functional mode with the kernels off (``ort_f32``),
+    and the TDT trace at 300 frames, feats seed 0, IDENTICAL to
+    ``artifacts/goldens/tdt_trace.jsonl`` (``python -m
+    trt_asr_tpu_torch.parity --mode trace`` as a subprocess, its imports
+    logged)."""
+    from trt_asr_tpu_torch import parity
+    from trt_asr_tpu_torch.contract import load_contract
+    from trt_asr_tpu_torch.io.fixtures import read_jsonl
+
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 is on"
+    goldens = os.path.join(ROOT, "artifacts", "goldens")
+    records = list(read_jsonl(os.path.join(goldens, "streaming_encoder_reference.jsonl")))[1:]
+    tol = load_contract().tolerances
+    out = {}
+    for label, mode, kernels in (("closedloop", "closedloop", False),
+                                 ("closedloop_kernels", "closedloop", True),
+                                 ("functional", "functional", False)):
+        model = parity.load_model(dev, config="tiny", seed=1, kernels=kernels)
+        reset_counts()
+        s = parity.encoder_parity(model, records, mode=mode, atol=tol.cpu_f32_atol,
+                                  cache_atol=tol.cache_last_time_atol, kernels=kernels)
+        counts = read_counts()
+        dist = s["encoder_output_error_distribution"]
+        log(f"golden[{label}]: {s['num_pass']}/{s['num_chunks']} chunks pass at "
+            f"{s['atol']:g}, encoder max abs {dist['max']:.3e}, p95 {dist['p95']:.3e}; rungs "
+            f"{ {k: v['pass'] for k, v in s['rung_verdicts'].items()} }, best "
+            f"{s['best_rung']}; launches {launched(counts)}")
+        assert s["num_chunks"] == 50, s["num_chunks"]
+        if kernels:
+            assert {"att_block", "ffn", "conv_block"} <= set(launched(counts)), counts
+            assert s["best_rung"] in ("ort_f32", "trt_fp32"), f"golden[{label}]: {s['best_rung']}"
+        else:
+            assert not launched(counts), counts
+            assert s["best_rung"] == "ort_f32" and s["pass_rate"] == 1.0, f"golden[{label}]"
+        out[label] = dist
+    trace = os.path.join(tmp, "port_trace.jsonl")
+    errf = os.path.join(tmp, "parity_err.txt")
+    with open(errf, "w") as ferr:
+        res = subprocess.run([sys.executable, "-X", "importtime", "-m", "trt_asr_tpu_torch.parity",
+                              "--mode", "trace", "--goldens",
+                              os.path.join(goldens, "tdt_trace.jsonl"), "--config", "tiny",
+                              "--seed", "1", "--frames", "300", "--feats-seed", "0",
+                              "--out", trace],
+                             cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                             stdout=subprocess.PIPE, stderr=ferr, text=True, timeout=300)
+    with open(errf) as f:
+        err = f.read()
+    assert res.returncode == 0, f"parity --mode trace: exit {res.returncode}\n{res.stdout}\n{err[-2000:]}"
+    check_no_jax_imported("parity", err, must="trt_asr_tpu_torch.debug.tdt_trace")
+    assert res.stdout.startswith("traces IDENTICAL: 38 steps"), res.stdout
+    log(f"golden[trace]: python -m trt_asr_tpu_torch.parity --mode trace on the card: "
+        f"{res.stdout.splitlines()[0][:40]}")
+    return out
+
+
+def gate_r3_debug_surface(torch, dev, md: str, tmp: str) -> None:
+    """Phase 3e (d): one gate_r3 utterance on the card with taps,
+    snapshots, the halting NaN guard, stage markers, emitted-token lines
+    and the decode trace on, and the joint and attention kernels: its tokens
+    equal the same session's with every debug toggle off; its snapshot dirs
+    and trace equal the port's CPU run (tokens exact, tensors within 1e-4,
+    trace IDENTICAL, by ``debug.snapshot.compare_snapshot_dirs`` and
+    ``debug.tdt_trace.compare_traces``); ``save_model_dir`` then
+    ``from_model_dir`` gives the same tokens."""
+    import io
+
+    from trt_asr_tpu_torch.config import RuntimeConfig
+    from trt_asr_tpu_torch.debug.snapshot import compare_snapshot_dirs
+    from trt_asr_tpu_torch.debug.tdt_trace import compare_traces
+    from trt_asr_tpu_torch.models.parakeet.model import ParakeetTDT
+
+    rng = np.random.default_rng(23)
+    words = list(rng.integers(0, 1120, size=6))
+    audio = synth_module().synth_utterance(words, rng)
+    kern = dict(use_pallas_joint=True, use_pallas_att=True)
+    runs = {}
+    for d in (dev, "cpu"):
+        base = os.path.join(tmp, f"debug_{torch.device(d).type}")
+        rt = RuntimeConfig(**kern, tap_enabled=True, tap_dir=os.path.join(base, "taps"),
+                           snapshot_dir=os.path.join(base, "snaps"), nan_guard=True,
+                           nan_guard_halt=True, stage_markers=True, debug_emit_tokens=True,
+                           debug_tdt_steps=True, tdt_trace_path=os.path.join(base, "trace.jsonl"))
+        model = ParakeetTDT.from_model_dir(md, runtime=RuntimeConfig(**kern), device=d)
+        err = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stderr(err):
+            sess = run_session(torch, model, rt, audio, 8000)
+        counts = read_counts()
+        lines = err.getvalue().splitlines()
+        runs[str(d)] = (sess, base, counts, lines, model)
+    (s_gpu, base_gpu, counts, lines, model), (s_cpu, base_cpu, _, _, _) = runs[str(dev)], runs["cpu"]
+    assert {"att_block", "joint_step"} <= set(launched(counts)), counts
+    reset_counts()
+    plain = run_session(torch, model, RuntimeConfig(**kern), audio, 8000)
+    assert s_gpu.tokens == plain.tokens == s_cpu.tokens and len(plain.tokens) == len(words), (
+        f"gate_r3 debug: {s_gpu.tokens} / toggles off {plain.tokens} / CPU {s_cpu.tokens}")
+    snaps = compare_snapshot_dirs(os.path.join(base_gpu, "snaps"), os.path.join(base_cpu, "snaps"),
+                                  atol=1e-4)
+    ok, verdict = compare_traces(os.path.join(base_cpu, "trace.jsonl"),
+                                 os.path.join(base_gpu, "trace.jsonl"))
+    (run_dir,) = os.listdir(os.path.join(base_gpu, "taps"))
+    with open(os.path.join(base_gpu, "taps", run_dir, "audio.f32.json")) as f:
+        tap = json.load(f)
+    marks = [ln for ln in lines if ln.startswith("[stage +")]
+    log(f"gate_r3 debug on the card: tokens {s_gpu.tokens} == toggles off == CPU; launches "
+        f"{launched(counts)}; snapshots card vs CPU over {snaps['chunks']} chunks, max abs "
+        f"{ {k: f'{v:.2e}' for k, v in snaps['max_abs'].items()} }; trace: {verdict[:40]}; "
+        f"audio tap {tap['num_values']} samples; {len(marks)} stage marker lines, e.g. "
+        f"{[m for m in marks if ' emitted ' in m][:1]}")
+    assert snaps["pass"], f"gate_r3 debug: snapshots differ {snaps}"
+    assert ok, verdict
+    assert tap["num_values"] == len(audio) and any(" emitted " in m for m in marks)
+    saved = os.path.join(tmp, "gate_r3_saved")
+    model.save_model_dir(saved)
+    again = ParakeetTDT.from_model_dir(saved, runtime=RuntimeConfig(**kern), device=dev)
+    assert run_session(torch, again, RuntimeConfig(**kern), audio, 8000).tokens == plain.tokens
+    log("gate_r3 debug: save_model_dir -> from_model_dir on the card gives the same tokens")
+
+
+def cli_env_surface(torch, dev, md: str, tmp: str) -> None:
+    """Phase 3e (e): ``python -m trt_asr_tpu_torch.cli`` on a gate_r3 wav as
+    a subprocess with ``TRT_ASR_PROFILE_DIR``, ``TRT_ASR_DEBUG_TDT_STEPS``,
+    ``TRT_ASR_TDT_TRACE_PATH``, ``TRT_ASR_TAP_ENABLE`` and
+    ``TRT_ASR_TAP_DIR`` (attention and joint kernels from the environment
+    too): its transcript equals the plain CLI's on the card (in this
+    process), the trace and tap files parse, the profiler's Chrome trace
+    holds CUDA kernel events of the joint-step kernel, and the subprocess
+    imports nothing of JAX."""
+    import io
+    from contextlib import redirect_stdout
+
+    from trt_asr_tpu_torch import cli
+    from trt_asr_tpu_torch.debug.tdt_trace import load_trace
+    from trt_asr_tpu_torch.io.wav import save_wav
+
+    rng = np.random.default_rng(29)
+    audio = synth_module().synth_utterance(list(rng.integers(0, 1120, size=5)), rng)
+    wav = os.path.join(tmp, "cli_debug.wav")
+    save_wav(wav, audio)
+    flags = {"TRT_ASR_PALLAS_ATT": "1", "TRT_ASR_PALLAS_JOINT": "1"}
+    base = [wav, "--model-dir", md, "--stream-sim", "0.5", "--no-sleep", "--feature-norm", "none"]
+    saved = {k: os.environ.get(k) for k in flags}
+    os.environ.update(flags)
+    buf = io.StringIO()
+    try:
+        with redirect_stdout(buf):
+            assert cli.main(base) == 0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    debug = {"TRT_ASR_PROFILE_DIR": os.path.join(tmp, "prof"), "TRT_ASR_DEBUG_TDT_STEPS": "1",
+             "TRT_ASR_TDT_TRACE_PATH": os.path.join(tmp, "cli_trace.jsonl"),
+             "TRT_ASR_TAP_ENABLE": "1", "TRT_ASR_TAP_DIR": os.path.join(tmp, "cli_taps")}
+    errf = os.path.join(tmp, "cli_debug_err.txt")
+    with open(errf, "w") as ferr:
+        res = subprocess.run([sys.executable, "-X", "importtime", "-m", "trt_asr_tpu_torch.cli"]
+                             + base, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT, **flags,
+                                                        **debug),
+                             stdout=subprocess.PIPE, stderr=ferr, text=True, timeout=300)
+    with open(errf) as f:
+        err = f.read()
+    assert res.returncode == 0, f"cli (debug env): exit {res.returncode}\n{err[-3000:]}"
+    check_no_jax_imported("cli (debug env)", err)
+    transcript = lambda text: [ln for ln in text.splitlines()  # noqa: E731
+                               if ln.startswith("Transcript: ")]
+    got, want = transcript(res.stdout), transcript(buf.getvalue())
+    assert got == want and len(got) == 1, f"cli (debug env): {got} against {want}"
+    meta, steps = load_trace(debug["TRT_ASR_TDT_TRACE_PATH"])
+    assert steps and meta["emitted"] == sum(not r["is_blank"] for r in steps), meta
+    (tap_run,) = os.listdir(debug["TRT_ASR_TAP_DIR"])
+    taps = {}
+    for name in ("audio", "features"):
+        with open(os.path.join(debug["TRT_ASR_TAP_DIR"], tap_run, name + ".f32.json")) as f:
+            taps[name] = json.load(f)
+        with open(os.path.join(debug["TRT_ASR_TAP_DIR"], tap_run, name + ".chunks.ndjson")) as f:
+            assert all(json.loads(ln)["nan_inf_count"] == 0 for ln in f)
+    assert taps["audio"]["num_values"] == len(audio), taps["audio"]
+    (prof_run,) = os.listdir(debug["TRT_ASR_PROFILE_DIR"])
+    with open(os.path.join(debug["TRT_ASR_PROFILE_DIR"], prof_run, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    joint = [e for e in kernels if "joint_step_f32_kernel" in e.get("name", "")]
+    log(f"cli (debug env) on the card: {got[0]!r} == the plain CLI's; trace {len(steps)} "
+        f"steps, {meta['emitted']} emitted; taps audio {taps['audio']['num_values']} samples, "
+        f"features {taps['features']['frames']} frames; profiler trace {len(events)} events, "
+        f"{len(kernels)} CUDA kernel events, {len(joint)} of joint_step_f32_kernel")
+    assert joint, "the profiler's trace holds no joint-step kernel event"
+
+
+def phase_3e(torch, dev, cfg, params, tok, n_words: int, seed: int, batched) -> dict:
+    """Phase 3e, (b)-(e) (``contract_config`` is (a)); logs its seconds by
+    part. Returns (b)'s arms."""
+    md = os.path.join(ROOT, "artifacts", "models", "gate_r3")
+    part_s, t0 = {}, time.perf_counter()
+    steps = per_step_route(torch, dev, cfg, params, tok, n_words, seed, batched)
+    part_s["b per-step"], t0 = time.perf_counter() - t0, time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        golden_checks(torch, dev, tmp)
+        part_s["c goldens"], t0 = time.perf_counter() - t0, time.perf_counter()
+        gate_r3_debug_surface(torch, dev, md, tmp)
+        part_s["d gate_r3 debug"], t0 = time.perf_counter() - t0, time.perf_counter()
+        cli_env_surface(torch, dev, md, tmp)
+        part_s["e cli env"] = time.perf_counter() - t0
+    log(f"phase 3e seconds by part: { {k: round(v, 1) for k, v in part_s.items()} }")
+    return steps
 
 
 @contextlib.contextmanager
@@ -3468,6 +3781,8 @@ def main() -> int:
     phase_s["3c daemon"], t0 = time.perf_counter() - t0, time.perf_counter()
     full_width_beam(torch, dev, cfg, params, tok, BEAM_WORDS, args.seed)
     phase_s["3d beam"], t0 = time.perf_counter() - t0, time.perf_counter()
+    phase_3e(torch, dev, cfg, params, tok, args.words, args.seed, sess)
+    phase_s["3e per-step, goldens, debug"], t0 = time.perf_counter() - t0, time.perf_counter()
     md = os.path.join(ROOT, "artifacts", "models", "gate_r3")
     gate_r3_session(torch, dev)
     gate_r3_offline(torch, dev)
@@ -3492,7 +3807,11 @@ def main() -> int:
                                                  "train.train_step", "train.tdt_loss",
                                                  "train.optim", "train.augment",
                                                  "train.checkpoint", "train.data",
-                                                 "eval.manifest")]
+                                                 "eval.manifest", "contract", "io.fixtures",
+                                                 "parity", "decode.host_decode",
+                                                 "debug.tdt_trace", "debug.stage_markers",
+                                                 "debug.nan_guard", "debug.snapshot",
+                                                 "debug.taps", "debug.profiler")]
     assert all(m in sys.modules for m in entry), "the entry points' modules were not run"
 
     kernels = []

@@ -1,5 +1,6 @@
-"""Typed configuration: architecture (:class:`ModelConfig`) and the runtime
-toggles the streaming greedy path reads (:class:`RuntimeConfig`).
+"""Typed configuration: architecture (:class:`ModelConfig`, normally
+derived from the contract, ``ModelConfig.from_contract``) and the runtime
+and debug toggles (:class:`RuntimeConfig`).
 
 Same field names, defaults and env-var names (``TRT_ASR_*``, with the
 ``PARAKEET_*`` aliases) as the JAX package's ``config.py``.
@@ -9,7 +10,10 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import TYPE_CHECKING, Optional, Tuple
+
+if TYPE_CHECKING:
+    from trt_asr_tpu_torch.contract import Contract
 
 
 @dataclass(frozen=True)
@@ -86,6 +90,36 @@ class ModelConfig:
         return n
 
     @classmethod
+    def from_contract(cls, c: "Contract") -> "ModelConfig":
+        """The architecture a contract (``contract.load_contract``) fixes."""
+        return cls(
+            feat_in=c.encoder.feat_in,
+            num_layers=c.encoder.num_layers,
+            d_model=c.encoder.d_model,
+            n_heads=c.encoder.n_heads,
+            ff_expansion_factor=c.encoder.ff_expansion_factor,
+            conv_kernel_size=c.encoder.conv_kernel_size,
+            subsampling_factor=c.encoder.subsampling.factor,
+            subsampling_conv_channels=c.encoder.subsampling.conv_channels,
+            pos_emb_max_len=c.encoder.pos_emb_max_len,
+            use_bias=c.encoder.use_bias,
+            xscaling=c.encoder.xscaling,
+            pred_hidden=c.predictor.pred_hidden,
+            pred_rnn_layers=c.predictor.pred_rnn_layers,
+            vocab_size=c.tokenizer.vocab_size,
+            joint_hidden=c.joint.joint_hidden,
+            duration_values=tuple(c.joint.duration_values),
+            att_cache_size=c.streaming.cache_last_channel_size,
+            cache_drop_size=c.streaming.cache_drop_size,
+            valid_out_len=c.streaming.valid_out_len,
+            drop_extra_pre_encoded=c.streaming.drop_extra_pre_encoded,
+            chunk_size_frames=tuple(c.streaming.chunk_size_frames),
+            shift_size_frames=tuple(c.streaming.shift_size_frames),
+            pre_encode_cache_size=tuple(c.streaming.pre_encode_cache_size),
+            max_symbols_per_timestep=c.decode.max_symbols_per_timestep,
+        )
+
+    @classmethod
     def tiny(cls, **overrides) -> "ModelConfig":
         """A fast test-sized config preserving all structural invariants."""
         base = dict(
@@ -134,13 +168,16 @@ def _env_str(name: str, alias, default: str) -> str:
 
 @dataclass
 class RuntimeConfig:
-    """Runtime toggles read by the streaming greedy path (env-overridable).
+    """Runtime and debug toggles (env-overridable).
 
     The ``use_pallas_*`` flags keep the JAX package's names; in this package
     they select the hand-written CUDA kernels of ``ops/kernels/``: the fused
     joint step, the fused attention block, the fused conv module (with
     int8 encoder weights and ``use_pallas_ffn`` also on: conv + FFN2 +
-    output LayerNorm in one kernel) and the fused FFN."""
+    output LayerNorm in one kernel) and the fused FFN. The weights' type is
+    chosen where a model is made (``ParakeetTDT(weights_dtype=)``); JAX's
+    ``compute_dtype`` and ``decode_dtype``, which only its AOT engine reads,
+    wait for that engine's port."""
 
     # numerics / kernels
     use_pallas_joint: bool = False           # fused joint-step kernel
@@ -150,7 +187,8 @@ class RuntimeConfig:
     use_pallas_ffn: bool = False             # fused FFN kernel
     quant: str = "none"                      # int8 weight-only quantization
                                              # scope: none|joint|encoder|all
-    batched_decode: bool = True              # blank-run batched decode
+    batched_decode: bool = True              # JAX's route switch; both routes
+                                             # are one blank-run loop here
     beam_width: int = 0                      # TRT_ASR_BEAM: > 0 selects the
                                              # CLI's beam session (--beam wins)
     # decode behavior
@@ -166,6 +204,23 @@ class RuntimeConfig:
     # fault injection (reference PARAKEET_DISABLE_CACHE / _CACHE_LEN_OVERRIDE)
     disable_cache: bool = False
     cache_len_override: int = -1
+    sabotage: str = ""                       # "drop_time_carry": zero the decode
+                                             # time carry after every chunk (the
+                                             # gate-sensitivity fault)
+    # debug / instrumentation (debug/*)
+    nan_guard: bool = False                  # PARAKEET_NAN_GUARD_ALWAYS
+    nan_guard_halt: bool = False             # PARAKEET_NAN_GUARD_HALT
+    stage_markers: bool = False              # PARAKEET_DEBUG_STAGE_MARKERS
+    debug_emit_tokens: bool = False          # PARAKEET_DEBUG_EMIT_TOKENS
+    debug_tdt_steps: bool = False            # PARAKEET_DEBUG_TDT_STEPS
+    tdt_trace_path: str = ""                 # NDJSON output for debug_tdt_steps
+    snapshot_dir: str = ""                   # PARAKEET_TDT_SNAPSHOT_DIR
+    tap_dir: str = ""                        # AUDIO_TAP_DIR
+    tap_enabled: bool = False                # AUDIO_TAP_ENABLE
+    slow_step_ms: float = 250.0              # PARAKEET_SLOW_ENQUEUE_MS analog
+    profile_dir: str = ""                    # torch.profiler Chrome trace dir
+    profile_chunks: int = 20                 # chunks captured per profile run
+    debug_blank_scan: bool = False           # PARAKEET_DEBUG_BLANK_SCAN
 
     @classmethod
     def from_env(cls) -> "RuntimeConfig":
@@ -194,4 +249,20 @@ class RuntimeConfig:
                                     d.final_on_push),
             disable_cache=_env_bool("TRT_ASR_DISABLE_CACHE", "PARAKEET_DISABLE_CACHE", d.disable_cache),
             cache_len_override=_env_int("TRT_ASR_CACHE_LEN_OVERRIDE", "PARAKEET_CACHE_LEN_OVERRIDE", d.cache_len_override),
+            sabotage=_env_str("TRT_ASR_SABOTAGE", None, d.sabotage),
+            nan_guard=_env_bool("TRT_ASR_NAN_GUARD", "PARAKEET_NAN_GUARD_ALWAYS", d.nan_guard),
+            nan_guard_halt=_env_bool("TRT_ASR_NAN_GUARD_HALT", "PARAKEET_NAN_GUARD_HALT", d.nan_guard_halt),
+            stage_markers=_env_bool("TRT_ASR_STAGE_MARKERS", "PARAKEET_DEBUG_STAGE_MARKERS", d.stage_markers),
+            debug_emit_tokens=_env_bool("TRT_ASR_DEBUG_EMIT_TOKENS", "PARAKEET_DEBUG_EMIT_TOKENS", d.debug_emit_tokens),
+            debug_tdt_steps=_env_bool("TRT_ASR_DEBUG_TDT_STEPS", "PARAKEET_DEBUG_TDT_STEPS", d.debug_tdt_steps),
+            tdt_trace_path=_env_str("TRT_ASR_TDT_TRACE_PATH", None, d.tdt_trace_path),
+            snapshot_dir=_env_str("TRT_ASR_SNAPSHOT_DIR", "PARAKEET_TDT_SNAPSHOT_DIR", d.snapshot_dir),
+            tap_dir=_env_str("TRT_ASR_TAP_DIR", "AUDIO_TAP_DIR", d.tap_dir),
+            tap_enabled=_env_bool("TRT_ASR_TAP_ENABLE", "AUDIO_TAP_ENABLE", d.tap_enabled),
+            slow_step_ms=_env_float("TRT_ASR_SLOW_STEP_MS",
+                                    ("PARAKEET_SLOW_ENQUEUE_MS",
+                                     "PARAKEET_SLOW_CHUNK_MS"), d.slow_step_ms),
+            profile_dir=_env_str("TRT_ASR_PROFILE_DIR", None, d.profile_dir),
+            profile_chunks=_env_int("TRT_ASR_PROFILE_CHUNKS", None, d.profile_chunks),
+            debug_blank_scan=_env_bool("TRT_ASR_DEBUG_BLANK_SCAN", "PARAKEET_DEBUG_BLANK_SCAN", d.debug_blank_scan),
         )

@@ -36,6 +36,7 @@ def tdt_greedy_decode_batch(
     use_pallas_joint: bool = False,
     with_timestamps: bool = False,
     joint_packed=None,              # the int8 or f32 joint weights packed once (pack_joint_step)
+    trace: bool = False,
 ):
     """Returns (tokens [B, max_tokens] (-1 padded), n [B], new_state) and,
     with ``with_timestamps``, ``(frames, durs, logps)`` [B, max_tokens]
@@ -43,14 +44,15 @@ def tdt_greedy_decode_batch(
     and decode-time log-softmax confidence. Tokens, counts and stamps are
     host (CPU) tensors; the new state stays on the device. ``joint_packed``
     goes to the joint-step kernel (int8 or f32 weights), which packs anew at
-    every call without it."""
+    every call without it. ``trace`` (B = 1) appends the decode trace's
+    ``(records, n_steps)`` (``greedy_decode_loop``)."""
     b, tq = enc.shape[0], enc.shape[1]
     return greedy_decode_loop(
         params, cfg, enc, t_enc, state, max_tokens=max_tokens, max_symbols=max_symbols,
         blank_penalty=blank_penalty, emitted_so_far=emitted_so_far, punct_mask=punct_mask,
         use_punct_mask=use_punct_mask, with_timestamps=with_timestamps,
         blank_run=b * tq <= 256, use_kernel=use_pallas_joint and b * tq <= 128,
-        joint_packed=joint_packed)
+        joint_packed=joint_packed, trace=trace)
 
 
 def reset_decode_state_rows(params, cfg: ModelConfig, state: DecodeState, row_mask,

@@ -20,6 +20,13 @@ version does; the chunk decoder always walks blank runs):
 
 ``use_kernel`` routes the blank-run joint through the fused CUDA
 joint-step kernel (``ops/kernels/joint_step.py``).
+
+``trace`` (one stream; ``trace=True`` of either decoder) records every
+iteration's (time_idx, u, y_id, best_tok, duration, advance, is_blank),
+``advance`` before the forced advance, as the JAX decoder's trace buffer:
+the loop's control state is on the host already, so a record is a host
+row, and the predictor's last token joins the one host sync a call has
+anyway. With ``trace`` off nothing of it runs.
 ``greedy_decode_loop.iterations`` counts loop iterations over all calls of
 both decoders (a plain int, as the kernels' launch counters).
 """
@@ -44,13 +51,17 @@ def greedy_decode_loop(params, cfg: ModelConfig, enc, t_enc, state: DecodeState,
                        max_tokens: int, max_symbols: Optional[int], blank_penalty: float,
                        emitted_so_far, punct_mask, use_punct_mask: bool,
                        with_timestamps: bool, blank_run: bool, use_kernel: bool,
-                       joint_packed=None):
+                       joint_packed=None, trace: bool = False):
     """Decode enc [B, T, D] from ``state`` in the regime the caller chose:
     ``blank_run`` (else per-row), with the joint-step kernel in the
     blank-run recomputes when ``use_kernel`` (on ``joint_packed``, the int8
     or f32 weights packed once, where given). Arguments and results as
-    :func:`~trt_asr_tpu_torch.decode.batched.tdt_greedy_decode_batch`."""
+    :func:`~trt_asr_tpu_torch.decode.batched.tdt_greedy_decode_batch`;
+    with ``trace`` (B = 1 only) the results end with ``(records [T *
+    max_symbols, 7] int32 (-1 padded), n_steps)``."""
     b, tq = enc.shape[0], enc.shape[1]
+    if trace and b != 1:
+        raise ValueError(f"the decode trace records one stream, got B = {b}")
     dev = enc.device
     max_symbols = max_symbols or cfg.max_symbols_per_timestep
     blank = cfg.blank_id
@@ -65,9 +76,12 @@ def greedy_decode_loop(params, cfg: ModelConfig, enc, t_enc, state: DecodeState,
 
     enc_proj = joint_project_enc(jp, enc)                          # [B, T, J]
     # one host sync: valid steps and the carried time offset of every row
-    host = torch.stack([torch.as_tensor(t_enc, device=dev).reshape(b).long(),
-                        state.time_carry.long()]).cpu().numpy()
+    # (and, for the trace, the predictor's last token)
+    cols = [torch.as_tensor(t_enc, device=dev).reshape(b).long(), state.time_carry.long()]
+    host = torch.stack(cols + ([state.y_id.long()] if trace else [])).cpu().numpy()
     t_enc_h, time_idx = host[0], host[1].copy()
+    records = [] if trace else None
+    y_host = host[2].copy() if trace else None
 
     def finish(toks, dur_sel, tok_logits, n):
         """Punct suppression, confidences and duration values; one host copy."""
@@ -140,6 +154,9 @@ def greedy_decode_loop(params, cfg: ModelConfig, enc, t_enc, state: DecodeState,
         active = time_idx < t_enc_h
         is_blank = best == blank
         advance = np.where(is_blank & (duration == 0), 1, duration)
+        if records is not None:
+            records.append((time_idx[0], u_count[0], y_host[0], best[0], duration[0],
+                            advance[0], is_blank[0]))
         hit_cap = u_count >= (max_symbols - 1)
         advance = np.where((advance == 0) & hit_cap, 1, advance)
         emit = active & ~is_blank & (n < max_tokens)
@@ -157,6 +174,8 @@ def greedy_decode_loop(params, cfg: ModelConfig, enc, t_enc, state: DecodeState,
             frames_buf[rows, n[rows]] = t_c[rows]
             durs_buf[rows, n[rows]] = duration[rows]
             logps_buf[rows, n[rows]] = conf[rows]
+            if y_host is not None:
+                y_host[rows] = best[rows]
         n = n + emit
         u_count = np.where(advance > 0, 0, u_count + 1)
         time_idx = time_idx + np.where(active, advance, 0)
@@ -168,7 +187,21 @@ def greedy_decode_loop(params, cfg: ModelConfig, enc, t_enc, state: DecodeState,
     out = (i32(tokens), i32(n), new_state)
     if with_timestamps:
         out = out + ((i32(frames_buf), i32(durs_buf), torch.from_numpy(logps_buf)),)
+    if records is not None:
+        out = out + (trace_buffer(records, tq * max_symbols),)
     return out
+
+
+def trace_buffer(records, rows: int):
+    """The trace rows as the JAX decoder's buffer: [rows, 7] int32, -1
+    padded, a step past the last row overwriting it; and the step count
+    (0-d int32)."""
+    buf = np.full((rows, 7), -1, np.int32)
+    n = len(records)
+    if n:
+        buf[:min(n, rows)] = np.asarray(records[:rows], np.int64)
+        buf[min(n, rows) - 1] = records[-1]
+    return torch.from_numpy(buf), torch.tensor(n, dtype=torch.int32)
 
 
 greedy_decode_loop.iterations = 0     # loop iterations, all calls

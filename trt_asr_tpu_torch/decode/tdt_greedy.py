@@ -66,6 +66,7 @@ def tdt_greedy_decode_chunk(
     use_pallas_joint: bool = False,
     with_timestamps: bool = False,
     joint_packed=None,              # the int8 or f32 joint weights packed once (pack_joint_step)
+    trace: bool = False,
 ):
     """Decode one chunk of one stream, as the JAX package's
     ``decode/tdt_greedy.py`` ``tdt_greedy_decode_chunk``: blank-run batching
@@ -74,15 +75,23 @@ def tdt_greedy_decode_chunk(
     fused joint-step kernel for those recomputes when ``use_pallas_joint``,
     at any chunk length. Returns (tokens [max_tokens] (-1 padded), n (0-d),
     new_state) and, with ``with_timestamps``, ``(frames, durs, logps)``
-    [max_tokens]; tokens, counts and stamps are host tensors. The per-step
-    trace buffer of the JAX version is not ported."""
+    [max_tokens]; tokens, counts and stamps are host tensors.
+
+    ``trace=True`` (``RuntimeConfig.debug_tdt_steps``) also returns the
+    per-step record buffer ``(records [T*max_symbols, 7] int32, n_steps)``,
+    columns (time_idx, u, y_id, best_tok, duration, advance, is_blank) as
+    ``debug/tdt_trace.py`` reads them: host rows of the loop's own control
+    state, no extra sync."""
     out = greedy_decode_loop(
         params, cfg, enc[None], torch.as_tensor(t_enc).reshape(1), state,
         max_tokens=max_tokens, max_symbols=max_symbols, blank_penalty=blank_penalty,
         emitted_so_far=[int(emitted_so_far)], punct_mask=punct_mask,
         use_punct_mask=use_punct_mask, with_timestamps=with_timestamps,
-        blank_run=True, use_kernel=use_pallas_joint, joint_packed=joint_packed)
-    tokens, n, new_state = out[0][0], out[1][0], out[2]
+        blank_run=True, use_kernel=use_pallas_joint, joint_packed=joint_packed,
+        trace=trace)
+    ret = (out[0][0], out[1][0], out[2])
     if with_timestamps:
-        return tokens, n, new_state, tuple(x[0] for x in out[3])
-    return tokens, n, new_state
+        ret = ret + (tuple(x[0] for x in out[3]),)
+    if trace:
+        ret = ret + (out[-1],)
+    return ret

@@ -7,6 +7,7 @@ n-best of the host beam (``transcribe_offline_beam``)."""
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from typing import List, Optional, Sequence, Tuple
@@ -30,10 +31,11 @@ from trt_asr_tpu_torch.models.parakeet.params import (
     load_checkpoint_numpy,
     params_from_numpy,
     params_to,
+    save_checkpoint,
 )
 from trt_asr_tpu_torch.ops.kernels.joint_step import pack_joint_step
 from trt_asr_tpu_torch.ops.quant import QuantTensor, keep_f32_copy
-from trt_asr_tpu_torch.tokenizer import Tokenizer, make_synthetic_vocab
+from trt_asr_tpu_torch.tokenizer import Tokenizer, make_synthetic_vocab, write_vocab
 
 
 class ParakeetTDT:
@@ -107,6 +109,16 @@ class ParakeetTDT:
         params = load_checkpoint_numpy(model_dir)
         tok = Tokenizer.from_file(os.path.join(model_dir, "vocab.txt"), blank_id=cfg.blank_id)
         return cls(cfg, params, tok, runtime=runtime, device=device, weights_dtype=weights_dtype)
+
+    def save_model_dir(self, model_dir: str) -> None:
+        """Write the model-dir format :meth:`from_model_dir` and the JAX
+        package's ``ParakeetTDT.from_model_dir`` read: ``config.json``, the
+        checkpoint (``params.npz`` + ``manifest.json``) and ``vocab.txt``."""
+        os.makedirs(model_dir, exist_ok=True)
+        with open(os.path.join(model_dir, "config.json"), "w") as f:
+            json.dump(dataclasses.asdict(self.cfg), f, indent=1)
+        save_checkpoint(model_dir, self.params, meta={"model": "parakeet-tdt"})
+        write_vocab(os.path.join(model_dir, "vocab.txt"), self.tokenizer.vocab)
 
     @classmethod
     def random(cls, cfg: Optional[ModelConfig] = None, seed: int = 0,

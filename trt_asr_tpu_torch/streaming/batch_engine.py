@@ -391,6 +391,10 @@ class BatchStreamingEngine:
         toks, n, self._enc_state, self._dec_state, stamps, out_len = _batch_step(
             self.model, self._feed(feats), self._feed(valid), self._enc_state, self._dec_state,
             emitted, self._feed(cache_drop), self._feed(valid_cap), **self._step_kwargs())
+        if self.rt.sabotage == "drop_time_carry":
+            # the session's fault injection, on this surface too
+            self._dec_state = self._dec_state._replace(
+                time_carry=torch.zeros_like(self._dec_state.time_carry))
         toks, n = toks.numpy(), n.numpy()
         frames_b, durs_b, logps_b = (s.numpy() for s in stamps)
         out_len = out_len.cpu().numpy()

@@ -18,7 +18,10 @@ and its output feeds one of two searches:
   the host search's.
 
 The kernels (``use_pallas_*``) do not apply here: the beam encoder and
-joint run the plain path, as the JAX beam path does. Partials carry the
+joint run the plain path, as the JAX beam path does. Of the debug surface
+the beam session has what the JAX one has: the taps (through the
+parent's ``push_audio``/``push_features``), stage and slow-chunk markers,
+the NaN guard on the attention cache and the profiler capture. Partials carry the
 current best hypothesis, which may rewrite earlier text when the ranking
 flips; ``stable_text`` is the prefix no re-ranking can change. beam=1
 reproduces the greedy session's tokens.
@@ -32,6 +35,8 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from trt_asr_tpu_torch.debug.nan_guard import check_finite
+from trt_asr_tpu_torch.debug.stage_markers import stage_marker
 from trt_asr_tpu_torch.decode.beam import (BeamSearchState, beam_advance, beam_best,
                                            beam_finish, beam_stable_prefix, beam_start,
                                            make_host_fns)
@@ -111,6 +116,9 @@ class BeamStreamingSession(StreamingSession):
 
     def _run_chunk(self, spec, is_last: bool) -> None:
         cfg, rt = self.cfg, self.rt
+        stage_marker(rt, f"beam chunk {spec.idx} enter [{self._debug_ctx}]")
+        if self._profiler is not None:
+            self._profiler.chunk_start()
         t0 = time.perf_counter()
         x, valid, pos_proj, _ = self._chunk_inputs(spec, kernels=False)
         lengths = torch.full((1,), valid, dtype=torch.int32, device=self.device)
@@ -163,7 +171,16 @@ class BeamStreamingSession(StreamingSession):
             best = beam_best(self._beam_state)
             self._tokens = list(best.tokens) if best is not None else []
         self._frames_base += t_out
-        self._chunk_latencies_ms.append((time.perf_counter() - t0) * 1e3)
+        ms = (time.perf_counter() - t0) * 1e3
+        self._chunk_latencies_ms.append(ms)
+        if ms > rt.slow_step_ms:
+            stage_marker(rt, f"SLOW beam chunk {spec.idx}: {ms:.1f} ms", force=True)
+        if rt.nan_guard:
+            check_finite(self._enc_state.att_cache, "att_cache", halt=rt.nan_guard_halt)
+        if self._profiler is not None:
+            self._profiler.chunk_end()
+        stage_marker(rt, f"beam chunk {spec.idx} exit "
+                         f"({ms:.1f} ms, {len(self._tokens)} tokens best)")
 
     def _maybe_partial(self) -> None:
         # content-based change detection: a re-ranked beam can rewrite the
@@ -210,6 +227,7 @@ class BeamStreamingSession(StreamingSession):
             self._token_durs = [d for _, d, _ in stamps]
             self._token_logps = [lp for _, _, lp in stamps]
         self._finalized = True
+        self._close_debug()
         with self._lock:
             self._events.append(Event(EventType.FINAL_TEXT, self._segment,
                                       self.model.tokenizer.decode(self._tokens),

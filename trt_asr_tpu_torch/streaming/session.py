@@ -15,6 +15,22 @@ kernels (with int8 encoder weights and both on, the fused conv + FFN2 +
 output-LayerNorm kernel) on every chunk, whatever its step count.
 ``use_pallas_joint`` routes the decode's joint through the fused joint-step
 kernel.
+
+JAX's session decodes with its blank-run batched decoder unless
+``batched_decode`` is False or a trace is asked for (``debug_tdt_steps``,
+``debug_blank_scan``), which take its per-step chunk decoder with the
+trace buffer. In the port both routes are one loop: at a session's sizes
+(B = 1, a chunk's steps far under the batched decoder's 128/256 gates)
+``tdt_greedy_decode_batch`` walks blank runs with the joint-step kernel
+as ``tdt_greedy_decode_chunk`` does, so the session always calls it and
+asks it for the trace when one is on; ``batched_decode=False`` runs the
+same calls. The debug
+surface of ``RuntimeConfig`` hooks in where the JAX session hooks it: audio
+and feature taps, per-chunk snapshots, the NaN guard on the attention
+cache, stage and slow-chunk markers, emitted-token lines, the decode trace
+(``tdt_steps``, written as NDJSON at ``finalize`` to ``tdt_trace_path``),
+the blank-scan summary, the profiler capture and the ``drop_time_carry``
+sabotage. With every toggle at its default none of them runs.
 """
 
 from __future__ import annotations
@@ -30,6 +46,12 @@ import numpy as np
 import torch
 
 from trt_asr_tpu_torch.config import ModelConfig, RuntimeConfig
+from trt_asr_tpu_torch.debug.nan_guard import check_finite
+from trt_asr_tpu_torch.debug.profiler import maybe_profiler
+from trt_asr_tpu_torch.debug.snapshot import maybe_snapshot_chunk
+from trt_asr_tpu_torch.debug.stage_markers import stage_marker
+from trt_asr_tpu_torch.debug.taps import maybe_tap_run
+from trt_asr_tpu_torch.debug.tdt_trace import records_from_buffer, write_ndjson
 from trt_asr_tpu_torch.decode.batched import tdt_greedy_decode_batch
 from trt_asr_tpu_torch.decode.tdt_greedy import (DecodeState, init_decode_state,
                                                  prime_decode_state)
@@ -71,9 +93,6 @@ class StreamingSession:
         self.cfg = model.cfg
         self.device = model.device
         self.rt = runtime or model.runtime
-        if not self.rt.batched_decode:
-            raise NotImplementedError(
-                "the per-step decode loop (batched_decode=False) is not ported yet")
         self.feature_norm = feature_norm
         self.norm_stats = norm_stats
         self._events: Deque[Event] = deque()
@@ -81,6 +100,8 @@ class StreamingSession:
         self._segment = 0
         self._chunk_latencies_ms: List[float] = []
         self._debug_ctx = ""
+        self._taps = maybe_tap_run(self.rt)
+        self._profiler = maybe_profiler(self.rt, self.device)
         cfg = self.cfg
         # steady chunk: 57 frames -> 8 steps - drop 2 = 6 (full-size regime)
         frames = cfg.chunk_size_frames[1] + cfg.pre_encode_cache_size[1]
@@ -103,6 +124,7 @@ class StreamingSession:
     # -- lifecycle ------------------------------------------------------
 
     def reset_utterance(self) -> None:
+        stage_marker(self.rt, "reset_utterance enter")
         cfg = self.cfg
         self._mel = StreamingLogMel(self.model.frontend)
         self._feat_buf = np.zeros((0, cfg.feat_in), np.float32)
@@ -116,10 +138,12 @@ class StreamingSession:
         self._token_durs: List[int] = []
         self._token_logps: List[float] = []
         self._frames_base = 0
+        self.tdt_steps: List[dict] = []     # the decode trace's step records
         self._last_partial_t = 0.0
         self._last_partial_len = 0
         self._finalized = False
         self._segment += 1
+        stage_marker(self.rt, "reset_utterance exit")
 
     def set_debug_context(self, ctx: str) -> None:
         """A caller's label for this stream (a C-ABI bridge passes one),
@@ -175,7 +199,13 @@ class StreamingSession:
 
     # -- input ----------------------------------------------------------
 
-    def push_audio(self, samples: np.ndarray) -> int:
+    def push_audio(self, samples: np.ndarray, stream_pos: Optional[int] = None) -> int:
+        """``stream_pos``: this piece's sample offset in the source stream
+        (optional); where the capture side dropped audio, the audio tap
+        zero-fills the hole and counts it, so a replay stays aligned."""
+        if self._taps is not None:
+            self._taps.audio().write(np.asarray(samples, np.float32),
+                                     {"ctx": self._debug_ctx}, stream_pos=stream_pos)
         feats = self._mel.push(np.asarray(samples, np.float32))
         return self.push_features(feats)
 
@@ -192,6 +222,9 @@ class StreamingSession:
                         f"push_features: expected [T, {self.cfg.feat_in}] "
                         f"features, got {feats.shape}")
                 feats = self._normalize(feats)
+                if self._taps is not None:
+                    self._taps.features(n_mels=self.cfg.feat_in).write(
+                        feats, {"ctx": self._debug_ctx})
                 self._feat_buf = np.concatenate([self._feat_buf, feats], axis=0)
             done = 0
             while True:
@@ -220,10 +253,31 @@ class StreamingSession:
         if spec is not None:
             self._run_chunk(spec, is_last=True)
         self._finalized = True
+        rt = self.rt
+        if rt.debug_tdt_steps and rt.tdt_trace_path:
+            write_ndjson(rt.tdt_trace_path, self.tdt_steps,
+                         {"type": "meta", "source": "device_while_loop",
+                          "blank_id": self.cfg.blank_id, "emitted": len(self._tokens)})
+        self._close_debug()
+        if rt.debug_blank_scan and self.tdt_steps:
+            # blank-vs-emit preference over the decode steps (PARAKEET_DEBUG_BLANK_SCAN)
+            steps = len(self.tdt_steps)
+            blanks = sum(r["is_blank"] for r in self.tdt_steps)
+            clamped = sum(bool(r.get("blank_dur0_clamped")) for r in self.tdt_steps)
+            stage_marker(rt, f"blank_scan: steps={steps} blank_pref={blanks} "
+                             f"nonblank_pref={steps - blanks} dur0_clamped={clamped}",
+                         force=True)
         with self._lock:
             self._events.append(Event(EventType.FINAL_TEXT, self._segment,
                                       self.model.tokenizer.decode(self._tokens),
                                       tokens=list(self._tokens)))
+
+    def _close_debug(self) -> None:
+        """Close the taps and end the profiler capture (at finalize)."""
+        if self._taps is not None:
+            self._taps.close()
+        if self._profiler is not None:
+            self._profiler.stop()
 
     # -- events / results -------------------------------------------------
 
@@ -308,9 +362,13 @@ class StreamingSession:
 
     def _run_chunk(self, spec, is_last: bool) -> None:
         cfg, rt = self.cfg, self.rt
+        stage_marker(rt, f"chunk {spec.idx} enter [{self._debug_ctx}]")
+        if self._profiler is not None:
+            self._profiler.chunk_start()
         t0 = time.perf_counter()
+        trace = rt.debug_tdt_steps or rt.debug_blank_scan
         x, valid, pos_proj, kernel_att = self._chunk_inputs(spec)
-        toks, n, self._enc_state, self._dec_state, stamps, t_out = _session_step(
+        out = _session_step(
             self.model, x, valid, self._enc_state, self._dec_state,
             drop_extra=spec.drop_extra,
             cache_drop=0 if is_last else cfg.cache_drop_size,
@@ -320,14 +378,35 @@ class StreamingSession:
             punct_mask=self._punct_mask,
             pos_proj=pos_proj, pad_steps=self._pad_steps if kernel_att else 0,
             use_pallas_att=kernel_att, use_pallas_joint=rt.use_pallas_joint,
-            use_pallas_ffn=rt.use_pallas_ffn, use_pallas_conv=rt.use_pallas_conv)
+            use_pallas_ffn=rt.use_pallas_ffn, use_pallas_conv=rt.use_pallas_conv, trace=trace)
+        toks, n, self._enc_state, self._dec_state, stamps, t_out = out[:6]
+        if trace:
+            self.tdt_steps.extend(records_from_buffer(*out[6]))
+        if rt.sabotage == "drop_time_carry":
+            # fault injection (gate-sensitivity proof): drop the duration
+            # overshoot at every chunk boundary
+            self._dec_state = self._dec_state._replace(
+                time_carry=torch.zeros_like(self._dec_state.time_carry))
         n = int(n)
+        new = [int(t) for t in toks[:n]]
         self._token_frames.extend(self._frames_base + int(f) for f in stamps[0][:n])
         self._token_durs.extend(int(d) for d in stamps[1][:n])
         self._token_logps.extend(float(c) for c in stamps[2][:n])
         self._frames_base += t_out
-        self._tokens.extend(int(t) for t in toks[:n])
-        self._chunk_latencies_ms.append((time.perf_counter() - t0) * 1e3)
+        ms = (time.perf_counter() - t0) * 1e3
+        self._chunk_latencies_ms.append(ms)
+        if ms > rt.slow_step_ms:
+            stage_marker(rt, f"SLOW chunk {spec.idx}: {ms:.1f} ms", force=True)
+        if rt.nan_guard:
+            check_finite(self._enc_state.att_cache, "att_cache", halt=rt.nan_guard_halt)
+        self._tokens.extend(new)
+        if rt.debug_emit_tokens and new:
+            stage_marker(rt, f"chunk {spec.idx} emitted {new}", force=True)
+        maybe_snapshot_chunk(rt, spec.idx, enc_state=self._enc_state,
+                             dec_state=self._dec_state, tokens=new)
+        if self._profiler is not None:
+            self._profiler.chunk_end()
+        stage_marker(rt, f"chunk {spec.idx} exit ({ms:.1f} ms, {n} tokens)")
 
     def _maybe_partial(self) -> None:
         now = time.monotonic()
@@ -351,11 +430,12 @@ def _session_step(model: ParakeetTDT, feats: torch.Tensor, valid: int,
                   blank_penalty: float, emitted_so_far: int, punct_mask,
                   pos_proj=None, pad_steps: int = 0, use_pallas_att: bool = False,
                   use_pallas_joint: bool = False, use_pallas_ffn: bool = False,
-                  use_pallas_conv: bool = False):
-    """One chunk: streaming encoder step + blank-run batched TDT greedy
-    decode. Returns (tokens, n, enc_state, dec_state, (frames, durs, logps),
-    t_out) with tokens/stamps as host tensors and t_out the chunk's valid
-    encoder step count (host int)."""
+                  use_pallas_conv: bool = False, trace: bool = False):
+    """One chunk: streaming encoder step + blank-run TDT greedy decode.
+    Returns (tokens, n, enc_state, dec_state, (frames, durs, logps), t_out)
+    with tokens/stamps as host tensors and t_out the chunk's valid encoder
+    step count (host int); with ``trace``, then ``(records, n_steps)``
+    (``debug/tdt_trace.py``)."""
     cfg: ModelConfig = model.cfg
     lengths = torch.full((1,), valid, dtype=torch.int32, device=feats.device)
     enc, out_len, enc_state = encode(
@@ -364,12 +444,12 @@ def _session_step(model: ParakeetTDT, feats: torch.Tensor, valid: int,
         use_pallas_att=use_pallas_att, use_pallas_ffn=use_pallas_ffn,
         use_pallas_conv=use_pallas_conv, pos_proj=pos_proj, layers=model.layers)
     tq = enc.shape[1]
-    toks, n, dec_state, stamps = tdt_greedy_decode_batch(
+    out = tdt_greedy_decode_batch(
         model.params, cfg, enc, out_len, dec_state,
         max_tokens=cfg.max_symbols_per_timestep * tq, blank_penalty=blank_penalty,
         emitted_so_far=np.array([emitted_so_far]), punct_mask=punct_mask,
         use_punct_mask=punct_mask is not None, use_pallas_joint=use_pallas_joint,
-        with_timestamps=True, joint_packed=model.joint_packed)
-    fr, du, lp = stamps
+        with_timestamps=True, joint_packed=model.joint_packed, trace=trace)
+    toks, n, dec_state, (fr, du, lp) = out[:4]
     t_out = int(out_len[0])
-    return toks[0], n[0], enc_state, dec_state, (fr[0], du[0], lp[0]), t_out
+    return (toks[0], n[0], enc_state, dec_state, (fr[0], du[0], lp[0]), t_out) + out[4:]
