@@ -155,8 +155,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``token_cap=8`` raises the saturation ERROR event once;
    ``transcribe_offline_beam`` equals the device beam over the same
    offline encoder rows; the engine (B = 8, beam 4) on 3b's utterances, one
-   slot attached late and one finalized early, gives each slot the n-best
-   of a standalone device session, without and with the LM. Host ms a
+   slot attached late and one finalized early, gives the late slot, the
+   early one and the longest the n-best of a standalone device session,
+   without and with the LM. Host ms a
    steady chunk (greedy, host beam, device beam), device ms and launches a
    chunk (a profiled window of its own, the utterance's first third: the
    profiler's post-processing grows with its ~7,000 events a chunk), the
@@ -187,6 +188,17 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``TRT_ASR_TDT_TRACE_PATH``, ``TRT_ASR_TAP_ENABLE`` and ``TRT_ASR_TAP_DIR``:
    its transcript equals the plain CLI's, the trace and taps parse, the
    profiler's Chrome trace holds joint-step kernel events. Seconds by part.
+3f. the ONNX import path at full width: phase 3's weights (f32, the
+   calibrated blank bias in the joint's out bias) exported by
+   ``export_params_to_onnx`` (external data for large tensors) and imported
+   by ``python -m trt_asr_tpu_torch.import_onnx --verify`` as a subprocess
+   on the card (``-X importtime``: no JAX); the imported ``params.npz``
+   equals the source leaf for leaf, bit for bit; ``run_suite`` on the
+   imported model dir over phase 3's utterance and three more, 0.5 s
+   pieces: the python surface (attention and joint kernels) transcribes
+   phase 3's utterance as phase 3's ``f32_on`` arm does on the same audio,
+   and the batch surface (B = 4, joint kernel) equals the python surface.
+   Bytes written and the seconds of export, import and suite.
 4. the trained ``artifacts/models/gate_r3`` on the card with the kernels
    on, each token-exact against the port's CPU plain path: attention,
    joint and log-mel kernels in f32, int8 and bf16; every kernel in f32,
@@ -214,6 +226,23 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    Transcript, Word and Segment lines equal the CPU's; NBest texts exact,
    scores within 2e-3) and the daemon with ``--beam 4 --lm`` (B = 4),
    whose three finals' n-best equal the CPU engine's.
+4c. gate_r3's WER gate: its held-out set (``eval/synthetic.py``:
+   ``make_words(1120)``, ``make_set(50, 2, words, 8, 13)``, 502 reference
+   words) through ``eval.suite.run_suite`` (``feature_norm="none"``), each
+   row's WER counts equal to the committed ``artifacts/e2e_wer_gate_r3.json``:
+   python with the attention and joint kernels at sim 0.5 (0 errors) and
+   under ``drop_time_carry`` (I = 436); batch (B = 4, joint kernel) at sim
+   0.3 (0 errors) and under sabotage (I = 436); the fast mode (int8 weights,
+   attention kernel; the JAX tool's native surface) on 12 utterances (0
+   errors at 0.3 and 0.5; I = 104 under sabotage). The batch and fast rows
+   run through the gate runner (``eval.gate.main``): its exit code (0, or 1
+   under sabotage), its artifact's matrix and gate rows, its
+   push-granularity check and its ``--sabotage`` restore. Every streaming kernel in f32 and int8
+   on 20 utterances, each transcript equal to the port's CPU plain path; the
+   cli surface (2 utterances, fast env, no JAX imported) equal to the fast
+   row; ``beam=4`` on 4 utterances equal to the greedy row. Kernel launches
+   counted a row; chunk ms p50 and p95 and RTFx of the f32_on row; seconds
+   by row.
 5. full-width offline batch (``ModelConfig()``, the phase-3 weights): 8
    synthetic utterances of mixed length up to 30 s (one under 10 s),
    batched and padded as ``transcribe_batch`` does, through
@@ -237,9 +266,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    path (offline; 1e-4 and 1e-3 relative, each leaf within 1e-4 of its
    largest value); remat against no remat on the card, offline and
    streaming (the same loss, each leaf's gradients within 1e-4 of its
-   largest value, streaming's peak memory lower, offline's logged); 5 AdamW
+   largest value, streaming's peak memory lower, offline's logged); 3 AdamW
    steps at a constant lr (``TRAIN_LR``), offline and streaming (finite,
-   the 5th loss under the 1st; median step ms, peak memory; launches,
+   the 3rd loss under the 1st; median step ms, peak memory; launches,
    device ms and busy share of a profiled step). gate_r3 fine-tunes 3 steps
    offline and streaming on a batch from ``batches_from_manifest`` with
    SpecAugment masks drawn once on the CPU (step-0 gradients leaf by leaf
@@ -251,10 +280,14 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the loss halves, at least 1 of 4 utterances recovered). No kernel
    wrapper launches; the seconds of each step are logged.
 6. neither ``jax`` nor ``trt_asr_tpu`` was imported, here or (by ``-X
-   importtime``) in a subprocess (the toy's, the parity runner's and the
-   debug-env CLI's too), and the daemon's, the CLI's, their helpers',
-   training's, the contract's, the golden runner's and the debug
-   surface's modules were run.
+   importtime``) in a subprocess (the toy's, the parity runner's, the
+   debug-env CLI's, the importer's and the eval suite's cli surface's
+   too), and the daemon's, the CLI's, their helpers', training's, the
+   contract's, the golden runner's, the debug surface's, the eval suite's
+   (``eval.wer``, ``eval.suite``, ``eval.synthetic``, ``eval.gate``) and
+   the ONNX path's (``io.onnx_lite``, ``io.onnx_graphs``,
+   ``io.onnx_weights``; ``import_onnx`` in its subprocess) modules were
+   run.
 
 Each phase's seconds are logged. The last line is ``{"ok": true, "device":
 {...}}``; the line before it is
@@ -266,10 +299,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import importlib.util
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1377,11 +1410,10 @@ def check_bf16_matmul(torch, dev, timer, rows: int, cfg) -> None:
 
 
 def synth_module():
-    spec = importlib.util.spec_from_file_location(
-        "train_synthetic_e2e", os.path.join(ROOT, "tools", "train_synthetic_e2e.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    """The synthetic spoken-words task (the port's ``eval/synthetic.py``)."""
+    from trt_asr_tpu_torch.eval import synthetic
+
+    return synthetic
 
 
 def wrappers():
@@ -2264,11 +2296,12 @@ def full_width_beam(torch, dev, cfg, params, tok, n_words: int, seed: int):
     ``token_cap=8`` raises the saturation ERROR event once;
     ``transcribe_offline_beam`` equals the device beam over the same
     offline encoder rows; the engine (B = 8, beam 4) on phase 3b's
-    utterances, one slot attached late and one finalized early, gives each
-    slot the n-best of a standalone device session, without and with the
-    LM. Logs host ms a steady chunk (greedy, host beam, device beam), the
-    device beam's device ms and busy share a chunk and its launches a
-    chunk (a profiled window of its own) and the engine's beam step ms."""
+    utterances, one slot attached late and one finalized early, gives the
+    late slot, the early one and the longest the n-best of a standalone
+    device session, without and with the LM. Logs host ms a steady chunk
+    (greedy, host beam, device beam), the device beam's device ms and busy
+    share a chunk and its launches a chunk (a profiled window of its own)
+    and the engine's beam step ms."""
     from trt_asr_tpu_torch.config import RuntimeConfig
     from trt_asr_tpu_torch.decode.beam import BeamSearchState, beam_finish
     from trt_asr_tpu_torch.decode.beam_device import (beam_device_to_hypotheses,
@@ -2375,6 +2408,10 @@ def full_width_beam(torch, dev, cfg, params, tok, n_words: int, seed: int):
         f"{prof[0]:.3f} device ms a chunk")
     # the engine: B = 8, beam 4, without and with the LM
     audios = engine_audios()
+    lens = [len(a) for a in audios]
+    # standalone references for the slot attached late, the one finalized
+    # early (drive_engine_beam's shortest) and the longest
+    checked = sorted({len(audios) - 1, int(np.argmin(lens[:-1])), int(np.argmax(lens))})
     step_ms, plain_best = {}, []
     for label in ("plain", "ngram"):
         # the LM is fitted on the plain run's 1-best transcripts
@@ -2385,13 +2422,15 @@ def full_width_beam(torch, dev, cfg, params, tok, n_words: int, seed: int):
         sids, n_step = drive_engine_beam(eng, audios, piece)
         lat = eng.step_latencies_ms
         step_ms[label] = (float(np.median(lat)), float(np.percentile(lat, 90)))
-        for k, (sid, a) in enumerate(zip(sids, audios)):
-            sess, _ = beam_session_run(model, a, piece, unified=True, beam=4, device=True, **kw)
-            same_nbest(f"engine beam[{label}] stream {k}", eng._nbest[sid], sess._nbest_hyps)
+        for k in checked:
+            sess, _ = beam_session_run(model, audios[k], piece, unified=True, beam=4,
+                                       device=True, **kw)
+            same_nbest(f"engine beam[{label}] stream {k}", eng._nbest[sids[k]],
+                       sess._nbest_hyps)
         plain_best = plain_best or [eng._nbest[sid][0].tokens for sid in sids]
         log(f"engine beam[{label}]: B {len(audios)}, {len(lat)} steps, beam step ms median "
-            f"{step_ms[label][0]:.3f} p90 {step_ms[label][1]:.3f} (host clock); every slot's "
-            f"n-best == its standalone device session's "
+            f"{step_ms[label][0]:.3f} p90 {step_ms[label][1]:.3f} (host clock); slots {checked}: "
+            f"n-best == the standalone device session's "
             f"({[len(eng._nbest[s][0].tokens) for s in sids]} tokens 1-best)")
         del eng
         step_s[f"engine {label}"], t0 = time.perf_counter() - t0, time.perf_counter()
@@ -2619,18 +2658,9 @@ def cli_env_surface(torch, dev, md: str, tmp: str) -> None:
     save_wav(wav, audio)
     flags = {"TRT_ASR_PALLAS_ATT": "1", "TRT_ASR_PALLAS_JOINT": "1"}
     base = [wav, "--model-dir", md, "--stream-sim", "0.5", "--no-sleep", "--feature-norm", "none"]
-    saved = {k: os.environ.get(k) for k in flags}
-    os.environ.update(flags)
     buf = io.StringIO()
-    try:
-        with redirect_stdout(buf):
-            assert cli.main(base) == 0
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    with env_overrides(flags), redirect_stdout(buf):
+        assert cli.main(base) == 0
     debug = {"TRT_ASR_PROFILE_DIR": os.path.join(tmp, "prof"), "TRT_ASR_DEBUG_TDT_STEPS": "1",
              "TRT_ASR_TDT_TRACE_PATH": os.path.join(tmp, "cli_trace.jsonl"),
              "TRT_ASR_TAP_ENABLE": "1", "TRT_ASR_TAP_DIR": os.path.join(tmp, "cli_taps")}
@@ -2686,6 +2716,138 @@ def phase_3e(torch, dev, cfg, params, tok, n_words: int, seed: int, batched) -> 
         part_s["e cli env"] = time.perf_counter() - t0
     log(f"phase 3e seconds by part: { {k: round(v, 1) for k, v in part_s.items()} }")
     return steps
+
+
+# --- phase 3f: the ONNX import path at full width ------------------------------
+
+
+def env_overrides(values: dict):
+    """``values`` in ``os.environ`` for a block, restored after it (the
+    port's ``config.env_overrides``)."""
+    from trt_asr_tpu_torch.config import env_overrides as overrides
+
+    return overrides(values)
+
+
+def assert_same_tree(label: str, got, want, path: str = "") -> int:
+    """Two numpy trees equal leaf for leaf, bit for bit (dtype, shape,
+    values); returns the number of leaves."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), f"{label}: keys differ at {path}"
+        return sum(assert_same_tree(label, got[k], want[k], f"{path}/{k}") for k in want)
+    if isinstance(want, (list, tuple)):
+        assert len(got) == len(want), f"{label}: lengths differ at {path}"
+        return sum(assert_same_tree(label, g, w, f"{path}/{i}")
+                   for i, (g, w) in enumerate(zip(got, want)))
+    assert got.dtype == want.dtype and got.shape == want.shape, f"{label}: {path}"
+    assert np.array_equal(got.view(np.uint8), want.view(np.uint8)), f"{label}: {path} differs"
+    return 1
+
+
+def suite_texts(rnd) -> list:
+    """The transcripts of one round of a ``run_suite`` result."""
+    return [u["transcript"] for u in rnd["utterances"]]
+
+
+def import_path(torch, dev, cfg, params, tok, n_words: int, seed: int, f32_on_tokens) -> None:
+    """Phase 3f: phase 3's weights (f32, the calibrated blank bias in the
+    joint's out bias) exported with ``export_params_to_onnx`` (external data
+    for large tensors), imported by ``python -m trt_asr_tpu_torch.import_onnx
+    --verify`` as a subprocess on the card: its ``params.npz`` equals the
+    source leaf for leaf, bit for bit. Then ``run_suite`` on the imported
+    model dir over phase 3's utterance and three more like it, in 0.5 s
+    pieces: the python surface with the attention and joint kernels, whose
+    transcript of phase 3's utterance equals phase 3's ``f32_on`` arm on the
+    same audio (read back from the wav the suite reads), and the batch
+    surface (B = 4, joint kernel), equal to the python surface utterance by
+    utterance. Logs the bytes written and the seconds of each step."""
+    from trt_asr_tpu_torch.config import RuntimeConfig
+    from trt_asr_tpu_torch.eval.manifest import ManifestEntry, write_manifest
+    from trt_asr_tpu_torch.eval.suite import SuiteConfig, run_suite
+    from trt_asr_tpu_torch.io.onnx_weights import export_params_to_onnx
+    from trt_asr_tpu_torch.io.wav import load_wav, save_wav
+    from trt_asr_tpu_torch.models.parakeet.params import load_checkpoint_numpy, params_to_numpy
+    from trt_asr_tpu_torch.tokenizer import write_vocab
+
+    synth = synth_module()
+    rng = np.random.default_rng(seed)       # phase 3's utterance, as full_width_session draws it
+    audios = [synth.synth_utterance(list(rng.integers(0, 1120, size=n_words)), rng)]
+    rng = np.random.default_rng(seed + 1000)
+    audios += [synth.synth_utterance(list(rng.integers(0, 1120, size=w)), rng) for w in (5, 8, 11)]
+    on = {"TRT_ASR_PALLAS_ATT": "1", "TRT_ASR_PALLAS_JOINT": "1"}
+    step_s = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        exp, md = os.path.join(tmp, "export"), os.path.join(tmp, "model")
+        free = shutil.disk_usage(tmp).free
+        t0 = time.perf_counter()
+        export_params_to_onnx(params, cfg, exp)
+        write_vocab(os.path.join(exp, "vocab.txt"), tok.vocab)
+        step_s["export"] = time.perf_counter() - t0
+        sizes = {f: os.path.getsize(os.path.join(exp, f)) for f in sorted(os.listdir(exp))}
+        log(f"import path: exported {sum(sizes.values())} B ({sizes}) in {step_s['export']:.1f} s "
+            f"({free / 2**30:.1f} GiB free before)")
+        t0 = time.perf_counter()
+        errf = os.path.join(tmp, "import_err.txt")
+        with open(errf, "w") as ferr:
+            res = subprocess.run([sys.executable, "-X", "importtime", "-m",
+                                  "trt_asr_tpu_torch.import_onnx", exp, "--out", md, "--verify"],
+                                 cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                                 stdout=subprocess.PIPE, stderr=ferr, text=True, timeout=900)
+        step_s["import"] = time.perf_counter() - t0
+        with open(errf) as f:
+            err = f.read()
+        assert res.returncode == 0, f"import_onnx: exit {res.returncode}\n{err[-3000:]}"
+        check_no_jax_imported("import_onnx", err, must="trt_asr_tpu_torch.io.onnx_weights")
+        lines = res.stdout.splitlines()
+        assert any(ln.startswith("imported ") for ln in lines), res.stdout
+        verify = [ln for ln in lines if ln.startswith("verify: ")]
+        assert len(verify) == 1 and " on cuda" in verify[0], res.stdout
+        log(f"import path: import_onnx --verify on the card in {step_s['import']:.1f} s: {lines}")
+        t0 = time.perf_counter()
+        n = assert_same_tree("import path", load_checkpoint_numpy(md, verify=False),
+                             params_to_numpy(params))
+        md_bytes = sum(os.path.getsize(os.path.join(md, f)) for f in os.listdir(md))
+        log(f"import path: the imported params.npz equals phase 3's weights, {n} leaves bit for "
+            f"bit ({md_bytes} B in the model dir, compared in {time.perf_counter() - t0:.1f} s)")
+        entries = []
+        for k, a in enumerate(audios):
+            path = os.path.join(tmp, f"utt{k}.wav")
+            save_wav(path, a)
+            entries.append(ManifestEntry(path, ""))
+        man = os.path.join(tmp, "import.tsv")
+        write_manifest(man, entries)
+        # phase 3's f32_on arm on the audio the suite reads (16-bit wav)
+        rt = RuntimeConfig(use_pallas_att=True, use_pallas_joint=True)
+        model = make_model(torch, cfg, params, tok, rt, dev, mel_kernel=True)
+        want = run_session(torch, model, rt, load_wav(entries[0].audio_path), 8000)
+        del model
+        log(f"import path: phase 3's f32_on arm on the wav's audio: {len(want.tokens)} tokens "
+            f"(== its float audio's: {want.tokens == list(f32_on_tokens)})")
+        t0 = time.perf_counter()
+        common = dict(manifest_path=man, model_dir=md, stream_sim=0.5, feature_norm="none")
+        with env_overrides(on):
+            reset_counts()
+            py = run_suite(SuiteConfig(out_dir=os.path.join(tmp, "py"), engine="python",
+                                       **common))
+            counts = read_counts()
+        assert set(launched(counts)) == {"att_block", "joint_step"}, counts
+        step_s["suite python"], t0 = time.perf_counter() - t0, time.perf_counter()
+        with env_overrides({"TRT_ASR_PALLAS_JOINT": "1"}):
+            reset_counts()
+            bat = run_suite(SuiteConfig(out_dir=os.path.join(tmp, "batch"), engine="batch",
+                                        batch_size=4, **common))
+            b_counts = read_counts()
+        assert set(launched(b_counts)) == {"joint_step"}, b_counts
+        step_s["suite batch"] = time.perf_counter() - t0
+    got, got_b = suite_texts(py["variants"]["base"][0]), suite_texts(bat["variants"]["base"][0])
+    log(f"import path: suite python (launches {launched(counts)}) {got}; batch B 4 (launches "
+        f"{launched(b_counts)}) {got_b}")
+    assert got[0] == want.text, (
+        f"import path: the suite's transcript {got[0]!r} differs from phase 3's f32_on arm's "
+        f"{want.text!r}")
+    assert got_b == got, "import path: the batch surface differs from the python surface"
+    assert got[0], "import path: no transcript of phase 3's utterance"
+    log(f"phase 3f seconds by step: { {k: round(v, 1) for k, v in step_s.items()} }")
 
 
 @contextlib.contextmanager
@@ -2877,18 +3039,9 @@ def gate_r3_entry_points(torch, dev, md, synth, tmp: str) -> None:
         assert res.returncode == 0, f"{label}: exit {res.returncode}\n{err[-3000:]}"
         check_no_jax_imported(label, err)
         assert "Error: " not in res.stdout + err, f"{label}: an error event"
-        saved = {k: os.environ.get(k) for k in flags}
-        os.environ.update(flags)
         buf = io.StringIO()
-        try:
-            with redirect_stdout(buf):
-                assert cli.main(base + extra + ["--device", "cpu"]) == 0
-        finally:
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
+        with env_overrides(flags), redirect_stdout(buf):
+            assert cli.main(base + extra + ["--device", "cpu"]) == 0
         got, want = entry_lines(res.stdout), entry_lines(buf.getvalue())
         lat = [ln for ln in err.splitlines() if ln.startswith("ChunkLatencyMs:")]
         log(f"gate_r3 {label} on the card ({wall:.1f} s, {lat[0] if lat else 'no latency line'}):"
@@ -3120,6 +3273,180 @@ def gate_r3_beam(torch, dev, md, synth, tmp: str) -> None:
     log(f"gate_r3 cli --beam (5 runs) and serve --beam 4 --lm on the card in {wall:.1f} s: "
         f"the daemon's three finals' n-best == the CPU engine's "
         f"({[len(served[k][0]['nbest']) for k in range(len(utts))]} hypotheses)")
+
+
+# --- phase 4c: gate_r3's WER gate ----------------------------------------------
+
+GATE_ARTIFACT = os.path.join(ROOT, "artifacts", "e2e_wer_gate_r3.json")
+GATE_ENVS = {   # a row's kernel flags, and the kernels they launch in the suite's process
+    "on": ({"TRT_ASR_PALLAS_ATT": "1", "TRT_ASR_PALLAS_JOINT": "1"}, {"att_block", "joint_step"}),
+    "joint": ({"TRT_ASR_PALLAS_JOINT": "1"}, {"joint_step"}),
+    # the JAX tool's native surface: int8 weights and the attention kernel
+    "fast": ({"TRT_ASR_QUANT": "all", "TRT_ASR_PALLAS_ATT": "1"}, {"att_block"}),
+    "f32_all": ({"TRT_ASR_PALLAS_ATT": "1", "TRT_ASR_PALLAS_JOINT": "1",
+                 "TRT_ASR_PALLAS_FFN": "1", "TRT_ASR_PALLAS_CONV": "1"},
+                {"att_block", "joint_step", "ffn", "conv_block"}),
+    "int8_all": ({"TRT_ASR_QUANT": "all", "TRT_ASR_PALLAS_ATT": "1", "TRT_ASR_PALLAS_JOINT": "1",
+                  "TRT_ASR_PALLAS_FFN": "1", "TRT_ASR_PALLAS_CONV": "1"},
+                 {"att_block", "joint_step", "ffn", "conv_ffn_ln"}),
+    "plain": ({}, set()),
+}
+
+
+def gate_r3_wer(torch, dev, md: str, tmp: str) -> None:
+    """Phase 4c: gate_r3's held-out set (``make_words(1120)``, ``make_set(50,
+    2, words, 8, 13)``: 502 reference words) through ``run_suite`` with
+    ``feature_norm="none"``, as the JAX gate runs it. Each row's WER counts
+    equal the committed artifact's (``artifacts/e2e_wer_gate_r3.json``):
+    python with the attention and joint kernels at sim 0.5 (0 errors, no
+    empty hypothesis) and under ``drop_time_carry`` (I = 436); the batch
+    surface (B = 4, joint kernel) at sim 0.3 (0 errors) and under sabotage at
+    0.5 (I = 436); the fast mode (int8, attention kernel) on the first 12
+    utterances, the native rows (0 errors at 0.3, I = 104 under sabotage at
+    0.5; 0 errors at 0.5 too). These four rows run through the gate runner
+    (``gate_row``: ``eval.gate.main`` with ``--artifact``). Every streaming
+    kernel in f32 and int8 (first 20 utterances): each hypothesis equals the port's CPU plain path with the same weights and
+    env. The cli surface (2 utterances, fast env; its imports by
+    ``PYTHONPROFILEIMPORTTIME``) equals the fast row; the beam (python,
+    ``beam=4``, 4 utterances) equals the greedy row. Counts are reset before
+    each in-process row and read after it. Logs the f32_on row's chunk ms
+    (p50, p95) and RTFx, and each row's seconds."""
+    from trt_asr_tpu_torch.eval import gate
+    from trt_asr_tpu_torch.eval.manifest import read_manifest, write_manifest
+    from trt_asr_tpu_torch.eval.suite import SuiteConfig, run_suite
+    from trt_asr_tpu_torch.eval.synthetic import make_set, make_words
+
+    with open(GATE_ARTIFACT) as f:
+        art = json.load(f)
+    clean, sab = art["clean"]["matrix"], art["sabotage_drop_time_carry"]["matrix"]
+    words = make_words(1120)
+    man = gate.write_eval_sets(tmp, words, make_set(50, 2, words, 8, 13), 0)["clean"]
+    entries = read_manifest(man)
+    subsets = {}
+
+    def first(n: int) -> str:
+        if n not in subsets:
+            subsets[n] = os.path.join(tmp, f"eval_clean_{n}.tsv")
+            write_manifest(subsets[n], entries[:n])
+        return subsets[n]
+
+    rows, row_s = {}, {}
+
+    def row(name: str, env: str, n: int = 50, sabotage: bool = False, device: str = "",
+            **kw) -> dict:
+        flags, want = GATE_ENVS[env]
+        flags = dict(flags, TRT_ASR_SABOTAGE="drop_time_carry" if sabotage else "")
+        t0 = time.perf_counter()
+        with env_overrides(flags):
+            reset_counts()
+            res = run_suite(SuiteConfig(manifest_path=first(n) if n < 50 else man,
+                                        out_dir=os.path.join(tmp, name), model_dir=md,
+                                        feature_norm="none", device=device, **kw))
+            counts = read_counts()
+        row_s[name] = time.perf_counter() - t0
+        r = res["variants"]["base"][0]
+        if device == "cpu" or kw["engine"] == "cli":     # the plain path; a subprocess
+            want = set()
+        assert set(launched(counts)) == want, (
+            f"gate_r3 WER[{name}] launched {counts}, expected {sorted(want)}")
+        w = r["wer"]
+        log(f"gate_r3 WER[{name}] {w['wer'] * 100:.2f}% (S={w['substitutions']} "
+            f"I={w['insertions']} D={w['deletions']} N={w['ref_words']} "
+            f"empty={w['empty_hypotheses']}), launches {launched(counts)}, "
+            f"{row_s[name]:.1f} s")
+        rows[name] = r
+        return r
+
+    def gate_row(name: str, env: str, surface: str, sims: tuple, n: int = 50,
+                 sabotage: bool = False) -> None:
+        """A row through the gate runner (``eval.gate.main`` with
+        ``--artifact``): its exit code (1 under sabotage, else 0), its
+        artifact's gate row and, at every granularity but the first, 0
+        errors (the push-granularity check); ``--sabotage`` restored after
+        the run. The row is the suite's round at the first granularity."""
+        flags, want = GATE_ENVS[env]
+        out = os.path.join(tmp, name)
+        argv = ["--model-dir", md, "--out-dir", out, "--eval-utts", str(n),
+                "--noise-snr-db", "0", "--variants", "base", "--surfaces", surface,
+                "--stream-sims", ",".join(str(x) for x in sims), "--batch-size", "4",
+                "--artifact", os.path.join(out, "gate.json")]
+        t0 = time.perf_counter()
+        with env_overrides(dict(flags, TRT_ASR_SABOTAGE="")):
+            reset_counts()
+            rc = gate.main(argv + (["--sabotage", "drop_time_carry"] if sabotage else []))
+            counts = read_counts()
+            assert os.environ["TRT_ASR_SABOTAGE"] == "", f"{name}: --sabotage outlived the run"
+        row_s[name] = time.perf_counter() - t0
+        assert set(launched(counts)) == want, (
+            f"gate_r3 WER[{name}] launched {counts}, expected {sorted(want)}")
+        with open(os.path.join(out, "gate.json")) as f:
+            written = json.load(f)
+        matrix, per_surface = written["matrix"], written["gate_per_surface"]
+        with open(os.path.join(out, f"suite_{surface}_clean_s{sims[0]}",
+                               "suite_results.json")) as f:
+            r = json.load(f)["variants"]["base"][0]
+        assert sorted(matrix) == sorted(f"{surface}/clean/base/sim{x}" for x in sims), matrix
+        assert matrix[f"{surface}/clean/base/sim{sims[0]}"] == r["wer"]
+        assert all(matrix[f"{surface}/clean/base/sim{x}"]["wer"] == 0 for x in sims[1:]), matrix
+        assert rc == int(sabotage) and per_surface[surface] == {
+            "wer": r["wer"]["wer"], "variant": "base", "pass": not sabotage}, (rc, per_surface)
+        w = r["wer"]
+        log(f"gate_r3 WER[{name}] through the gate runner: exit {rc}, {w['wer'] * 100:.2f}% "
+            f"(S={w['substitutions']} I={w['insertions']} D={w['deletions']} "
+            f"N={w['ref_words']} empty={w['empty_hypotheses']}), matrix {sorted(matrix)}, "
+            f"launches {launched(counts)}, {row_s[name]:.1f} s")
+        rows[name] = r
+
+    def same_counts(name: str, want: dict) -> None:
+        got = rows[name]["wer"]
+        assert got == want, f"gate_r3 WER[{name}]: {got} against the artifact's {want}"
+
+    row("f32_on", "on", engine="python", stream_sim=0.5)
+    same_counts("f32_on", clean["python/clean/base/sim0.5"])
+    lat, rtfx = rows["f32_on"]["latency_ms"], rows["f32_on"]["rtfx"]
+    log(f"gate_r3 WER[f32_on]: chunk ms p50 {lat['p50']:.3f} p95 {lat['p95']:.3f} mean "
+        f"{lat['mean']:.3f}, RTFx {rtfx:.1f} (the suite's wall over 50 utterances)")
+    row("sabotage", "on", sabotage=True, engine="python", stream_sim=0.5)
+    same_counts("sabotage", sab["python/clean/base/sim0.5"])
+    gate_row("batch", "joint", "batch", (0.3,))
+    same_counts("batch", clean["batch/clean/base/sim0.3"])
+    gate_row("batch_sabotage", "joint", "batch", (0.5,), sabotage=True)
+    same_counts("batch_sabotage", sab["batch/clean/base/sim0.5"])
+    gate_row("fast", "fast", "python", (0.3, 0.5), 12)
+    same_counts("fast", clean["native/clean/base/sim0.3"])
+    gate_row("fast_sabotage", "fast", "python", (0.5,), 12, sabotage=True)
+    same_counts("fast_sabotage", sab["native/clean/base/sim0.5"])
+    for env in ("f32_all", "int8_all"):
+        row(env, env, 20, engine="python", stream_sim=0.5)
+        row(f"{env}_cpu", env, 20, engine="python", stream_sim=0.5, device="cpu")
+        got, want = suite_texts(rows[env]), suite_texts(rows[f"{env}_cpu"])
+        diff = [k for k, (g, w) in enumerate(zip(got, want)) if g != w]
+        assert not diff, f"gate_r3 WER[{env}]: utterances {diff} differ from the CPU plain path"
+    # the cli surface: the CLI as a subprocess a utterance, its imports logged
+    logs, real_run = [], subprocess.run
+
+    def logged_run(cmd, **kw):
+        out = real_run(cmd, **kw)
+        logs.append(out.stderr)
+        return out
+
+    subprocess.run = logged_run
+    try:
+        with env_overrides({"PYTHONPROFILEIMPORTTIME": "1"}):
+            row("cli", "fast", 2, engine="cli", stream_sim=0.3)
+    finally:
+        subprocess.run = real_run
+    assert len(logs) == 2 and all(u["returncode"] == 0 for u in rows["cli"]["utterances"]), (
+        [u.get("stderr_tail") for u in rows["cli"]["utterances"]])
+    for k, err in enumerate(logs):
+        check_no_jax_imported(f"suite cli {k}", err)
+    assert suite_texts(rows["cli"]) == suite_texts(rows["fast"])[:2], (
+        f"gate_r3 WER[cli]: {suite_texts(rows['cli'])} against the fast row's")
+    row("beam4", "plain", 4, engine="python", stream_sim=0.5, beam=4)
+    assert suite_texts(rows["beam4"]) == suite_texts(rows["f32_on"])[:4], (
+        "gate_r3 WER[beam4]: transcripts differ from the greedy row's")
+    assert rows["beam4"]["wer"]["wer"] == 0.0
+    log(f"phase 4c seconds by row: { {k: round(v, 1) for k, v in row_s.items()} }")
 
 
 # --- phases 4 (offline part) and 5: offline batches ---------------------------
@@ -3386,6 +3713,7 @@ def full_width_offline(torch, dev, cfg, params, tok, audios):
 # --- phase 5b: training on the card -------------------------------------------
 
 TRAIN_LR = 1e-4          # phase 5b's constant AdamW learning rate (full width)
+TRAIN_STEPS = 3          # phase 5b's AdamW steps at full width, offline and streaming
 GATE_LR = 3e-4           # and gate_r3's fine-tuning one
 
 
@@ -3509,8 +3837,8 @@ def full_width_training(torch, dev, cfg, params, seed: int, step_s: dict) -> dic
     against the port's CPU path (offline); remat against no remat on the
     card (offline and streaming: the same loss, each leaf's gradients
     within 1e-4 of its largest; streaming's peak memory lower, offline's
-    logged); 5 AdamW steps at a constant lr (offline
-    and streaming: finite, the 5th loss under the 1st), their median step
+    logged); 3 AdamW steps at a constant lr (offline
+    and streaming: finite, the 3rd loss under the 1st), their median step
     ms and peak memory, and a profiled step."""
     from trt_asr_tpu_torch.models.parakeet.params import params_to
     from trt_asr_tpu_torch.train import make_optimizer, make_train_step, optim
@@ -3575,7 +3903,7 @@ def full_width_training(torch, dev, cfg, params, seed: int, step_s: dict) -> dic
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         losses, ms = [], []
-        for _ in range(5):
+        for _ in range(TRAIN_STEPS):
             t1 = time.perf_counter()
             p, o, m = step(p, o, batch)
             torch.cuda.synchronize()
@@ -3583,11 +3911,11 @@ def full_width_training(torch, dev, cfg, params, seed: int, step_s: dict) -> dic
             losses.append(float(m["loss"]))
         peak = (torch.cuda.max_memory_allocated() - base) / 2**30
         prof = profile_step(torch, mode, lambda: step(p, o, batch))
-        log(f"train[{mode}] 5 steps: losses {[round(x, 4) for x in losses]}, step ms "
+        log(f"train[{mode}] {TRAIN_STEPS} steps: losses {[round(x, 4) for x in losses]}, step ms "
             f"{[round(x, 1) for x in ms]} (median {np.median(ms):.1f}), peak memory above the "
             f"weights {peak:.3f} GiB")
         assert all(np.isfinite(losses)), f"train[{mode}]: a loss is not finite"
-        assert losses[4] < losses[0], f"train[{mode}]: the 5th loss is not under the 1st"
+        assert losses[-1] < losses[0], f"train[{mode}]: the last loss is not under the 1st"
         out[mode] = dict(losses=losses, step_ms=float(np.median(ms)), peak_gib=peak, **prof)
         del p, o, m
         t0 = lap(step_s, f"{mode} steps", t0)
@@ -3783,6 +4111,8 @@ def main() -> int:
     phase_s["3d beam"], t0 = time.perf_counter() - t0, time.perf_counter()
     phase_3e(torch, dev, cfg, params, tok, args.words, args.seed, sess)
     phase_s["3e per-step, goldens, debug"], t0 = time.perf_counter() - t0, time.perf_counter()
+    import_path(torch, dev, cfg, params, tok, args.words, args.seed, sess["f32_on"]["tokens"])
+    phase_s["3f import"], t0 = time.perf_counter() - t0, time.perf_counter()
     md = os.path.join(ROOT, "artifacts", "models", "gate_r3")
     gate_r3_session(torch, dev)
     gate_r3_offline(torch, dev)
@@ -3791,6 +4121,8 @@ def main() -> int:
         phase_s["4 gate_r3"], t0 = time.perf_counter() - t0, time.perf_counter()
         gate_r3_beam(torch, dev, md, synth_module(), tmp)
         phase_s["4b gate_r3 beam"], t0 = time.perf_counter() - t0, time.perf_counter()
+        gate_r3_wer(torch, dev, md, tmp)
+        phase_s["4c gate_r3 WER"], t0 = time.perf_counter() - t0, time.perf_counter()
     params["joint"]["out"]["b"][cfg.blank_id] -= bias        # phase 5 searches its own
     sess.update(full_width_offline(torch, dev, cfg, params, tok, audios))
     phase_s["5 offline"], t0 = time.perf_counter() - t0, time.perf_counter()
@@ -3811,7 +4143,10 @@ def main() -> int:
                                                  "parity", "decode.host_decode",
                                                  "debug.tdt_trace", "debug.stage_markers",
                                                  "debug.nan_guard", "debug.snapshot",
-                                                 "debug.taps", "debug.profiler")]
+                                                 "debug.taps", "debug.profiler",
+                                                 "eval.wer", "eval.suite", "eval.synthetic",
+                                                 "eval.gate", "io.onnx_lite", "io.onnx_graphs",
+                                                 "io.onnx_weights")]
     assert all(m in sys.modules for m in entry), "the entry points' modules were not run"
 
     kernels = []

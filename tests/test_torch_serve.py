@@ -139,27 +139,51 @@ def test_concurrent_clients_match_port_and_jax_engines(models):
         assert toks, f"stream {k}: degenerate, no tokens"
 
 
-def _error_script(srv) -> list:
+def _reply(conn, events) -> dict:
+    """The next reply (a message with ``ok``) on ``conn``; the event messages
+    that come before it go to ``events``: the engine queues an ERROR event
+    for a malformed request besides its reply, and the step loop forwards
+    it whenever it runs, so under load it lands between replies."""
+    while True:
+        msg = conn.recv()
+        if "ok" in msg:
+            return msg
+        events.append(msg)
+
+
+def _drain(conn, events, quiet_s=1.0) -> None:
+    """Move the events still on their way to ``events``: read until
+    ``quiet_s`` passes without a message."""
+    conn.sock.settimeout(quiet_s)
+    try:
+        while True:
+            events.append(conn.recv())
+    except (TimeoutError, socket.timeout, ConnectionError):
+        pass
+
+
+def _error_script(srv) -> tuple:
     """Malformed and over-capacity requests on a batch_size=1 daemon; the
-    replies in order."""
-    out = []
+    replies in order, and the events the daemon sent besides them."""
+    out, events = [], []
     c1 = _Conn(srv.addr)
     c2 = None
     try:
         c1.send({"op": "open"})
-        out.append(c1.recv())
+        out.append(_reply(c1, events))
         c2 = _Conn(srv.addr)
         for raw in (b'{"op": "open"}\n', b'{"op": "push", "pcm": ""}\n',
                     b'not json\n{"op": "info"}\n', b'{"op": "frobnicate"}\n'):
             c2.send_raw(raw)
-            out.append(c2.recv())
-        out.append(c2.recv())                      # the last reply of the four sends
+            out.append(_reply(c2, events))
+        out.append(_reply(c2, events))             # the last reply of the four sends
         for msg in ({"op": "push_features", "frames": 2,
                      "feats": base64.b64encode(np.zeros(10, np.float32).tobytes()).decode()},
                     {"op": "push", "pcm": "@@not base64@@"},
                     {"op": "frobnicate"}, {"op": "finalize"}):
             c1.send(msg)
-            out.append(c1.recv())
+            out.append(_reply(c1, events))
+        _drain(c1, events)
     finally:
         for c in (c1, c2):
             if c is not None:
@@ -170,27 +194,30 @@ def _error_script(srv) -> list:
         c3 = _Conn(srv.addr)
         try:
             c3.send({"op": "open"})
-            r = c3.recv()
+            r = _reply(c3, events)
         finally:
             c3.close()
         if r["ok"] or time.monotonic() > deadline:
             out.append(r)
-            return out
+            return out, events
         time.sleep(0.1)
 
 
 def test_error_replies_match_jax_daemon(models):
     jm, pm = models
-    replies = []
+    replies, events = [], []
     for server_cls, model, rt in ((JServer, jm, JRuntime(**RT)),
                                   (AsrServer, pm, RuntimeConfig(**RT))):
         srv = server_cls(model, batch_size=1, runtime=rt).start(warmup=False)
         try:
-            replies.append(_error_script(srv))
+            r, e = _error_script(srv)
         finally:
             srv.stop()
+        replies.append(r)
+        events.append(e)
     got, want = replies
     assert got == want
+    assert events[0] == events[1]
     assert got[1]["ok"] is False and "busy" in got[1]["error"]
     assert [r["info"] for r in got if "info" in r] == [{"batch_size": 1,
                                                         "n_mels": pm.cfg.feat_in}]

@@ -8,9 +8,10 @@ Same field names, defaults and env-var names (``TRT_ASR_*``, with the
 
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass
-from typing import TYPE_CHECKING, Optional, Tuple
+from typing import TYPE_CHECKING, Dict, Iterator, Optional, Tuple
 
 if TYPE_CHECKING:
     from trt_asr_tpu_torch.contract import Contract
@@ -142,6 +143,22 @@ def _env(name: str, alias=None) -> Optional[str]:
             if v is not None:
                 break
     return v
+
+
+@contextlib.contextmanager
+def env_overrides(values: Dict[str, str]) -> Iterator[None]:
+    """``values`` in ``os.environ`` for a block, each variable restored
+    (or removed) after it."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def _env_bool(name: str, alias, default: bool) -> bool:

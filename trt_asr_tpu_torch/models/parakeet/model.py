@@ -111,14 +111,8 @@ class ParakeetTDT:
         return cls(cfg, params, tok, runtime=runtime, device=device, weights_dtype=weights_dtype)
 
     def save_model_dir(self, model_dir: str) -> None:
-        """Write the model-dir format :meth:`from_model_dir` and the JAX
-        package's ``ParakeetTDT.from_model_dir`` read: ``config.json``, the
-        checkpoint (``params.npz`` + ``manifest.json``) and ``vocab.txt``."""
-        os.makedirs(model_dir, exist_ok=True)
-        with open(os.path.join(model_dir, "config.json"), "w") as f:
-            json.dump(dataclasses.asdict(self.cfg), f, indent=1)
-        save_checkpoint(model_dir, self.params, meta={"model": "parakeet-tdt"})
-        write_vocab(os.path.join(model_dir, "vocab.txt"), self.tokenizer.vocab)
+        """Write the model dir of this model (:func:`write_model_dir`)."""
+        write_model_dir(model_dir, self.cfg, self.params, self.tokenizer.vocab)
 
     @classmethod
     def random(cls, cfg: Optional[ModelConfig] = None, seed: int = 0,
@@ -275,6 +269,18 @@ class ParakeetTDT:
             blank_penalty=rt.blank_penalty, punct_token_ids=punct_ids,
             lm_fn=lm_fn, lm_weight=lm_weight, joint_batch_fn=j_batch)
         return [(self.tokenizer.decode(h.tokens), list(h.tokens), h.score) for h in hyps]
+
+
+def write_model_dir(model_dir: str, cfg: ModelConfig, params, vocab: Sequence[str]) -> None:
+    """Write the model-dir format :meth:`ParakeetTDT.from_model_dir` and the
+    JAX package's ``ParakeetTDT.from_model_dir`` read: ``config.json``, the
+    checkpoint of a torch or numpy tree (``params.npz`` + ``manifest.json``)
+    and ``vocab.txt``."""
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=1)
+    save_checkpoint(model_dir, params, meta={"model": "parakeet-tdt"})
+    write_vocab(os.path.join(model_dir, "vocab.txt"), vocab)
 
 
 def _is_numpy_tree(tree) -> bool:

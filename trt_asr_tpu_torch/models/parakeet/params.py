@@ -22,7 +22,9 @@ from trt_asr_tpu_torch.config import ModelConfig
 from trt_asr_tpu_torch.ops.quant import QuantTensor
 
 
-def _normal(rng: np.random.Generator, shape, fan_in: int) -> np.ndarray:
+def _normal(rng: np.random.Generator | None, shape, fan_in: int) -> np.ndarray:
+    if rng is None:         # a skeleton: nothing drawn
+        return np.empty(shape, np.float32)
     return (rng.standard_normal(shape) / math.sqrt(max(fan_in, 1))).astype(np.float32)
 
 
@@ -30,7 +32,17 @@ def init_params_numpy(cfg: ModelConfig, seed: int = 0) -> Dict[str, Any]:
     """Seeded random weights as numpy arrays. Draws the same
     ``default_rng(seed)`` sequence in the same order as the JAX package's
     ``init_params``, so both give the same weights."""
-    rng = np.random.default_rng(seed)
+    return _param_tree(cfg, np.random.default_rng(seed))
+
+
+def empty_params_numpy(cfg: ModelConfig) -> Dict[str, Any]:
+    """The tree of :func:`init_params_numpy` (structure, shapes, dtypes and
+    its constant leaves) with the random leaves left unset (``np.empty``):
+    the skeleton of a loader that writes every leaf, at no draw's cost."""
+    return _param_tree(cfg, None)
+
+
+def _param_tree(cfg: ModelConfig, rng: np.random.Generator | None) -> Dict[str, Any]:
     d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
     ed = cfg.d_model * cfg.ff_expansion_factor
     c = cfg.subsampling_conv_channels
@@ -142,13 +154,16 @@ def params_from_numpy(tree, device="cpu"):
 
 def params_to_numpy(tree):
     """Inverse of :func:`params_from_numpy`: torch tree -> numpy arrays
-    (QuantTensor leaves keep their int8 + scale form)."""
+    (QuantTensor leaves keep their int8 + scale form; numpy leaves are kept
+    as they are)."""
     if isinstance(tree, QuantTensor):
         return QuantTensor(params_to_numpy(tree.q), params_to_numpy(tree.s))
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_to_numpy(v) for v in tree]
+    if isinstance(tree, np.ndarray):        # a numpy leaf passes through
+        return tree
     return tree.detach().cpu().numpy()
 
 
@@ -186,14 +201,14 @@ def cast_params_for_compute(params, dtype: torch.dtype):
 
 
 def num_params(params: Dict[str, Any]) -> int:
-    """Number of values in a float tree (an int8 leaf counts its ``q`` and
-    its scales)."""
+    """Number of values in a float tree of torch or numpy leaves (an int8
+    leaf counts its ``q`` and its scales)."""
     def count(node) -> int:
         if isinstance(node, dict):
             return sum(count(v) for v in node.values())
         if isinstance(node, (list, tuple)):
             return sum(count(v) for v in node)
-        return node.numel()
+        return node.size if isinstance(node, np.ndarray) else node.numel()
     return count(params)
 
 

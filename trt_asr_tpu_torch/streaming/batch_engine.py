@@ -262,9 +262,11 @@ class BatchStreamingEngine:
         if feats.size:
             feats = np.asarray(feats, np.float32)
             if feats.ndim != 2 or feats.shape[1] != self.cfg.feat_in:
-                msg = f"push_features: expected [T, {self.cfg.feat_in}] features, got {feats.shape}"
-                self._error(sid, msg)
-                raise ValueError(msg)
+                # the event's text and the exception's are JAX's, which differ
+                self._error(sid, f"push_features: expected [T, {self.cfg.feat_in}], got "
+                                 f"{feats.shape}")
+                raise ValueError(f"push_features: expected [T, {self.cfg.feat_in}] features, "
+                                 f"got {feats.shape}")
             self._bufs[sid] = np.concatenate([self._bufs[sid], feats], axis=0)
 
     def finalize_stream(self, sid: int) -> None:
