@@ -146,7 +146,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    launches a step. An error event or a ``step error`` fails it.
 3d. beam search at full width (the phase-3 weights and blank bias, f32,
    TF32 off, kernels off as on every beam path; the utterance phase 3
-   makes at 12 words, ~6 s, in 0.5 s pushes, whatever ``--words`` is;
+   makes at 8 words, ~4 s (cut from 12 for phase 3g's time), in 0.5 s
+   pushes, whatever ``--words`` is;
    every check below runs on all of it): ``BeamStreamingSession(beam=4)`` on the host and on the
    device give the same n-best (tokens, ranking and stamps exact, scores
    within 2e-3); device beam 1 equals the greedy session; the device beam
@@ -199,6 +200,31 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    phase 3's utterance as phase 3's ``f32_on`` arm does on the same audio,
    and the batch surface (B = 4, joint kernel) equals the python surface.
    Bytes written and the seconds of export, import and suite.
+3g. the runtime layer (run after 4c, in its temporary directory). (a)
+   phase 3's weights and ``f32_all`` flags: ``build_engines`` (the
+   session's four programs and the lockstep program at B = 8, smoke checks,
+   the 20 kernel libraries copied) and ``EngineSet.load``; a session
+   served from the set on phase 3's utterance counts a hit a chunk and no
+   miss (the set covers every chunk's signature), and equals the
+   ``f32_all`` arm token for token with the arm's launches of every
+   kernel; the engine at B = 8 served from it on 3b's utterances counts
+   no miss and equals 3b's f32 tokens; served and live steady-chunk host
+   ms logged. A program is the chunk step itself, so served and live run
+   the same code: what (a) can catch is a set that misses. (b) gate_r3
+   cold starts, each a fresh process, timed from its start to the first
+   FINAL: phase 4's CLI with ``--compile-cache`` on an empty directory
+   (the libraries its path launches built into it, one at a time as
+   reached), again with the cache warm (nothing built), and the daemon
+   (B = 4) from an engine set built by ``engine_build.main`` with an
+   empty compile cache, which stays empty (the daemon built nothing: its
+   libraries are the set's); each transcript equals phase 4's. (c) a
+   library with one byte flipped raises the sha256 error; a set built
+   under quant "joint" warns at a quant "none" load, and a session misses
+   every chunk (counted). (d) the C-ABI bridge's Python side on the card:
+   events, text, ``stable_text`` and words equal a Python session's on
+   the same float32 pieces. (e) ``transcribe_batch(mesh=make_mesh())`` and
+   the engine at B = 4 with ``mesh=`` equal their ``mesh=None`` runs.
+   Seconds by part.
 4. the trained ``artifacts/models/gate_r3`` on the card with the kernels
    on, each token-exact against the port's CPU plain path: attention,
    joint and log-mel kernels in f32, int8 and bf16; every kernel in f32,
@@ -286,8 +312,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    contract's, the golden runner's, the debug surface's, the eval suite's
    (``eval.wer``, ``eval.suite``, ``eval.synthetic``, ``eval.gate``) and
    the ONNX path's (``io.onnx_lite``, ``io.onnx_graphs``,
-   ``io.onnx_weights``; ``import_onnx`` in its subprocess) modules were
-   run.
+   ``io.onnx_weights``; ``import_onnx`` in its subprocess) and the runtime
+   layer's (``runtime.engine``, ``runtime.platform``,
+   ``runtime.capi_bridge``, ``parallel.mesh``, ``engine_build``) modules
+   were run.
 
 Each phase's seconds are logged. The last line is ``{"ok": true, "device":
 {...}}``; the line before it is
@@ -299,6 +327,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import math
 import os
@@ -311,7 +340,7 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-BEAM_WORDS = 12                    # phase 3d's utterance (about 6 s), whatever --words is
+BEAM_WORDS = 8                     # phase 3d's utterance (about 4 s), whatever --words is
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"f32": 67e12,          # f32 outside the tensor cores
             "bf16": 989e12}        # dense bf16 tensor-core rate
@@ -1923,7 +1952,8 @@ def full_width_engine(torch, dev, cfg, params, tok):
     f32: each stream's tokens equal its own session's on the card
     (attention kernel off, joint kernel on, the engine's chunk profile).
     bf16: each stream's encoder output lies within twice the distance its
-    session moves when its features move by 1e-6."""
+    session moves when its features move by 1e-6. Returns each arm's tokens
+    by stream."""
     from trt_asr_tpu_torch.config import RuntimeConfig
     from trt_asr_tpu_torch.ops.kernels.joint_step import joint_step
     from trt_asr_tpu_torch.streaming import batch_engine
@@ -1934,6 +1964,7 @@ def full_width_engine(torch, dev, cfg, params, tok):
     audios = engine_audios()
     b, piece = len(audios), 8000
     rt = RuntimeConfig(use_pallas_joint=True)
+    tokens = {}
     for arm, wdt in (("f32", None), ("bf16", torch.bfloat16)):
         t_arm = time.perf_counter()
         model = make_model(torch, cfg, params, tok, rt, dev, False, wdt)
@@ -1976,7 +2007,7 @@ def full_width_engine(torch, dev, cfg, params, tok):
             batch_engine._batch_step = real_step
         counts = read_counts()
         torch.cuda.synchronize()
-        got = {k: list(eng._tokens[sid]) for k, sid in enumerate(sids)}
+        got = tokens[arm] = {k: list(eng._tokens[sid]) for k, sid in enumerate(sids)}
         per_stream = {k: [x for r, x in rows if r == sid] for k, sid in enumerate(sids)}
         lat = np.asarray(eng.step_latencies_ms)
         mixed = sum(len(d) > 1 for d in steps)
@@ -2020,6 +2051,7 @@ def full_width_engine(torch, dev, cfg, params, tok):
         profile_engine_joint(torch, model, rt, audios, piece, arm)
         log(f"engine[{arm}]: {time.perf_counter() - t_arm:.1f} s for the arm")
         del model, eng
+    return tokens
 
 
 def profile_engine_joint(torch, model, rt, audios, piece: int, arm: str) -> None:
@@ -2993,7 +3025,7 @@ def entry_lines(text: str) -> list:
             if ln.startswith(("Final: ", "Transcript: ", "Word: ", "Segment: "))]
 
 
-def gate_r3_entry_points(torch, dev, md, synth, tmp: str) -> None:
+def gate_r3_entry_points(torch, dev, md, synth, tmp: str) -> dict:
     """Phase 4, the user's entry points as subprocesses on the card:
     ``python -m trt_asr_tpu_torch.cli`` on a wav of two gate_r3 utterances
     1 s apart (``--stream-sim 0.5 --no-sleep --timestamps``, attention and
@@ -3003,7 +3035,9 @@ def gate_r3_entry_points(torch, dev, md, synth, tmp: str) -> None:
     joint kernel): two clients' tokens equal the CPU engine's. Each
     subprocess imports nothing of JAX (``-X importtime``), exits 0 (the
     daemon is terminated) and reports no error. ``--feature-norm none``:
-    gate_r3 was trained without per_feature normalization."""
+    gate_r3 was trained without per_feature normalization. Returns what
+    phase 3g holds its cold starts to: the wav, its utterances, the CLI's
+    lines and the daemon's tokens."""
     import io
     import queue
     import threading
@@ -3047,6 +3081,8 @@ def gate_r3_entry_points(torch, dev, md, synth, tmp: str) -> None:
         log(f"gate_r3 {label} on the card ({wall:.1f} s, {lat[0] if lat else 'no latency line'}):"
             f" {[ln for ln in got if not ln.startswith('Word: ')]}")
         assert got == want, f"{label}: the card's lines differ from the CPU's: {want}"
+        if not extra:
+            cli_lines = got
         transcript = [ln for ln in got if ln.startswith("Transcript: ")]
         assert len(transcript) == 1 and len(transcript[0].split()) > 1, f"{label}: {got}"
         if extra:
@@ -3101,6 +3137,8 @@ def gate_r3_entry_points(torch, dev, md, synth, tmp: str) -> None:
         f"engine {want}")
     assert got == want, "serve: the card's tokens differ from the CPU engine's"
     assert [len(t) for t in got] == [len(w) for w in words], "serve: one token a word expected"
+    return {"wav": wav, "utts": utts, "cli_base": base, "cli_env": flags, "cli_lines": cli_lines,
+            "serve_tokens": got}
 
 
 def nbest_of(lines) -> list:
@@ -3447,6 +3485,342 @@ def gate_r3_wer(torch, dev, md: str, tmp: str) -> None:
         "gate_r3 WER[beam4]: transcripts differ from the greedy row's")
     assert rows["beam4"]["wer"]["wer"] == 0.0
     log(f"phase 4c seconds by row: { {k: round(v, 1) for k, v in row_s.items()} }")
+
+
+# --- phase 3g: the runtime layer ------------------------------------------------
+
+
+def push_pieces(sess, audio, piece: int):
+    for i in range(0, len(audio), piece):
+        sess.push_audio(audio[i:i + piece])
+    sess.finalize()
+    return sess
+
+
+def steady(lat) -> tuple:
+    """(median, p90) host ms of the steady chunks (the first and last cut)."""
+    s = np.asarray(lat[1:-1])
+    return float(np.median(s)), float(np.percentile(s, 90))
+
+
+def runtime_full_width(torch, dev, cfg, params, tok, n_words: int, seed: int, f32_all: dict,
+                       engine_f32: dict, tmp: str, step_s: dict) -> None:
+    """Phase 3g (a): phase 3's weights and ``f32_all`` flags. ``build_engines``
+    (the session's four programs and the lockstep program at B = 8, with
+    smoke checks) and ``EngineSet.load``; a session served from the set on
+    phase 3's utterance counts a hit a chunk and no miss, and equals the
+    ``f32_all`` arm's tokens and launches of every kernel; the engine at
+    B = 8 served from it on phase 3b's utterances counts no miss and equals
+    3b's f32 tokens. Served against live steady-chunk host ms are logged,
+    no claim: a hit runs the same step as a miss."""
+    from trt_asr_tpu_torch.config import RuntimeConfig
+    from trt_asr_tpu_torch.contract import FrontendSpec
+    from trt_asr_tpu_torch.frontend.logmel import LogMelFrontend
+    from trt_asr_tpu_torch.ops.kernels import build
+    from trt_asr_tpu_torch.runtime.engine import EngineSet, build_engines
+    from trt_asr_tpu_torch.streaming.batch_engine import BatchStreamingEngine
+    from trt_asr_tpu_torch.streaming.session import StreamingSession
+
+    t0 = time.perf_counter()
+    rt = RuntimeConfig(use_pallas_att=True, use_pallas_joint=True, use_pallas_ffn=True,
+                       use_pallas_conv=True)
+    model = make_model(torch, cfg, params, tok, rt, dev, True)
+    out = os.path.join(tmp, "engines_full_width")
+    t1 = time.perf_counter()
+    manifest = build_engines(model, out, runtime=rt, smoke=True, batch_sizes=(8,))
+    built_s = time.perf_counter() - t1
+    eng, libs = manifest["engines"], manifest["libraries"]
+    log(f"runtime[build]: {len(eng)} programs "
+        f"({ {k: (e['feats_shape'], e['bytes'], e['run_s']) for k, e in eng.items()} }"
+        f": feats, record B, run s), {len(libs)} kernel libraries "
+        f"({sum(e['bytes'] for e in libs.values())} B), {built_s:.1f} s")
+    assert set(eng) == {"chunk0", "steady", "flush0", "flush", "batch8"}
+    assert all(e["smoke"]["ok"] for e in eng.values()) and set(libs) == set(build.SOURCES)
+    t1 = time.perf_counter()
+    es = EngineSet.load(out, runtime=rt)
+    log(f"runtime[load]: {len(es)} programs, sha256-verified and bound, "
+        f"{time.perf_counter() - t1:.2f} s")
+    rng = np.random.default_rng(seed)            # phase 3's utterance, as phase 3 draws it
+    audio = synth_module().synth_utterance(list(rng.integers(0, 1120, size=n_words)), rng)
+    piece = 8000
+    live = push_pieces(StreamingSession(model, rt), audio, piece)
+    torch.cuda.synchronize()
+    reset_counts()
+    served = push_pieces(StreamingSession(model, rt, engines=es), audio, piece)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n = len(served.chunk_latencies_ms)
+    log(f"runtime[session]: {n} chunks, hits {served.engine_hits}, misses "
+        f"{served.engine_misses}, {len(served.tokens)} tokens, launches "
+        f"{ {k: round(v / n, 2) for k, v in launched(counts).items()} }/chunk (f32_all: "
+        f"{ {k: round(v / f32_all['n_chunks'], 2) for k, v in launched(f32_all['counts']).items()} }"
+        f"); steady-chunk host ms (median, p90) served {steady(served.chunk_latencies_ms)}, "
+        f"live {steady(live.chunk_latencies_ms)}")
+    assert served.engine_misses == 0 and served.engine_hits == n == f32_all["n_chunks"]
+    assert served.tokens == f32_all["tokens"], "runtime: served tokens differ from f32_all's"
+    assert counts == f32_all["counts"], f"runtime: launches {counts} != f32_all's"
+    # the engine as phase 3b runs it: the plain log-mel frontend, joint kernel
+    model.frontend = LogMelFrontend(FrontendSpec(n_mels=cfg.feat_in), use_kernel=False,
+                                    device=dev)
+    audios = engine_audios()
+    eng8 = BatchStreamingEngine(model, batch_size=len(audios), runtime=rt, engines=es)
+    warm_s = eng8.warmup()
+    sids = [eng8.open_stream() for _ in audios]
+    for i in range(0, max(map(len, audios)), piece):
+        for sid, a in zip(sids, audios):
+            if i < len(a):
+                eng8.push_audio(sid, a[i:i + piece])
+        eng8.step()
+    for sid in sids:
+        eng8.finalize_stream(sid)
+    eng8.run_until_drained()
+    got = {k: list(eng8._tokens[sid]) for k, sid in enumerate(sids)}
+    lat = eng8.step_latencies_ms
+    log(f"runtime[engine B 8]: warm-up {warm_s:.2f} s, {len(lat)} steps, "
+        f"hits {eng8.engine_hits}, misses {eng8.engine_misses}, step ms median "
+        f"{float(np.median(lat)):.3f}; tokens == 3b's f32 run: {got == engine_f32}")
+    assert eng8.engine_misses == 0 and eng8.engine_hits == len(lat)
+    assert got == engine_f32, "runtime: the served engine's tokens differ from 3b's"
+    step_s["a full width"] = time.perf_counter() - t0
+    del model, eng8
+
+
+def until_final(cmd, env, err_path: str, timeout: float = 300.0):
+    """Run ``cmd``; (seconds from its start to its first ``Final:`` line, its
+    stdout, its stderr)."""
+    t0 = time.perf_counter()
+    t_final = None
+    with open(err_path, "w") as ferr:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=ferr,
+                                text=True)
+        try:
+            out = []
+            for line in proc.stdout:
+                out.append(line)
+                if t_final is None and line.startswith("Final: "):
+                    t_final = time.perf_counter() - t0
+            rc = proc.wait(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    with open(err_path) as f:
+        err = f.read()
+    assert rc == 0, f"{cmd[3:6]}: exit {rc}\n{err[-3000:]}"
+    assert t_final is not None, f"{cmd[3:6]}: no Final line"
+    return t_final, "".join(out), err
+
+
+def runtime_cold_starts(torch, md: str, p4: dict, tmp: str, step_s: dict) -> str:
+    """Phase 3g (b): time from a fresh process's start to its first FINAL on
+    gate_r3: the CLI (phase 4's command, attention and joint kernels) with
+    ``--compile-cache`` on an empty directory (the libraries its path
+    launches built into it as reached), the same again with the cache warm
+    (nothing built), and the daemon (B = 4, joint kernel) serving phase 4's
+    first utterance to one client from an engine set that ``python -m
+    trt_asr_tpu_torch.engine_build``'s ``main`` built in this process (then
+    ``--inspect``), with an empty compile cache: every build would land
+    there, and it stays empty. Each transcript equals phase 4's; no
+    subprocess imports JAX. Returns the engine set's directory."""
+    import queue
+    import threading
+
+    from trt_asr_tpu_torch import engine_build, serve
+
+    t0 = time.perf_counter()
+    cache = os.path.join(tmp, "compile_cache")
+    env = dict(os.environ, PYTHONPATH=ROOT, **p4["cli_env"])
+    times = {}
+    for label in ("cold", "warm"):
+        t, out, err = until_final([sys.executable, "-X", "importtime", "-m",
+                                   "trt_asr_tpu_torch.cli"] + p4["cli_base"]
+                                  + ["--compile-cache", cache],
+                                  env, os.path.join(tmp, f"cli_{label}.txt"))
+        check_no_jax_imported(f"cli {label}", err)
+        assert entry_lines(out) == p4["cli_lines"], f"cli {label}: lines differ from phase 4's"
+        built = sorted(p for p in os.listdir(cache) if p.endswith(".so"))
+        times[f"cli, compile cache {label}"] = t
+        log(f"runtime[cold start]: cli, compile cache {label}: {t:.2f} s from process start to "
+            f"the first FINAL, libraries in the cache {built}, lines == phase 4's")
+        if label == "cold":
+            cold_built = built
+        assert built and built == cold_built, "the warm run built a library"
+    # an engine set for the daemon: its lockstep program at B 4, joint kernel
+    eng_dir = os.path.join(tmp, "engines_gate_r3")
+    t1 = time.perf_counter()
+    buf = io.StringIO()
+    with env_overrides({"TRT_ASR_PALLAS_JOINT": "1"}), contextlib.redirect_stdout(buf):
+        assert engine_build.main(["--model-dir", md, "--outdir", eng_dir, "--batch", "4"]) == 0
+        assert engine_build.inspect(eng_dir) == 0
+    said = buf.getvalue().splitlines()
+    log(f"runtime[engine_build]: {time.perf_counter() - t1:.1f} s: {said[0]}; --inspect: "
+        f"{[ln for ln in said if ln.startswith('loaded')][0]}")
+    empty = os.path.join(tmp, "empty_cache")
+    env = dict(os.environ, PYTHONPATH=ROOT, TRT_ASR_PALLAS_JOINT="1",
+               TRT_ASR_COMPILE_CACHE=empty)
+    errf = os.path.join(tmp, "serve_engines.txt")
+    t1 = time.perf_counter()
+    with open(errf, "w") as ferr:
+        proc = subprocess.Popen([sys.executable, "-X", "importtime", "-m",
+                                 "trt_asr_tpu_torch.serve", "--model-dir", md, "--port", "0",
+                                 "--batch-size", "4", "--engines", eng_dir],
+                                cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=ferr, text=True)
+        try:
+            lines: queue.Queue = queue.Queue()
+            threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                             daemon=True).start()
+            said = []
+            while not said or "listening on" not in said[-1]:
+                said.append(lines.get(timeout=120))
+            port = int(said[-1].split("listening on ")[1].split()[0].rsplit(":", 1)[1])
+            out = {}
+            served_client(serve, ("127.0.0.1", port), p4["utts"][0], 8000, out, 0)
+            t = time.perf_counter() - t1
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+    with open(errf) as f:
+        err = f.read()
+    check_no_jax_imported("serve --engines", err)
+    assert "step error" not in err and not isinstance(out[0], Exception), (out, err[-3000:])
+    assert any("engines: 5 programs, 20 kernel libraries" in ln for ln in said), said
+    got = out[0][0]["tokens"]
+    times["daemon, engine set"] = t
+    log(f"runtime[cold start]: daemon --engines (empty compile cache, left empty): "
+        f"{t:.2f} s from process start to the client's FINAL; {said[0].strip()}; tokens {got} "
+        f"(phase 4: {p4['serve_tokens'][0]})")
+    assert got == p4["serve_tokens"][0], "serve --engines: tokens differ from phase 4's"
+    assert os.listdir(empty) == [], f"the daemon built into its compile cache: {os.listdir(empty)}"
+    log(f"runtime[cold start] seconds to the first FINAL: { {k: round(v, 2) for k, v in times.items()} }")
+    step_s["b cold starts"] = time.perf_counter() - t0
+    return eng_dir
+
+
+def runtime_refusals(torch, dev, md: str, eng_dir: str, p4: dict, tmp: str, step_s: dict) -> None:
+    """Phase 3g (c): a library with one byte flipped raises the sha256 error;
+    a set built under another quant scope warns at load, and a session then
+    misses every chunk (counted) and runs its own step, token-exact."""
+    import warnings
+
+    from trt_asr_tpu_torch.config import RuntimeConfig
+    from trt_asr_tpu_torch.models.parakeet.model import ParakeetTDT
+    from trt_asr_tpu_torch.runtime.engine import EngineSet, build_engines
+    from trt_asr_tpu_torch.streaming.session import StreamingSession
+
+    t0 = time.perf_counter()
+    bad = os.path.join(tmp, "engines_flipped")
+    shutil.copytree(eng_dir, bad)
+    lib = os.path.join(bad, "libs", sorted(os.listdir(os.path.join(bad, "libs")))[0])
+    data = bytearray(open(lib, "rb").read())
+    data[len(data) // 2] ^= 1
+    open(lib, "wb").write(bytes(data))
+    try:
+        EngineSet.load(bad)
+        raise AssertionError("runtime: a flipped library byte was not refused")
+    except ValueError as e:
+        assert "sha256 mismatch" in str(e), e
+        log(f"runtime[refusal]: {os.path.basename(lib)} with one byte flipped: {e}")
+    rt = RuntimeConfig(use_pallas_joint=True)
+    q_rt = RuntimeConfig(use_pallas_joint=True, quant="joint")
+    q_dir = os.path.join(tmp, "engines_quant_joint")
+    build_engines(ParakeetTDT.from_model_dir(md, runtime=q_rt, device=dev), q_dir, runtime=q_rt,
+                  smoke=False)
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        es = EngineSet.load(q_dir, runtime=rt)
+    said = [str(x.message) for x in w]
+    assert any("quant=joint" in m for m in said), said
+    model = ParakeetTDT.from_model_dir(md, runtime=rt, device=dev)
+    served = push_pieces(StreamingSession(model, rt, engines=es), p4["utts"][0], 8000)
+    live = push_pieces(StreamingSession(model, rt), p4["utts"][0], 8000)
+    n = len(served.chunk_latencies_ms)
+    log(f"runtime[refusal]: a quant='joint' set loaded for quant='none': warned "
+        f"({said[0][:90]}...); {served.engine_misses} misses of {n} chunks, tokens == live: "
+        f"{served.tokens == live.tokens}")
+    assert served.engine_hits == 0 and served.engine_misses == n and served.tokens == live.tokens
+    step_s["c refusals"] = time.perf_counter() - t0
+
+
+def runtime_bridge_and_mesh(torch, dev, md: str, p4: dict, step_s: dict) -> None:
+    """Phase 3g (d): the C-ABI bridge's Python side on the card (the device
+    rule: no ``JAX_PLATFORMS=cpu``, so the card): create, push gate_r3's
+    features from a float32 buffer in pieces, finalize, poll until empty;
+    its events, text, ``stable_text`` and words equal a Python session's fed
+    the same pieces. (e) the 1 x 1 mesh: ``transcribe_batch(mesh=make_mesh())``
+    and the engine at B = 4 with ``mesh=`` equal their ``mesh=None`` runs on
+    phase 4's utterances."""
+    from trt_asr_tpu_torch.config import RuntimeConfig
+    from trt_asr_tpu_torch.models.parakeet.model import ParakeetTDT
+    from trt_asr_tpu_torch.parallel import make_mesh
+    from trt_asr_tpu_torch.runtime import capi_bridge
+    from trt_asr_tpu_torch.streaming.batch_engine import BatchStreamingEngine
+    from trt_asr_tpu_torch.streaming.session import StreamingSession
+
+    t0 = time.perf_counter()
+    saved = os.environ.pop("JAX_PLATFORMS", None)
+    try:
+        # partials unpaced on both sides: their count must not follow the clock
+        with env_overrides({"TRT_ASR_PARTIAL_MIN_INTERVAL_MS": "0"}):
+            s = capi_bridge.create_session(md)
+            py = StreamingSession(s.model, RuntimeConfig.from_env(), feature_norm="none")
+    finally:
+        if saved is not None:
+            os.environ["JAX_PLATFORMS"] = saved
+    assert s.model.device.type == "cuda", s.model.device
+    feats = s.model.frontend(p4["utts"][0]).cpu().numpy().astype(np.float32)
+    events = {"bridge": [], "python": []}
+    for i in range(0, len(feats), 37):
+        block = np.ascontiguousarray(feats[i:i + 37])
+        capi_bridge.push_features(s, block.tobytes(), block.shape[0])
+        py.push_features(block)
+    capi_bridge.finalize(s)
+    py.finalize()
+    while (ev := capi_bridge.poll_event(s)) is not None:
+        events["bridge"].append(ev[:3])
+    while (ev := py.poll_event()) is not None:
+        events["python"].append((int(ev.type), ev.segment_id, ev.text))
+    tsv = [ln.split("\t") for ln in capi_bridge.word_timestamps_tsv(s).splitlines()]
+    words = [(f"{w['start_s']:.4f}", f"{w['end_s']:.4f}", w["word"]) for w in py.word_timestamps()]
+    log(f"runtime[bridge]: on {s.model.device}, {len(events['bridge'])} events, final "
+        f"{events['bridge'][-1]}, stable_text {capi_bridge.stable_text(s)!r}, "
+        f"{len(tsv)} words")
+    assert events["bridge"] == events["python"] and events["bridge"][-1][0] == 1
+    assert capi_bridge.stable_text(s) == py.stable_text == py.text and py.text
+    assert [(a, b, w) for a, b, _, w in tsv] == words
+    capi_bridge.destroy_session(s)
+    rt = RuntimeConfig(use_pallas_joint=True)
+    model = ParakeetTDT.from_model_dir(md, runtime=rt, device=dev)
+    mesh = make_mesh()
+    assert mesh.shape == {"dp": 1, "tp": 1}, mesh.shape
+    got = model.transcribe_batch(p4["utts"], norm="none", mesh=mesh)
+    want = model.transcribe_batch(p4["utts"], norm="none")
+    assert got == want, "runtime: transcribe_batch(mesh=) differs from mesh=None"
+    toks = {}
+    for label, kw in (("mesh", dict(mesh=mesh)), ("none", {})):
+        eng = BatchStreamingEngine(model, batch_size=4, runtime=rt, **kw)
+        toks[label] = [direct_engine_stream(eng, u)[0] for u in p4["utts"]]
+    log(f"runtime[mesh 1 x 1]: transcribe_batch {[ids for _, ids in got]} == mesh=None; engine "
+        f"B 4 {toks['mesh']} == mesh=None: {toks['mesh'] == toks['none']}")
+    assert toks["mesh"] == toks["none"] == p4["serve_tokens"]
+    step_s["d bridge, e mesh"] = time.perf_counter() - t0
+
+
+def runtime_phase(torch, dev, cfg, params, tok, n_words: int, seed: int, f32_all: dict,
+                  engine_f32: dict, md: str, p4: dict, tmp: str) -> None:
+    """Phase 3g: the runtime layer (engine sets, the compile cache, the
+    C-ABI bridge, the one-card mesh)."""
+    step_s: dict = {}
+    runtime_full_width(torch, dev, cfg, params, tok, n_words, seed, f32_all, engine_f32,
+                       tmp, step_s)
+    eng_dir = runtime_cold_starts(torch, md, p4, tmp, step_s)
+    runtime_refusals(torch, dev, md, eng_dir, p4, tmp, step_s)
+    runtime_bridge_and_mesh(torch, dev, md, p4, step_s)
+    log(f"phase 3g seconds by step: { {k: round(v, 1) for k, v in step_s.items()} }")
+
 
 
 # --- phases 4 (offline part) and 5: offline batches ---------------------------
@@ -4103,7 +4477,7 @@ def main() -> int:
     phase_s["2 kernels"], t0 = time.perf_counter() - t0, time.perf_counter()
     sess, params, tok, bias = full_width_session(torch, dev, timer, args.words, args.seed)
     phase_s["3 session"], t0 = time.perf_counter() - t0, time.perf_counter()
-    full_width_engine(torch, dev, cfg, params, tok)
+    engine_tokens = full_width_engine(torch, dev, cfg, params, tok)
     phase_s["3b engine"], t0 = time.perf_counter() - t0, time.perf_counter()
     full_width_daemon(torch, dev, cfg, params, tok)
     phase_s["3c daemon"], t0 = time.perf_counter() - t0, time.perf_counter()
@@ -4117,12 +4491,15 @@ def main() -> int:
     gate_r3_session(torch, dev)
     gate_r3_offline(torch, dev)
     with tempfile.TemporaryDirectory() as tmp:
-        gate_r3_entry_points(torch, dev, md, synth_module(), tmp)
+        p4 = gate_r3_entry_points(torch, dev, md, synth_module(), tmp)
         phase_s["4 gate_r3"], t0 = time.perf_counter() - t0, time.perf_counter()
         gate_r3_beam(torch, dev, md, synth_module(), tmp)
         phase_s["4b gate_r3 beam"], t0 = time.perf_counter() - t0, time.perf_counter()
         gate_r3_wer(torch, dev, md, tmp)
         phase_s["4c gate_r3 WER"], t0 = time.perf_counter() - t0, time.perf_counter()
+        runtime_phase(torch, dev, cfg, params, tok, args.words, args.seed, sess["f32_all"],
+                      engine_tokens["f32"], md, p4, tmp)
+        phase_s["3g runtime"], t0 = time.perf_counter() - t0, time.perf_counter()
     params["joint"]["out"]["b"][cfg.blank_id] -= bias        # phase 5 searches its own
     sess.update(full_width_offline(torch, dev, cfg, params, tok, audios))
     phase_s["5 offline"], t0 = time.perf_counter() - t0, time.perf_counter()
@@ -4146,7 +4523,9 @@ def main() -> int:
                                                  "debug.taps", "debug.profiler",
                                                  "eval.wer", "eval.suite", "eval.synthetic",
                                                  "eval.gate", "io.onnx_lite", "io.onnx_graphs",
-                                                 "io.onnx_weights")]
+                                                 "io.onnx_weights", "runtime.engine",
+                                                 "runtime.platform", "runtime.capi_bridge",
+                                                 "parallel.mesh", "engine_build")]
     assert all(m in sys.modules for m in entry), "the entry points' modules were not run"
 
     kernels = []

@@ -6,12 +6,13 @@ first step) without fusion, with an n-gram LM and with biasing; each
 slot's n-best equals JAX's slot and a standalone session's. Also slot
 reuse, the token-cap ERROR event, ``warmup`` beside a live stream, and the
 refusals (``lm_fn`` without a beam or not compilable, ``nbest`` on a greedy
-engine; ``mesh=`` and ``engines=`` still "not ported yet").
+engine; ``mesh=`` and ``engines=`` on a beam engine, with JAX's text).
 
 Tolerance: tokens, ranking and events exact; scores 1e-4."""
 
 import numpy as np
 import pytest
+import torch
 
 from torch_port_helpers import GATE_R3, np_tree, synth_audio, one_torch_thread  # noqa: F401
 
@@ -152,8 +153,14 @@ def test_refusals(models):
         BatchStreamingEngine(pm, batch_size=2, beam=4, lm_fn=lambda p, t: 0.0)
     with pytest.raises(ValueError, match="nbest requires a beam>1 engine"):
         BatchStreamingEngine(pm, batch_size=2).nbest(0)
-    for kw in (dict(mesh=object()), dict(engines=object())):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+    # a beam engine takes neither a mesh nor an engine set: JAX's refusals
+    from trt_asr_tpu_torch.parallel.mesh import make_mesh
+    from trt_asr_tpu_torch.runtime.engine import EngineSet
+
+    for kw, match in ((dict(mesh=make_mesh(devices=[torch.device("cpu")])),
+                       "beam serving is single-device"),
+                      (dict(engines=EngineSet({}, {})), "beam serving runs live-jit")):
+        with pytest.raises(ValueError, match=match):
             BatchStreamingEngine(pm, batch_size=2, beam=4, **kw)
 
 

@@ -345,9 +345,18 @@ def test_warmup_leaves_slots_and_serving_unchanged(models):
 
 
 def test_not_ported_options_raise(models):
-    for kw in (dict(mesh=object()), dict(engines=object())):
-        with pytest.raises(NotImplementedError):
-            BatchStreamingEngine(models[1], batch_size=2, **kw)
+    """``mesh=`` and ``engines=`` are ported (``tests/test_torch_mesh.py``,
+    ``tests/test_torch_runtime.py``): a mesh of two devices raises, and so
+    does an engine set with a mesh, as in JAX."""
+    from trt_asr_tpu_torch.parallel.mesh import make_mesh
+    from trt_asr_tpu_torch.runtime.engine import EngineSet
+
+    cpu = torch.device("cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        BatchStreamingEngine(models[1], batch_size=2, mesh=make_mesh(dp=2, devices=[cpu, cpu]))
+    with pytest.raises(ValueError, match="AOT engines are single-device artifacts"):
+        BatchStreamingEngine(models[1], batch_size=2, engines=EngineSet({}, {}),
+                             mesh=make_mesh(devices=[cpu]))
     # the beam is ported (tests/test_torch_batch_beam.py): a greedy engine
     # has no n-best, as JAX's has none
     with pytest.raises(ValueError, match="nbest requires a beam>1 engine"):

@@ -10,8 +10,9 @@ within the frontend's tolerance (2e-5 absolute plus 5e-5 relative without
 normalization, 2e-5 absolute after per_feature normalization: 6.4e-6
 read). The beam flags (``--beam``, ``--beam-device``, ``--bias``, ``--lm``,
 ``--lm-weight``, ``TRT_ASR_BEAM``, also under ``--continuous``) print the
-JAX CLI's lines and NBest lines, and their rules exit as JAX's; the
-compile-cache flag exits "not ported yet"; without a card the CLI raises
+JAX CLI's lines and NBest lines, and their rules exit as JAX's;
+``--compile-cache`` (over ``TRT_ASR_COMPILE_CACHE``) sets the kernel
+libraries' directory; without a card the CLI raises
 unless ``--device cpu`` is given; as a subprocess it imports nothing of
 JAX."""
 
@@ -167,13 +168,21 @@ def test_synthetic_model_continuous_and_subhop_stream_sim(tmp_path, monkeypatch)
         assert any(ln.startswith("Transcript: ") for ln in lines)
 
 
-@pytest.mark.parametrize("argv,item", [(["--compile-cache", "cache"], 7)])
-def test_not_ported_flags_exit(monkeypatch, capsys, argv, item):
-    """``--compile-cache`` exits before any model is made."""
-    with pytest.raises(SystemExit) as e:
-        port_main(["x.wav", "--model-dir", GATE_R3, "--device", "cpu"] + argv)
-    assert e.value.code == 2
-    assert f"not ported yet (ROADMAP Queue 1 item {item})" in capsys.readouterr().err
+def test_compile_cache_flag_sets_the_library_dir(inputs, monkeypatch, tmp_path):
+    """``--compile-cache DIR`` points the kernel libraries' directory at DIR,
+    over ``TRT_ASR_COMPILE_CACHE``, and transcribes as without it."""
+    from trt_asr_tpu_torch.ops.kernels import build
+
+    # the one-way compile cache, restored after the test
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
+    monkeypatch.setattr(build, "_cache_dir", None)
+    monkeypatch.setenv("TRT_ASR_COMPILE_CACHE", str(tmp_path / "from_env"))
+    got, _ = run(port_main, [inputs["speech"], "--model-dir", GATE_R3, "--feature-norm", "none",
+                             "--device", "cpu", "--compile-cache", str(tmp_path / "cc")],
+                 monkeypatch)
+    assert build.BUILD_DIR == tmp_path / "cc" and (tmp_path / "cc").is_dir()
+    assert not (tmp_path / "from_env").exists()
+    assert len(transcript(got).split()) == 7       # as test_one_shot_matches_jax
 
 
 @pytest.fixture(scope="module")

@@ -278,7 +278,7 @@ def test_cli_engine_matches_python_engine(gate_runs, one_utt, tmp_path, monkeypa
 
 
 def test_native_engine_is_not_ported(one_utt, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
         port_suite.run_suite(port_suite.SuiteConfig(manifest_path=one_utt,
                                                     out_dir=str(tmp_path), engine="native"))
 

@@ -282,8 +282,13 @@ def test_transcribe_degenerate_inputs(tiny_pair):
     assert got == jm.transcribe_batch([np.zeros(0, np.float32), audio])
     assert got[0] == ("", []) and got[1] == pm.transcribe_offline(audio)
     assert pm.transcribe_offline(np.zeros(0, np.float32)) == ("", [])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        pm.transcribe_batch([audio], mesh=object())
+    # a one-device mesh (parallel/mesh.py) transcribes as no mesh; more raise
+    from trt_asr_tpu_torch.parallel.mesh import make_mesh
+
+    cpu = torch.device("cpu")
+    assert pm.transcribe_batch([audio], mesh=make_mesh(devices=[cpu])) == [got[1]]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        pm.transcribe_batch([audio], mesh=make_mesh(dp=2, devices=[cpu, cpu]))
 
 
 def test_transcribe_matches_jax_gate_r3():

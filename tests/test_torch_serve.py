@@ -6,14 +6,14 @@ the JSON replies to malformed and over-capacity requests equal the JAX
 daemon's; continuous clients get one segment event a speech span, a
 rollover on a full server is an error reply the client survives, many
 rollovers leak no slot, and ``transcribe_continuous`` returns the ordered
-segments. These mirror ``tests/test_serve.py`` (no AOT engines). A beam
+segments. These mirror ``tests/test_serve.py``. A beam
 daemon (``beam=4``, with and without an n-gram LM) sends JAX's ranked
 ``nbest`` on its finals, in process and as a subprocess with ``--beam
 --lm --lm-weight --token-cap``.
 Also: the engine's warm-up reaches the joint kernel before any thread
 starts, ``_batch_step`` passes the FFN and conv flags to the encoder, the
-entry point refuses what is not ported and the CPU unless asked, and the
-daemon serves as a subprocess importing nothing of JAX.
+entry point refuses the CPU unless asked, serves from an engine set
+(``--engines``), and serves as a subprocess importing nothing of JAX.
 
 Every socket has a timeout, every server is stopped in a ``finally`` and
 every join is bounded. Tolerance: none; tokens, texts, words, times and
@@ -425,12 +425,36 @@ def test_batch_step_passes_ffn_and_conv_flags(models, monkeypatch, flag):
     assert torch.equal(plain[0], fused[0]) and torch.equal(plain[1], fused[1])
 
 
-@pytest.mark.parametrize("argv,item", [(["--engines", "x"], 7)])
-def test_main_refuses_what_is_not_ported(capsys, argv, item):
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--synthetic-model", "tiny", "--device", "cpu"] + argv)
-    assert e.value.code == 2
-    assert f"not ported yet (ROADMAP Queue 1 item {item})" in capsys.readouterr().err
+def test_main_serves_from_an_engine_dir(tmp_path):
+    """``--engines DIR``: the daemon as a subprocess loads an engine set built for its model at its batch size
+    (``python -m trt_asr_tpu_torch.engine_build``), says so, and a client's
+    tokens equal the engine driven directly."""
+    from trt_asr_tpu_torch import engine_build
+
+    eng_dir = str(tmp_path / "engines")
+    assert engine_build.main(["--config", "tiny", "--outdir", eng_dir, "--batch", "2",
+                              "--device", "cpu", "--no-smoke"]) == 0
+    cmd = [sys.executable, "-m", "trt_asr_tpu_torch.serve", "--synthetic-model", "tiny",
+           "--device", "cpu", "--port", "0", "--batch-size", "2", "--engines", eng_dir]
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        lines = [proc.stdout.readline() for _ in range(2)]
+        assert "engines: 5 programs, 0 kernel libraries bound from" in lines[0], lines
+        assert "listening on" in lines[1], lines
+        port = int(lines[1].split("listening on ")[1].split()[0].rsplit(":", 1)[1])
+        audio = _audio(24000, 3)
+        got = transcribe("127.0.0.1", port, audio, timeout_s=120)
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+    model = ParakeetTDT.random(ModelConfig.tiny(), runtime=RuntimeConfig(), device="cpu")
+    eng = BatchStreamingEngine(model, batch_size=2, runtime=RuntimeConfig())
+    sid = eng.open_stream()
+    eng.push_audio(sid, audio)
+    eng.finalize_stream(sid)
+    eng.run_until_drained()
+    assert got["tokens"] == list(eng._tokens[sid]) and got["text"] == eng.text(sid)
 
 
 def _beam_lm(model, jax_side: bool):

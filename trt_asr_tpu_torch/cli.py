@@ -5,7 +5,7 @@
         [--dump-features PATH] [--no-sleep] [--synthetic-model tiny|full]
         [--timestamps] [--continuous] [--srt PATH] [--vtt PATH]
         [--beam N [--beam-device] [--bias P1,P2 [--bias-bonus B] | --lm F
-        [--lm-weight W]]] [--device cuda|cpu]
+        [--lm-weight W]]] [--compile-cache DIR] [--device cuda|cpu]
 
 Prints ``Partial:`` / ``Final:`` / ``Transcript:`` lines (``Word:`` with
 --timestamps, ``Segment:`` with --continuous, ``NBest: <score> <text>``
@@ -13,7 +13,9 @@ after the transcript with --beam) and ``ChunkLatencyMs:`` on stderr. Runs
 on the CUDA device unless ``--device`` names another; without a card it
 raises. Kernel flags come from the environment (``TRT_ASR_PALLAS_ATT=1``
 and the like, ``RuntimeConfig.from_env``); the beam width also from
-``TRT_ASR_BEAM``. ``--compile-cache`` exits "not ported yet".
+``TRT_ASR_BEAM``. ``--compile-cache DIR`` (over ``TRT_ASR_COMPILE_CACHE``)
+builds the kernel libraries into DIR and loads them from there, so a later
+run finds them built (``runtime/engine.py`` ``apply_compile_cache``).
 """
 
 from __future__ import annotations
@@ -119,7 +121,9 @@ def main(argv=None) -> int:
                     help="n-gram LM file (ngram-lm/v1 JSON) for shallow fusion; "
                          "requires --beam N")
     ap.add_argument("--lm-weight", type=float, default=0.6, help="fusion weight for --lm")
-    ap.add_argument("--compile-cache", default="", help="not ported yet")
+    ap.add_argument("--compile-cache", default="",
+                    help="kernel library directory (over TRT_ASR_COMPILE_CACHE): built "
+                         "there once, loaded from there after")
     args = ap.parse_args(argv)
 
     if args.feature_norm not in ("none", "per_feature"):
@@ -127,9 +131,9 @@ def main(argv=None) -> int:
         # taken from the environment
         ap.error(f"invalid feature norm {args.feature_norm!r} "
                  f"(TRT_ASR_FEATURE_NORM/PARAKEET_FEATURE_NORM env?)")
-    if args.compile_cache:
-        ap.error("--compile-cache is not ported yet (ROADMAP Queue 1 item 7)")
     rt = RuntimeConfig.from_env()
+    if args.compile_cache:
+        rt.compile_cache_dir = args.compile_cache   # the flag over the environment
     beam = args.beam if args.beam > 0 else rt.beam_width   # the flag over the environment
     # beam 1 is exact greedy (one argmax successor a step): an LM or bias
     # score could never change a token there

@@ -192,11 +192,14 @@ class RuntimeConfig:
     joint step, the fused attention block, the fused conv module (with
     int8 encoder weights and ``use_pallas_ffn`` also on: conv + FFN2 +
     output LayerNorm in one kernel) and the fused FFN. The weights' type is
-    chosen where a model is made (``ParakeetTDT(weights_dtype=)``); JAX's
-    ``compute_dtype`` and ``decode_dtype``, which only its AOT engine reads,
-    wait for that engine's port."""
+    chosen where a model is made (``ParakeetTDT(weights_dtype=)``);
+    ``compute_dtype`` and ``decode_dtype`` keep JAX's names and defaults and,
+    as in JAX, only the engine set's manifest reads them
+    (``runtime/engine.py``: recorded at build, compared at load)."""
 
     # numerics / kernels
+    compute_dtype: str = "bfloat16"          # TRT_ASR_COMPUTE_DTYPE (manifest only)
+    decode_dtype: str = "float32"            # TRT_ASR_DECODE_DTYPE (manifest only)
     use_pallas_joint: bool = False           # fused joint-step kernel
     use_pallas_att: bool = False             # fused attention-block kernel
                                              # (B=1 steady streaming chunks)
@@ -238,11 +241,17 @@ class RuntimeConfig:
     profile_dir: str = ""                    # torch.profiler Chrome trace dir
     profile_chunks: int = 20                 # chunks captured per profile run
     debug_blank_scan: bool = False           # PARAKEET_DEBUG_BLANK_SCAN
+    # cold start (runtime/engine.py)
+    compile_cache_dir: str = ""              # TRT_ASR_COMPILE_CACHE: the kernel
+                                             # libraries' directory, so a fresh
+                                             # process finds them built
 
     @classmethod
     def from_env(cls) -> "RuntimeConfig":
         d = cls()
         return cls(
+            compute_dtype=_env_str("TRT_ASR_COMPUTE_DTYPE", None, d.compute_dtype),
+            decode_dtype=_env_str("TRT_ASR_DECODE_DTYPE", None, d.decode_dtype),
             use_pallas_joint=_env_bool("TRT_ASR_PALLAS_JOINT", None, d.use_pallas_joint),
             use_pallas_att=_env_bool("TRT_ASR_PALLAS_ATT", None, d.use_pallas_att),
             use_pallas_conv=_env_bool("TRT_ASR_PALLAS_CONV", None, d.use_pallas_conv),
@@ -282,4 +291,5 @@ class RuntimeConfig:
             profile_dir=_env_str("TRT_ASR_PROFILE_DIR", None, d.profile_dir),
             profile_chunks=_env_int("TRT_ASR_PROFILE_CHUNKS", None, d.profile_chunks),
             debug_blank_scan=_env_bool("TRT_ASR_DEBUG_BLANK_SCAN", "PARAKEET_DEBUG_BLANK_SCAN", d.debug_blank_scan),
+            compile_cache_dir=_env_str("TRT_ASR_COMPILE_CACHE", None, d.compile_cache_dir),
         )

@@ -25,6 +25,15 @@ def set_f32_policy() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
+def f32_policy() -> dict:
+    """This process's f32 policy, as :func:`set_f32_policy` sets it (an
+    engine set's manifest records it)."""
+    return {"matmul_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+            "bf16_reduced_reduction":
+                torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}
+
+
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller names
     another. Without a CUDA device and without an explicit request this

@@ -240,7 +240,7 @@ def run_suite(cfg: SuiteConfig) -> Dict[str, object]:
                          "flag) decode greedy-only")
     if cfg.engine == "native":
         raise NotImplementedError(
-            "engine='native' (the C++ CLI) is not ported yet (ROADMAP Queue 1 item 7)")
+            "engine='native' (the C++ CLI) is not ported yet (ROADMAP Queue 1 item 11)")
     if cfg.engine not in ("python", "batch", "cli"):
         raise ValueError(f"unknown engine {cfg.engine!r}")
     model = None

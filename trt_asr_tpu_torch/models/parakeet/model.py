@@ -33,6 +33,7 @@ from trt_asr_tpu_torch.models.parakeet.params import (
     params_to,
     save_checkpoint,
 )
+from trt_asr_tpu_torch.ops.kernels import build
 from trt_asr_tpu_torch.ops.kernels.joint_step import pack_joint_step
 from trt_asr_tpu_torch.ops.quant import QuantTensor, keep_f32_copy
 from trt_asr_tpu_torch.tokenizer import Tokenizer, make_synthetic_vocab, write_vocab
@@ -54,6 +55,10 @@ class ParakeetTDT:
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.runtime = runtime or RuntimeConfig.from_env()
+        if self.runtime.compile_cache_dir:
+            # the kernel libraries' directory (TRT_ASR_COMPILE_CACHE): a
+            # fresh process that finds them built there runs no nvcc
+            build.apply_compile_cache(self.runtime.compile_cache_dir)
         self.frontend = frontend or LogMelFrontend(FrontendSpec(n_mels=cfg.feat_in),
                                                    device=self.device)
         params = params_from_numpy(params, "cpu") if _is_numpy_tree(params) else params
@@ -207,19 +212,32 @@ class ParakeetTDT:
         stages, and one lockstep batched TDT greedy decode per window with
         carried per-row decode state. Token-exact with per-utterance
         :meth:`transcribe_offline`. Returns [(text, token_ids)] in input
-        order. ``mesh`` (data/tensor-parallel batches) is not ported."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "transcribe_batch(mesh=...) is not ported yet (ROADMAP Queue 1 item 9)")
+        order. ``mesh`` (``parallel/mesh.py``): the batch is padded to a dp
+        multiple with zero-length rows, as in JAX; a one-device mesh is the
+        model's device, so the result equals ``mesh=None``'s; a larger mesh
+        raises."""
         if len(audios) == 0:
             return []
         x, lens = self.batch_features(audios, norm=norm, pad_multiple=pad_multiple)
-        b, t_pad = x.shape[0], x.shape[1]
+        b = x.shape[0]
+        if mesh is not None:
+            from trt_asr_tpu_torch.parallel.mesh import same_device
+
+            dp = int(mesh.shape["dp"])
+            b_pad = (b + dp - 1) // dp * dp
+            x = torch.cat([x, x.new_zeros((b_pad - b,) + tuple(x.shape[1:]))])
+            lens = np.concatenate([lens, np.zeros(b_pad - b, np.int32)])
+            # a one-device mesh is the model's device, where the batch lies;
+            # mesh.device() raises for a larger one
+            if not same_device(mesh.device(), self.device):
+                raise ValueError(f"the mesh's device {mesh.device()} is not the model's "
+                                 f"({self.device})")
+        b_all, t_pad = x.shape[0], x.shape[1]
         dec = prime_decode_state(self.params, self.cfg,
-                                 init_decode_state(self.cfg, b, device=self.device),
+                                 init_decode_state(self.cfg, b_all, device=self.device),
                                  self.prompt_ids)
-        ids: List[List[int]] = [[] for _ in range(b)]
-        emitted = np.zeros(b, np.int64)
+        ids: List[List[int]] = [[] for _ in range(b_all)]
+        emitted = np.zeros(b_all, np.int64)
         for start in range(0, t_pad, max_frames):
             w = min(max_frames, t_pad - start)
             valid = torch.as_tensor(np.clip(lens - start, 0, w), device=self.device)
@@ -229,9 +247,9 @@ class ParakeetTDT:
                 self.params, self.cfg, enc, enc_len, dec, emitted_so_far=emitted,
                 joint_packed=self.joint_packed, **self._decode_kwargs(enc.shape[1]))
             emitted = emitted + n.numpy()
-            for i in range(b):
+            for i in range(b_all):
                 ids[i].extend(toks[i, :int(n[i])].tolist())
-        return [(self.tokenizer.decode(r), r) for r in ids]
+        return [(self.tokenizer.decode(r), r) for r in ids[:b]]
 
 
     def transcribe_offline_beam(self, audio: np.ndarray, beam: int = 4,

@@ -3,9 +3,15 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface and loaded with ``ctypes``. Builds
 happen at first use, from the repository's sources only, into
-``trt_asr_tpu_torch/_build/`` (listed in ``.gitignore``); a library's file
-name carries a hash of its sources, so an edited source is rebuilt.
-``build()`` starts one ``nvcc`` per missing library, all at once.
+``trt_asr_tpu_torch/_build/`` (listed in ``.gitignore``), or into the
+compile cache that :func:`apply_compile_cache` names; a library's file name
+carries a hash of its sources (:func:`source_hash`), so an edited source is
+rebuilt. ``build()`` starts one ``nvcc`` per missing library, all at once.
+:func:`bind` loads a library from a given file instead (an engine set's
+sha256-pinned copy, ``runtime/engine.py``).
+
+A process never mixes two builds of one library: binding a copy with other
+bytes than the loaded one, or pointing the compile cache at one, raises.
 """
 
 from __future__ import annotations
@@ -35,6 +41,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_held_sha: Dict[str, str] = {}        # library -> sha256 of the file it is loaded or bound from
+_bound: Dict[str, Path] = {}          # library -> the file bind() pinned it to
+_cache_dir: Optional[Path] = None     # the compile cache, once set
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _CONV = [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P]
@@ -126,12 +135,69 @@ def nvcc_path() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
+def source_hash(name: str) -> str:
+    """Hash of the sources and flags ``csrc/<name>.cu`` is built from: the
+    key of its library, whose C interface ``_SIGNATURES`` binds."""
     h = hashlib.sha256()
     for src in (*sorted(CSRC_DIR.glob("*.cuh")), CSRC_DIR / f"{name}.cu"):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+    return h.hexdigest()[:12]
+
+
+def lib_file(name: str, directory: Optional[Path] = None) -> Path:
+    """The library file of ``csrc/<name>.cu`` in ``directory`` (default:
+    the current library directory)."""
+    return Path(directory or BUILD_DIR) / f"{name}-{source_hash(name)}.so"
+
+
+def file_sha256(path) -> str:
+    return hashlib.sha256(Path(path).read_bytes()).hexdigest()
+
+
+def _refuse_other_build(name: str, path: Path) -> None:
+    """Raise if this process holds ``name`` from a file whose bytes differ
+    from ``path``'s."""
+    sha = _held_sha.get(name)
+    if sha is not None and file_sha256(path) != sha:
+        raise RuntimeError(
+            f"{path}: another build of {name} is already loaded in this process "
+            f"(sha256 {sha[:12]}.., this copy {file_sha256(path)[:12]}..)")
+
+
+def apply_compile_cache(cache_dir) -> None:
+    """Build every library into and load it from ``cache_dir`` from now on:
+    a fresh process that finds them there runs no ``nvcc``. Wired to
+    ``TRT_ASR_COMPILE_CACHE`` (``RuntimeConfig.compile_cache_dir``),
+    applied at model construction, as in the JAX package.
+
+    One-way per process: the same directory again is a no-op, another one
+    raises, and so does a cache whose copy of a loaded library has other
+    bytes."""
+    global BUILD_DIR, _cache_dir
+    path = Path(cache_dir)
+    if _cache_dir is not None:
+        if path.resolve() != _cache_dir.resolve():
+            raise RuntimeError(f"the compile cache is {_cache_dir} for this process's life; "
+                               f"{path} refused")
+        return
+    for name in _held_sha:
+        if lib_file(name, path).exists():
+            _refuse_other_build(name, lib_file(name, path))
+    path.mkdir(parents=True, exist_ok=True)
+    BUILD_DIR, _cache_dir = path, path
+
+
+def bind(name: str, path) -> None:
+    """Load ``csrc/<name>.cu``'s library from ``path`` (a copy the caller
+    has verified) instead of building it: :func:`load` takes it from there.
+    A library already held with the same bytes stays as it is; other bytes
+    raise."""
+    path = Path(path)
+    _refuse_other_build(name, path)
+    if name not in _libs:
+        _bound[name] = path
+        _held_sha[name] = file_sha256(path)
 
 
 def build(names: Iterable[str] = SOURCES) -> float:
@@ -143,7 +209,7 @@ def build(names: Iterable[str] = SOURCES) -> float:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for name in names:
-        out = _lib_path(name)
+        out = lib_file(name)
         if out.exists():
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -166,18 +232,20 @@ def build(names: Iterable[str] = SOURCES) -> float:
 
 
 def build_log(name: str) -> str:
-    p = _lib_path(name).with_suffix(".log")
+    p = lib_file(name).with_suffix(".log")
     return p.read_text() if p.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``: the file :func:`bind`
+    pinned, else the library directory's, built first if needed."""
     lib = _libs.get(name)
     if lib is None:
-        path = _lib_path(name)
-        if not path.exists():
+        path = _bound.get(name) or lib_file(name)
+        if name not in _bound and not path.exists():
             build([name])
         lib = ctypes.CDLL(str(path))
+        _held_sha[name] = file_sha256(path)
         for fn_name, argtypes in _SIGNATURES[name].items():
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes

@@ -4,13 +4,15 @@ server that multiplexes up to ``batch_size`` client streams through one
 batched chunk step on the card.
 
     python -m trt_asr_tpu_torch.serve --model-dir DIR [--port 8057]
-        [--batch-size 8] [--device cuda|cpu] [--no-warmup]
+        [--batch-size 8] [--device cuda|cpu] [--no-warmup] [--engines DIR]
         [--beam N [--lm LM.json] [--lm-weight W] [--token-cap L]]
 
 Runs on the CUDA device unless ``--device`` names another; without a card
 it raises. ``--beam`` above 1 serves every slot with the engine's batched
 device beam (``--lm``: an n-gram LM fused into it), and finals carry the
-ranked ``nbest``. ``--engines`` exits "not ported yet".
+ranked ``nbest``. ``--engines DIR`` serves the lockstep step through an
+engine set (``python -m trt_asr_tpu_torch.engine_build --batch N``): its
+kernel libraries are bound from DIR, so the daemon runs no ``nvcc``.
 
 Wire protocol: newline-delimited JSON, one connection per client stream.
 
@@ -83,14 +85,15 @@ PROG = "trt-asr-tpu-torch-serve"
 class AsrServer:
     def __init__(self, model: ParakeetTDT, batch_size: int = 8,
                  host: str = "127.0.0.1", port: int = 0,
-                 runtime: Optional[RuntimeConfig] = None, beam: int = 1, lm_fn=None,
-                 lm_weight: float = 0.0, token_cap: int = 512):
-        """``beam`` > 1: every slot runs the engine's batched device beam
-        (with ``lm_fn`` an NGramLM or BiasingLM fused into it); FINAL events
-        then carry the ranked ``nbest`` beside the 1-best."""
+                 runtime: Optional[RuntimeConfig] = None, engines=None, beam: int = 1,
+                 lm_fn=None, lm_weight: float = 0.0, token_cap: int = 512):
+        """``engines``: an ``EngineSet`` serving the lockstep step. ``beam``
+        > 1: every slot runs the engine's batched device beam (with
+        ``lm_fn`` an NGramLM or BiasingLM fused into it); FINAL events then
+        carry the ranked ``nbest`` beside the 1-best."""
         self.engine = BatchStreamingEngine(model, batch_size=batch_size, runtime=runtime,
-                                           beam=beam, lm_fn=lm_fn, lm_weight=lm_weight,
-                                           token_cap=token_cap)
+                                           engines=engines, beam=beam, lm_fn=lm_fn,
+                                           lm_weight=lm_weight, token_cap=token_cap)
         self._elock = threading.Lock()      # serializes ALL engine access
         self._clients: Dict[int, socket.socket] = {}   # sid -> conn
         self._wlocks: Dict[int, threading.Lock] = {}   # per-conn write lock
@@ -552,7 +555,10 @@ def main(argv=None) -> int:
                     help="torch device (default: cuda; raises without one)")
     ap.add_argument("--no-warmup", action="store_true",
                     help="skip building and loading the step's kernels at startup")
-    ap.add_argument("--engines", default="", help="AOT engine dir: not ported yet")
+    ap.add_argument("--engines", default="",
+                    help="engine set dir (python -m trt_asr_tpu_torch.engine_build --batch N): "
+                         "the lockstep step through its program, its kernel libraries bound "
+                         "from there; a signature miss runs the live step")
     ap.add_argument("--beam", type=int, default=1,
                     help="beam width > 1 serves every slot with the batched device beam "
                          "(n-best on FINAL events)")
@@ -564,8 +570,6 @@ def main(argv=None) -> int:
                     help="device beam's token buffer per hypothesis")
     args = ap.parse_args(argv)
 
-    if args.engines:
-        ap.error("--engines is not ported yet (ROADMAP Queue 1 item 7)")
     device = resolve_device(args.device)
     rt = RuntimeConfig.from_env()
     if args.model_dir:
@@ -575,14 +579,22 @@ def main(argv=None) -> int:
         model = ParakeetTDT.random(cfg, runtime=rt, device=device)
     else:
         ap.error("provide --model-dir or --synthetic-model")
+    engines = None
+    if args.engines:
+        from trt_asr_tpu_torch.runtime.engine import EngineSet
+
+        engines = EngineSet.load(args.engines, runtime=rt)
+        print(f"{PROG} engines: {len(engines)} programs, "
+              f"{len(engines.manifest['libraries'])} kernel libraries bound from "
+              f"{args.engines}", flush=True)
     lm_fn = None
     if args.lm:
         from trt_asr_tpu_torch.decode.ngram_lm import NGramLM
 
         lm_fn = NGramLM.load(args.lm)
     srv = AsrServer(model, batch_size=args.batch_size, host=args.host, port=args.port,
-                    runtime=rt, beam=args.beam, lm_fn=lm_fn, lm_weight=args.lm_weight,
-                    token_cap=args.token_cap)
+                    runtime=rt, engines=engines, beam=args.beam, lm_fn=lm_fn,
+                    lm_weight=args.lm_weight, token_cap=args.token_cap)
     print(f"{PROG} listening on {srv.addr[0]}:{srv.addr[1]} "
           f"(batch_size={args.batch_size}, device={device}"
           + (f", beam={args.beam}" if args.beam > 1 else "") + ")", flush=True)

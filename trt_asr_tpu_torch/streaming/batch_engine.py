@@ -20,8 +20,15 @@ an ``NGramLM`` or ``BiasingLM`` compiled to device tables. Each slot's
 n-best equals a standalone device beam session's; ``nbest(sid)`` ranks it.
 The beam step runs with the kernels off, as the JAX beam step does.
 
-Not ported yet: ``mesh=`` (sharded serving) and ``engines=`` (AOT
-artifacts); each raises ``NotImplementedError``.
+``engines=`` (an ``EngineSet`` of ``runtime/engine.py``) looks the
+lockstep step's signature up in the set (``_step_args`` and
+``_step_kwargs``, which ``batch_program_specs`` reads too) and counts each
+step in ``engine_hits`` or ``engine_misses``; a hit and a miss run the same
+step, whose kernel libraries the set bound at load. ``mesh=`` (``parallel/mesh.py``): a one-device mesh is the
+model's device, where the engine's states live, so the engine runs as with
+``mesh=None``; a larger mesh raises. The JAX engine's refusals come
+with them: ``engines`` with ``mesh``, a beam engine with either, a batch
+size that dp does not divide.
 """
 
 from __future__ import annotations
@@ -119,18 +126,39 @@ class BatchStreamingEngine:
         shallow fusion when ``lm_fn`` is an ``NGramLM`` or ``BiasingLM``
         (compiled to device tables as ``BeamStreamingSession(device=True)``
         compiles it); ``nbest(sid)`` ranks a slot's hypotheses."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "BatchStreamingEngine(mesh=...) is not ported yet (ROADMAP Queue 1 item 9)")
-        if engines is not None:
-            raise NotImplementedError(
-                "BatchStreamingEngine(engines=...) is not ported yet (ROADMAP Queue 1 item 7)")
         self.model = model
         self.cfg = cfg = model.cfg
         self.device = model.device
         self.rt = runtime or model.runtime
         self.b = batch_size
+        self.mesh = mesh
         self.beam = int(beam)
+        if self.beam > 1:
+            if mesh is not None:
+                raise ValueError("beam serving is single-device: mesh "
+                                 "sharding applies to the greedy engine")
+            if engines is not None:
+                raise ValueError("beam serving runs live-jit: AOT engine "
+                                 "artifacts apply to the greedy engine")
+        if engines is not None and mesh is not None:
+            raise ValueError("AOT engines are single-device artifacts; "
+                             "mesh-sharded serving uses the live jit "
+                             "(GSPMD shardings are not serialized)")
+        if mesh is not None:
+            from trt_asr_tpu_torch.parallel.mesh import same_device
+
+            dp = mesh.shape.get("dp", 1)
+            if batch_size % dp != 0:
+                raise ValueError(f"batch_size {batch_size} must divide over dp={dp} slots")
+            # a one-device mesh is the model's device, where every state is
+            # made; mesh.device() raises for a larger one
+            if not same_device(mesh.device(), self.device):
+                raise ValueError(f"the mesh's device {mesh.device()} is not the model's "
+                                 f"({self.device})")
+        self._engines = engines
+        self._engine_key = None
+        self.engine_hits = 0
+        self.engine_misses = 0
         self.expansion_k = int(expansion_k)
         self.lm_fn = lm_fn
         self.lm_weight = float(lm_weight)
@@ -299,6 +327,28 @@ class BatchStreamingEngine:
     def _feed(self, arr: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(arr, device=self.device)
 
+    def _step_args(self, feats, valid, emitted, cache_drop, valid_cap, enc=None, dec=None):
+        """The lockstep step's positional arguments (host arrays in): the
+        one source for step(), warmup() and the engine set's build
+        (``runtime/engine.py`` ``batch_program_specs``)."""
+        return (self.model, self._feed(feats), self._feed(valid),
+                self._enc_state if enc is None else enc,
+                self._dec_state if dec is None else dec, np.asarray(emitted, np.int32),
+                self._feed(cache_drop), self._feed(valid_cap))
+
+    def _count_engine(self, args, kwargs) -> None:
+        """Count a lockstep step as a hit or a miss of the engine set. The
+        step's signature is fixed for the engine's life: its key is
+        computed once."""
+        if self._engine_key is None:
+            from trt_asr_tpu_torch.runtime.engine import program_key
+
+            self._engine_key = program_key(args, kwargs)
+        if self._engines.get(self._engine_key) is None:
+            self.engine_misses += 1
+        else:
+            self.engine_hits += 1
+
     def warmup(self) -> float:
         """Run the lockstep step and the row resets once on scratch state,
         leaving the slots untouched: the kernels the step launches are built
@@ -311,16 +361,16 @@ class BatchStreamingEngine:
         enc = reset_encoder_state_rows(init_encoder_state(cfg, self.b, device=self.device), mask)
         dec = reset_decode_state_rows(self.model.params, cfg, self._fresh_decode_state(), mask,
                                       self.model.prompt_ids)
-        feats = self._feed(np.zeros((self.b, self._frames, cfg.feat_in), np.float32))
-        valid = self._feed(np.full((self.b,), self._frames, np.int32))
-        vecs = (self._feed(np.full((self.b,), cfg.cache_drop_size, np.int32)),
-                self._feed(np.full((self.b,), cfg.valid_out_len, np.int32)))
+        args = self._step_args(np.zeros((self.b, self._frames, cfg.feat_in), np.float32),
+                               np.full((self.b,), self._frames, np.int32),
+                               np.zeros((self.b,), np.int32),
+                               np.full((self.b,), cfg.cache_drop_size, np.int32),
+                               np.full((self.b,), cfg.valid_out_len, np.int32), enc, dec)
         if self.beam > 1:
-            _batch_beam_step(self.model, feats, valid, enc, self._fresh_beam_state(dec), *vecs,
-                             **self._beam_step_kwargs())
+            _batch_beam_step(self.model, *args[1:3], enc, self._fresh_beam_state(dec),
+                             *args[6:], **self._beam_step_kwargs())
         else:
-            _batch_step(self.model, feats, valid, enc, dec, np.zeros((self.b,), np.int32),
-                        *vecs, **self._step_kwargs())
+            _batch_step(*args, **self._step_kwargs())
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
@@ -389,10 +439,12 @@ class BatchStreamingEngine:
             for sid in flushing:
                 self._emit_final(sid)
             return len(progressed)
-        emitted = np.asarray([len(t) for t in self._tokens], np.int32)
-        toks, n, self._enc_state, self._dec_state, stamps, out_len = _batch_step(
-            self.model, self._feed(feats), self._feed(valid), self._enc_state, self._dec_state,
-            emitted, self._feed(cache_drop), self._feed(valid_cap), **self._step_kwargs())
+        args = self._step_args(feats, valid, [len(t) for t in self._tokens], cache_drop,
+                               valid_cap)
+        kwargs = self._step_kwargs()
+        if self._engines is not None:
+            self._count_engine(args, kwargs)
+        toks, n, self._enc_state, self._dec_state, stamps, out_len = _batch_step(*args, **kwargs)
         if self.rt.sabotage == "drop_time_carry":
             # the session's fault injection, on this surface too
             self._dec_state = self._dec_state._replace(

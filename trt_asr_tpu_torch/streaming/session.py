@@ -31,6 +31,13 @@ cache, stage and slow-chunk markers, emitted-token lines, the decode trace
 (``tdt_steps``, written as NDJSON at ``finalize`` to ``tdt_trace_path``),
 the blank-scan summary, the profiler capture and the ``drop_time_carry``
 sabotage. With every toggle at its default none of them runs.
+
+``engines=`` (an ``EngineSet`` of ``runtime/engine.py``) looks each
+chunk's signature up in the set (``_step_kwargs``, the one source of the
+step's call, which ``session_program_specs`` reads too) and counts it in
+``engine_hits`` or ``engine_misses``, as the JAX session does. A program
+is the chunk step itself, so a hit and a miss run the same step; what the
+set gives is its kernel libraries, bound at load.
 """
 
 from __future__ import annotations
@@ -88,13 +95,18 @@ def _round_up(x: int, m: int) -> int:
 
 class StreamingSession:
     def __init__(self, model: ParakeetTDT, runtime: Optional[RuntimeConfig] = None,
-                 feature_norm: str = "none", norm_stats: Optional[tuple] = None):
+                 feature_norm: str = "none", norm_stats: Optional[tuple] = None,
+                 engines=None):
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
         self.rt = runtime or model.runtime
         self.feature_norm = feature_norm
         self.norm_stats = norm_stats
+        self._engines = engines
+        self._engine_key_memo: dict = {}
+        self.engine_hits = 0
+        self.engine_misses = 0
         self._events: Deque[Event] = deque()
         self._lock = threading.Lock()
         self._segment = 0
@@ -360,25 +372,57 @@ class StreamingSession:
             pos_proj = None
         return torch.as_tensor(x[None], device=self.device), valid, pos_proj, kernel_att
 
-    def _run_chunk(self, spec, is_last: bool) -> None:
+    def _step_kwargs(self, spec, is_last: bool):
+        """The exact ``(args, kwargs)`` of the chunk step: the one source of
+        the call, shared by :meth:`_run_chunk` and the engine set's build
+        (``runtime/engine.py`` ``session_program_specs``), so that a program
+        can never drift from the serving call. The valid frame count and the
+        tokens emitted so far are numpy scalars, data as in JAX's call; the
+        Python scalars are the statics a program key reads by value."""
         cfg, rt = self.cfg, self.rt
-        stage_marker(rt, f"chunk {spec.idx} enter [{self._debug_ctx}]")
-        if self._profiler is not None:
-            self._profiler.chunk_start()
-        t0 = time.perf_counter()
-        trace = rt.debug_tdt_steps or rt.debug_blank_scan
         x, valid, pos_proj, kernel_att = self._chunk_inputs(spec)
-        out = _session_step(
-            self.model, x, valid, self._enc_state, self._dec_state,
+        args = (self.model, x, np.int32(valid), self._enc_state, self._dec_state)
+        kwargs = dict(
             drop_extra=spec.drop_extra,
             cache_drop=0 if is_last else cfg.cache_drop_size,
             valid_cap=None if is_last else cfg.valid_out_len,
             blank_penalty=rt.blank_penalty,
-            emitted_so_far=len(self._tokens),
+            emitted_so_far=np.int32(len(self._tokens)),
             punct_mask=self._punct_mask,
             pos_proj=pos_proj, pad_steps=self._pad_steps if kernel_att else 0,
             use_pallas_att=kernel_att, use_pallas_joint=rt.use_pallas_joint,
-            use_pallas_ffn=rt.use_pallas_ffn, use_pallas_conv=rt.use_pallas_conv, trace=trace)
+            use_pallas_ffn=rt.use_pallas_ffn, use_pallas_conv=rt.use_pallas_conv,
+            trace=rt.debug_tdt_steps or rt.debug_blank_scan)
+        return args, kwargs
+
+    def _count_engine(self, spec, is_last: bool, args, kwargs) -> None:
+        """Count this call's program as a hit or a miss of the engine set.
+        The key is memoized by the chunk's geometry and every static's
+        value."""
+        memo_key = (spec.frames, spec.drop_extra, is_last, tuple(sorted(
+            (k, v) for k, v in kwargs.items()
+            if isinstance(v, (bool, int, float, str, type(None))))))
+        prog_key = self._engine_key_memo.get(memo_key)
+        if prog_key is None:
+            from trt_asr_tpu_torch.runtime.engine import program_key
+
+            prog_key = self._engine_key_memo[memo_key] = program_key(args, kwargs)
+        if self._engines.get(prog_key) is None:
+            self.engine_misses += 1
+        else:
+            self.engine_hits += 1
+
+    def _run_chunk(self, spec, is_last: bool) -> None:
+        rt = self.rt
+        stage_marker(rt, f"chunk {spec.idx} enter [{self._debug_ctx}]")
+        if self._profiler is not None:
+            self._profiler.chunk_start()
+        t0 = time.perf_counter()
+        args, kwargs = self._step_kwargs(spec, is_last)
+        trace = kwargs["trace"]
+        if self._engines is not None:
+            self._count_engine(spec, is_last, args, kwargs)
+        out = _session_step(*args, **kwargs)
         toks, n, self._enc_state, self._dec_state, stamps, t_out = out[:6]
         if trace:
             self.tdt_steps.extend(records_from_buffer(*out[6]))

@@ -4,7 +4,11 @@ the whole training path (TDT loss -> gradients -> optimizer -> checkpoint
 round trip -> greedy decode), on the card unless ``--device`` names
 another.
 
-    python -m trt_asr_tpu_torch.train.toy --steps 200 --out /tmp/toy_ckpt [--device cpu]
+    python -m trt_asr_tpu_torch.train.toy --steps 200 --out /tmp/toy_ckpt [--device cpu] [--mesh]
+
+``--mesh`` places the weights and the batch on a dp x tp mesh of the run's
+devices (``parallel/mesh.py``), as the JAX tool shards its step: on one
+card or the CPU a 1 x 1 mesh, which trains as without it; more cards raise.
 
 Prints a line every tenth of the steps (loss, gradient norm), the
 training seconds, and ``recovered k/4 training utterances``.
@@ -25,6 +29,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="", help="save, then reload, the trained weights here")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; raises without one)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="place the step on a mesh of all devices (dp x tp)")
     args = ap.parse_args(argv)
 
     import torch
@@ -54,6 +60,17 @@ def main(argv=None) -> int:
         label_len=torch.full((b,), u, dtype=torch.int32, device=dev),
     )
     print(f"device: {dev}")
+    if args.mesh:
+        from trt_asr_tpu_torch.parallel import make_mesh, shard_batch, shard_params
+
+        devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                   if dev.type == "cuda" else [dev])
+        n = len(devices)
+        tp = 2 if n % 2 == 0 and n > 1 else 1
+        mesh = make_mesh(dp=n // tp, tp=tp, devices=devices)
+        print(f"mesh: dp={n // tp} tp={tp}")
+        params = shard_params(params, mesh)
+        batch = shard_batch(batch, mesh)
 
     init_opt, step = make_train_step(cfg, optim.adam(args.lr))
     opt_state = init_opt(params)
