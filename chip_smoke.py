@@ -199,7 +199,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    pieces: the python surface (attention and joint kernels) transcribes
    phase 3's utterance as phase 3's ``f32_on`` arm does on the same audio,
    and the batch surface (B = 4, joint kernel) equals the python surface.
-   Bytes written and the seconds of export, import and suite.
+   Bytes written and the seconds of export, import and suite. The imported
+   model dir is kept for phase 4d.
 3g. the runtime layer (run after 4c, in its temporary directory). (a)
    phase 3's weights and ``f32_all`` flags: ``build_engines`` (the
    session's four programs and the lockstep program at B = 8, smoke checks,
@@ -269,6 +270,26 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    row; ``beam=4`` on 4 utterances equal to the greedy row. Kernel launches
    counted a row; chunk ms p50 and p95 and RTFx of the f32_on row; seconds
    by row.
+4d. the port's native C-ABI runtime (``trt_asr_tpu_torch/native/``; run
+   after 3g, in 4c's temporary directory). (a) ``native.build.build()``
+   compiles the library, the CLI and the tools from the checkout's sources
+   with the host C++ compiler (seconds, bytes). (b) the mock CLI's lines
+   (``--mock --timestamps``), ``abi_thread_smoke ok``, and ``logmel_tool`` on
+   a seeded signal against the port's frontend (2e-4, plus the frontend's
+   own tolerance against JAX's, 2e-5 + 5e-5 relative). (c) gate_r3 through
+   ``run_suite(engine="native")`` in the gate's fast env, four CLI processes
+   at once: 4c's first 3 held-out utterances at sim 0.3, each transcript
+   equal to 4c's fast row's, and utterance 0 under ``drop_time_carry`` at
+   0.5, equal to 4c's sabotage fast row's; one run's profiler trace holds
+   the int8 attention-block kernel's events. (d) 3f's imported model dir
+   (phase 3's weights) and phase 3's utterance: the native CLI with the f32
+   attention and joint kernels and ``python -m trt_asr_tpu_torch.cli`` at
+   once, their Final, Transcript and Word lines equal (word times to the
+   Python CLI's 2 decimals), the native run's trace holding both kernels'
+   events, its embedded interpreter importing nothing of JAX; seconds from
+   start to exit. (e) the library through ``ctypes`` in this process on
+   gate_r3 (fast env): the f16 push gives the f32 push's final, non-empty,
+   with the int8 attention kernel's launches counted. Seconds by part.
 5. full-width offline batch (``ModelConfig()``, the phase-3 weights): 8
    synthetic utterances of mixed length up to 30 s (one under 10 s),
    batched and padded as ``transcribe_batch`` does, through
@@ -307,15 +328,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    wrapper launches; the seconds of each step are logged.
 6. neither ``jax`` nor ``trt_asr_tpu`` was imported, here or (by ``-X
    importtime``) in a subprocess (the toy's, the parity runner's, the
-   debug-env CLI's, the importer's and the eval suite's cli surface's
-   too), and the daemon's, the CLI's, their helpers', training's, the
-   contract's, the golden runner's, the debug surface's, the eval suite's
-   (``eval.wer``, ``eval.suite``, ``eval.synthetic``, ``eval.gate``) and
-   the ONNX path's (``io.onnx_lite``, ``io.onnx_graphs``,
-   ``io.onnx_weights``; ``import_onnx`` in its subprocess) and the runtime
-   layer's (``runtime.engine``, ``runtime.platform``,
-   ``runtime.capi_bridge``, ``parallel.mesh``, ``engine_build``) modules
-   were run.
+   debug-env CLI's, the importer's, the eval suite's cli surface's and the
+   full-width native CLI's embedded interpreter too), and the daemon's, the
+   CLI's, their helpers', training's, the contract's, the golden runner's,
+   the debug surface's, the eval suite's (``eval.wer``, ``eval.suite``,
+   ``eval.synthetic``, ``eval.gate``) and the ONNX path's
+   (``io.onnx_lite``, ``io.onnx_graphs``, ``io.onnx_weights``;
+   ``import_onnx`` in its subprocess) and the runtime layer's
+   (``runtime.engine``, ``runtime.platform``, ``runtime.capi_bridge``,
+   ``parallel.mesh``, ``engine_build``) and the native runtime's build
+   helper (``native.build``) modules were run.
 
 Each phase's seconds are logged. The last line is ``{"ok": true, "device":
 {...}}``; the line before it is
@@ -327,6 +349,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import io
 import json
 import math
@@ -2781,7 +2804,8 @@ def suite_texts(rnd) -> list:
     return [u["transcript"] for u in rnd["utterances"]]
 
 
-def import_path(torch, dev, cfg, params, tok, n_words: int, seed: int, f32_on_tokens) -> None:
+def import_path(torch, dev, cfg, params, tok, n_words: int, seed: int, f32_on_tokens,
+                tmp: str) -> tuple:
     """Phase 3f: phase 3's weights (f32, the calibrated blank bias in the
     joint's out bias) exported with ``export_params_to_onnx`` (external data
     for large tensors), imported by ``python -m trt_asr_tpu_torch.import_onnx
@@ -2792,7 +2816,9 @@ def import_path(torch, dev, cfg, params, tok, n_words: int, seed: int, f32_on_to
     transcript of phase 3's utterance equals phase 3's ``f32_on`` arm on the
     same audio (read back from the wav the suite reads), and the batch
     surface (B = 4, joint kernel), equal to the python surface utterance by
-    utterance. Logs the bytes written and the seconds of each step."""
+    utterance. Logs the bytes written and the seconds of each step. Works in
+    ``tmp`` and returns the imported model dir and the wav of phase 3's
+    utterance, which phase 4d reads; the export is removed."""
     from trt_asr_tpu_torch.config import RuntimeConfig
     from trt_asr_tpu_torch.eval.manifest import ManifestEntry, write_manifest
     from trt_asr_tpu_torch.eval.suite import SuiteConfig, run_suite
@@ -2808,69 +2834,69 @@ def import_path(torch, dev, cfg, params, tok, n_words: int, seed: int, f32_on_to
     audios += [synth.synth_utterance(list(rng.integers(0, 1120, size=w)), rng) for w in (5, 8, 11)]
     on = {"TRT_ASR_PALLAS_ATT": "1", "TRT_ASR_PALLAS_JOINT": "1"}
     step_s = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        exp, md = os.path.join(tmp, "export"), os.path.join(tmp, "model")
-        free = shutil.disk_usage(tmp).free
-        t0 = time.perf_counter()
-        export_params_to_onnx(params, cfg, exp)
-        write_vocab(os.path.join(exp, "vocab.txt"), tok.vocab)
-        step_s["export"] = time.perf_counter() - t0
-        sizes = {f: os.path.getsize(os.path.join(exp, f)) for f in sorted(os.listdir(exp))}
-        log(f"import path: exported {sum(sizes.values())} B ({sizes}) in {step_s['export']:.1f} s "
-            f"({free / 2**30:.1f} GiB free before)")
-        t0 = time.perf_counter()
-        errf = os.path.join(tmp, "import_err.txt")
-        with open(errf, "w") as ferr:
-            res = subprocess.run([sys.executable, "-X", "importtime", "-m",
-                                  "trt_asr_tpu_torch.import_onnx", exp, "--out", md, "--verify"],
-                                 cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
-                                 stdout=subprocess.PIPE, stderr=ferr, text=True, timeout=900)
-        step_s["import"] = time.perf_counter() - t0
-        with open(errf) as f:
-            err = f.read()
-        assert res.returncode == 0, f"import_onnx: exit {res.returncode}\n{err[-3000:]}"
-        check_no_jax_imported("import_onnx", err, must="trt_asr_tpu_torch.io.onnx_weights")
-        lines = res.stdout.splitlines()
-        assert any(ln.startswith("imported ") for ln in lines), res.stdout
-        verify = [ln for ln in lines if ln.startswith("verify: ")]
-        assert len(verify) == 1 and " on cuda" in verify[0], res.stdout
-        log(f"import path: import_onnx --verify on the card in {step_s['import']:.1f} s: {lines}")
-        t0 = time.perf_counter()
-        n = assert_same_tree("import path", load_checkpoint_numpy(md, verify=False),
-                             params_to_numpy(params))
-        md_bytes = sum(os.path.getsize(os.path.join(md, f)) for f in os.listdir(md))
-        log(f"import path: the imported params.npz equals phase 3's weights, {n} leaves bit for "
-            f"bit ({md_bytes} B in the model dir, compared in {time.perf_counter() - t0:.1f} s)")
-        entries = []
-        for k, a in enumerate(audios):
-            path = os.path.join(tmp, f"utt{k}.wav")
-            save_wav(path, a)
-            entries.append(ManifestEntry(path, ""))
-        man = os.path.join(tmp, "import.tsv")
-        write_manifest(man, entries)
-        # phase 3's f32_on arm on the audio the suite reads (16-bit wav)
-        rt = RuntimeConfig(use_pallas_att=True, use_pallas_joint=True)
-        model = make_model(torch, cfg, params, tok, rt, dev, mel_kernel=True)
-        want = run_session(torch, model, rt, load_wav(entries[0].audio_path), 8000)
-        del model
-        log(f"import path: phase 3's f32_on arm on the wav's audio: {len(want.tokens)} tokens "
-            f"(== its float audio's: {want.tokens == list(f32_on_tokens)})")
-        t0 = time.perf_counter()
-        common = dict(manifest_path=man, model_dir=md, stream_sim=0.5, feature_norm="none")
-        with env_overrides(on):
-            reset_counts()
-            py = run_suite(SuiteConfig(out_dir=os.path.join(tmp, "py"), engine="python",
-                                       **common))
-            counts = read_counts()
-        assert set(launched(counts)) == {"att_block", "joint_step"}, counts
-        step_s["suite python"], t0 = time.perf_counter() - t0, time.perf_counter()
-        with env_overrides({"TRT_ASR_PALLAS_JOINT": "1"}):
-            reset_counts()
-            bat = run_suite(SuiteConfig(out_dir=os.path.join(tmp, "batch"), engine="batch",
-                                        batch_size=4, **common))
-            b_counts = read_counts()
-        assert set(launched(b_counts)) == {"joint_step"}, b_counts
-        step_s["suite batch"] = time.perf_counter() - t0
+    exp, md = os.path.join(tmp, "export"), os.path.join(tmp, "model")
+    free = shutil.disk_usage(tmp).free
+    t0 = time.perf_counter()
+    export_params_to_onnx(params, cfg, exp)
+    write_vocab(os.path.join(exp, "vocab.txt"), tok.vocab)
+    step_s["export"] = time.perf_counter() - t0
+    sizes = {f: os.path.getsize(os.path.join(exp, f)) for f in sorted(os.listdir(exp))}
+    log(f"import path: exported {sum(sizes.values())} B ({sizes}) in {step_s['export']:.1f} s "
+        f"({free / 2**30:.1f} GiB free before)")
+    t0 = time.perf_counter()
+    errf = os.path.join(tmp, "import_err.txt")
+    with open(errf, "w") as ferr:
+        res = subprocess.run([sys.executable, "-X", "importtime", "-m",
+                              "trt_asr_tpu_torch.import_onnx", exp, "--out", md, "--verify"],
+                             cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                             stdout=subprocess.PIPE, stderr=ferr, text=True, timeout=900)
+    step_s["import"] = time.perf_counter() - t0
+    with open(errf) as f:
+        err = f.read()
+    assert res.returncode == 0, f"import_onnx: exit {res.returncode}\n{err[-3000:]}"
+    check_no_jax_imported("import_onnx", err, must="trt_asr_tpu_torch.io.onnx_weights")
+    lines = res.stdout.splitlines()
+    assert any(ln.startswith("imported ") for ln in lines), res.stdout
+    verify = [ln for ln in lines if ln.startswith("verify: ")]
+    assert len(verify) == 1 and " on cuda" in verify[0], res.stdout
+    log(f"import path: import_onnx --verify on the card in {step_s['import']:.1f} s: {lines}")
+    t0 = time.perf_counter()
+    n = assert_same_tree("import path", load_checkpoint_numpy(md, verify=False),
+                         params_to_numpy(params))
+    md_bytes = sum(os.path.getsize(os.path.join(md, f)) for f in os.listdir(md))
+    log(f"import path: the imported params.npz equals phase 3's weights, {n} leaves bit for "
+        f"bit ({md_bytes} B in the model dir, compared in {time.perf_counter() - t0:.1f} s)")
+    entries = []
+    for k, a in enumerate(audios):
+        path = os.path.join(tmp, f"utt{k}.wav")
+        save_wav(path, a)
+        entries.append(ManifestEntry(path, ""))
+    man = os.path.join(tmp, "import.tsv")
+    write_manifest(man, entries)
+    # phase 3's f32_on arm on the audio the suite reads (16-bit wav)
+    rt = RuntimeConfig(use_pallas_att=True, use_pallas_joint=True)
+    model = make_model(torch, cfg, params, tok, rt, dev, mel_kernel=True)
+    want = run_session(torch, model, rt, load_wav(entries[0].audio_path), 8000)
+    del model
+    log(f"import path: phase 3's f32_on arm on the wav's audio: {len(want.tokens)} tokens "
+        f"(== its float audio's: {want.tokens == list(f32_on_tokens)})")
+    t0 = time.perf_counter()
+    common = dict(manifest_path=man, model_dir=md, stream_sim=0.5, feature_norm="none")
+    with env_overrides(on):
+        reset_counts()
+        py = run_suite(SuiteConfig(out_dir=os.path.join(tmp, "py"), engine="python",
+                                   **common))
+        counts = read_counts()
+    assert set(launched(counts)) == {"att_block", "joint_step"}, counts
+    step_s["suite python"], t0 = time.perf_counter() - t0, time.perf_counter()
+    with env_overrides({"TRT_ASR_PALLAS_JOINT": "1"}):
+        reset_counts()
+        bat = run_suite(SuiteConfig(out_dir=os.path.join(tmp, "batch"), engine="batch",
+                                    batch_size=4, **common))
+        b_counts = read_counts()
+    assert set(launched(b_counts)) == {"joint_step"}, b_counts
+    step_s["suite batch"] = time.perf_counter() - t0
+    shutil.rmtree(exp)
     got, got_b = suite_texts(py["variants"]["base"][0]), suite_texts(bat["variants"]["base"][0])
     log(f"import path: suite python (launches {launched(counts)}) {got}; batch B 4 (launches "
         f"{launched(b_counts)}) {got_b}")
@@ -2880,6 +2906,7 @@ def import_path(torch, dev, cfg, params, tok, n_words: int, seed: int, f32_on_to
     assert got_b == got, "import path: the batch surface differs from the python surface"
     assert got[0], "import path: no transcript of phase 3's utterance"
     log(f"phase 3f seconds by step: { {k: round(v, 1) for k, v in step_s.items()} }")
+    return md, entries[0].audio_path
 
 
 @contextlib.contextmanager
@@ -3331,7 +3358,7 @@ GATE_ENVS = {   # a row's kernel flags, and the kernels they launch in the suite
 }
 
 
-def gate_r3_wer(torch, dev, md: str, tmp: str) -> None:
+def gate_r3_wer(torch, dev, md: str, tmp: str) -> dict:
     """Phase 4c: gate_r3's held-out set (``make_words(1120)``, ``make_set(50,
     2, words, 8, 13)``: 502 reference words) through ``run_suite`` with
     ``feature_norm="none"``, as the JAX gate runs it. Each row's WER counts
@@ -3348,7 +3375,8 @@ def gate_r3_wer(torch, dev, md: str, tmp: str) -> None:
     ``PYTHONPROFILEIMPORTTIME``) equals the fast row; the beam (python,
     ``beam=4``, 4 utterances) equals the greedy row. Counts are reset before
     each in-process row and read after it. Logs the f32_on row's chunk ms
-    (p50, p95) and RTFx, and each row's seconds."""
+    (p50, p95) and RTFx, and each row's seconds. Returns the rows by name
+    (phase 4d reads ``fast`` and ``fast_sabotage``)."""
     from trt_asr_tpu_torch.eval import gate
     from trt_asr_tpu_torch.eval.manifest import read_manifest, write_manifest
     from trt_asr_tpu_torch.eval.suite import SuiteConfig, run_suite
@@ -3485,6 +3513,7 @@ def gate_r3_wer(torch, dev, md: str, tmp: str) -> None:
         "gate_r3 WER[beam4]: transcripts differ from the greedy row's")
     assert rows["beam4"]["wer"]["wer"] == 0.0
     log(f"phase 4c seconds by row: { {k: round(v, 1) for k, v in row_s.items()} }")
+    return rows
 
 
 # --- phase 3g: the runtime layer ------------------------------------------------
@@ -3820,6 +3849,271 @@ def runtime_phase(torch, dev, cfg, params, tok, n_words: int, seed: int, f32_all
     runtime_refusals(torch, dev, md, eng_dir, p4, tmp, step_s)
     runtime_bridge_and_mesh(torch, dev, md, p4, step_s)
     log(f"phase 3g seconds by step: { {k: round(v, 1) for k, v in step_s.items()} }")
+
+
+
+# --- phase 4d: the native runtime on the card -----------------------------------
+
+NATIVE_ABI = {   # the ctypes bindings of the port's C ABI that 4d (e) calls
+    "parakeet_create_session": (ctypes.c_void_p, [ctypes.c_void_p]),
+    "parakeet_destroy_session": (None, [ctypes.c_void_p]),
+    "parakeet_reset_utterance": (None, [ctypes.c_void_p]),
+    "parakeet_poll_event": (ctypes.c_bool, [ctypes.c_void_p, ctypes.c_void_p]),
+    "trt_asr_push_features_tc": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_void_p,
+                                                ctypes.c_size_t]),
+    "trt_asr_push_features_tc_f16": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_void_p,
+                                                    ctypes.c_size_t]),
+    "trt_asr_finalize": (ctypes.c_int, [ctypes.c_void_p]),
+    "trt_asr_n_mels": (ctypes.c_int, [ctypes.c_void_p]),
+}
+
+
+class NativeConfig(ctypes.Structure):      # ParakeetConfig
+    _fields_ = [("model_dir", ctypes.c_char_p), ("device_id", ctypes.c_int32),
+                ("use_fp16", ctypes.c_bool), ("use_mock", ctypes.c_bool)]
+
+
+class NativeEvent(ctypes.Structure):       # ParakeetEvent
+    _fields_ = [("type", ctypes.c_int), ("segment_id", ctypes.c_int32),
+                ("text", ctypes.c_char_p), ("error_message", ctypes.c_char_p)]
+
+
+def trace_kernels(prof_dir: str) -> list:
+    """The CUDA kernel events' names of the one Chrome trace under
+    ``prof_dir`` (``debug/profiler.py``'s ``run_<time>/trace.json``)."""
+    (run,) = os.listdir(prof_dir)
+    with open(os.path.join(prof_dir, run, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    return [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+
+
+def word_line_2dp(line: str) -> str:
+    """A native CLI's ``Word: [start end] word`` line (times as the C ABI's
+    TSV gives them, 4 decimals) in the Python CLI's form (2 decimals);
+    other lines as they are. Times are multiples of a frame (80 ms)."""
+    if not line.startswith("Word: ["):
+        return line
+    times, word = line[len("Word: ["):].split("] ", 1)
+    start, end = (float(x) for x in times.split())
+    return f"Word: [{start:.2f} {end:.2f}] {word}"
+
+
+def native_checks(n, tmp: str) -> None:
+    """Phase 4d (b): the mock CLI's lines, the thread smoke, and the native
+    log-mel against the port's frontend on a seeded signal (2e-4, plus the
+    port's frontend's own tolerance against JAX's: 2e-5 + 5e-5 relative;
+    its DFT is a float32 matmul)."""
+    from trt_asr_tpu_torch.frontend.logmel import LogMelFrontend
+    from trt_asr_tpu_torch.io.wav import save_wav
+
+    wav = os.path.join(tmp, "native_zeros.wav")
+    save_wav(wav, np.zeros(32000, np.float32))
+    out = subprocess.run([str(n.cli), wav, "--mock", "--timestamps"], capture_output=True,
+                         text=True, timeout=60)
+    want = ["Partial: Mock partial for 198 frames", "Final: Mock transcription for 198 frames",
+            "Transcript: Mock transcription for 198 frames", "Word: [0.000000 1.000000] mock0"]
+    assert out.returncode == 0 and out.stdout.splitlines() == want, (out.stdout, out.stderr)
+    assert "backend=mock" in out.stderr, out.stderr
+    smoke = subprocess.run([str(n.abi_thread_smoke)], capture_output=True, text=True, timeout=60)
+    assert smoke.returncode == 0 and "abi_thread_smoke ok" in smoke.stdout, smoke.stderr
+    rng = np.random.default_rng(7)
+    audio = (0.3 * np.sin(np.arange(20000) * 0.13)
+             + 0.05 * rng.standard_normal(20000)).astype(np.float32)
+    raw = os.path.join(tmp, "native_logmel.f32")
+    audio.tofile(raw)
+    res = subprocess.run([str(n.logmel_tool), raw], capture_output=True, timeout=60, check=True)
+    got = np.frombuffer(res.stdout, dtype=np.float32).reshape(-1, 128)
+    ref = LogMelFrontend(device="cpu")(audio).numpy()
+    err = float(np.abs(got - ref).max())
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    np.testing.assert_allclose(got, ref, atol=2e-4 + 2e-5, rtol=5e-5)
+    log(f"native: mock CLI lines {want}; {smoke.stdout.strip()}; logmel_tool {got.shape} "
+        f"within {err:.3g} of the port's frontend")
+
+
+def native_gate_rows(md: str, tmp: str, rows4c: dict) -> None:
+    """Phase 4d (c): gate_r3 through ``run_suite(engine="native")`` in the
+    gate's fast env (int8 weights, attention kernel): 4c's first 3 held-out
+    utterances at sim 0.3, each transcript equal to 4c's fast row's, and
+    utterance 0 under ``drop_time_carry`` at 0.5, equal to 4c's sabotage
+    fast row's; the four suites at once (a thread each; a thread's extra
+    env reaches its CLI process through ``subprocess.run``). The first
+    run's profiler trace (its first 4 chunks: a whole utterance's capture
+    doubled the run's seconds) holds the int8 attention-block kernel's
+    events: it ran inside the embedded interpreter."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from trt_asr_tpu_torch.eval.gate import FAST_ENV
+    from trt_asr_tpu_torch.eval.manifest import read_manifest, write_manifest
+    from trt_asr_tpu_torch.eval.suite import SuiteConfig, run_suite
+
+    entries = read_manifest(os.path.join(tmp, "eval_clean.tsv"))
+    prof = os.path.join(tmp, "native_prof")
+    jobs = {f"clean{k}": (k, 0.3, {}) for k in range(3)}
+    jobs["clean0"] = (0, 0.3, {"TRT_ASR_PROFILE_DIR": prof, "TRT_ASR_PROFILE_CHUNKS": "4"})
+    jobs["sabotage0"] = (0, 0.5, {"TRT_ASR_SABOTAGE": "drop_time_carry"})
+    extra, real_run = {}, subprocess.run
+
+    def run_with_extra(cmd, **kw):
+        kw["env"] = dict(kw["env"], **extra.get(threading.get_ident(), {}))
+        return real_run(cmd, **kw)
+
+    def job(name: str) -> dict:
+        k, sim, env = jobs[name]
+        extra[threading.get_ident()] = env
+        man = os.path.join(tmp, f"native_{name}.tsv")
+        write_manifest(man, entries[k:k + 1])
+        t0 = time.perf_counter()
+        res = run_suite(SuiteConfig(manifest_path=man, out_dir=os.path.join(tmp, f"native_{name}"),
+                                    model_dir=md, engine="native", stream_sim=sim,
+                                    feature_norm="none"))
+        (u,) = res["variants"]["base"][0]["utterances"]
+        assert u["returncode"] == 0, (
+            f"native[{name}]: exit {u['returncode']}\n{u.get('stderr_tail')}")
+        return dict(u, seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    with env_overrides(dict(FAST_ENV, TRT_ASR_SABOTAGE="")):
+        subprocess.run = run_with_extra
+        try:
+            with ThreadPoolExecutor(len(jobs)) as ex:
+                got = dict(zip(jobs, ex.map(job, jobs)))
+        finally:
+            subprocess.run = real_run
+    wall = time.perf_counter() - t0
+    for name, (k, sim, _) in jobs.items():
+        row = rows4c["fast_sabotage" if name.startswith("sabotage") else "fast"]
+        want = row["utterances"][k]["transcript"]
+        assert got[name]["transcript"] == want, (
+            f"native[{name}]: {got[name]['transcript']!r} against 4c's {want!r}")
+        assert got[name]["transcript"], f"native[{name}]: empty transcript"
+    kernels = trace_kernels(prof)
+    att = [k for k in kernels if "att_block_q8_kernel" in k]
+    log(f"native gate_r3 (fast env) at once in {wall:.1f} s: "
+        + ", ".join(f"{name} {got[name]['seconds']:.1f} s {got[name]['transcript']!r}"
+                    for name in jobs)
+        + f" == 4c's fast rows; clean0's trace {len(kernels)} CUDA kernel events, {len(att)} of "
+        f"att_block_q8_kernel")
+    assert att, "the native run's trace holds no int8 attention-block kernel event"
+
+
+def native_full_width(n, fw: tuple, tmp: str) -> None:
+    """Phase 4d (d): 3f's imported model dir (phase 3's weights) and phase
+    3's utterance: the native CLI with the attention and joint kernels
+    (f32) and ``python -m trt_asr_tpu_torch.cli`` with the same flags, at
+    once; their Final, Transcript and Word lines are equal, the native
+    run's profiler trace holds the f32 attention-block and joint-step
+    kernels' events, and its embedded interpreter imported nothing of JAX
+    (``PYTHONPROFILEIMPORTTIME``)."""
+    from trt_asr_tpu_torch.native.build import embed_env
+
+    md, wav = fw
+    args = [wav, "--model-dir", md, "--stream-sim", "0.5", "--no-sleep", "--timestamps",
+            "--feature-norm", "none"]
+    base = {k: v for k, v in os.environ.items() if not k.startswith("TRT_ASR_")}
+    base.update(TRT_ASR_PALLAS_ATT="1", TRT_ASR_PALLAS_JOINT="1")
+    prof = os.path.join(tmp, "native_fw_prof")
+    nat_env = embed_env(dict(base, TRT_ASR_PROFILE_DIR=prof, PYTHONPROFILEIMPORTTIME="1"))
+    t0 = time.perf_counter()
+    procs = {"native": subprocess.Popen([str(n.cli), *args], env=nat_env, text=True,
+                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE),
+             "python": subprocess.Popen([sys.executable, "-m", "trt_asr_tpu_torch.cli", *args],
+                                        cwd=ROOT, env=dict(base, PYTHONPATH=ROOT), text=True,
+                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE)}
+    out, secs = {}, {}
+    for name, p in procs.items():
+        out[name] = p.communicate(timeout=600)
+        secs[name] = time.perf_counter() - t0
+        assert p.returncode == 0, (
+            f"full width {name} CLI: exit {p.returncode}\n{out[name][1][-3000:]}")
+    got, want = entry_lines(out["native"][0]), entry_lines(out["python"][0])
+    got = [word_line_2dp(ln) for ln in got]
+    assert got == want, f"full width: the native CLI's lines {got} against the Python CLI's {want}"
+    assert any(ln.startswith("Word:") for ln in got), got
+    check_no_jax_imported("native CLI (full width)", out["native"][1],
+                          must="trt_asr_tpu_torch.runtime.capi_bridge")
+    kernels = trace_kernels(prof)
+    att = [k for k in kernels if "att_block_f32_kernel" in k]
+    joint = [k for k in kernels if "joint_step_f32_kernel" in k]
+    log(f"native full width: {len(got)} Final/Transcript/Word lines == the Python CLI's "
+        f"({[ln for ln in got if ln.startswith('Transcript:')]}); start to exit native "
+        f"{secs['native']:.1f} s, python {secs['python']:.1f} s (at once); trace {len(kernels)} "
+        f"CUDA kernel events, {len(att)} att_block_f32_kernel, {len(joint)} joint_step_f32_kernel")
+    assert att and joint, "the native run's trace lacks the f32 attention or joint kernel"
+
+
+def native_f16_push(n, md: str, tmp: str) -> None:
+    """Phase 4d (e): the port's library through ``ctypes`` in this process
+    (its embedded backend on this interpreter), gate_r3 in the fast env, the
+    log-mel of 4c's first held-out utterance pushed whole: the f16 push
+    (``trt_asr_push_features_tc_f16``) gives the f32 push's final of the
+    same f16-rounded values, non-empty; the int8 attention kernel launches
+    (counts reset before, read after)."""
+    from trt_asr_tpu_torch.contract import FrontendSpec
+    from trt_asr_tpu_torch.eval.gate import FAST_ENV
+    from trt_asr_tpu_torch.eval.manifest import read_manifest
+    from trt_asr_tpu_torch.frontend.logmel import LogMelFrontend
+    from trt_asr_tpu_torch.io.wav import load_wav
+
+    lib = ctypes.CDLL(str(n.lib))
+    for name, (res, args) in NATIVE_ABI.items():
+        getattr(lib, name).restype, getattr(lib, name).argtypes = res, args
+    with env_overrides(dict(FAST_ENV, TRT_ASR_SABOTAGE="")):
+        cfg = NativeConfig(md.encode(), 0, True, False)
+        s = lib.parakeet_create_session(ctypes.byref(cfg))
+        assert s, "parakeet_create_session failed (embedded backend)"
+        n_mels = lib.trt_asr_n_mels(s)
+        audio = load_wav(read_manifest(os.path.join(tmp, "eval_clean.tsv"))[0].audio_path)
+        feats = LogMelFrontend(FrontendSpec(n_mels=n_mels), device="cpu")(audio).numpy()
+        f16 = np.ascontiguousarray(feats.astype(np.float16))
+        f32 = f16.astype(np.float32)
+
+        def run(fn, buf) -> str:
+            lib.parakeet_reset_utterance(s)
+            assert fn(s, buf.ctypes.data, len(buf)) == 0
+            assert lib.trt_asr_finalize(s) == 0
+            ev, final = NativeEvent(), ""
+            while lib.parakeet_poll_event(s, ctypes.byref(ev)):
+                if ev.type == 1:
+                    final = ev.text.decode()
+            return final
+
+        reset_counts()
+        t32 = run(lib.trt_asr_push_features_tc, f32)
+        t16 = run(lib.trt_asr_push_features_tc_f16, f16)
+        counts = read_counts()
+        lib.parakeet_destroy_session(s)
+    log(f"native f16 push: {f16.shape} frames x mels, f16 final {t16!r} == f32 push's; "
+        f"launches {launched(counts)}")
+    assert t16 == t32 and t32, (t16, t32)
+    assert set(launched(counts)) == {"att_block"}, counts
+
+
+def native_phase(torch, md: str, tmp: str, rows4c: dict, fw: tuple) -> None:
+    """Phase 4d: the port's native C-ABI runtime on the card (run after 4c,
+    in its temporary directory): (a) the build, (b) mock and ABI checks,
+    (c) gate_r3 through the suite's native engine, (d) full width against
+    the Python CLI, (e) the f16 push. Seconds by part."""
+    from trt_asr_tpu_torch.native import build as native_build
+
+    part_s = {}
+    t0 = time.perf_counter()
+    n = native_build.build()
+    part_s["a build"], t0 = time.perf_counter() - t0, time.perf_counter()
+    sizes = {f.name: f.stat().st_size for f in (n.lib, n.cli, n.logmel_tool, n.abi_thread_smoke)}
+    log(f"native: {n.dir} built in {n.seconds:.1f} s by {native_build.compiler()} "
+        f"({sum(sizes.values())} B: {sizes})")
+    native_checks(n, tmp)
+    part_s["b mock, ABI, logmel"], t0 = time.perf_counter() - t0, time.perf_counter()
+    native_gate_rows(md, tmp, rows4c)
+    part_s["c gate_r3 native"], t0 = time.perf_counter() - t0, time.perf_counter()
+    native_full_width(n, fw, tmp)
+    part_s["d full width"], t0 = time.perf_counter() - t0, time.perf_counter()
+    native_f16_push(n, md, tmp)
+    part_s["e f16 push"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    log(f"phase 4d seconds by part: { {k: round(v, 1) for k, v in part_s.items()} }")
 
 
 
@@ -4485,21 +4779,24 @@ def main() -> int:
     phase_s["3d beam"], t0 = time.perf_counter() - t0, time.perf_counter()
     phase_3e(torch, dev, cfg, params, tok, args.words, args.seed, sess)
     phase_s["3e per-step, goldens, debug"], t0 = time.perf_counter() - t0, time.perf_counter()
-    import_path(torch, dev, cfg, params, tok, args.words, args.seed, sess["f32_on"]["tokens"])
-    phase_s["3f import"], t0 = time.perf_counter() - t0, time.perf_counter()
-    md = os.path.join(ROOT, "artifacts", "models", "gate_r3")
-    gate_r3_session(torch, dev)
-    gate_r3_offline(torch, dev)
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp3f, tempfile.TemporaryDirectory() as tmp:
+        fw = import_path(torch, dev, cfg, params, tok, args.words, args.seed,
+                         sess["f32_on"]["tokens"], tmp3f)
+        phase_s["3f import"], t0 = time.perf_counter() - t0, time.perf_counter()
+        md = os.path.join(ROOT, "artifacts", "models", "gate_r3")
+        gate_r3_session(torch, dev)
+        gate_r3_offline(torch, dev)
         p4 = gate_r3_entry_points(torch, dev, md, synth_module(), tmp)
         phase_s["4 gate_r3"], t0 = time.perf_counter() - t0, time.perf_counter()
         gate_r3_beam(torch, dev, md, synth_module(), tmp)
         phase_s["4b gate_r3 beam"], t0 = time.perf_counter() - t0, time.perf_counter()
-        gate_r3_wer(torch, dev, md, tmp)
+        rows4c = gate_r3_wer(torch, dev, md, tmp)
         phase_s["4c gate_r3 WER"], t0 = time.perf_counter() - t0, time.perf_counter()
         runtime_phase(torch, dev, cfg, params, tok, args.words, args.seed, sess["f32_all"],
                       engine_tokens["f32"], md, p4, tmp)
         phase_s["3g runtime"], t0 = time.perf_counter() - t0, time.perf_counter()
+        native_phase(torch, md, tmp, rows4c, fw)
+        phase_s["4d native"], t0 = time.perf_counter() - t0, time.perf_counter()
     params["joint"]["out"]["b"][cfg.blank_id] -= bias        # phase 5 searches its own
     sess.update(full_width_offline(torch, dev, cfg, params, tok, audios))
     phase_s["5 offline"], t0 = time.perf_counter() - t0, time.perf_counter()
@@ -4525,7 +4822,8 @@ def main() -> int:
                                                  "eval.gate", "io.onnx_lite", "io.onnx_graphs",
                                                  "io.onnx_weights", "runtime.engine",
                                                  "runtime.platform", "runtime.capi_bridge",
-                                                 "parallel.mesh", "engine_build")]
+                                                 "parallel.mesh", "engine_build",
+                                                 "native.build")]
     assert all(m in sys.modules for m in entry), "the entry points' modules were not run"
 
     kernels = []

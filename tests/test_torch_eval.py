@@ -9,7 +9,8 @@ artifact keys, matrix, gate rows and exit code, and the same suite results
 excluded); the beam suite against JAX's, with and without an n-gram LM
 fused (``lm_path``); the port alone under ``drop_time_carry`` (the gate
 fails), its cli engine against its python engine (greedy, and beam 2 with
-the LM), the native engine's "not ported" error, the validation errors and
+the LM), its native engine (the port's C++ CLI) against its cli engine, the
+gate's native surface beside its cli surface, the validation errors and
 the ``python -m trt_asr_tpu_torch.eval.suite`` exit rule. Partials are
 unpaced (``TRT_ASR_PARTIAL_MIN_INTERVAL_MS=0``) on both sides, so their
 counts do not depend on the wall clock."""
@@ -277,10 +278,44 @@ def test_cli_engine_matches_python_engine(gate_runs, one_utt, tmp_path, monkeypa
     assert u["num_finals"] >= 1 and u["transcript"]
 
 
-def test_native_engine_is_not_ported(one_utt, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        port_suite.run_suite(port_suite.SuiteConfig(manifest_path=one_utt,
-                                                    out_dir=str(tmp_path), engine="native"))
+def test_native_engine_matches_cli_engine(one_utt, tmp_path, monkeypatch):
+    """``engine="native"``: the port's C++ CLI (built at first use), its
+    embedded interpreter on the CPU (``device="cpu"``), gives the cli
+    engine's row."""
+    monkeypatch.setenv("TRT_ASR_PARTIAL_MIN_INTERVAL_MS", "0")
+    rows = {}
+    for engine in ("cli", "native"):
+        res = port_suite.run_suite(port_suite.SuiteConfig(
+            manifest_path=one_utt, out_dir=str(tmp_path / engine), model_dir=GATE_R3,
+            engine=engine, stream_sim=0.5, feature_norm="none", device="cpu"))
+        rows[engine] = r = res["variants"]["base"][0]
+        assert res["config"]["engine"] == engine
+        (u,) = r["utterances"]
+        assert u["returncode"] == 0, u.get("stderr_tail")
+    (n,), (c,) = rows["native"]["utterances"], rows["cli"]["utterances"]
+    assert (n["transcript"], n["num_partials"], n["num_finals"]) == (
+        c["transcript"], c["num_partials"], c["num_finals"])
+    assert rows["native"]["wer"] == rows["cli"]["wer"] and n["transcript"]
+
+
+def test_gate_native_surface(tmp_path):
+    """``--surfaces native`` (``--native-eval-utts``, ``--native-variants``):
+    the native rows in the matrix and the gate rows, equal to the cli
+    surface's on the same utterance, both in the fast env."""
+    rc = gate.main(["--model-dir", GATE_R3, "--out-dir", str(tmp_path), "--eval-utts",
+                    str(N_UTTS), "--noise-snr-db", "0", "--variants", "base", "--stream-sims",
+                    "0.5", "--surfaces", "cli,native", "--cli-eval-utts", "1",
+                    "--native-eval-utts", "1", "--native-variants", "base", "--artifact",
+                    str(tmp_path / "a.json"), "--device", "cpu"])
+    art = json.loads((tmp_path / "a.json").read_text())
+    assert rc == 0 and sorted(art["matrix"]) == ["cli/clean/base/sim0.5",
+                                                 "native/clean/base/sim0.5"]
+    assert art["matrix"]["native/clean/base/sim0.5"] == art["matrix"]["cli/clean/base/sim0.5"]
+    assert art["matrix"]["native/clean/base/sim0.5"]["num_utterances"] == 1
+    assert art["gate_per_surface"]["native"] == art["gate_per_surface"]["cli"]
+    assert art["gate_per_surface"]["native"]["pass"]
+    assert read_manifest(str(tmp_path / "eval_clean_native.tsv")) == read_manifest(
+        str(tmp_path / "eval_clean.tsv"))[:1]
 
 
 @pytest.mark.parametrize("kw,match", [

@@ -2,28 +2,30 @@
 (the evaluation half of ``tools/train_synthetic_e2e.py --skip-train``):
 
     python -m trt_asr_tpu_torch.eval.gate --model-dir artifacts/models/gate_r3 \\
-        --surfaces python,batch,cli [--out-dir DIR] [--sabotage drop_time_carry] \\
-        [--artifact gate.json] [--device cpu]
+        --surfaces python,batch,cli,native [--out-dir DIR] \\
+        [--sabotage drop_time_carry] [--artifact gate.json] [--device cpu]
 
 It synthesizes the held-out set (``make_set(eval_utts, 2, ...)``), writes
 the clean wavs and manifest and a noisy copy (``add_noise`` at
 ``--noise-snr-db``, rng 99), and runs the eval suite over the matrix
 surface x condition x variant x push granularity: the python surface
 (``StreamingSession``) over every condition, variant and granularity; the
-batch (``BatchStreamingEngine``, staggered attach and finalize) and cli
-(``python -m trt_asr_tpu_torch.cli`` subprocesses) surfaces on the clean
-set at the first granularity, the cli surface on the first
-``--cli-eval-utts`` utterances and in fast mode (``TRT_ASR_QUANT=all
-TRT_ASR_PALLAS_ATT=1``, as the JAX tool always runs its native surface).
-The artifact (``--artifact``) has the JAX tool's keys: ``config``,
-``vocab_size``, ``matrix`` (``surface/condition/variant/simX`` -> WER
-counts) and ``gate_per_surface``. Exit 1 when a surface's clean gate row is
-over ``--gate-wer`` or the python surface's transcript depends on the push
-granularity, else 0. Training is not part of this module: the model dir is
-evaluated as it is (the JAX tool's ``--skip-train`` mode, the only one
-here; the flag is accepted and changes nothing, so that the tool's command
-line runs unchanged). Runs on the CUDA device unless ``--device`` names
-another.
+batch (``BatchStreamingEngine``, staggered attach and finalize), cli
+(``python -m trt_asr_tpu_torch.cli`` subprocesses) and native (the port's
+C++ CLI, ``native/``, as subprocesses) surfaces on the clean set at the
+first granularity, the cli and native surfaces on the first
+``--cli-eval-utts`` and ``--native-eval-utts`` utterances, with
+``--cli-variants`` and ``--native-variants``, and in fast mode
+(``TRT_ASR_QUANT=all TRT_ASR_PALLAS_ATT=1``, as the JAX tool always runs
+its native surface). The artifact (``--artifact``) has the JAX tool's keys:
+``config``, ``vocab_size``, ``matrix`` (``surface/condition/variant/simX``
+-> WER counts) and ``gate_per_surface``. Exit 1 when a surface's clean gate
+row is over ``--gate-wer`` or the python surface's transcript depends on
+the push granularity, else 0. Training is not part of this module: the
+model dir is evaluated as it is (the JAX tool's ``--skip-train`` mode, the
+only one here; the flag is accepted and changes nothing, so that the tool's
+command line runs unchanged). Runs on the CUDA device unless ``--device``
+names another.
 """
 
 from __future__ import annotations
@@ -63,13 +65,20 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="comma list of push granularities (s); the transcript must "
                          "not depend on them")
     ap.add_argument("--surfaces", default="python",
-                    help="comma list of python, batch, cli")
+                    help="comma list of python, batch, cli, native")
     ap.add_argument("--variants", default="base,nopunct,nocache,nocache_nopunct")
     ap.add_argument("--batch-size", type=int, default=4, help="slots for the batch surface")
     ap.add_argument("--cli-eval-utts", type=int, default=12,
                     help="the cli surface starts a process per utterance: gate it on the "
                          "first N held-out utterances")
     ap.add_argument("--cli-variants", default="base")
+    ap.add_argument("--native-cli", default="",
+                    help="the native surface's binary (default: the port's trt_asr_cli, "
+                         "built at first use)")
+    ap.add_argument("--native-eval-utts", type=int, default=12,
+                    help="the native surface starts a process per utterance: gate it on "
+                         "the first N held-out utterances")
+    ap.add_argument("--native-variants", default="base")
     ap.add_argument("--sabotage", default="",
                     help="fault injection (drop_time_carry): the gate must fail under it")
     ap.add_argument("--artifact", default="", help="write the suite-matrix JSON here")
@@ -77,8 +86,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="torch device (default: cuda; raises without one)")
     args = ap.parse_args(argv)
     for s in args.surfaces.split(","):
-        if s.strip() not in ("", "python", "batch", "cli"):
-            ap.error(f"unknown surface {s.strip()!r} (python, batch, cli)")
+        if s.strip() not in ("", "python", "batch", "cli", "native"):
+            ap.error(f"unknown surface {s.strip()!r} (python, batch, cli, native)")
     return args
 
 
@@ -136,12 +145,14 @@ def evaluate(args: argparse.Namespace) -> int:
         surf_sims = sims if surface == "python" else sims[:1]
         surf_variants = variants
         surf_env = {}
-        if surface == "cli":
+        if surface in ("cli", "native"):       # a process per utterance, in fast mode
             surf_env = FAST_ENV
-            surf_variants = [v.strip() for v in args.cli_variants.split(",") if v.strip()]
-            if args.cli_eval_utts < len(evals):
-                sub = read_manifest(manifests["clean"])[: args.cli_eval_utts]
-                man_n = os.path.join(out_dir, "eval_clean_cli.tsv")
+            surf_variants = [v.strip() for v in getattr(args, f"{surface}_variants").split(",")
+                             if v.strip()]
+            n_utts = getattr(args, f"{surface}_eval_utts")
+            if n_utts < len(evals):
+                sub = read_manifest(manifests["clean"])[:n_utts]
+                man_n = os.path.join(out_dir, f"eval_clean_{surface}.tsv")
                 write_manifest(man_n, sub)
                 surf_tags = {"clean": man_n}
         gate_variants[surface] = "base" if "base" in surf_variants else surf_variants[0]
@@ -152,7 +163,8 @@ def evaluate(args: argparse.Namespace) -> int:
                         manifest_path=man,
                         out_dir=os.path.join(out_dir, f"suite_{surface}_{tag}_s{sim}"),
                         model_dir=args.model_dir, engine=surface,
-                        batch_size=args.batch_size, variants=surf_variants, rounds=1,
+                        native_cli=args.native_cli, batch_size=args.batch_size,
+                        variants=surf_variants, rounds=1,
                         stream_sim=sim, feature_norm="none", device=args.device))
                     for v in surf_variants:
                         wer = res["variants"][v][0]["wer"]

@@ -14,14 +14,17 @@ Engines: "python" (in-process ``StreamingSession``, or
 ``BatchStreamingEngine``: utterances served concurrently in lockstep slots
 with staggered attach and finalize), "cli" (``python -m
 trt_asr_tpu_torch.cli`` as a subprocess, its ``Partial:``/``Final:``/
-``Transcript:`` lines parsed). "native" (the C++ CLI) is not ported: its
-Python backend imports the JAX package by name.
+``Transcript:`` lines parsed), "native" (the port's C++ CLI,
+``native/cli/main.cpp``, as a subprocess: its embedded interpreter drives
+this package through ``runtime/capi_bridge.py``; the same lines parsed).
 
 Runs on the CUDA device unless ``SuiteConfig.device`` names another; the
 cli engine's subprocess picks its device as the CLI does (``--device`` is
-passed only when one is named). Run it as ``python -m
-trt_asr_tpu_torch.eval.suite --manifest m.tsv --out-dir o ...`` (the flags
-of ``tools/stt_suite/run_suite.py``; ``--gate-wer`` exits 1 above the bar).
+passed only when one is named), the native engine's as the bridge does
+(``JAX_PLATFORMS=cpu`` is set only when the CPU is named, ``cuda`` when
+another device is). Run it as ``python -m trt_asr_tpu_torch.eval.suite
+--manifest m.tsv --out-dir o ...`` (the flags of
+``tools/stt_suite/run_suite.py``; ``--gate-wer`` exits 1 above the bar).
 """
 
 from __future__ import annotations
@@ -55,7 +58,9 @@ class SuiteConfig:
     manifest_path: str
     out_dir: str
     model_dir: str = ""
-    engine: str = "python"            # python | cli | batch (native: not ported)
+    engine: str = "python"            # python | cli | batch | native
+    native_cli: str = ""              # engine="native": "" = the port's CLI,
+                                      # built at first use (native/build.py)
     batch_size: int = 4               # engine="batch": concurrent slots
     variants: List[str] = field(default_factory=lambda: ["base"])
     rounds: int = 1
@@ -199,24 +204,36 @@ def _run_subprocess_engine(entry: ManifestEntry, variant_env: Dict[str, str],
                            cfg: SuiteConfig) -> Dict[str, object]:
     env = dict(os.environ)
     env.update(variant_env)
-    # `python -m trt_asr_tpu_torch.cli` runs cwd-free with the repository
-    # root on PYTHONPATH (prepended, existing entries kept)
-    repo_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    env["PYTHONPATH"] = (repo_root + os.pathsep + env["PYTHONPATH"]
-                         if env.get("PYTHONPATH") else repo_root)
-    cmd = [sys.executable, "-m", "trt_asr_tpu_torch.cli", entry.audio_path,
-           "--stream-sim", str(cfg.stream_sim), "--no-sleep",
-           "--feature-norm", cfg.feature_norm]
-    if cfg.beam > 0:
-        cmd += ["--beam", str(cfg.beam)]
-        if cfg.lm_path:
-            cmd += ["--lm", cfg.lm_path, "--lm-weight", str(cfg.lm_weight)]
-    if cfg.model_dir:
-        cmd += ["--model-dir", cfg.model_dir]
-    elif cfg.synthetic_model:
-        cmd += ["--synthetic-model", cfg.synthetic_model]
-    if cfg.device:
-        cmd += ["--device", cfg.device]
+    if cfg.engine == "native":
+        from trt_asr_tpu_torch.native.build import build, embed_env
+
+        # the embedded interpreter imports this package and torch from its
+        # PYTHONPATH: the repository root and this interpreter's packages
+        env = embed_env(env)
+        if cfg.device:
+            env["JAX_PLATFORMS"] = "cpu" if cfg.device == "cpu" else "cuda"
+        cmd = [cfg.native_cli or str(build().cli), entry.audio_path,
+               "--model-dir", cfg.model_dir, "--stream-sim", str(cfg.stream_sim),
+               "--no-sleep", "--feature-norm", cfg.feature_norm]
+    else:
+        # `python -m trt_asr_tpu_torch.cli` runs cwd-free with the repository
+        # root on PYTHONPATH (prepended, existing entries kept)
+        repo_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        env["PYTHONPATH"] = (repo_root + os.pathsep + env["PYTHONPATH"]
+                             if env.get("PYTHONPATH") else repo_root)
+        cmd = [sys.executable, "-m", "trt_asr_tpu_torch.cli", entry.audio_path,
+               "--stream-sim", str(cfg.stream_sim), "--no-sleep",
+               "--feature-norm", cfg.feature_norm]
+        if cfg.beam > 0:
+            cmd += ["--beam", str(cfg.beam)]
+            if cfg.lm_path:
+                cmd += ["--lm", cfg.lm_path, "--lm-weight", str(cfg.lm_weight)]
+        if cfg.model_dir:
+            cmd += ["--model-dir", cfg.model_dir]
+        elif cfg.synthetic_model:
+            cmd += ["--synthetic-model", cfg.synthetic_model]
+        if cfg.device:
+            cmd += ["--device", cfg.device]
     out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=1200)
     r = _parse_cli_stdout(out.stdout)
     r["returncode"] = out.returncode
@@ -238,10 +255,7 @@ def run_suite(cfg: SuiteConfig) -> Dict[str, object]:
                          "(streaming/beam_session.py); engines 'batch' "
                          "(lockstep greedy program) and 'native' (no --beam "
                          "flag) decode greedy-only")
-    if cfg.engine == "native":
-        raise NotImplementedError(
-            "engine='native' (the C++ CLI) is not ported yet (ROADMAP Queue 1 item 11)")
-    if cfg.engine not in ("python", "batch", "cli"):
+    if cfg.engine not in ("python", "batch", "cli", "native"):
         raise ValueError(f"unknown engine {cfg.engine!r}")
     model = None
     if cfg.engine in ("python", "batch"):
@@ -309,8 +323,9 @@ def main(argv=None) -> int:
     ap.add_argument("--model-dir", default="")
     ap.add_argument("--synthetic-model", default="", choices=["", "tiny", "full"])
     ap.add_argument("--engine", default="python", choices=["python", "cli", "native", "batch"])
-    ap.add_argument("--native-cli", default="cpp/build/trt_asr_cli",
-                    help="engine=native's binary (the native engine is not ported)")
+    ap.add_argument("--native-cli", default="",
+                    help="engine=native's binary (default: the port's trt_asr_cli, "
+                         "built at first use)")
     ap.add_argument("--batch-size", type=int, default=4,
                     help="engine=batch: concurrent lockstep slots")
     ap.add_argument("--beam", type=int, default=0,
@@ -332,7 +347,8 @@ def main(argv=None) -> int:
         variants=args.variants.split(","), rounds=args.rounds,
         stream_sim=args.stream_sim, feature_norm=args.feature_norm,
         verify_sha=args.verify_sha, synthetic_model=args.synthetic_model,
-        batch_size=args.batch_size, beam=args.beam, device=args.device)
+        native_cli=args.native_cli, batch_size=args.batch_size, beam=args.beam,
+        device=args.device)
     results = run_suite(cfg)
 
     worst = 0.0

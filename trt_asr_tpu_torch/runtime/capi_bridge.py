@@ -1,7 +1,8 @@
 """Python side of the C-ABI bridge, as the JAX package's
-``runtime/capi_bridge.py``: the functions the C++ runtime's Python backend
-calls through an embedded interpreter, each taking the session object the
-C++ side holds.
+``runtime/capi_bridge.py``: the functions the port's native runtime calls
+through its embedded interpreter (``native/src/backend_python.cpp``, which
+imports this module by name), each taking the session object the C++ side
+holds.
 
 Models are cached by model directory (and device) under a lock, so sessions
 share weights. The device is :func:`~trt_asr_tpu_torch.runtime.platform.
@@ -9,10 +10,6 @@ requested_device`'s: the card unless the environment asks for the CPU
 (``JAX_PLATFORMS=cpu``); without a card and without that request, creating
 a session raises, where JAX's bridge falls back to the CPU.
 ``TRT_ASR_BEAM`` > 0 selects the streaming beam session.
-
-The C++ runtime imports the JAX package's bridge by name
-(``cpp/src/backend_python.cpp``); this one is reached from Python until the
-native runtime can name it (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
