@@ -146,8 +146,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    launches a step. An error event or a ``step error`` fails it.
 3d. beam search at full width (the phase-3 weights and blank bias, f32,
    TF32 off, kernels off as on every beam path; the utterance phase 3
-   makes at 8 words, ~4 s (cut from 12 for phase 3g's time), in 0.5 s
-   pushes, whatever ``--words`` is;
+   makes at 5 words, ~3 s (cut from 12 for phase 3g's time, from 8 for
+   phase 4e's), in 0.5 s pushes, whatever ``--words`` is;
    every check below runs on all of it): ``BeamStreamingSession(beam=4)`` on the host and on the
    device give the same n-best (tokens, ranking and stamps exact, scores
    within 2e-3); device beam 1 equals the greedy session; the device beam
@@ -195,7 +195,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    by ``python -m trt_asr_tpu_torch.import_onnx --verify`` as a subprocess
    on the card (``-X importtime``: no JAX); the imported ``params.npz``
    equals the source leaf for leaf, bit for bit; ``run_suite`` on the
-   imported model dir over phase 3's utterance and three more, 0.5 s
+   imported model dir over phase 3's utterance and one more (three more
+   before phase 4e), 0.5 s
    pieces: the python surface (attention and joint kernels) transcribes
    phase 3's utterance as phase 3's ``f32_on`` arm does on the same audio,
    and the batch surface (B = 4, joint kernel) equals the python surface.
@@ -265,9 +266,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    run through the gate runner (``eval.gate.main``): its exit code (0, or 1
    under sabotage), its artifact's matrix and gate rows, its
    push-granularity check and its ``--sabotage`` restore. Every streaming kernel in f32 and int8
-   on 20 utterances, each transcript equal to the port's CPU plain path; the
-   cli surface (2 utterances, fast env, no JAX imported) equal to the fast
-   row; ``beam=4`` on 4 utterances equal to the greedy row. Kernel launches
+   on 10 utterances (20 before phase 4e), each transcript equal to the
+   port's CPU plain path; the cli surface (1 utterance, 2 before 4e; fast
+   env, no JAX imported) equal to the fast row (``beam=4`` against the
+   greedy row moved to 4e (a), on the same 4 utterances). Kernel launches
    counted a row; chunk ms p50 and p95 and RTFx of the f32_on row; seconds
    by row.
 4d. the port's native C-ABI runtime (``trt_asr_tpu_torch/native/``; run
@@ -290,6 +292,28 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    start to exit. (e) the library through ``ctypes`` in this process on
    gate_r3 (fast env): the f16 push gives the f32 push's final, non-empty,
    with the int8 attention kernel's launches counted. Seconds by part.
+4e. the repo's gate tools and surface fuzz through the port's
+   ``trt_asr_tpu_torch/tools/`` (run after 4d, in 4c's temporary
+   directory; kernel flags stated a part). (a) ``gate_beam_eval`` on the
+   first 4 held-out utterances, beams 1, 2 and 4: exit 0, every row 0
+   errors over exactly those utterances' words, every beam's transcripts
+   greedy's. (b) ``gate_lm_eval`` on 3 noisy utterances (200 LM sentences,
+   weights 0 and 0.2, beam 4) on the card and with ``--device cpu``: the
+   same exit code, LM JSON, S/I/D and transcripts a row; ``ngram_lm_fit``
+   on the same corpus writes the same LM JSON. (c)
+   ``gate_continuous_eval`` on all 50 utterances, kernels off: 50
+   segments, every boundary and the WER counts equal to the committed
+   ``artifacts/e2e_wer_gate_continuous.json`` (S = 1 of 502); the first 10
+   utterances' stream with the f32 attention and joint kernels (segments,
+   texts and tokens equal the kernels-off run's) and in the gate's fast env
+   (int8 attention kernel: the off run's boundaries, WER within the gate),
+   launches counted. (d) ``fuzz_session.run_seed`` on seeds 0-5, six
+   surfaces, kernels off (no failure; ``samples`` and ``tokens`` equal to
+   ``artifacts/fuzz_session.json``'s) and, on seeds 0-2, with the f32
+   attention and joint kernels (no failure, every surface's tokens the off
+   arm's, launches counted). (e) ``soak_daemon`` for 30 s with 3 clients: every client's
+   segments, none stuck; RSS slope, step drift and device MB logged.
+   Seconds by part.
 5. full-width offline batch (``ModelConfig()``, the phase-3 weights): 8
    synthetic utterances of mixed length up to 30 s (one under 10 s),
    batched and padded as ``transcribe_batch`` does, through
@@ -336,8 +360,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    (``io.onnx_lite``, ``io.onnx_graphs``, ``io.onnx_weights``;
    ``import_onnx`` in its subprocess) and the runtime layer's
    (``runtime.engine``, ``runtime.platform``, ``runtime.capi_bridge``,
-   ``parallel.mesh``, ``engine_build``) and the native runtime's build
-   helper (``native.build``) modules were run.
+   ``parallel.mesh``, ``engine_build``), the native runtime's build
+   helper's (``native.build``) and the tools' (``tools`` and its six
+   modules) modules were run.
 
 Each phase's seconds are logged. The last line is ``{"ok": true, "device":
 {...}}``; the line before it is
@@ -363,7 +388,7 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-BEAM_WORDS = 8                     # phase 3d's utterance (about 4 s), whatever --words is
+BEAM_WORDS = 5                     # phase 3d's utterance (about 3 s), whatever --words is
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"f32": 67e12,          # f32 outside the tensor cores
             "bf16": 989e12}        # dense bf16 tensor-core rate
@@ -2811,7 +2836,7 @@ def import_path(torch, dev, cfg, params, tok, n_words: int, seed: int, f32_on_to
     for large tensors), imported by ``python -m trt_asr_tpu_torch.import_onnx
     --verify`` as a subprocess on the card: its ``params.npz`` equals the
     source leaf for leaf, bit for bit. Then ``run_suite`` on the imported
-    model dir over phase 3's utterance and three more like it, in 0.5 s
+    model dir over phase 3's utterance and one more like it, in 0.5 s
     pieces: the python surface with the attention and joint kernels, whose
     transcript of phase 3's utterance equals phase 3's ``f32_on`` arm on the
     same audio (read back from the wav the suite reads), and the batch
@@ -2831,7 +2856,7 @@ def import_path(torch, dev, cfg, params, tok, n_words: int, seed: int, f32_on_to
     rng = np.random.default_rng(seed)       # phase 3's utterance, as full_width_session draws it
     audios = [synth.synth_utterance(list(rng.integers(0, 1120, size=n_words)), rng)]
     rng = np.random.default_rng(seed + 1000)
-    audios += [synth.synth_utterance(list(rng.integers(0, 1120, size=w)), rng) for w in (5, 8, 11)]
+    audios += [synth.synth_utterance(list(rng.integers(0, 1120, size=w)), rng) for w in (5,)]
     on = {"TRT_ASR_PALLAS_ATT": "1", "TRT_ASR_PALLAS_JOINT": "1"}
     step_s = {}
     exp, md = os.path.join(tmp, "export"), os.path.join(tmp, "model")
@@ -3370,10 +3395,10 @@ def gate_r3_wer(torch, dev, md: str, tmp: str) -> dict:
     utterances, the native rows (0 errors at 0.3, I = 104 under sabotage at
     0.5; 0 errors at 0.5 too). These four rows run through the gate runner
     (``gate_row``: ``eval.gate.main`` with ``--artifact``). Every streaming
-    kernel in f32 and int8 (first 20 utterances): each hypothesis equals the port's CPU plain path with the same weights and
-    env. The cli surface (2 utterances, fast env; its imports by
-    ``PYTHONPROFILEIMPORTTIME``) equals the fast row; the beam (python,
-    ``beam=4``, 4 utterances) equals the greedy row. Counts are reset before
+    kernel in f32 and int8 (first 10 utterances): each hypothesis equals the port's CPU plain path with the same weights and
+    env. The cli surface (1 utterance, fast env; its imports by
+    ``PYTHONPROFILEIMPORTTIME``) equals the fast row (the beam against the
+    greedy row is phase 4e (a)). Counts are reset before
     each in-process row and read after it. Logs the f32_on row's chunk ms
     (p50, p95) and RTFx, and each row's seconds. Returns the rows by name
     (phase 4d reads ``fast`` and ``fast_sabotage``)."""
@@ -3483,8 +3508,8 @@ def gate_r3_wer(torch, dev, md: str, tmp: str) -> dict:
     gate_row("fast_sabotage", "fast", "python", (0.5,), 12, sabotage=True)
     same_counts("fast_sabotage", sab["native/clean/base/sim0.5"])
     for env in ("f32_all", "int8_all"):
-        row(env, env, 20, engine="python", stream_sim=0.5)
-        row(f"{env}_cpu", env, 20, engine="python", stream_sim=0.5, device="cpu")
+        row(env, env, 10, engine="python", stream_sim=0.5)
+        row(f"{env}_cpu", env, 10, engine="python", stream_sim=0.5, device="cpu")
         got, want = suite_texts(rows[env]), suite_texts(rows[f"{env}_cpu"])
         diff = [k for k, (g, w) in enumerate(zip(got, want)) if g != w]
         assert not diff, f"gate_r3 WER[{env}]: utterances {diff} differ from the CPU plain path"
@@ -3499,19 +3524,15 @@ def gate_r3_wer(torch, dev, md: str, tmp: str) -> dict:
     subprocess.run = logged_run
     try:
         with env_overrides({"PYTHONPROFILEIMPORTTIME": "1"}):
-            row("cli", "fast", 2, engine="cli", stream_sim=0.3)
+            row("cli", "fast", 1, engine="cli", stream_sim=0.3)
     finally:
         subprocess.run = real_run
-    assert len(logs) == 2 and all(u["returncode"] == 0 for u in rows["cli"]["utterances"]), (
+    assert len(logs) == 1 and all(u["returncode"] == 0 for u in rows["cli"]["utterances"]), (
         [u.get("stderr_tail") for u in rows["cli"]["utterances"]])
     for k, err in enumerate(logs):
         check_no_jax_imported(f"suite cli {k}", err)
-    assert suite_texts(rows["cli"]) == suite_texts(rows["fast"])[:2], (
+    assert suite_texts(rows["cli"]) == suite_texts(rows["fast"])[:1], (
         f"gate_r3 WER[cli]: {suite_texts(rows['cli'])} against the fast row's")
-    row("beam4", "plain", 4, engine="python", stream_sim=0.5, beam=4)
-    assert suite_texts(rows["beam4"]) == suite_texts(rows["f32_on"])[:4], (
-        "gate_r3 WER[beam4]: transcripts differ from the greedy row's")
-    assert rows["beam4"]["wer"]["wer"] == 0.0
     log(f"phase 4c seconds by row: { {k: round(v, 1) for k, v in row_s.items()} }")
     return rows
 
@@ -4115,6 +4136,239 @@ def native_phase(torch, md: str, tmp: str, rows4c: dict, fw: tuple) -> None:
     torch.cuda.synchronize()
     log(f"phase 4d seconds by part: { {k: round(v, 1) for k, v in part_s.items()} }")
 
+
+
+# --- phase 4e: the repo's gate tools and surface fuzz through the port ------------
+
+FUZZ_ARTIFACT = os.path.join(ROOT, "artifacts", "fuzz_session.json")
+CONTINUOUS_ARTIFACT = os.path.join(ROOT, "artifacts", "e2e_wer_gate_continuous.json")
+TOOL_ENVS = {   # kernel flags of a 4e arm; "off" states the defaults explicitly
+    "off": {"TRT_ASR_PALLAS_ATT": "0", "TRT_ASR_PALLAS_JOINT": "0", "TRT_ASR_QUANT": "none"},
+    "on": dict(GATE_ENVS["on"][0], TRT_ASR_QUANT="none"),
+    "fast": dict(GATE_ENVS["fast"][0], TRT_ASR_PALLAS_JOINT="0"),
+}
+FUZZ_SURFACES = ["shreds", "snapshot", "engine", "beam1", "batchbeam"]
+
+
+def tool_suite_rounds(out_dir: str, labels) -> dict:
+    """label -> the base round of ``out_dir/suite_<label>/suite_results.json``."""
+    rounds = {}
+    for label in labels:
+        with open(os.path.join(out_dir, f"suite_{label}", "suite_results.json")) as f:
+            rounds[label] = json.load(f)["variants"]["base"][0]
+    return rounds
+
+
+def tools_beam_gate(md: str, tmp: str) -> None:
+    """4e (a): ``tools.gate_beam_eval`` on the first 4 held-out utterances,
+    beams 1, 2 and 4, on the card: exit 0, every row 0 errors over exactly
+    those utterances' reference words, every beam's transcripts greedy's
+    (beam 4's was phase 4c's last row before 4e)."""
+    from trt_asr_tpu_torch.eval.synthetic import make_set, make_words
+    from trt_asr_tpu_torch.tools import gate_beam_eval
+
+    out, art_path = os.path.join(tmp, "4e_beam"), os.path.join(tmp, "4e_beam.json")
+    with env_overrides(TOOL_ENVS["off"]):
+        reset_counts()
+        rc = gate_beam_eval.main(["--model-dir", md, "--eval-utts", "4", "--beams", "1,2,4",
+                                  "--out-dir", out, "--artifact", art_path])
+        counts = launched(read_counts())
+    with open(art_path) as f:
+        art = json.load(f)
+    n_words = sum(len(ids) for ids, _ in make_set(4, 2, make_words(1120), 8, 13))
+    assert rc == 0 and not counts, f"4e beam gate: exit {rc}, launches {counts}"
+    assert list(art["rows"]) == ["greedy", "beam1", "beam2", "beam4"], art["rows"]
+    for label, r in art["rows"].items():
+        assert (r["substitutions"], r["insertions"], r["deletions"], r["ref_words"],
+                r["empty_hypotheses"]) == (0, 0, 0, n_words, 0), f"4e beam gate[{label}]: {r}"
+    rounds = tool_suite_rounds(out, art["rows"])
+    assert art["verdict"]["beam1_matches_greedy_transcripts"], art["verdict"]
+    for label in ("beam1", "beam2", "beam4"):
+        assert suite_texts(rounds[label]) == suite_texts(rounds["greedy"]), (
+            f"4e beam gate[{label}]: transcripts differ from greedy's")
+    log(f"4e beam gate: exit {rc}, rows {list(art['rows'])} 0 errors of {n_words} words, "
+        f"every beam's transcripts greedy's; s a row "
+        f"{ {k: r['wall_sec'] for k, r in art['rows'].items()} }")
+
+
+def tools_lm_gate(md: str, tmp: str) -> None:
+    """4e (b): ``tools.gate_lm_eval`` on 3 noisy utterances, 200 LM
+    sentences, weights 0 and 0.2, beam 4, on the card and with ``--device
+    cpu`` in this process: the same exit code, LM JSON, S/I/D and
+    transcripts a row; ``tools.ngram_lm_fit`` on the same corpus writes the
+    same LM JSON."""
+    from trt_asr_tpu_torch.eval.synthetic import make_words
+    from trt_asr_tpu_torch.tools import gate_lm_eval, ngram_lm_fit
+
+    runs = {}
+    for side, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        out = os.path.join(tmp, f"4e_lm_{side}")
+        with env_overrides(TOOL_ENVS["off"]):
+            reset_counts()
+            rc = gate_lm_eval.main(["--model-dir", md, "--eval-utts", "3", "--lm-train-utts",
+                                    "200", "--lm-weights", "0,0.2", "--beam", "4", "--out-dir",
+                                    out, "--artifact", out + ".json"] + extra)
+            counts = launched(read_counts())
+        assert not counts, f"4e LM gate[{side}] launched {counts}"
+        with open(out + ".json") as f:
+            art = json.load(f)
+        with open(os.path.join(out, "lm.json"), "rb") as f:
+            lm = f.read()
+        runs[side] = (rc, art, lm, tool_suite_rounds(out, art["rows"]))
+    (rc, art, lm, rounds), (rc_cpu, art_cpu, lm_cpu, rounds_cpu) = runs["card"], runs["cpu"]
+    # the fitter on the same corpus
+    corpus = os.path.join(tmp, "4e_lm_corpus.txt")
+    with open(corpus, "w") as f:
+        f.writelines(s + "\n" for s in gate_lm_eval.lm_corpus(200, make_words(1120), 8, 13))
+    fitted = os.path.join(tmp, "4e_lm_fit.json")
+    assert ngram_lm_fit.main([corpus, "--model-dir", md, "--out", fitted]) == 0
+    with open(fitted, "rb") as f:
+        assert f.read() == lm, "4e LM gate: ngram_lm_fit's LM differs from gate_lm_eval's"
+    assert list(art["rows"]) == ["beam4_lm0", "beam4_lm0.2"], art["rows"]
+    assert rc == rc_cpu and lm == lm_cpu, (rc, rc_cpu)
+    for label, r in art["rows"].items():
+        keys = ("wer", "substitutions", "insertions", "deletions", "ref_words", "lm_weight")
+        assert {k: r[k] for k in keys} == {k: art_cpu["rows"][label][k] for k in keys}, (
+            f"4e LM gate[{label}]: card {r} against the CPU's {art_cpu['rows'][label]}")
+        assert suite_texts(rounds[label]) == suite_texts(rounds_cpu[label]), (
+            f"4e LM gate[{label}]: transcripts differ from the CPU's")
+    log(f"4e LM gate: exit {rc} == the CPU's, rows (S, I, D of N) "
+        f"{ {k: (r['substitutions'], r['insertions'], r['deletions'], r['ref_words']) for k, r in art['rows'].items()} }"
+        f" == the CPU's, transcripts too; s a row card "
+        f"{ {k: r['wall_sec'] for k, r in art['rows'].items()} }, CPU "
+        f"{ {k: r['wall_sec'] for k, r in art_cpu['rows'].items()} }")
+
+
+def tools_continuous_run(torch, md: str, n: int, arm: str):
+    """``tools.gate_continuous_eval`` over the first ``n`` held-out
+    utterances in ``arm``'s env, on the card: (payload, segments, launches)."""
+    from trt_asr_tpu_torch.tools import gate_continuous_eval as gce
+
+    with env_overrides(TOOL_ENVS[arm]):
+        reset_counts()
+        payload, segs = gce.evaluate(gce.parse_args(["--model-dir", md, "--eval-utts", str(n)]))
+        torch.cuda.synchronize()
+        return payload, segs, launched(read_counts())
+
+
+def tools_continuous_gate(torch, md: str) -> None:
+    """4e (c): ``tools.gate_continuous_eval`` on all 50 utterances, kernels
+    off: 50 segments, each boundary and the WER counts the committed
+    artifact's (S = 1 of 502). The first 10 utterances' stream kernels off,
+    with the f32 attention and joint kernels (segments and texts equal the
+    off run's, each kernel launched) and in the gate's fast env (int8
+    weights, the int8 attention kernel: 10 segments at the off run's
+    boundaries, WER within the gate)."""
+    with open(CONTINUOUS_ARTIFACT) as f:
+        art = json.load(f)
+    payload, _, counts = tools_continuous_run(torch, md, 50, "off")
+    assert not counts, f"4e continuous[off] launched {counts}"
+    assert payload["n_segments"] == art["n_segments"] == 50, payload["n_segments"]
+    assert payload["boundaries"] == art["boundaries"], "4e continuous: boundaries differ"
+    assert payload["wer"] == art["wer"] and payload["pass"], (
+        f"4e continuous: {payload['wer']} against the artifact's {art['wer']}")
+    log(f"4e continuous[off]: 50 segments at the artifact's boundaries, WER "
+        f"{payload['wer']} == the artifact's, {payload['wall_sec']} s (RTFx "
+        f"{payload['rtfx']}; the artifact's JAX CPU run {art['wall_sec']} s)")
+    ref, ref_segs, _ = tools_continuous_run(torch, md, 10, "off")
+    for arm, kernels in (("on", {"att_block", "joint_step"}), ("fast", {"att_block"})):
+        got, segs, counts = tools_continuous_run(torch, md, 10, arm)
+        assert set(counts) == kernels, f"4e continuous[{arm}] launched {counts}"
+        assert got["n_segments"] == 10 and got["boundaries"] == ref["boundaries"], (
+            f"4e continuous[{arm}]: {got['n_segments']} segments, boundaries differ")
+        if arm == "on":
+            assert [s["text"] for s in segs] == [s["text"] for s in ref_segs] and [
+                s["tokens"] for s in segs] == [s["tokens"] for s in ref_segs], (
+                "4e continuous[on]: segments differ from the kernels-off run's")
+        assert got["pass"], f"4e continuous[{arm}]: {got['wer']}"
+        log(f"4e continuous[{arm}]: 10 segments at the off run's boundaries"
+            f"{', texts and tokens equal' if arm == 'on' else ''}, WER {got['wer']['wer']}, "
+            f"launches {counts}, {got['wall_sec']} s")
+
+
+def tools_fuzz(torch, seeds, on_seeds) -> None:
+    """4e (d): ``tools.fuzz_session.run_seed``, all six surfaces, over
+    ``seeds`` with kernels off and over ``on_seeds`` (a part of them) with
+    the f32 attention and joint kernels: no seed fails; each seed's
+    ``samples`` and (kernels off) ``tokens`` equal the committed artifact's;
+    kernels on, each surface's tokens equal the off arm's, each kernel
+    launched."""
+    from trt_asr_tpu_torch.config import ModelConfig
+    from trt_asr_tpu_torch.models.parakeet.model import ParakeetTDT
+    from trt_asr_tpu_torch.tools import fuzz_session
+
+    with open(FUZZ_ARTIFACT) as f:
+        want = {r["seed"]: r for r in json.load(f)["results"]}
+    toks = {}
+    for arm, kernels, arm_seeds in (("off", set(), seeds),
+                                    ("on", {"att_block", "joint_step"}, on_seeds)):
+        t0 = time.perf_counter()
+        with env_overrides(TOOL_ENVS[arm]):
+            model = ParakeetTDT.random(ModelConfig.tiny(), seed=7)
+            reset_counts()
+            for seed in arm_seeds:
+                toks[arm, seed] = {}
+                r = fuzz_session.run_seed(model, seed, FUZZ_SURFACES, tokens_out=toks[arm, seed])
+                assert not r["fails"], f"4e fuzz[{arm}] seed {seed}: {r['fails']}"
+                assert r["samples"] == want[seed]["samples"], f"4e fuzz[{arm}] seed {seed}"
+                if arm == "off":
+                    assert r["tokens"] == want[seed]["tokens"], (
+                        f"4e fuzz[off] seed {seed}: {r['tokens']} tokens, the artifact's "
+                        f"{want[seed]['tokens']}")
+                else:
+                    assert toks[arm, seed] == toks["off", seed], (
+                        f"4e fuzz[on] seed {seed}: tokens differ from the kernels-off arm's")
+            torch.cuda.synchronize()
+            counts = launched(read_counts())
+        assert set(counts) == kernels, f"4e fuzz[{arm}] launched {counts}"
+        held = "samples and tokens the artifact's" if arm == "off" else (
+            "samples the artifact's, tokens the off arm's")
+        log(f"4e fuzz[{arm}]: seeds {list(arm_seeds)} x {len(FUZZ_SURFACES) + 1} surfaces "
+            f"token-exact, {held}, launches {counts}, {time.perf_counter() - t0:.1f} s")
+
+
+def tools_soak(tmp: str) -> None:
+    """4e (e): ``tools.soak_daemon`` for 30 s with 3 clients on the card:
+    every client produces segments, none is stuck; the RSS slope, step drift
+    and device MB are logged, not gated (the 1 MB/min rule is meant for the
+    long run)."""
+    from trt_asr_tpu_torch.tools import soak_daemon
+
+    art_path = os.path.join(tmp, "4e_soak.json")
+    with env_overrides(TOOL_ENVS["off"]):
+        rc = soak_daemon.main(["--minutes", "0.5", "--clients", "3", "--sample-s", "5",
+                               "--artifact", art_path])
+    with open(art_path) as f:
+        art = json.load(f)
+    v = art["verdict"]
+    assert not v["stuck_clients"] and all(n > 0 for n in v["segments_per_client"]), v
+    dev_mb = [s["device_mb"] for s in art["samples"]]
+    log(f"4e soak: exit {rc}, segments a client {v['segments_per_client']}, none stuck; "
+        f"logged: RSS slope {v['rss_slope_mb_per_min_2nd_half']} MB/min, step p50 drift "
+        f"{v['step_p50_drift_last_over_first_decile']}, RSS MB "
+        f"{[s['rss_mb'] for s in art['samples']]}, device MB {dev_mb}, steps "
+        f"{art['samples'][-1]['steps_total']}")
+
+
+def tools_phase(torch, md: str, tmp: str) -> None:
+    """Phase 4e: the repo's gate tools and surface fuzz through the port's
+    ``trt_asr_tpu_torch/tools/`` on the card (run after 4d, in 4c's
+    temporary directory): (a) beam gate, (b) LM gate against the CPU, (c)
+    continuous gate, (d) fuzz, (e) soak. Seconds by part."""
+    part_s = {}
+    t0 = time.perf_counter()
+    tools_beam_gate(md, tmp)
+    part_s["a beam"], t0 = time.perf_counter() - t0, time.perf_counter()
+    tools_lm_gate(md, tmp)
+    part_s["b LM"], t0 = time.perf_counter() - t0, time.perf_counter()
+    tools_continuous_gate(torch, md)
+    part_s["c continuous"], t0 = time.perf_counter() - t0, time.perf_counter()
+    tools_fuzz(torch, range(6), range(3))
+    part_s["d fuzz"], t0 = time.perf_counter() - t0, time.perf_counter()
+    tools_soak(tmp)
+    part_s["e soak"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    log(f"phase 4e seconds by part: { {k: round(v, 1) for k, v in part_s.items()} }")
 
 
 # --- phases 4 (offline part) and 5: offline batches ---------------------------
@@ -4797,6 +5051,8 @@ def main() -> int:
         phase_s["3g runtime"], t0 = time.perf_counter() - t0, time.perf_counter()
         native_phase(torch, md, tmp, rows4c, fw)
         phase_s["4d native"], t0 = time.perf_counter() - t0, time.perf_counter()
+        tools_phase(torch, md, tmp)
+        phase_s["4e tools"], t0 = time.perf_counter() - t0, time.perf_counter()
     params["joint"]["out"]["b"][cfg.blank_id] -= bias        # phase 5 searches its own
     sess.update(full_width_offline(torch, dev, cfg, params, tok, audios))
     phase_s["5 offline"], t0 = time.perf_counter() - t0, time.perf_counter()
@@ -4823,7 +5079,10 @@ def main() -> int:
                                                  "io.onnx_weights", "runtime.engine",
                                                  "runtime.platform", "runtime.capi_bridge",
                                                  "parallel.mesh", "engine_build",
-                                                 "native.build")]
+                                                 "native.build", "tools", "tools.ngram_lm_fit",
+                                                 "tools.gate_beam_eval", "tools.gate_lm_eval",
+                                                 "tools.gate_continuous_eval",
+                                                 "tools.fuzz_session", "tools.soak_daemon")]
     assert all(m in sys.modules for m in entry), "the entry points' modules were not run"
 
     kernels = []

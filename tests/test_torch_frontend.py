@@ -43,6 +43,22 @@ def test_logmel_frontend_matches_jax(n_mels, shape):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("draw", [0, 13])
+def test_logmel_low_energy_bins_match_jax(draw):
+    """The audio of ``test_native_logmel_parity``, taken as the ``draw``-th
+    of its kind from ``default_rng(0)``, as the session's shared ``rng``
+    hands it out after earlier draws. At draw 13 float32 CPU sums put the
+    log-mel of a low-energy bin 7.4e-4 from JAX's."""
+    rng = np.random.default_rng(0)
+    rng.standard_normal(20000 * draw)
+    a = (0.3 * np.sin(np.arange(20000) * 0.13)
+         + 0.05 * rng.standard_normal(20000)).astype(np.float32)
+    got = LogMelFrontend(device="cpu")(a).numpy()
+    want = np.asarray(JFrontend()(a))
+    assert got.shape == want.shape == (123, 128)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
 @pytest.mark.parametrize("piece", [160, 4800, 8000])
 def test_streaming_logmel_matches_jax(piece):
     a = audio(24000, seed=1)

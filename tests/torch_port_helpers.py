@@ -169,3 +169,15 @@ def start_jax_subprocess(code: str, out_path: str, timeout: int = 600):
             return {k: z[k] for k in z.files}
     result.kill = proc.kill
     return result
+
+
+@pytest.fixture(autouse=False, scope="module")
+def one_torch_thread():
+    """torch's intra-op pool at one thread for a module (restored after):
+    the tiny models' ops are too small to share out, and under the suite's
+    parallel workers a pool of spinning threads a process slows every
+    worker many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -96,29 +96,37 @@ def _vocab_size(model_dir: str) -> int:
         return int(json.load(f)["vocab_size"])
 
 
+def write_held_out(out_dir: str, words: List[str], evals, noise=None, wav_dir: str = "wavs",
+                   manifest: str = "eval.tsv") -> str:
+    """The held-out wavs (``<wav_dir>/utt{i}.wav``, each through ``noise``
+    when given) and their manifest, under ``out_dir``; returns the
+    manifest's path. The defaults are the JAX gate tools' layout."""
+    from trt_asr_tpu_torch.eval.manifest import ManifestEntry, write_manifest
+    from trt_asr_tpu_torch.io.wav import save_wav
+
+    os.makedirs(os.path.join(out_dir, wav_dir), exist_ok=True)
+    entries = []
+    for i, (ids, audio) in enumerate(evals):
+        p = os.path.join(out_dir, wav_dir, f"utt{i}.wav")
+        save_wav(p, noise(audio) if noise else audio)
+        entries.append(ManifestEntry(p, " ".join(words[k] for k in ids)))
+    man = os.path.join(out_dir, manifest)
+    write_manifest(man, entries)
+    return man
+
+
 def write_eval_sets(out_dir: str, words: List[str], evals, noise_snr_db: float) -> dict:
     """The held-out wavs and manifests: ``eval_clean.tsv`` and, when
     ``noise_snr_db`` > 0, ``eval_noisy.tsv`` (noise from rng 99)."""
-    from trt_asr_tpu_torch.eval.manifest import ManifestEntry, write_manifest
     from trt_asr_tpu_torch.eval.synthetic import add_noise
-    from trt_asr_tpu_torch.io.wav import save_wav
 
-    manifests = {}
-    for tag, snr in (("clean", None), ("noisy", noise_snr_db)):
-        if tag == "noisy" and (snr is None or snr <= 0):
-            continue
-        entries = []
-        wav_dir = os.path.join(out_dir, f"wavs_{tag}")
-        os.makedirs(wav_dir, exist_ok=True)
+    manifests = {"clean": write_held_out(out_dir, words, evals, wav_dir="wavs_clean",
+                                         manifest="eval_clean.tsv")}
+    if noise_snr_db is not None and noise_snr_db > 0:
         nrng = np.random.default_rng(99)
-        for i, (ids, audio) in enumerate(evals):
-            a = add_noise(audio, snr, nrng) if snr else audio
-            p = os.path.join(wav_dir, f"utt{i}.wav")
-            save_wav(p, a)
-            entries.append(ManifestEntry(p, " ".join(words[k] for k in ids)))
-        man = os.path.join(out_dir, f"eval_{tag}.tsv")
-        write_manifest(man, entries)
-        manifests[tag] = man
+        manifests["noisy"] = write_held_out(
+            out_dir, words, evals, noise=lambda a: add_noise(a, noise_snr_db, nrng),
+            wav_dir="wavs_noisy", manifest="eval_noisy.tsv")
     return manifests
 
 
